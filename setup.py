@@ -9,7 +9,8 @@ setup(
     version="0.1.0",
     description="TPU-native computer-vision framework (JAX/XLA/Pallas rebuild "
                 "of DeepCV's capabilities)",
-    packages=find_packages(include=["deepcv_tpu", "deepcv_tpu.*"]),
+    packages=find_packages(include=["deepcv_tpu", "deepcv_tpu.*",
+                                    "deepcv_tpu_torch", "deepcv_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "numpy", "pyyaml",
@@ -18,7 +19,8 @@ setup(
         "test": ["pytest"],
         "host-data": ["torch", "pillow"],
     },
-    package_data={"deepcv_tpu.runtime": ["*.cpp", "Makefile"]},
+    package_data={"deepcv_tpu.runtime": ["*.cpp", "Makefile"],
+                  "deepcv_tpu_torch": ["csrc/*.cu"]},
     entry_points={
         "console_scripts": [
             "deepcv-tpu = deepcv_tpu.cli:main",
