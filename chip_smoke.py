@@ -6,18 +6,31 @@
 Phases, each printing one JSON line:
 
 0. device — the card (``nvidia-smi`` name and power limit), torch and CUDA.
-1. build — the port's CUDA kernel compiled by ``nvcc`` from ``csrc/``, with
-   the build time and ``ptxas``'s registers, shared memory and spills.
-2. kernel — the kernel against its plain PyTorch version at ResNet-50's
-   stride-1 conv shapes at batch 64 (plus one ragged case), with and without
-   bias, relu and none, float32 and bfloat16; error relative to max|ref|,
-   kernel time (median of CUDA-event timed launches), its bound on the card,
-   and the same ``F.conv2d`` call's time as a yardstick.
-3. serve — ``resnet_spec(50)`` at 224x224x3, 1000 classes, weights from a
+1. build — the port's CUDA kernels (K2, and K3-K5 in one library) compiled
+   by ``nvcc`` from ``csrc/``, both at once, with the build times and
+   ``ptxas``'s registers, shared memory and spills.
+2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
+   conv shapes at batch 64 (plus one ragged case), with and without bias,
+   relu and none, float32 and bfloat16; error relative to max|ref|, kernel
+   time (median of CUDA-event timed launches), its bound on the card, and
+   the same ``F.conv2d`` call's time as a yardstick.
+3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
+   attention shapes (batch 64 and the training batch 256, 12 heads, T 197,
+   Dh 64), a ragged T and T = 1024, float32 and bfloat16: error relative to
+   max|ref|, times, bounds, and ``F.scaled_dot_product_attention`` forward
+   and forward + backward as the yardstick.
+4. serve — ``resnet_spec(50)`` at 224x224x3, 1000 classes, weights from a
    seed: bundle saved and loaded, ``Predictor`` at batch 64 behind the
    port's ``InferenceServer``; four client threads POST ``.npy`` batches of
    1, 5, 17 and 64 images; every answer is held against the port's CPU path
-   on the same weights; the kernel must have launched 46 times per forward.
+   on the same weights; K2 must have launched 46 times per forward.
+5. vit_serve — the same for ``vit_spec('b_16', attn_impl='flash')``: K3
+   must have launched 12 times per forward.
+6. vit_train — ``python -m deepcv_tpu_torch run --pipeline=train_vit
+   --params vit_model.attn_impl:flash ...`` in this process, at full width
+   on the synthetic ``imagenet224`` set (8,192 + 1,024 images), cut to 2
+   epochs and no checkpoints: a finite loss, img/s, peak memory, and K3, K4
+   and K5 launches of 12 per step (K3 also 12 per validation forward).
 
 Then the kernels line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -32,6 +45,7 @@ import faulthandler
 import http.client
 import io
 import json
+import math
 import platform
 import statistics
 import subprocess
@@ -45,18 +59,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepcv_tpu_torch import cli
 from deepcv_tpu_torch.data.transforms import normalize, to_tensor
 from deepcv_tpu_torch.ops.kernels import _build
+from deepcv_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
+    plain_flash_bwd_dkv, plain_flash_bwd_dq, plain_flash_fwd)
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
     fused_conv2d_bias_act, plain_conv2d_bias_act)
 from deepcv_tpu_torch.ops.nn import FusedConv2d
 from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bundle
 from deepcv_tpu_torch.server import InferenceServer
 from deepcv_tpu_torch.spec import DeepcvModule
-from deepcv_tpu_torch.spec.zoo import resnet_spec
+from deepcv_tpu_torch.spec.zoo import resnet_spec, vit_spec
 
 REPO = Path(__file__).resolve().parent
-HANG_LIMIT_S = 600
+HANG_LIMIT_S = 1000
 SEED = 20261017
 
 # relative to max|ref|. f32: both accumulate in f32, in another order (3.2e-6
@@ -84,6 +102,17 @@ SERVE_BATCH = 64
 REQUEST_SIZES = (1, 5, 17, 64)
 ROUNDS = 6
 LAUNCHES_PER_FORWARD = 46
+KERNEL_LIBRARIES = ("fused_conv2d_bias_act", "flash_attention")
+#: ViT-B/16 at 224: 12 blocks, 12 heads, 197 tokens, head dim 64
+VIT_BLOCKS, VIT_HEADS, VIT_T, VIT_DH = 12, 12, 197, 64
+TRAIN_BATCH = 256          # train_resnet50's batch_size, which train_vit uses
+TRAIN_EPOCHS = 2           # cut from train_resnet50's 10
+#: (label, N, T, dtypes): the serve and train shapes of the main paths, a
+#: ragged T and T = 1024
+FLASH_CASES = [("vit_serve", SERVE_BATCH, VIT_T, ("float32", "bfloat16")),
+               ("vit_train", TRAIN_BATCH, VIT_T, ("bfloat16",)),
+               ("ragged", 8, 77, ("float32", "bfloat16")),
+               ("t1024", 4, 1024, ("float32", "bfloat16"))]
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -133,14 +162,36 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel library built at once (one nvcc each), then loaded."""
     t0 = time.perf_counter()
-    path, log, seconds = _build.build("fused_conv2d_bias_act")
-    _build.load("fused_conv2d_bias_act")
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "kernel": "fused_conv2d_bias_act",
-          "nvcc_s": round(seconds, 3), "wall_s": round(time.perf_counter() - t0, 3),
-          "library": str(path.relative_to(REPO)), "ptxas": ptxas})
+    results, errors = {}, []
+
+    def build(name):
+        try:
+            results[name] = _build.build(name)
+        except Exception as e:  # re-raised below, after every build ended
+            errors.append(f"{name}: {e}")
+
+    threads = [threading.Thread(target=build, args=(n,)) for n in KERNEL_LIBRARIES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError("kernel build failed: " + "\n".join(errors))
+    wall = time.perf_counter() - t0
+    for name in KERNEL_LIBRARIES:
+        path, log, seconds = results[name]
+        _build.load(name)
+        entries, ptxas = None, []
+        for ln in log.splitlines():
+            if "Compiling entry" in ln:
+                entries = ln.split("'")[1] if "'" in ln else ln
+            elif "registers" in ln or "spill" in ln:
+                ptxas.append(f"{entries}: {ln.strip()}" if "registers" in ln else ln.strip())
+        emit({"phase": "build", "kernel": name, "nvcc_s": round(seconds, 3),
+              "wall_s": round(wall, 3), "library": str(path.relative_to(REPO)),
+              "ptxas": ptxas})
 
 
 def _case_tensors(gen, n, h, w, cin, cout, k, dtype):
@@ -299,9 +350,11 @@ def _get_json(host, port, path):
     return json.loads(body)
 
 
-def phase_serve(card):
+def _bundle_models(spec, label):
+    """Random seeded weights through a saved and loaded bundle: the model on
+    the card and the same bundle on the CPU."""
     t0 = time.perf_counter()
-    model = DeepcvModule(IMAGE_SHAPE, resnet_spec(50), device=DEVICE,
+    model = DeepcvModule(IMAGE_SHAPE, spec, device=DEVICE,
                          generator=torch.Generator().manual_seed(SEED))
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
@@ -309,13 +362,17 @@ def phase_serve(card):
         gpu_model = load_model_bundle(d, device=DEVICE)
         cpu_model = load_model_bundle(d, device="cpu")
     del model
-    build_s = time.perf_counter() - t0
-    emit({"phase": "model", "spec": "resnet_spec(50)", "input_shape": list(IMAGE_SHAPE),
+    emit({"phase": "model", "spec": label, "input_shape": list(IMAGE_SHAPE),
           "params": gpu_model.capacity(), "device": str(gpu_model.device),
-          "build_save_load_s": round(build_s, 3)})
+          "build_save_load_s": round(time.perf_counter() - t0, 3)})
+    return gpu_model, cpu_model
 
-    kern_tot, max_abs = _main_path_kernels(gpu_model, card)
 
+def _serve_over_http(phase, gpu_model, cpu_model, counter, per_forward, card):
+    """The main serving path: Predictor at batch 64 behind the HTTP server,
+    four client threads; ``counter`` (a kernel wrapper) is set to 0 just
+    before and read just after, and must show ``per_forward`` launches per
+    forward. Every answer is held against the port's CPU path."""
     rng = np.random.default_rng(SEED)
     images = [rng.integers(0, 256, (n, *IMAGE_SHAPE), dtype=np.uint8)
               for n in REQUEST_SIZES]
@@ -336,7 +393,7 @@ def phase_serve(card):
             failures.append(f"client {i}: {e!r}")
 
     # the main path: counts read from zero, right around it
-    fused_conv2d_bias_act.launches = 0
+    counter.launches = 0
     pred.forwards = 0
     try:
         server.start_background()
@@ -353,14 +410,14 @@ def phase_serve(card):
         stats = _get_json(server.host, server.port, "/stats")
     finally:
         server.close()
-    launches, forwards = fused_conv2d_bias_act.launches, pred.forwards
+    launches, forwards = counter.launches, pred.forwards
     if any(t.is_alive() for t in threads) or failures:
         raise RuntimeError(f"requests failed: {failures or 'client thread hung'}")
     if not health.get("ok") or not health.get("ready"):
         raise AssertionError(f"/healthz: {health}")
-    if launches != LAUNCHES_PER_FORWARD * forwards or forwards == 0:
+    if launches != per_forward * forwards or forwards == 0:
         raise AssertionError(f"{launches} kernel launches for {forwards} forwards; "
-                             f"expected {LAUNCHES_PER_FORWARD} per forward")
+                             f"expected {per_forward} per forward")
 
     cpu_pred = Predictor(cpu_model, batch_size=SERVE_BATCH, preprocess=_preprocess,
                          dtype=torch.float32, device="cpu")
@@ -383,7 +440,7 @@ def phase_serve(card):
                 raise AssertionError(f"request {i}: argmax differs from CPU")
     n_req = len(REQUEST_SIZES) * ROUNDS
     n_img = ROUNDS * sum(REQUEST_SIZES)
-    emit({"phase": "serve", "requests": n_req, "images": n_img,
+    emit({"phase": phase, "requests": n_req, "images": n_img,
           "batches": stats.get("batches"), "max_coalesced": stats.get("max_coalesced"),
           "forwards": forwards, "kernel_launches": launches,
           "launches_per_forward": launches / forwards,
@@ -392,7 +449,15 @@ def phase_serve(card):
           "min_top2_margin": margin,
           "card": card})
     bench = pred.benchmark(batch=SERVE_BATCH, n_iters=10)
-    emit({"phase": "predictor_benchmark", **bench, "card": card})
+    emit({"phase": f"{phase}_predictor_benchmark", **bench, "card": card})
+    return launches
+
+
+def phase_serve(card):
+    gpu_model, cpu_model = _bundle_models(resnet_spec(50), "resnet_spec(50)")
+    kern_tot, max_abs = _main_path_kernels(gpu_model, card)
+    launches = _serve_over_http("serve", gpu_model, cpu_model, fused_conv2d_bias_act,
+                                LAUNCHES_PER_FORWARD, card)
     return {"name": "fused_conv2d_bias_act", "route": "cuda",
             "source": "deepcv_tpu_torch/csrc/fused_conv2d_bias_act.cu",
             "replaces": "deepcv_tpu/ops/pallas/fused_layer.py:92",
@@ -403,6 +468,193 @@ def phase_serve(card):
             "library_ms": kern_tot["library_ms"],
             "per": f"one forward of resnet_spec(50) at batch {SERVE_BATCH}, float32",
             "card": card}
+
+
+# --------------------------------------------------------------------------- #
+# K3, K4, K5: flash attention
+# --------------------------------------------------------------------------- #
+
+#: FLOPs per (B, T^2, Dh): the TPU kernels' cost estimates
+#: (deepcv_tpu/ops/attention.py:173-175, :315-317, :330-332)
+FLASH_FLOPS = {"fwd": 4, "dq": 5, "dkv": 7}
+
+
+def flash_bound(kind, b, t, dh, dtype):
+    """Least time on an H100 SXM: FLOPs at the type's peak, or each input
+    read once and each output written once at 3.35 TB/s. Returns (ms,
+    bound_by)."""
+    item = 4 if dtype == "float32" else 2
+    rows = b * t * dh
+    mats_in, mats_out, stats = {"fwd": (3, 1, 1), "dq": (4, 1, 2), "dkv": (4, 2, 2)}[kind]
+    nbytes = item * rows * (mats_in + mats_out) + 4 * b * t * stats
+    flops = FLASH_FLOPS[kind] * b * t * t * dh
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _flash_case(gen, n, t, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn((n, VIT_HEADS, t, VIT_DH), generator=gen, device=DEVICE)
+                   .to(dt) for _ in range(4))
+    return q, k, v, do
+
+
+def _library_fwd_bwd(q, k, v, do):
+    qi, ki, vi = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def call():
+        qi.grad = ki.grad = vi.grad = None
+        F.scaled_dot_product_attention(qi, ki, vi).backward(do)
+    return call
+
+
+def phase_flash_kernels(card):
+    """Each kernel against its plain version; times and bounds per launch.
+    Returns the per-launch rows of the two main-path shapes."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    rows = {}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for label, n, t, dtypes in FLASH_CASES:
+        for dtype in dtypes:
+            tol = F32_TOL if dtype == "float32" else BF16_TOL
+            q, k, v, do = _flash_case(gen, n, t, dtype)
+            o, lse = flash_attention_fwd(q, k, v)
+            o_ref, lse_ref = plain_flash_fwd(q, k, v)
+            delta = (do.float() * o_ref.float()).sum(-1)
+            dq = flash_attention_bwd_dq(q, k, v, do, lse_ref, delta)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse_ref, delta)
+            refs = {"o": o_ref, "lse": lse_ref,
+                    "dq": plain_flash_bwd_dq(q, k, v, do, lse_ref, delta)}
+            refs["dk"], refs["dv"] = plain_flash_bwd_dkv(q, k, v, do, lse_ref, delta)
+            torch.cuda.synchronize()
+            errs, abs_errs = {}, {}
+            for name, got in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
+                rel, err = _rel_err(got, refs[name])
+                errs[name], abs_errs[name] = rel, err
+                lim = F32_TOL if name == "lse" else tol
+                if not (torch.isfinite(got.float()).all() and rel <= lim):
+                    raise AssertionError(f"flash {name} {label} {dtype}: rel err "
+                                         f"{rel:.3e} > {lim:.0e}")
+            worst[dtype] = max(worst[dtype], max(errs.values()))
+            del o, lse, dq, dk, dv, refs
+            times = {
+                "fwd": (cuda_ms(lambda: flash_attention_fwd(q, k, v)),
+                        cuda_ms(lambda: plain_flash_fwd(q, k, v))),
+                "dq": (cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse_ref, delta)),
+                       cuda_ms(lambda: plain_flash_bwd_dq(q, k, v, do, lse_ref, delta))),
+                "dkv": (cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse_ref, delta)),
+                        cuda_ms(lambda: plain_flash_bwd_dkv(q, k, v, do, lse_ref, delta))),
+            }
+            lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            lib_fwd_bwd = cuda_ms(_library_fwd_bwd(q, k, v, do))
+            row = {"phase": "flash_kernels", "case": label,
+                   "shape_n_h_t_dh": [n, VIT_HEADS, t, VIT_DH], "dtype": dtype,
+                   "rel_err": errs, "max_abs_err": abs_errs, "tol": tol,
+                   "library_fwd_ms": lib_fwd, "library_fwd_bwd_ms": lib_fwd_bwd,
+                   "card": card}
+            for kind, (ms, plain_ms) in times.items():
+                bound_ms, bound_by = flash_bound(kind, n * VIT_HEADS, t, VIT_DH, dtype)
+                row[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by}
+            emit(row)
+            rows[(label, dtype)] = row
+            del q, k, v, do, lse_ref, delta
+            torch.cuda.empty_cache()
+    emit({"phase": "flash_summary", "max_rel_err": worst,
+          "tol": {"float32": F32_TOL, "bfloat16": BF16_TOL}, "card": card})
+    return rows
+
+
+def phase_vit_serve(card):
+    gpu_model, cpu_model = _bundle_models(vit_spec("b_16", attn_impl="flash"),
+                                          "vit_spec('b_16', attn_impl='flash')")
+    launches = _serve_over_http("vit_serve", gpu_model, cpu_model, flash_attention_fwd,
+                                VIT_BLOCKS, card)
+    del gpu_model, cpu_model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_vit_train(card):
+    """train_vit through the port's ``run``, in this process, so the kernels'
+    counts read here are the run's."""
+    out_dir = _build.BUILD_DIR / "vit_train"
+    cut = {"train_resnet50.epochs": TRAIN_EPOCHS, "train_resnet50.save_every_iters": 0,
+           "train_resnet50.log_progress_every_iters": 1,
+           "train_resnet50.output_path": str(out_dir)}
+    argv = ["--pipeline=train_vit", "--project-path", str(REPO),
+            "--params", ",".join([f"vit_model.attn_impl:flash"]
+                                 + [f"{k}:{v}" for k, v in cut.items()])]
+    counters = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    store = cli.run(argv)
+    wall = time.perf_counter() - t0
+    k3, k4, k5 = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    h = store["train_results"]["history"]
+    n_valid = len(store["datasets"]["validset"])
+    batch = int(store["context"].params("train_resnet50.batch_size"))
+    eval_bs = min(32 * batch, n_valid)
+    val_forwards = len(h["valid"]) * math.ceil(n_valid / eval_bs)
+    steps = h["steps"]
+    losses = [e["main_loss"] for e in h["train"]]
+    if steps == 0 or not np.isfinite(losses).all():
+        raise AssertionError(f"train_vit: {steps} steps, losses {losses[:4]}...")
+    if (k4, k5) != (VIT_BLOCKS * steps, VIT_BLOCKS * steps) or \
+            k3 != VIT_BLOCKS * (steps + val_forwards):
+        raise AssertionError(f"train_vit launches K3 {k3}, K4 {k4}, K5 {k5} for {steps} "
+                             f"steps and {val_forwards} validation forwards")
+    tput = h["throughput_img_s"]
+    emit({"phase": "vit_train", "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+          "cut": {"epochs": f"10 -> {TRAIN_EPOCHS}", "checkpoints": "off (save_every_iters 0)"},
+          "batch": batch, "steps": steps, "train_images": len(store["datasets"]["trainset"]),
+          "valid_images": n_valid, "first_loss": losses[0], "last_loss": losses[-1],
+          "valid": h["valid"][-1], "throughput_img_s": tput,
+          "step_ms": batch / tput[-1] * 1e3, "wall_s": wall,
+          "launches": {"K3": k3, "K4": k4, "K5": k5},
+          "launches_per_step": {"K3": (k3 - VIT_BLOCKS * val_forwards) / steps,
+                                "K4": k4 / steps, "K5": k5 / steps},
+          "validation_forwards": val_forwards,
+          "peak_memory_gib": peak / 2 ** 30, "card": card})
+    del store
+    torch.cuda.empty_cache()
+    return {"K3": k3, "K4": k4, "K5": k5}
+
+
+def flash_kernel_lines(rows, serve_launches, train_launches, card):
+    """K3 per ViT-B/16 forward at the serving batch (f32), K4 and K5 per
+    train step (bf16, batch 256): 12 launches each."""
+    serve, train_row = rows[("vit_serve", "float32")], rows[("vit_train", "bfloat16")]
+    lines = []
+    for name, kind, row, src, launches, per in (
+            ("flash_attention_fwd", "fwd", serve, "deepcv_tpu/ops/attention.py:73",
+             {"vit_serve": serve_launches, "vit_train": train_launches["K3"]},
+             f"one forward of vit_spec('b_16') at batch {SERVE_BATCH}, float32 "
+             f"(12 launches at N,H,T,Dh {serve['shape_n_h_t_dh']})"),
+            ("flash_attention_bwd_dq", "dq", train_row, "deepcv_tpu/ops/attention.py:185",
+             {"vit_train": train_launches["K4"]},
+             f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
+             f"N,H,T,Dh {train_row['shape_n_h_t_dh']})"),
+            ("flash_attention_bwd_dkv", "dkv", train_row, "deepcv_tpu/ops/attention.py:222",
+             {"vit_train": train_launches["K5"]},
+             f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
+             f"N,H,T,Dh {train_row['shape_n_h_t_dh']})")):
+        k = row[kind]
+        errs = row["max_abs_err"]
+        max_abs = max(errs[x] for x in ({"fwd": ("o", "lse"), "dq": ("dq",),
+                                         "dkv": ("dk", "dv")}[kind]))
+        lines.append({
+            "name": name, "route": "cuda", "source": "deepcv_tpu_torch/csrc/flash_attention.cu",
+            "replaces": src, "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": max_abs,
+            "ms": VIT_BLOCKS * k["ms"], "plain_ms": VIT_BLOCKS * k["plain_ms"],
+            "bound_ms": VIT_BLOCKS * k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": VIT_BLOCKS * row["library_fwd_ms"] if kind == "fwd" else None,
+            "per": per, "card": card})
+    return lines
 
 
 def main() -> int:
@@ -418,7 +670,12 @@ def main() -> int:
     card = phase_device()
     phase_build()
     phase_kernel(card)
-    emit({"kernels": [phase_serve(card)]})
+    flash_rows = phase_flash_kernels(card)
+    k2_line = phase_serve(card)
+    serve_launches = phase_vit_serve(card)
+    train_launches = phase_vit_train(card)
+    emit({"kernels": [k2_line, *flash_kernel_lines(flash_rows, serve_launches,
+                                                   train_launches, card)]})
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

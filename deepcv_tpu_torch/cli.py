@@ -1,20 +1,106 @@
 """Command-line interface of the port.
 
-Counterpart of ``deepcv_tpu/cli.py``'s ``serve`` subcommand (``_cmd_serve``);
-the other subcommands come with later slices. Usage::
+Counterpart of ``deepcv_tpu/cli.py``'s ``run``, ``list``, ``describe`` and
+``serve`` subcommands (``_parse_extra_params``, ``_cmd_serve``); the other
+subcommands come with later slices. Usage::
 
+    python -m deepcv_tpu_torch run --pipeline=train_vit \\
+        --params vit_model.attn_impl:flash,train_resnet50.epochs:1 \\
+        [--device cuda] [--export DIR]
+    python -m deepcv_tpu_torch list
+    python -m deepcv_tpu_torch describe --pipeline=train_vit
     python -m deepcv_tpu_torch serve --bundle DIR [--port 8000] \\
         [--batch-size 256] [--to-tensor] [--normalize M1,M2,M3/S1,S2,S3] \\
         [--device cuda]
+
+``run`` prints one JSON line summing up the training run; typed config
+faults (a bad ``--params`` override, a malformed spec) exit with code 2 and
+a one-line message.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 from pathlib import Path
+from typing import Any, Dict, List
 
-__all__ = ["main"]
+__all__ = ["main", "run", "build_parser"]
+
+
+def _parse_extra_params(entries: List[str]) -> Dict[str, Any]:
+    """``--params a.b:3,c:x`` -> {'a.b': 3, 'c': 'x'}; values are YAML, and
+    commas inside brackets or braces do not split."""
+    import yaml
+
+    from deepcv_tpu_torch.config import ConfigError
+
+    def split_top_level(s: str):
+        parts, depth, cur = [], 0, []
+        for ch in s:
+            if ch in "[{":
+                depth += 1
+            elif ch in "]}":
+                depth -= 1
+            if ch == "," and depth == 0:
+                parts.append("".join(cur))
+                cur = []
+            else:
+                cur.append(ch)
+        parts.append("".join(cur))
+        return parts
+
+    out: Dict[str, Any] = {}
+    for entry in entries:
+        for pair in split_top_level(entry):
+            if not pair.strip():
+                continue
+            if ":" not in pair:
+                raise ConfigError(f"--params entry '{pair}' must be 'dotted.key:value'")
+            k, v = pair.split(":", 1)
+            if not k.strip():
+                raise ConfigError(f"--params entry '{pair}' has an empty key")
+            try:
+                out[k.strip()] = yaml.safe_load(v.strip())
+            except yaml.YAMLError as e:
+                raise ConfigError(f"--params value for '{k.strip()}' is not valid "
+                                  f"YAML: {e}") from e
+    return out
+
+
+def _context(args):
+    from deepcv_tpu_torch.pipelines import ProjectContext
+
+    return ProjectContext(args.project_path,
+                          extra_params=_parse_extra_params(getattr(args, "params", [])),
+                          device=getattr(args, "device", None))
+
+
+def run(argv: List[str]) -> Dict[str, Any]:
+    """Execute a ``run`` command line (without the ``run`` word) and return
+    the pipeline's data store; ``--export DIR`` saves the trained model as a
+    serving bundle."""
+    args = build_parser().parse_args(["run", *argv])
+    store = _context(args).run(args.pipeline)
+    if args.export:
+        from deepcv_tpu_torch.serve import save_model_bundle
+
+        results = store.get("train_results") or {}
+        if "model" not in results:
+            raise SystemExit("--export: the pipeline produced no trained model to bundle")
+        store["bundle"] = save_model_bundle(args.export, results["model"])
+    return store
+
+
+def _summary(pipeline: str, store: Dict[str, Any]) -> Dict[str, Any]:
+    h = (store.get("train_results") or {}).get("history") or {}
+    return {"pipeline": pipeline, "steps": h.get("steps"),
+            "train": h.get("train", [])[-1:] and h["train"][-1],
+            "valid": h.get("valid", [])[-1:] and h["valid"][-1],
+            "throughput_img_s": h.get("throughput_img_s"),
+            "run_dir": h.get("run_dir"),
+            "bundle": str(store["bundle"]) if "bundle" in store else None}
 
 
 def _parse_normalize(spec: str):
@@ -66,9 +152,23 @@ def _cmd_serve(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="deepcv_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
+    p_run = sub.add_parser("run", help="run a pipeline")
+    p_run.add_argument("--pipeline", required=True)
+    p_run.add_argument("--params", action="append", default=[],
+                       help="extra params: dotted.key:value[,key:value...]")
+    p_run.add_argument("--project-path", default=".")
+    p_run.add_argument("--device", default="cuda",
+                       help="'cuda' (default) or 'cpu' for the plain path")
+    p_run.add_argument("--export", default=None, metavar="DIR",
+                       help="after the run, save the trained model as a serving bundle")
+    p_list = sub.add_parser("list", help="list registered pipelines")
+    p_list.add_argument("--project-path", default=".")
+    p_desc = sub.add_parser("describe", help="describe a pipeline")
+    p_desc.add_argument("--pipeline", required=True)
+    p_desc.add_argument("--project-path", default=".")
     p_srv = sub.add_parser(
         "serve", help="online inference server with micro-batching "
                       "(POST /predict, GET /healthz, GET /stats)")
@@ -91,12 +191,35 @@ def main(argv=None) -> int:
                             "stats training used)")
     p_srv.add_argument("--device", default="cuda",
                        help="'cuda' (default) or 'cpu' for the plain path")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    from deepcv_tpu_torch.config import ConfigError
+    from deepcv_tpu_torch.spec.graph import SpecError
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     if args.command == "serve":
         return _cmd_serve(args)
-    return 2  # pragma: no cover — argparse enforces a known subcommand
+    if args.command in ("list", "describe"):
+        args.device = "cpu"  # reads the conf only
+        pipes = _context(args).pipelines
+        if args.command == "list":
+            for name, p in sorted(pipes.items()):
+                print(f"{name:45s} tags={sorted(p.tags)} nodes={[n.name for n in p.nodes]}")
+        else:
+            print(pipes[args.pipeline].describe())
+        return 0
+    try:
+        store = run(argv[1:])
+    except (ConfigError, SpecError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(_summary(args.pipeline, store)), flush=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,23 +1,26 @@
 """YAML config loading with SAFE registry-based object tags.
 
 Counterpart of ``deepcv_tpu/config.py`` (``ConfigError``, ``TaggedFactory``,
-the safe ``!py!`` loader, ``load_yaml(..., registry=)``), copied so that the
-port imports nothing of the JAX package. ``!py!name`` resolves through
+the safe ``!py!`` loader, ``load_yaml(..., registry=)``, ``ConfigLoader``),
+copied so that the port imports nothing of the JAX package. ``!py!name`` resolves through
 :mod:`deepcv_tpu_torch.utils`'s registry — strings map to registered
 factories, never to ``eval``. A tagged scalar with an argument mapping
 becomes a :class:`TaggedFactory` carrying the kwargs.
 """
 from __future__ import annotations
 
+import logging
 import re
 from pathlib import Path
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import yaml
 
 from deepcv_tpu_torch.utils import Registry, get_by_identifier
 
-__all__ = ["TaggedFactory", "load_yaml", "ConfigError"]
+__all__ = ["TaggedFactory", "load_yaml", "ConfigError", "ConfigLoader"]
+
+_logger = logging.getLogger(__name__)
 
 
 class ConfigError(ValueError):
@@ -138,3 +141,40 @@ def load_yaml(path_or_text: Union[str, Path], registry: Optional[Registry] = Non
     if not docs:
         return {}
     return docs[0] if len(docs) == 1 else docs
+
+
+class ConfigLoader:
+    """Project config: every ``*.yml``/``*.yaml`` under the conf dirs,
+    top-level keys merged (later dirs override). A file named ``catalog``
+    fills the dataset catalog, the others the parameters."""
+
+    def __init__(self, conf_paths: Union[str, Path, Sequence[Union[str, Path]]]):
+        if isinstance(conf_paths, (str, Path)):
+            conf_paths = [conf_paths]
+        self.conf_paths = [Path(p) for p in conf_paths]
+        self._params: Dict[str, Any] = {}
+        self._catalog: Dict[str, Any] = {}
+        for root in self.conf_paths:
+            if not root.exists():
+                continue
+            for f in sorted(root.rglob("*.y*ml")):
+                try:
+                    doc = load_yaml(f)
+                except yaml.YAMLError as e:
+                    _logger.warning("Skipping unparseable config %s: %s", f, e)
+                    continue
+                if isinstance(doc, Mapping):
+                    (self._catalog if f.stem == "catalog" else self._params).update(doc)
+
+    @property
+    def catalog(self) -> Dict[str, Any]:
+        return dict(self._catalog)
+
+    def get(self, key: str, default=None):
+        """A parameter by dotted path (``params:`` prefix optional)."""
+        node: Any = self._params
+        for part in key.removeprefix("params:").split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                return default
+            node = node[part]
+        return node

@@ -1,15 +1,18 @@
 """Frozen hyperparameter mapping with required/default semantics.
 
 Counterpart of ``deepcv_tpu/hyperparams.py`` (``Hyperparameters``,
-``to_hyperparameters``, ``merge_hyperparameters``), copied so that the port
+``to_hyperparameters``, ``merge_hyperparameters``,
+``apply_dotted_overrides``), copied so that the port
 imports nothing of the JAX package. A default value of ``...`` (Ellipsis)
 marks a required key.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
-__all__ = ["Hyperparameters", "to_hyperparameters", "merge_hyperparameters"]
+__all__ = ["Hyperparameters", "to_hyperparameters", "merge_hyperparameters",
+           "apply_dotted_overrides"]
 
 
 class Hyperparameters(Mapping):
@@ -94,3 +97,25 @@ def merge_hyperparameters(*dicts: Mapping[str, Any]) -> Hyperparameters:
     for d in dicts:
         acc = rec(acc, dict(d))
     return Hyperparameters(acc)
+
+
+def apply_dotted_overrides(hp_tree: Dict[str, Any], flat: Mapping[str, Any]
+                           ) -> Dict[str, Any]:
+    """Merge flat dotted-name params into a nested hp dict (in a copy):
+    ``"optimizer_opts.lr" -> hp['optimizer_opts']['lr']``. A path that
+    descends through a non-mapping raises ConfigError."""
+    from deepcv_tpu_torch.config import ConfigError
+
+    out = copy.deepcopy(hp_tree)
+    for name, value in flat.items():
+        node = out
+        parts = name.split(".")
+        for i, part in enumerate(parts[:-1]):
+            if part in node and not isinstance(node[part], dict):
+                raise ConfigError(
+                    f"override '{name}' descends through "
+                    f"'{'.'.join(parts[:i + 1])}', which holds "
+                    f"{type(node[part]).__name__} ({node[part]!r}), not a mapping")
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return out

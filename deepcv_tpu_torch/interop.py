@@ -11,6 +11,13 @@ for the same spec.
     norm scale/bias                          -> weight/bias
     batch_stats mean/var                     -> running_mean/running_var
 
+A layer unit's variables sit under ``op`` and ``norms_<i>``; a ViT node's
+under its submodules' names, which the port keeps: ``embed/proj``,
+``embed/cls_token``, ``embed/pos_embedding``, ``enc<i>/ln_1``,
+``enc<i>/attn/qkv`` (its kernel's columns are ``[q | k | v]``, so the
+transposed weight keeps ``in_proj_weight``'s row order), ``enc<i>/attn/out``,
+``enc<i>/ln_2``, ``enc<i>/mlp/fc1`` and ``enc<i>/mlp/fc2``.
+
 The JAX package zero-pads conv inputs to at least 8 channels on the TPU
 (``pad_channels_for_tpu``), so a 3-channel stem kernel there is
 (7, 7, 8, 64); the padded rows meet zeros and are dropped here. A key that
@@ -31,6 +38,10 @@ TPU_MIN_CHANNELS = 8
 
 _NORM_RE = re.compile(r"^norms_(\d+)$")
 _PARAM_LEAF = {"scale": "weight", "bias": "bias"}
+#: leaves of a ViT node's submodules, by JAX name
+_SUBMODULE_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+#: parameters a ViT node holds directly
+_NODE_PARAMS = ("cls_token", "pos_embedding")
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -56,6 +67,10 @@ def _torch_key(collection: str, path: Tuple[str, ...]) -> str:
     table = _PARAM_LEAF if collection == "params" else _STAT_LEAF
     if m and len(rest) == 2 and rest[1] in table:
         return f"{base}.norms.{m.group(1)}.{table[rest[1]]}"
+    if collection == "params" and len(rest) == 1 and rest[0] in _NODE_PARAMS:
+        return f"{base}.{rest[0]}"
+    if collection == "params" and len(rest) >= 2 and rest[-1] in _SUBMODULE_LEAF:
+        return f"{base}.{'.'.join(rest[:-1])}.{_SUBMODULE_LEAF[rest[-1]]}"
     raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
 
 

@@ -3,10 +3,12 @@
 
 Counterpart of ``deepcv_tpu/ops/nn.py`` (``get_activation``, ``get_gain``,
 ``xavier_normal_with_gain``, ``avg_pool_nd``, ``max_pool_nd``, ``BatchNorm``,
-``normalization_techniques``, ``Layer``, ``Flatten``). Tensors inside a model
-are NCHW-logical in ``torch.channels_last`` memory, so the channel dim is 1
-(the JAX package's -1). ``Flatten`` keeps the JAX package's H*W*C order so
-dense kernels map 1:1.
+``make_token_norm``, ``normalization_techniques``, ``Layer``, ``DropPath``,
+``Flatten``). Feature maps inside a model are NCHW-logical in
+``torch.channels_last`` memory, so their channel dim is 1 (the JAX package's
+-1); token sequences (N, T, D) and rows (N, F) keep their features last, as
+in the JAX package (:func:`feature_dim`). ``Flatten`` keeps the JAX
+package's H*W*C order so dense kernels map 1:1.
 
 Modules are built on the meta device (the spec engine infers shapes there)
 and initialised afterwards by ``init_parameters(generator)``; nothing here
@@ -29,8 +31,10 @@ __all__ = [
     "ACTIVATION_FNS", "XAVIER_GAINS", "get_activation", "activation_name",
     "get_gain", "xavier_normal_with_gain", "xavier_uniform_with_gain",
     "avg_pool_nd", "max_pool_nd", "interpolate", "NormTechnique", "BatchNorm",
-    "GroupNorm", "normalization_techniques", "Conv2d", "FusedConv2d",
-    "Dense", "Layer", "Identity", "Flatten", "get_padding_from_kernel",
+    "GroupNorm", "LayerNorm", "RMSNorm", "make_token_norm",
+    "normalization_techniques", "Conv2d", "FusedConv2d", "Dense", "Layer",
+    "Identity", "Flatten", "Dropout", "DropPath", "feature_dim",
+    "gelu_exact", "gelu_tanh", "get_padding_from_kernel",
 ]
 
 
@@ -38,8 +42,22 @@ def _leaky_relu(x):
     return F.leaky_relu(x, LEAKY_RELU_SLOPE)
 
 
-def _gelu_tanh(x):
+def gelu_exact(x):
+    """Exact (erf) GELU: ``torch.nn.GELU()`` and the JAX package's
+    ``gelu_exact``."""
+    return F.gelu(x)
+
+
+def gelu_tanh(x):
+    """The tanh approximation of GELU: ``jax.nn.gelu``'s default, registered
+    as ``gelu`` in both packages."""
     return F.gelu(x, approximate="tanh")
+
+
+def feature_dim(x: torch.Tensor) -> int:
+    """The feature dim of a tensor inside a model: 1 for NCHW-logical feature
+    maps (4-d and up), the last dim for token sequences and rows."""
+    return 1 if x.dim() > 3 else x.dim() - 1
 
 
 def _identity(x):
@@ -54,8 +72,8 @@ ACTIVATION_FNS: Dict[str, Callable] = {
     "hard_swish": F.hardswish,
     "hard_sigmoid": F.hardsigmoid,
     "leaky_relu": _leaky_relu,
-    "gelu_exact": F.gelu,
-    "gelu": _gelu_tanh,
+    "gelu_exact": gelu_exact,
+    "gelu": gelu_tanh,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "silu": F.silu,
@@ -202,7 +220,7 @@ class NormTechnique:
     ALL = (BATCH_NORM, LAYER_NORM, INSTANCE_NORM, GROUP_NORM,
            LOCAL_RESPONSE_NORM, LAYER_NRM_AND_MEAN_BATCH_NRM, RMS_NORM)
     #: the techniques this port builds so far
-    PORTED = (BATCH_NORM, GROUP_NORM)
+    PORTED = (BATCH_NORM, GROUP_NORM, LAYER_NORM, RMS_NORM)
 
 
 def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -269,10 +287,65 @@ class GroupNorm(nn.GroupNorm):
                 self.bias.zero_()
 
 
+class LayerNorm(nn.Module):
+    """Layer normalization over the feature dim (:func:`feature_dim`), as
+    flax's ``LayerNorm`` over the last axis: statistics in float32, output
+    in the input's dtype, ``weight`` ones and ``bias`` zeros."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, affine: bool = True):
+        super().__init__()
+        self.num_features, self.eps = int(num_features), float(eps)
+        self.weight = nn.Parameter(torch.empty(self.num_features)) if affine else None
+        self.bias = nn.Parameter(torch.empty(self.num_features)) if affine else None
+
+    def init_parameters(self, generator: torch.Generator):
+        if self.weight is not None:
+            with torch.no_grad():
+                self.weight.fill_(1.0)
+                self.bias.zero_()
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, (self.num_features,), self.weight, self.bias, self.eps)
+
+    def forward(self, x):
+        dim = feature_dim(x)
+        y = x.float().movedim(dim, -1)
+        y = self._normalize(y).movedim(-1, dim)
+        return y.to(x.dtype)
+
+
+class RMSNorm(LayerNorm):
+    """RMS normalization (flax ``RMSNorm``): x / sqrt(mean(x^2) + eps) *
+    weight over the feature dim, no mean subtraction and no bias."""
+
+    def __init__(self, num_features: int, eps: float = 1e-6, affine: bool = True):
+        super().__init__(num_features, eps, affine)
+        self.bias = None
+
+    def init_parameters(self, generator: torch.Generator):
+        if self.weight is not None:
+            with torch.no_grad():
+                self.weight.fill_(1.0)
+
+    def _normalize(self, x: torch.Tensor) -> torch.Tensor:
+        y = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps)
+        return y if self.weight is None else y * self.weight.float()
+
+
+def make_token_norm(norm: str, eps: float, num_features: int) -> nn.Module:
+    """The transformer block's last-axis norm: 'layer_norm' or 'rms_norm'."""
+    if norm == NormTechnique.LAYER_NORM:
+        return LayerNorm(num_features, eps)
+    if norm == NormTechnique.RMS_NORM:
+        return RMSNorm(num_features, eps)
+    raise ValueError(f"norm must be 'layer_norm' or 'rms_norm', got {norm!r}")
+
+
 def normalization_techniques(norm_specs: Mapping[str, Optional[Mapping[str, Any]]],
                              num_features: int) -> List[nn.Module]:
     """Norm modules from spec dicts (torch-style kwargs), for
-    ``num_features`` channels. Ported: batch_norm and group_norm."""
+    ``num_features`` channels. Ported: batch_norm, group_norm, layer_norm
+    and rms_norm."""
     mods: List[nn.Module] = []
     for tech, spec in (norm_specs or {}).items():
         if spec is None or spec is False:
@@ -287,6 +360,12 @@ def normalization_techniques(norm_specs: Mapping[str, Optional[Mapping[str, Any]
             mods.append(GroupNorm(int(spec.get("num_groups", 32)), num_features,
                                   eps=float(spec.get("eps", 1e-5)),
                                   affine=bool(spec.get("affine", True))))
+        elif tech == NormTechnique.LAYER_NORM:
+            mods.append(LayerNorm(num_features, eps=float(spec.get("eps", 1e-5)),
+                                  affine=bool(spec.get("elementwise_affine", True))))
+        elif tech == NormTechnique.RMS_NORM:
+            mods.append(RMSNorm(num_features, eps=float(spec.get("eps", 1e-6)),
+                                affine=bool(spec.get("elementwise_affine", True))))
         elif tech in NormTechnique.ALL:
             raise NotImplementedError(
                 f"normalization technique '{tech}' is not ported yet "
@@ -368,9 +447,10 @@ class FusedConv2d(Conv2d):
 
 
 class Dense(nn.Module):
-    """Fully-connected op, weight (out, in), Xavier-uniform init. A tensor
-    with spatial dims is transformed per position along its channel dim
-    (the JAX package's Dense on the last axis) unless ``flatten_input``."""
+    """Fully-connected op, weight (out, in), Xavier-uniform init, zero bias.
+    A feature map or a token sequence is transformed per position along its
+    feature dim (the JAX package's Dense on the last axis) unless
+    ``flatten_input``."""
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
                  gain: float = 1.0, flatten_input: bool = False):
@@ -390,7 +470,7 @@ class Dense(nn.Module):
         if self.flatten_input:
             x = Flatten.hwc(x)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        if x.dim() == 2:
+        if feature_dim(x) == x.dim() - 1:
             return F.linear(x, self.weight.to(x.dtype), b)
         return F.linear(x.movedim(1, -1), self.weight.to(x.dtype), b).movedim(-1, 1)
 
@@ -398,6 +478,40 @@ class Dense(nn.Module):
 class Identity(nn.Module):
     def forward(self, x):
         return x
+
+
+class Dropout(nn.Module):
+    """Train-mode dropout with an explicit generator: zero each entry with
+    probability ``p`` and scale the survivors by 1/(1-p); identity in eval
+    mode. ``generator`` is set by the training loop (None draws from
+    torch's default generator of the device)."""
+
+    def __init__(self, p: float = 0.0):
+        super().__init__()
+        if not 0.0 <= float(p) < 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+        self.p = float(p)
+        self.generator: Optional[torch.Generator] = None
+
+    def _drop(self, x: torch.Tensor, mask_shape) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty(mask_shape, dtype=torch.float32, device=x.device)
+        keep.bernoulli_(1.0 - self.p, generator=self.generator)
+        return x * (keep / (1.0 - self.p)).to(x.dtype)
+
+    def forward(self, x):
+        return self._drop(x, x.shape)
+
+
+class DropPath(Dropout):
+    """Stochastic depth (Huang et al., arXiv:1603.09382): drop a residual
+    branch per sample with probability ``p`` in training, rescaling the
+    survivors by 1/(1-p) — one draw per sample, broadcast over every other
+    dim (the JAX package's ``DropPath``)."""
+
+    def forward(self, x):
+        return self._drop(x, (x.shape[0],) + (1,) * (x.dim() - 1))
 
 
 class Flatten(nn.Module):
@@ -423,7 +537,7 @@ class Layer(nn.Module):
         super().__init__()
         self.op = op
         self.act_fn = act_fn
-        self.dropout = nn.Dropout(float(dropout_prob)) if dropout_prob and dropout_prob > 0 else None
+        self.dropout = Dropout(float(dropout_prob)) if dropout_prob and dropout_prob > 0 else None
         self.preactivation = bool(preactivation)
         self.norms = nn.ModuleList(norms)
         self.act_in_op = bool(act_in_op)

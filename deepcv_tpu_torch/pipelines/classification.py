@@ -1,0 +1,131 @@
+"""Image-classification pipelines: ``train_vit`` and ``train_resnet50``.
+
+Counterpart of ``deepcv_tpu/pipelines/classification.py``
+(``create_model``, ``train``, ``get_pipelines``): preprocess -> create the
+model from its conf (the input shape and the head's width from the
+dataset) -> train. ``create_model`` carries the ``vit`` and ``resnet`` zoo
+builders and plain architecture specs; other zoo builders are not ported
+yet and raise.
+"""
+from __future__ import annotations
+
+import copy
+import logging
+from typing import Any, Dict, Mapping
+
+from deepcv_tpu_torch.config import ConfigError
+from deepcv_tpu_torch.pipelines.framework import Node, Pipeline, preprocess_node
+from deepcv_tpu_torch.spec import DeepcvModule
+from deepcv_tpu_torch.train.losses import cross_entropy_loss
+from deepcv_tpu_torch.train.metrics import accuracy
+from deepcv_tpu_torch.train.training import train as train_fn
+
+__all__ = ["get_pipelines", "create_model", "train", "UNPORTED_ZOO"]
+
+_logger = logging.getLogger(__name__)
+
+UNPORTED_ZOO = ("mobilenet_v2", "mobilenet_v3", "efficientnet_b0", "densenet",
+                "convnext", "swin")
+
+
+def _reject(zoo, hp, *keys):
+    bad = [k for k in keys if k in hp]
+    if bad:
+        raise ValueError(f"zoo '{zoo}' does not accept {bad}")
+
+
+def create_model(datasets: Mapping[str, Any], model_params: Mapping[str, Any],
+                 device=None) -> DeepcvModule:
+    """The classifier from its conf: a zoo builder (``zoo: vit`` or ``zoo:
+    resnet``, other keys its arguments) or a plain spec; the last
+    ``fully_connected`` gets the dataset's class count. ``dtype`` is the
+    model's compute dtype."""
+    trainset = datasets["trainset"]
+    input_shape = trainset.image_shape
+    num_classes = trainset.num_classes
+    hp = copy.deepcopy(dict(model_params))
+    zoo = hp.pop("zoo", None)
+    if zoo:
+        from deepcv_tpu_torch.spec.zoo import resnet_spec, vit_spec
+        pool = max(1, input_shape[0] // 32)
+        if str(zoo) == "vit":
+            _reject(zoo, hp, "depth", "width_mult", "norm", "window", "groups",
+                    "width_per_group")
+            built = vit_spec(variant=str(hp.pop("variant", "b_16")),
+                             num_classes=num_classes or 1000,
+                             dropout=float(hp.pop("dropout", 0.0)),
+                             attn_dropout=float(hp.pop("attn_dropout", 0.0)),
+                             stochastic_depth=float(hp.pop("stochastic_depth", 0.0)),
+                             attn_impl=str(hp.pop("attn_impl", "xla")))
+        elif str(zoo) == "resnet":
+            _reject(zoo, hp, "width_mult", "variant", "window")
+            built = resnet_spec(depth=int(hp.pop("depth", 50)),
+                                num_classes=num_classes or 1000,
+                                norm=hp.pop("norm", "batch_norm"),
+                                groups=int(hp.pop("groups", 1)),
+                                width_per_group=int(hp.pop("width_per_group", 64)),
+                                pool_kernel=pool)
+        elif str(zoo) in UNPORTED_ZOO:
+            raise NotImplementedError(f"zoo builder '{zoo}' is not ported yet "
+                                      "(ported: vit, resnet)")
+        else:
+            raise ValueError(f"Unknown zoo builder '{zoo}' (known: resnet, vit, "
+                             f"{', '.join(UNPORTED_ZOO)})")
+        built.update(hp)
+        hp = built
+    arch = hp.get("architecture", [])
+    if arch is None or not isinstance(arch, (list, tuple)):
+        raise ConfigError(
+            "model hp 'architecture' must be a list of layer entries, got "
+            f"{type(arch).__name__} ({arch!r}) — check your --params override "
+            "or parameters.yml")
+    _inject_out_features(arch, num_classes)
+    dtype = hp.pop("dtype", None)
+    if hp.pop("quantize", None):
+        raise NotImplementedError("model hp 'quantize' is not ported yet")
+    model = DeepcvModule(input_shape, hp, device=device, dtype=dtype)
+    _logger.info("created model: %s params on %s", f"{model.capacity():,}", model.device)
+    return model
+
+
+def _inject_out_features(arch, num_classes: int) -> bool:
+    """Set ``out_features`` on the last ``fully_connected`` entry if unset."""
+    for entry in reversed(list(arch)):
+        if not isinstance(entry, Mapping):
+            continue
+        for key, val in entry.items():
+            if key in ("fully_connected", "linear"):
+                params = val[1] if isinstance(val, (list, tuple)) else val
+                if params.get("out_features") is None:
+                    params["out_features"] = int(num_classes)
+                return True
+    return False
+
+
+def train(datasets, model: DeepcvModule, hp: Mapping[str, Any], trackers=()):
+    """Training node: cross-entropy, accuracy, ``train()``."""
+    state, history = train_fn(hp, model, cross_entropy_loss, datasets,
+                              metrics={"accuracy": accuracy}, loggers=list(trackers))
+    return {"state": state, "history": history, "model": model}
+
+
+def get_pipelines() -> Dict[str, Pipeline]:
+    def train_pipeline(name: str, model_key: str, training_key: str, ds: str,
+                       pp_key: str) -> Pipeline:
+        return Pipeline([
+            Node(preprocess_node, [f"{ds}_train", f"{ds}_test", f"params:{pp_key}"],
+                 "datasets", name="preprocess", tags=("preprocess",)),
+            Node(create_model, ["datasets", f"params:{model_key}", "device"],
+                 "model", name="create_model", tags=("model",)),
+            Node(train, ["datasets", "model", f"params:{training_key}", "trackers"],
+                 "train_results", name="train", tags=("train",)),
+        ], name=name, tags={"train", "classification"})
+
+    return {
+        "train_resnet50": train_pipeline(
+            "train_resnet50", "resnet50_model", "train_resnet50",
+            ds="imagenet224", pp_key="imagenet224_preprocessing"),
+        "train_vit": train_pipeline(
+            "train_vit", "vit_model", "train_resnet50",
+            ds="imagenet224", pp_key="imagenet224_preprocessing"),
+    }

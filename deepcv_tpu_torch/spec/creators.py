@@ -4,7 +4,8 @@ Counterpart of ``deepcv_tpu/spec/creators.py`` (``CreatorContext``,
 ``_as_layer``, ``_conv_common``, the conv creator with its kernel hook,
 ``fully_connected``, ``average_pooling``, ``max_pooling``, ``flatten``,
 ``activation``, ``residual_link``, ``dense_link``,
-``_new_branch_from_tensor``).
+``_new_branch_from_tensor``, and the ViT nodes ``patch_embed``,
+``transformer_block``, ``take_token`` and ``norm``).
 
 A creator maps one spec entry to an ``nn.Module`` or a
 :class:`ForwardCallback` (a parameter-free node over the current tensor and
@@ -257,13 +258,19 @@ def _fully_connected(params: Mapping[str, Any], ctx: CreatorContext, name: str,
             f"Submodule '{name}' (fully_connected): 'out_features' unresolved; "
             "set it explicitly for standalone use.")
     flatten = bool(params.get("flatten_input"))
+    fdim = _feature_dim(in_shape)
     in_features = 1
-    for d in (in_shape[1:] if flatten else in_shape[1:2]):
+    for d in (in_shape[1:] if flatten else in_shape[fdim:fdim + 1]):
         in_features *= int(d)
     op = dnn.Dense(in_features, int(out_features),
                    use_bias=bool(params.get("use_bias", params.get("bias", True))),
                    gain=dnn.get_gain(params.get("act_fn")), flatten_input=flatten)
-    return _as_layer(op, params, int(in_shape[1]), int(out_features))
+    return _as_layer(op, params, int(in_shape[fdim]), int(out_features))
+
+
+def _feature_dim(shape: Shape) -> int:
+    """:func:`deepcv_tpu_torch.ops.nn.feature_dim` of a tensor of ``shape``."""
+    return 1 if len(shape) > 3 else len(shape) - 1
 
 
 def _pool_params(params):
@@ -359,3 +366,72 @@ def _new_branch(params, ctx: CreatorContext, name: str, in_shape: Shape) -> Forw
         return reduction(refs) if len(refs) > 1 else refs[0]
 
     return ForwardCallback(fn=fn, uses_current=False)
+
+
+# --------------------------------------------------------------------------- #
+# Vision-transformer nodes
+# --------------------------------------------------------------------------- #
+
+@submodule_creator("patch_embed",
+                   allowed=("patch_size", "embed_dim", "use_cls_token",
+                            "dropout_prob"),
+                   required=("patch_size", "embed_dim"))
+def _patch_embed(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """Patchify + linear embed + [cls] + position table (reshape + one
+    Dense, no stride-p conv): feature map in, tokens (N, T, D) out."""
+    from deepcv_tpu_torch.ops.attention import PatchEmbed
+    if len(in_shape) != 4:
+        raise ValueError(f"Submodule '{name}' (patch_embed): input must be an "
+                         f"image feature map, got shape {list(in_shape)}")
+    return PatchEmbed(int(in_shape[1]), (int(in_shape[2]), int(in_shape[3])),
+                      int(params["patch_size"]), int(params["embed_dim"]),
+                      use_cls_token=bool(params.get("use_cls_token", True)),
+                      dropout_prob=float(params.get("dropout_prob") or 0.0))
+
+
+@submodule_creator("transformer_block", aliases=("encoder_block",),
+                   allowed=("num_heads", "mlp_dim", "dropout_prob",
+                            "attn_dropout_prob", "drop_path_prob",
+                            "attn_impl", "ln_eps", "moe", "mlp_act", "norm"),
+                   required=("num_heads", "mlp_dim"))
+def _transformer_block(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """Pre-LN transformer encoder block on tokens (N, T, D)
+    (``attn_impl: flash`` runs the flash-attention kernels). ``moe`` (the
+    V-MoE expert MLP) is not ported yet and is refused."""
+    from deepcv_tpu_torch.ops.attention import TransformerEncoderBlock
+    from deepcv_tpu_torch.spec.graph import SpecError
+    if params.get("moe"):
+        raise SpecError(f"Submodule '{name}' (transformer_block): 'moe' (V-MoE "
+                        "expert MLPs) is not ported yet")
+    if len(in_shape) != 3:
+        raise ValueError(f"Submodule '{name}' (transformer_block): input must be "
+                         f"tokens (N, T, D), got shape {list(in_shape)}")
+    return TransformerEncoderBlock(
+        int(in_shape[2]), int(params["num_heads"]), int(params["mlp_dim"]),
+        dropout_prob=float(params.get("dropout_prob") or 0.0),
+        attn_dropout_prob=float(params.get("attn_dropout_prob") or 0.0),
+        drop_path_prob=float(params.get("drop_path_prob") or 0.0),
+        attn_impl=str(params.get("attn_impl", "xla")),
+        ln_eps=float(params.get("ln_eps", 1e-6)),
+        norm=str(params.get("norm", "layer_norm")),
+        mlp_act=str(params.get("mlp_act", "gelu")))
+
+
+@submodule_creator("take_token", allowed=("index",))
+def _take_token(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """(N, T, D) -> (N, D): pick one token ([cls] by default)."""
+    from deepcv_tpu_torch.ops.attention import TakeToken
+    return TakeToken(int(params.get("index", 0)))
+
+
+@submodule_creator("norm", aliases=("normalization",),
+                   allowed=dnn.NormTechnique.ALL)
+def _norm_node(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """Bare normalization node, e.g. a ViT's final LayerNorm
+    (``{layer_norm: {eps: 1e-6}}``), over the feature dim."""
+    norms = dnn.normalization_techniques(_norm_specs_from_params(params),
+                                         int(in_shape[_feature_dim(in_shape)]))
+    if not norms:
+        raise ValueError(f"Submodule '{name}' (norm): no normalization technique "
+                         f"given; expected one of {list(dnn.NormTechnique.ALL)}")
+    return dnn.Layer(op=dnn.Identity(), norms=norms)

@@ -6,9 +6,15 @@ Counterpart of ``deepcv_tpu/spec/module.py`` (``DeepcvModule`` and its
 initialisers. The model owns its parameters, as PyTorch modules do.
 
 Public layout stays the JAX package's: ``forward`` takes NHWC images
-(``input_shape`` is (H, W, C)) and returns NHWC feature maps or (N, F)
-rows; inside, tensors are NCHW-logical in ``torch.channels_last`` memory,
-which is the same NHWC bytes, so the permutes at the edges copy nothing.
+(``input_shape`` is (H, W, C)) and returns NHWC feature maps, (N, T, D)
+tokens or (N, F) rows; inside, feature maps are NCHW-logical in
+``torch.channels_last`` memory, which is the same NHWC bytes, so the
+permutes at the edges copy nothing.
+
+``dtype`` is the compute dtype, as the JAX package's ``DeepcvModule(dtype=)``:
+with ``bfloat16`` the forward runs under ``torch.autocast`` (matmuls in
+bf16, norms and softmax statistics in float32) while parameters stay
+float32.
 """
 from __future__ import annotations
 
@@ -52,9 +58,13 @@ class DeepcvModule(nn.Module):
 
     def __init__(self, input_shape: Sequence[int], hp: Mapping[str, Any], *,
                  device: Union[None, str, torch.device] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Union[None, str, torch.dtype] = None):
         super().__init__()
         dev = resolve_device(device)
+        dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        #: compute dtype (None or float32: plain float32)
+        self.dtype = None if dtype in (None, torch.float32) else dtype
         #: channel-last input shape WITHOUT batch dim, e.g. (224, 224, 3)
         self.input_shape = tuple(int(s) for s in input_shape)
         self._hp, _ = to_hyperparameters(hp, self.HP_DEFAULTS, raise_if_missing=True)
@@ -93,9 +103,14 @@ class DeepcvModule(nn.Module):
                 m.init_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC in; NHWC feature maps or (N, F) rows out."""
-        y = self.module(x.movedim(-1, 1))
-        return y.movedim(1, -1) if y.dim() > 2 else y
+        """NHWC in; NHWC feature maps, (N, T, D) tokens or (N, F) rows out."""
+        x = x.movedim(-1, 1)
+        if self.dtype is not None and x.device.type in ("cpu", "cuda"):
+            with torch.autocast(x.device.type, dtype=self.dtype):
+                y = self.module(x)
+        else:
+            y = self.module(x)
+        return y.movedim(1, -1) if y.dim() > 3 else y
 
     def capacity(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -106,7 +121,7 @@ class DeepcvModule(nn.Module):
 
 def _channel_last(shape):
     shape = tuple(shape)
-    return (shape[0], *shape[2:], shape[1]) if len(shape) > 2 else shape
+    return (shape[0], *shape[2:], shape[1]) if len(shape) > 3 else shape
 
 
 class DeepcvModuleDescriptor:

@@ -1,17 +1,18 @@
 """Programmatic model-zoo specs on top of the YAML spec language.
 
 Counterpart of ``deepcv_tpu/spec/zoo.py`` (``resnet_spec``,
-``RESNET_LAYERS``), copied so that the port imports nothing of the JAX
-package: these functions emit plain architecture lists, the same dicts a user
-could write in YAML. The layer unit applies op -> act -> norm, so a
-bottleneck is conv -> relu -> bn; parameter counts are torchvision's
-(resnet_spec(50) has 25,557,032).
+``RESNET_LAYERS``, ``vit_spec``, ``VIT_SETTINGS``), copied so that the port
+imports nothing of the JAX package: these functions emit plain architecture
+lists, the same dicts a user could write in YAML. The layer unit applies op
+-> act -> norm, so a bottleneck is conv -> relu -> bn; parameter counts are
+torchvision's (resnet_spec(50) has 25,557,032, vit_spec('b_16') at 224x224
+has 86,567,656).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
-__all__ = ["resnet_spec", "RESNET_LAYERS"]
+__all__ = ["resnet_spec", "RESNET_LAYERS", "vit_spec", "VIT_SETTINGS"]
 
 #: blocks per stage for the standard depths
 RESNET_LAYERS = {
@@ -122,3 +123,73 @@ def resnet_spec(depth: int = 50, num_classes: int = 1000,
     if norm:
         hp[norm] = _norm_hp(norm, num_groups=32)
     return hp
+
+
+#: ViT variants (Dosovitskiy et al., arXiv:2010.11929; torchvision naming):
+#: (patch, layers, heads, hidden dim, mlp dim)
+VIT_SETTINGS = {
+    "b_16": (16, 12, 12, 768, 3072),
+    "b_32": (32, 12, 12, 768, 3072),
+    "l_16": (16, 24, 16, 1024, 4096),
+    "l_32": (32, 24, 16, 1024, 4096),
+    "h_14": (14, 32, 16, 1280, 5120),
+}
+
+#: vit_spec's V-MoE arguments at their defaults: the MoE MLP is not ported
+_MOE_DEFAULTS = {"moe_experts": 0, "moe_every": 2, "moe_k": 1,
+                 "moe_capacity_factor": 1.25, "moe_router_noise": 0.0,
+                 "moe_group_size": 0}
+
+
+def vit_spec(variant: str = "b_16", num_classes: int = 1000,
+             dropout: float = 0.0, attn_dropout: float = 0.0,
+             stochastic_depth: float = 0.0,
+             attn_impl: str = "xla",
+             moe_experts: int = 0, moe_every: int = 2, moe_k: int = 1,
+             moe_capacity_factor: float = 1.25,
+             moe_router_noise: float = 0.0,
+             moe_group_size: int = 0,
+             mlp_act: str = "gelu",
+             norm: str = "layer_norm") -> Dict[str, Any]:
+    """Vision Transformer, torchvision's ``VisionTransformer`` wiring: patch
+    embed (+[cls] + learned position table), ``layers`` pre-LN encoder
+    blocks (exact-GELU MLP unless ``mlp_act='gelu_tanh'``), final norm (eps
+    1e-6), [cls] token -> Linear head. ``attn_impl='flash'`` runs every
+    block's attention through the flash-attention kernels. The V-MoE
+    arguments are accepted at their defaults only: anything else raises."""
+    moe = {"moe_experts": moe_experts, "moe_every": moe_every, "moe_k": moe_k,
+           "moe_capacity_factor": moe_capacity_factor,
+           "moe_router_noise": moe_router_noise, "moe_group_size": moe_group_size}
+    bad = sorted(k for k, v in moe.items() if v != _MOE_DEFAULTS[k])
+    if bad:
+        raise NotImplementedError(f"vit_spec: {bad} (V-MoE) are not ported yet")
+    if variant not in VIT_SETTINGS:
+        raise ValueError(f"variant must be one of {sorted(VIT_SETTINGS)}, "
+                         f"got {variant!r}")
+    patch, layers, heads, hidden, mlp = VIT_SETTINGS[variant]
+    arch: List[Any] = [
+        {"patch_embed": ["embed", {"patch_size": patch, "embed_dim": hidden,
+                                   "dropout_prob": dropout}]},
+    ]
+    for i in range(layers):
+        # stochastic depth with the standard linear ramp: block i drops its
+        # residual branches with prob p * i / (L - 1)
+        dp = stochastic_depth * i / max(1, layers - 1)
+        node = {"num_heads": heads, "mlp_dim": mlp,
+                "dropout_prob": dropout,
+                "attn_dropout_prob": attn_dropout,
+                "drop_path_prob": round(dp, 6),
+                "attn_impl": attn_impl}
+        if mlp_act != "gelu":
+            node["mlp_act"] = mlp_act
+        if norm != "layer_norm":
+            node["norm"] = norm
+        arch.append({"transformer_block": [f"enc{i}", node]})
+    arch.append({"norm": ["final_ln", {norm: {"eps": 1e-6}}]})
+    arch.append({"take_token": {"index": 0}})
+    arch.append({"fully_connected": {"out_features": num_classes,
+                                     "act_fn": None, "batch_norm": None,
+                                     "group_norm": None}})
+    # the global act_fn is unused by the transformer nodes but required by
+    # the engine; dropout rides per node
+    return {"act_fn": "gelu", "architecture": arch, "dropout_prob": 0.0}

@@ -1,0 +1,74 @@
+"""Losses and their weighting.
+
+Counterpart of ``deepcv_tpu/train/losses.py`` (``cross_entropy_loss``,
+``WeightedLosses``); the other losses (distillation, JSD consistency,
+triplet, label smoothing by name) are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["cross_entropy_loss", "WeightedLosses", "LOSS_FNS"]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean softmax cross-entropy in float32 (``torch.nn.CrossEntropyLoss``
+    values). Labels are int classes or one-hot rows; integer class labels
+    outside [0, num_classes) are left out of the mean, as in the JAX
+    package (torch's ``ignore_index`` for any out-of-range label)."""
+    num_classes = logits.shape[-1]
+    logp = F.log_softmax(logits.float(), dim=-1)
+    if not labels.is_floating_point() and labels.dim() == logits.dim() - 1:
+        valid = (labels >= 0) & (labels < num_classes)
+        y = F.one_hot(labels.clamp(0, num_classes - 1).long(), num_classes).float()
+        if label_smoothing:
+            y = y * (1.0 - label_smoothing) + label_smoothing / num_classes
+        rows = -(y * logp).sum(-1) * valid
+        return rows.sum() / valid.sum().clamp(min=1)
+    y = labels.float()
+    if label_smoothing:
+        y = y * (1.0 - label_smoothing) + label_smoothing / num_classes
+    return -(y * logp).sum(-1).mean()
+
+
+LOSS_FNS: Dict[str, Callable] = {"cross_entropy": cross_entropy_loss}
+
+
+class WeightedLosses:
+    """Named loss terms with weights; returns the per-term values and their
+    weighted mean under 'main_loss'."""
+
+    MAIN = "main_loss"
+
+    def __init__(self, losses: Union[Callable, Sequence[Callable], Mapping[str, Callable]],
+                 weights: Optional[Union[Sequence[float], Mapping[str, float]]] = None):
+        if isinstance(losses, str):
+            losses = {losses: LOSS_FNS[losses]}
+        elif callable(losses):
+            losses = {"loss": losses}
+        elif isinstance(losses, (list, tuple)):
+            losses = {getattr(f, "__name__", f"loss_{i}"): f for i, f in enumerate(losses)}
+        self.terms: Dict[str, Callable] = {}
+        self.weights: Dict[str, float] = {}
+        for name, spec in dict(losses).items():
+            fn, w = spec if isinstance(spec, (tuple, list)) else (spec, 1.0)
+            self.terms[name] = LOSS_FNS[fn] if isinstance(fn, str) else fn
+            self.weights[name] = float(w)
+        if weights is not None:
+            if isinstance(weights, Mapping):
+                self.weights.update({k: float(v) for k, v in weights.items()})
+            else:
+                self.weights.update({n: float(w) for n, w in zip(self.terms, weights)})
+        self._norm = sum(self.weights.values())
+        if self._norm <= 0:
+            raise ValueError("Loss weights must sum to a positive value")
+
+    def __call__(self, *args, **kwargs) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        values = {name: fn(*args, **kwargs) for name, fn in self.terms.items()}
+        main = sum(self.weights[n] * v for n, v in values.items()) / self._norm
+        values[self.MAIN] = main
+        return main, values

@@ -1,0 +1,264 @@
+"""K3, K4, K5 in the port: the flash-attention kernels' plain versions
+against the JAX package's Pallas kernels (interpret mode on the CPU, as
+tests/test_attention.py runs them), the port's ``flash_attention``
+autograd.Function against ``jax.grad`` of the JAX one, the wrappers'
+dispatch and checks, the attention modules against their JAX counterparts
+and the CUDA source's interface. The CUDA kernels themselves run only on a
+card (tests/test_torch_port_gpu.py)."""
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepcv_tpu.ops import attention as jatt
+from deepcv_tpu_torch.ops import attention as tatt
+from deepcv_tpu_torch.ops import nn as tnn
+from deepcv_tpu_torch.ops.kernels import _build
+from deepcv_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
+    plain_flash_bwd_dkv, plain_flash_bwd_dq, plain_flash_fwd)
+
+KERNEL_TOL = 1e-5  # f32: the plain versions vs the Pallas kernels
+GRAD_RTOL = 1e-3   # gradients through the autograd.Function vs jax.grad
+MODULE_TOL = 1e-4  # module outputs, the bound of tests/test_torch_parity.py
+
+
+def _qkv(t, dh=16, n=2, h=3, seed=0, k=4):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(n, h, t, dh)).astype(np.float32) for _ in range(k))
+
+
+def _t(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+
+
+@pytest.mark.parametrize("t", [1, 17, 128, 197])
+def test_plain_fwd_matches_pallas_interpret(t):
+    q, k, v = _qkv(t, k=3)
+    o_j, lse_j = jatt._flash_fwd_impl(*map(jnp.asarray, (q, k, v)), return_lse=True)
+    o, lse = plain_flash_fwd(*_t(q, k, v))
+    assert o.dtype == torch.float32 and lse.shape == (2, 3, t)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=KERNEL_TOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=KERNEL_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("t", [17, 130, 197])
+def test_plain_bwd_matches_pallas_interpret(t):
+    q, k, v, g = _qkv(t, seed=1)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    o_j, lse_j = jatt._flash_fwd_impl(jq, jk, jv, return_lse=True)
+    dq_j, dk_j, dv_j = jatt._flash_bwd_impl(jq, jk, jv, o_j, lse_j, jg)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    o, lse = plain_flash_fwd(tq, tk, tv)
+    delta = (tg * o).sum(-1)
+    dq = plain_flash_bwd_dq(tq, tk, tv, tg, lse, delta)
+    dk, dv = plain_flash_bwd_dkv(tq, tk, tv, tg, lse, delta)
+    for got, ref in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=KERNEL_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("t", [17, 197])
+def test_flash_attention_gradients_match_jax(t):
+    q, k, v = _qkv(t, seed=2, k=3)
+
+    def jloss(q, k, v):
+        return jnp.sum(jnp.sin(jatt.flash_attention(q, k, v)))
+
+    gj = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (x.requires_grad_() for x in _t(q, k, v))
+    torch.sin(tatt.flash_attention(tq, tk, tv)).sum().backward()
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), gj):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(np.asarray(ref)).max())
+
+
+def test_flash_attention_bf16_keeps_dtype_and_tracks_f32():
+    q, k, v = _t(*_qkv(33, seed=3, k=3))
+    qb, kb, vb = (x.to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    o = tatt.flash_attention(qb, kb, vb)
+    (o.float() ** 2).sum().backward()
+    assert o.dtype == qb.grad.dtype == torch.bfloat16
+    ref = tatt.attention_xla(q, k, v)
+    np.testing.assert_allclose(o.detach().float().numpy(), ref.numpy(), atol=2e-2, rtol=0)
+
+
+def test_xla_and_sdpa_match_jax():
+    q, k, v = _qkv(19, seed=4, k=3)
+    ref = np.asarray(jatt.attention_xla(*map(jnp.asarray, (q, k, v))))
+    for impl in ("xla", "flash"):
+        got = tatt.scaled_dot_product_attention(*_t(q, k, v), impl=impl)
+        np.testing.assert_allclose(got.numpy(), ref, atol=KERNEL_TOL, rtol=0)
+    with pytest.raises(ValueError, match="unknown attention impl 'fused'"):
+        tatt.scaled_dot_product_attention(*_t(q, k, v), impl="fused")
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    q, k, v, g = _t(*_qkv(9, seed=5))
+    before = [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
+                                   flash_attention_bwd_dkv)]
+    o, lse = flash_attention_fwd(q, k, v)
+    o_p, lse_p = plain_flash_fwd(q, k, v)
+    assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
+    delta = (g * o).sum(-1)
+    assert torch.equal(flash_attention_bwd_dq(q, k, v, g, lse, delta),
+                       plain_flash_bwd_dq(q, k, v, g, lse, delta))
+    for a, b in zip(flash_attention_bwd_dkv(q, k, v, g, lse, delta),
+                    plain_flash_bwd_dkv(q, k, v, g, lse, delta)):
+        assert torch.equal(a, b)
+    assert [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
+                                 flash_attention_bwd_dkv)] == before
+
+
+def test_wrappers_check_their_operands():
+    q, k, v, g = _t(*_qkv(9, seed=6))
+    with pytest.raises(ValueError, match="differ"):
+        flash_attention_fwd(q, k[:, :, :5], v)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="lse/delta"):
+        flash_attention_bwd_dq(q, k, v, g, torch.zeros(2, 3, 9, dtype=torch.float64),
+                               torch.zeros(2, 3, 9))
+    with pytest.raises(ValueError, match=r"\(N, H, T, Dh\)"):
+        flash_attention_fwd(q[0], k[0], v[0])
+
+
+def test_meta_tensors_give_shapes_only():
+    q = torch.empty(2, 3, 11, 64, device="meta")
+    o = tatt.flash_attention(q, q, q)
+    assert o.device.type == "meta" and o.shape == q.shape
+
+
+def test_cuda_source_exports_the_three_launchers_with_the_wrappers_arity():
+    src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    assert "#include <torch" not in src and "ATen" not in src
+    arity = {"flash_attention_fwd_launch": 11, "flash_attention_bwd_dq_launch": 13,
+             "flash_attention_bwd_dkv_launch": 14}
+    for name, n in arity.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        assert len(m.group(1).split(",")) == n, name
+    assert "-1e30f" in src and "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+# --------------------------------------------------------------------------- #
+# Modules vs JAX
+# --------------------------------------------------------------------------- #
+
+def _dense(mod, p):
+    mod.weight.data = torch.from_numpy(np.asarray(p["kernel"]).T.copy())
+    mod.bias.data = torch.from_numpy(np.asarray(p["bias"]).copy())
+
+
+def _affine(mod, p):
+    mod.weight.data = torch.from_numpy(np.asarray(p["scale"]).copy())
+    if "bias" in p:
+        mod.bias.data = torch.from_numpy(np.asarray(p["bias"]).copy())
+
+
+@pytest.mark.parametrize("impl", ["xla", "flash"])
+@pytest.mark.parametrize("norm,mlp_act", [("layer_norm", "gelu"),
+                                          ("rms_norm", "gelu_tanh")])
+def test_encoder_block_matches_jax(impl, norm, mlp_act):
+    x = np.random.default_rng(7).normal(size=(2, 17, 32)).astype(np.float32)
+    jm = jatt.TransformerEncoderBlock(num_heads=4, mlp_dim=64, attn_impl=impl,
+                                      norm=norm, mlp_act=mlp_act)
+    p = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    ref = np.asarray(jm.apply({"params": p}, jnp.asarray(x)))
+    tm = tatt.TransformerEncoderBlock(32, 4, 64, attn_impl=impl, norm=norm,
+                                      mlp_act=mlp_act)
+    _affine(tm.ln_1, p["ln_1"])
+    _affine(tm.ln_2, p["ln_2"])
+    for name in ("qkv", "out"):
+        _dense(getattr(tm.attn, name), p["attn"][name])
+    for name in ("fc1", "fc2"):
+        _dense(getattr(tm.mlp, name), p["mlp"][name])
+    got = tm(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, ref, atol=MODULE_TOL, rtol=0)
+
+
+def test_gelu_forms_are_pinned():
+    """The MLP's default is exact erf GELU (the JAX package's gelu_exact);
+    'gelu_tanh' and the registered name 'gelu' are the tanh form, which is
+    where the config alias torch.nn.GELU -> 'gelu' lands, as in the JAX
+    package."""
+    from deepcv_tpu.config import REFERENCE_NAME_ALIASES as JAX_ALIASES
+    from deepcv_tpu_torch.config import REFERENCE_NAME_ALIASES
+
+    x = np.linspace(-4, 4, 101).astype(np.float32)
+    tx = torch.from_numpy(x)
+    np.testing.assert_allclose(tatt.MLP_ACTS["gelu"](tx).numpy(),
+                               np.asarray(jatt.gelu_exact(jnp.asarray(x))), atol=1e-6)
+    np.testing.assert_allclose(tatt.MLP_ACTS["gelu_tanh"](tx).numpy(),
+                               np.asarray(jax.nn.gelu(jnp.asarray(x))), atol=1e-6)
+    assert tnn.ACTIVATION_FNS["gelu"] is tnn.gelu_tanh
+    assert tnn.ACTIVATION_FNS["gelu_exact"] is tnn.gelu_exact
+    assert not np.allclose(tnn.gelu_exact(tx).numpy(), tnn.gelu_tanh(tx).numpy(), atol=1e-5)
+    assert REFERENCE_NAME_ALIASES["torch.nn.GELU"] == JAX_ALIASES["torch.nn.GELU"] == "gelu"
+    with pytest.raises(ValueError, match="mlp_act"):
+        tatt.TransformerEncoderBlock(32, 4, 64, mlp_act="relu")
+
+
+def test_flash_with_attention_dropout_raises_in_training_only():
+    m = tatt.MultiHeadSelfAttention(24, 4, dropout_prob=0.5, attn_impl="flash")
+    x = torch.randn(2, 6, 24)
+    with pytest.raises(ValueError, match="materialized"):
+        m(x)
+    m.eval()
+    assert m(x).shape == x.shape
+    xla = tatt.MultiHeadSelfAttention(24, 4, dropout_prob=0.5, attn_impl="xla")
+    g = torch.Generator().manual_seed(0)
+    xla.dropout.generator = g
+    assert not torch.equal(xla(x), xla(x))
+
+
+def test_drop_path_and_dropout_draw_from_their_generator():
+    x = torch.ones(64, 5, 8)
+    dp = tnn.DropPath(0.5)
+    dp.generator = torch.Generator().manual_seed(3)
+    y = dp(x)
+    per_sample = y.reshape(64, -1)
+    assert set(per_sample.min(1).values.tolist()) <= {0.0, 2.0}
+    assert torch.equal(per_sample.min(1).values, per_sample.max(1).values)
+    dp.generator = torch.Generator().manual_seed(3)
+    assert torch.equal(dp(x), y)
+    dp.eval()
+    assert torch.equal(dp(x), x)
+    d = tnn.Dropout(0.25)
+    d.generator = torch.Generator().manual_seed(1)
+    z = d(x)
+    assert set(torch.unique(z).tolist()) <= {0.0, float(np.float32(1.0 / 0.75))}
+
+
+def test_patch_embed_and_take_token_match_jax():
+    x = np.random.default_rng(8).normal(size=(2, 16, 24, 3)).astype(np.float32)
+    jm = jatt.PatchEmbed(patch_size=8, embed_dim=32)
+    p = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    ref = np.asarray(jm.apply({"params": p}, jnp.asarray(x)))
+    tm = tatt.PatchEmbed(3, (16, 24), 8, 32)
+    _dense(tm.proj, p["proj"])
+    tm.cls_token.data = torch.from_numpy(np.asarray(p["cls_token"]).copy())
+    tm.pos_embedding.data = torch.from_numpy(np.asarray(p["pos_embedding"]).copy())
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    got = tm(xt).detach()
+    assert got.shape == (2, 7, 32)
+    np.testing.assert_allclose(got.numpy(), ref, atol=MODULE_TOL, rtol=0)
+    np.testing.assert_array_equal(tatt.TakeToken(0)(got).numpy(), got[:, 0].numpy())
+
+
+@pytest.mark.parametrize("new_hw", [32, 8])
+def test_resize_pos_embedding_matches_jax(new_hw):
+    rng = np.random.default_rng(9)
+    pos = rng.normal(size=(1, 17, 8)).astype(np.float32)
+    cls = np.zeros((1, 1, 8), np.float32)
+    jv = {"params": {"node_impls_embed": {"pos_embedding": jnp.asarray(pos),
+                                         "cls_token": jnp.asarray(cls)}}}
+    ref = np.asarray(jatt.resize_pos_embedding(jv, new_hw, 4)["params"]
+                     ["node_impls_embed"]["pos_embedding"])
+    sd = {"module.nodes.embed.pos_embedding": torch.from_numpy(pos),
+          "module.nodes.embed.cls_token": torch.from_numpy(cls)}
+    got = tatt.resize_pos_embedding(sd, new_hw, 4)["module.nodes.embed.pos_embedding"]
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=0)

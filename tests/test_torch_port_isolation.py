@@ -96,3 +96,42 @@ def test_chip_smoke_fails_without_a_card_or_without_the_repo(no_card, tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_vit_and_training_modules_leave_jax_out_of_sys_modules():
+    code = """
+import json, sys
+import torch
+from deepcv_tpu_torch import cli
+from deepcv_tpu_torch.ops.attention import flash_attention
+from deepcv_tpu_torch.ops.kernels import flash_attention as kernels  # noqa
+from deepcv_tpu_torch.pipelines import ProjectContext
+from deepcv_tpu_torch.pipelines import classification, registry  # noqa
+from deepcv_tpu_torch.data import datasets, preprocess  # noqa
+from deepcv_tpu_torch.train import checkpoint, losses, metrics, schedules, training  # noqa
+from deepcv_tpu_torch.spec import DeepcvModule
+from deepcv_tpu_torch.spec.zoo import vit_spec
+hp = vit_spec("b_16", num_classes=4, attn_impl="flash")
+hp["architecture"] = hp["architecture"][:2] + hp["architecture"][-3:]
+m = DeepcvModule((32, 32, 3), hp, device="cpu")
+m(torch.zeros(2, 32, 32, 3)).sum().backward()
+pipes = sorted(ProjectContext(".", device="cpu").pipelines)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "deepcv_tpu"))
+print(json.dumps({"pipes": pipes, "bad": bad}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"pipes": ["train_resnet50", "train_vit"], "bad": []}
+
+
+def test_run_without_device_raises_with_no_card(no_card):
+    from deepcv_tpu_torch.cli import main
+    from deepcv_tpu_torch.pipelines import ProjectContext
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["run", "--pipeline=train_vit", "--project-path", str(REPO)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProjectContext(REPO)
