@@ -6,12 +6,13 @@
 Phases, each printing one JSON line:
 
 0. device — the card (``nvidia-smi`` name and power limit), torch and CUDA.
-1. build — the port's CUDA kernels (K2, and K3-K5 in one library) compiled
-   by ``nvcc`` from ``csrc/``, both at once, with the build times and
-   ``ptxas``'s registers, shared memory and spills.
+1. build — the port's CUDA kernels (K1, K2, and K3-K5 in one library)
+   compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
+   and ``ptxas``'s registers, shared memory and spills.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
    conv shapes at batch 64 (plus one ragged case), with and without bias,
-   relu and none, float32 and bfloat16; error relative to max|ref|, kernel
+   relu and none, float32 and bfloat16, and at image_classifier's conv
+   shapes at batch 4096 in bfloat16; error relative to max|ref|, kernel
    time (median of CUDA-event timed launches), its bound on the card, and
    the same ``F.conv2d`` call's time as a yardstick.
 3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
@@ -31,6 +32,26 @@ Phases, each printing one JSON line:
    on the synthetic ``imagenet224`` set (8,192 + 1,024 images), cut to 2
    epochs and no checkpoints: a finite loss, img/s, peak memory, and K3, K4
    and K5 launches of 12 per step (K3 also 12 per validation forward).
+7. augment_kernel — K1 against its plain version (the port's eager chain)
+   at 4096x32x32x3 and 256x224x224x3 with random factors, a ragged shape,
+   and neutral factors (pure ``to_tensor`` + ``normalize``), noise off,
+   within 1e-5; with noise on, the statistics of the noise on a mid-grey
+   image and its seeding; kernel and eager-chain times and the bound.
+8. classifier_train — ``run --pipeline=train_image_classifier`` in this
+   process with the conf's hp (batch 32, float32, ``deterministic: true``)
+   on CIFAR-10 (the synthetic stand-in), cut to 1 epoch, no checkpoints: a
+   finite loss, 5 K2 launches per forward, cuDNN's deterministic flags set
+   during the run and restored after it, no K1 launch (no recipe).
+9. augment_train — the same pipeline with bench.py config 1's settings
+   passed as ``--params``: the recipe [brightness 0.2, contrast 0.1,
+   tweak_colors 0.1, gamma 0.05, noise 0.1], validset_ratio 0.05, batch
+   4096, bfloat16, AdamW, 4 epochs, no validation or checkpoints: one K1
+   launch per step with every batch on the K1 route, 5 K2 launches per step
+   all in bfloat16; steady img/s (bench.py's median of the warm epochs),
+   step ms, peak memory and the K1 and K2 shares of the step. Then one
+   more epoch under ``torch.profiler``: device time per step by kernel
+   group, the ten largest kernels, and the device's idle share of the
+   unprofiled step.
 
 Then the kernels line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -60,8 +81,12 @@ import torch
 import torch.nn.functional as F
 
 from deepcv_tpu_torch import cli
+from deepcv_tpu_torch.data.preprocess import PreprocessedDataset
 from deepcv_tpu_torch.data.transforms import normalize, to_tensor
+from deepcv_tpu_torch.ops import nn as port_nn
 from deepcv_tpu_torch.ops.kernels import _build
+from deepcv_tpu_torch.ops.kernels.fused_augment import (
+    fused_augment_normalize, plain_fused_augment_normalize)
 from deepcv_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
     plain_flash_bwd_dkv, plain_flash_bwd_dq, plain_flash_fwd)
@@ -72,6 +97,7 @@ from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bund
 from deepcv_tpu_torch.server import InferenceServer
 from deepcv_tpu_torch.spec import DeepcvModule
 from deepcv_tpu_torch.spec.zoo import resnet_spec, vit_spec
+from deepcv_tpu_torch.train import training
 
 REPO = Path(__file__).resolve().parent
 HANG_LIMIT_S = 1000
@@ -96,13 +122,17 @@ PHASE2_SHAPES = [
     (64, 7, 7, 512, 512, 3), (64, 7, 7, 512, 2048, 1),
     (3, 13, 13, 5, 7, 5),  # ragged: partial tiles on every axis
 ]
+#: image_classifier's stride-1 convs at bench.py's batch 4096, with how often
+#: each runs per forward; Cin 3 and Cout 4 leave partial tiles
+CLASSIFIER_CONVS = {(4096, 32, 32, 3, 4, 5): 1, (4096, 32, 32, 4, 4, 5): 2,
+                    (4096, 16, 16, 4, 16, 3): 1, (4096, 16, 16, 16, 16, 3): 1}
 DEVICE = "cuda"
 IMAGE_SHAPE = (224, 224, 3)
 SERVE_BATCH = 64
 REQUEST_SIZES = (1, 5, 17, 64)
 ROUNDS = 6
 LAUNCHES_PER_FORWARD = 46
-KERNEL_LIBRARIES = ("fused_conv2d_bias_act", "flash_attention")
+KERNEL_LIBRARIES = ("fused_augment", "fused_conv2d_bias_act", "flash_attention")
 #: ViT-B/16 at 224: 12 blocks, 12 heads, 197 tokens, head dim 64
 VIT_BLOCKS, VIT_HEADS, VIT_T, VIT_DH = 12, 12, 197, 64
 TRAIN_BATCH = 256          # train_resnet50's batch_size, which train_vit uses
@@ -115,6 +145,26 @@ FLASH_CASES = [("vit_serve", SERVE_BATCH, VIT_T, ("float32", "bfloat16")),
                ("t1024", 4, 1024, ("float32", "bfloat16"))]
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+CIFAR_MEAN = (0.491, 0.482, 0.447)
+CIFAR_STD = (0.247, 0.243, 0.261)
+#: K1 against its plain version, noise off: absolute, on values of up to
+#: ~4 after the normalize. Both round the grey level in the same integers and
+#: divide the same way, so what is left is the float32 rounding of the
+#: unquantized steps (a few ulps).
+AUG_TOL = 1e-5
+#: K1's shapes: bench.py's augment+train batch, a 224x224 batch, a ragged one
+AUG_SHAPES = [(4096, 32, 32, 3), (256, 224, 224, 3), (5, 13, 29, 3)]
+#: K1's operations per element, counted from the chain (to_tensor, brightness
+#: and its clip, the 601 luma per pixel, contrast, saturation, clip and
+#: gamma as one power, normalize; pass 1 repeats to_tensor and brightness)
+AUG_OPS_PER_ELEMENT = 32
+NOISE_SIGMA = 0.1
+CLASSIFIER_CONVS_PER_FORWARD = 5
+AUGMENT_BATCH, AUGMENT_EPOCHS = 4096, 4
+#: bench.py config 1's recipe, as flow YAML for --params
+BENCH_RECIPE = ("{keep_same_input_shape: true, augmentation_ops_depth: [1, 4], "
+                "transforms: [{brightness: 0.2}, {contrast: 0.1}, {tweak_colors: 0.1}, "
+                "{gamma: 0.05}, {noise: 0.1}]}")
 
 
 def emit(obj) -> None:
@@ -221,8 +271,12 @@ def _library_call(x, w, b, act):
 def phase_kernel(card):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for (n, h, w, cin, cout, k) in PHASE2_SHAPES:
-        for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
+    cases = [(shape, ("float32", "bfloat16")) for shape in PHASE2_SHAPES] + \
+        [(shape, ("bfloat16",)) for shape in CLASSIFIER_CONVS]
+    rows = {}
+    for (n, h, w, cin, cout, k), dtypes in cases:
+        for dtype in dtypes:
+            tol = F32_TOL if dtype == "float32" else BF16_TOL
             x, wt, b = _case_tensors(gen, n, h, w, cin, cout, k,
                                      getattr(torch, dtype))
             errs = {}
@@ -240,16 +294,19 @@ def phase_kernel(card):
                             f"bias={bias} act={act}: rel err {rel:.3e} > {tol:.0e}")
             worst[dtype] = max(worst[dtype], max(errs.values()))
             bound_ms, bound_by = conv_bound(n, h, w, cin, cout, k, dtype, True)
-            emit({"phase": "kernel", "shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k],
-                  "dtype": dtype, "rel_err": errs, "tol": tol,
-                  "ms": cuda_ms(lambda: fused_conv2d_bias_act(x, wt, b, "relu")),
-                  "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, "relu")),
-                  "library_ms": cuda_ms(_library_call(x, wt, b, "relu")),
-                  "bound_ms": bound_ms, "bound_by": bound_by, "card": card})
+            row = {"phase": "kernel", "shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k],
+                   "dtype": dtype, "rel_err": errs, "tol": tol,
+                   "ms": cuda_ms(lambda: fused_conv2d_bias_act(x, wt, b, "relu")),
+                   "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, "relu")),
+                   "library_ms": cuda_ms(_library_call(x, wt, b, "relu")),
+                   "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+            emit(row)
+            rows[((n, h, w, cin, cout, k), dtype)] = row
             del x, wt, b
     torch.cuda.empty_cache()
     emit({"phase": "kernel_summary", "max_rel_err": worst,
           "tol": {"float32": F32_TOL, "bfloat16": BF16_TOL}, "card": card})
+    return rows
 
 
 def _preprocess(x):
@@ -657,6 +714,333 @@ def flash_kernel_lines(rows, serve_launches, train_launches, card):
     return lines
 
 
+# --------------------------------------------------------------------------- #
+# K1: fused augment + normalize, and the classifier's training paths
+# --------------------------------------------------------------------------- #
+
+def augment_bound(n, h, w):
+    """Least time for K1's work on an H100 SXM: the uint8 images and five
+    (N,) float32 factors read once, the float32 output written once, at
+    3.35 TB/s; or AUG_OPS_PER_ELEMENT float32 operations per element at
+    67 TFLOP/s. Returns (ms, bound_by)."""
+    elems = n * h * w * 3
+    t_bytes = (elems * (1 + 4) + 5 * 4 * n) / HBM_BYTES_PER_S
+    t_ops = elems * AUG_OPS_PER_ELEMENT / PEAK_FLOPS["float32"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _aug_factors(gen, n):
+    u = lambda: 0.6 + 0.8 * torch.rand((n,), generator=gen, device=DEVICE)
+    return [u(), u(), u(), torch.exp(0.2 * torch.randn((n,), generator=gen, device=DEVICE))]
+
+
+def phase_augment_kernel(card):
+    """K1 against its plain version, noise off, then the noise statistics;
+    times per launch. Returns the rows by shape."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    rows = {}
+    for (n, h, w, c) in AUG_SHAPES:
+        u8 = torch.randint(0, 256, (n, h, w, c), generator=gen, device=DEVICE,
+                           dtype=torch.uint8)
+        facs = _aug_factors(gen, n)
+        ones = [torch.ones((n,), device=DEVICE)] * 4
+        sigma = torch.full((n,), NOISE_SIGMA, device=DEVICE)
+        errs = {}
+        got = fused_augment_normalize(u8, *facs, None, CIFAR_MEAN, CIFAR_STD)
+        ref = plain_fused_augment_normalize(u8, *facs, None, CIFAR_MEAN, CIFAR_STD)
+        errs["random"] = (got - ref).abs().max().item()
+        got = fused_augment_normalize(u8, *ones, None, CIFAR_MEAN, CIFAR_STD)
+        errs["neutral"] = (got - normalize(to_tensor(u8), CIFAR_MEAN, CIFAR_STD)).abs().max().item()
+        torch.cuda.synchronize()
+        for case, err in errs.items():
+            if not err <= AUG_TOL:
+                raise AssertionError(f"K1 vs plain {case} {(n, h, w, c)}: max abs err "
+                                     f"{err:.3e} > {AUG_TOL:.0e}")
+        del got, ref
+        bound_ms, bound_by = augment_bound(n, h, w)
+        row = {"phase": "augment_kernel", "shape_nhwc": [n, h, w, c],
+               "max_abs_err": errs, "tol": AUG_TOL,
+               "ms": cuda_ms(lambda: fused_augment_normalize(u8, *facs, None, CIFAR_MEAN,
+                                                             CIFAR_STD)),
+               "ms_noise": cuda_ms(lambda: fused_augment_normalize(
+                   u8, *facs, sigma, CIFAR_MEAN, CIFAR_STD, seed=7)),
+               "plain_ms": cuda_ms(lambda: plain_fused_augment_normalize(
+                   u8, *facs, None, CIFAR_MEAN, CIFAR_STD)),
+               "plain_ms_noise": cuda_ms(lambda: plain_fused_augment_normalize(
+                   u8, *facs, sigma, CIFAR_MEAN, CIFAR_STD, seed=7)),
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+               "card": card}
+        emit(row)
+        rows[(n, h, w, c)] = row
+        del u8, facs, ones, sigma
+    torch.cuda.empty_cache()
+
+    # noise: on a mid-grey batch, half the images at sigma, half at 0; with
+    # mean 0 and std 1 the output minus the noise-off output is the noise,
+    # never clipped at 128/255 +- 5 sigma. 6.3 M draws put the mean's std at
+    # 4e-5 and the std's relative error near 3e-4.
+    n, h, w, _ = AUG_SHAPES[0]
+    grey = torch.full((n, h, w, 3), 128, dtype=torch.uint8, device=DEVICE)
+    ones = [torch.ones((n,), device=DEVICE)] * 4
+    sigma = torch.zeros((n,), device=DEVICE)
+    sigma[: n // 2] = NOISE_SIGMA
+    zero, one = (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+    clean = fused_augment_normalize(grey, *ones, None, zero, one)
+    noisy = fused_augment_normalize(grey, *ones, sigma, zero, one, seed=11)
+    again = fused_augment_normalize(grey, *ones, sigma, zero, one, seed=11)
+    other = fused_augment_normalize(grey, *ones, sigma, zero, one,
+                                    seed=torch.tensor([12], device=DEVICE))
+    d = (noisy - clean)[: n // 2].double()
+    stats = {"mean": d.mean().item(), "std": d.std().item(),
+             "sigma0_max_abs": (noisy - clean)[n // 2:].abs().max().item(),
+             "same_seed_equal": bool(torch.equal(noisy, again)),
+             "other_seed_differs": bool(not torch.equal(noisy, other)),
+             "other_seed_corr": float(torch.corrcoef(torch.stack(
+                 [(noisy - clean)[: n // 2].flatten(), (other - clean)[: n // 2].flatten()]))[0, 1])}
+    tol = {"mean": 5e-4, "std_rel": 5e-3, "corr": 5e-3}
+    ok = (abs(stats["mean"]) <= tol["mean"]
+          and abs(stats["std"] / NOISE_SIGMA - 1) <= tol["std_rel"]
+          and stats["sigma0_max_abs"] == 0 and stats["same_seed_equal"]
+          and stats["other_seed_differs"] and abs(stats["other_seed_corr"]) <= tol["corr"])
+    emit({"phase": "augment_noise", "shape_nhwc": [n, h, w, 3], "sigma": NOISE_SIGMA,
+          **stats, "tol": tol, "card": card})
+    if not ok:
+        raise AssertionError(f"K1 noise statistics out of bounds: {stats}")
+    del grey, clean, noisy, again, other, d
+    torch.cuda.empty_cache()
+    return rows
+
+
+class _K2Dtypes:
+    """Records the dtypes of x, w and b at every call of the K2 wrapper made
+    by ``FusedConv2d`` (the module's reference to it), for one run."""
+
+    def __init__(self):
+        self.seen = collections.Counter()
+        self._real = port_nn.fused_conv2d_bias_act
+
+    def __enter__(self):
+        def spy(x, w, b=None, act=None, *, w_packed=None):
+            if x.device.type == "cuda":
+                self.seen[tuple(str(t.dtype).split(".")[-1]
+                                for t in (x, w, b) if t is not None)] += 1
+            return self._real(x, w, b, act, w_packed=w_packed)
+        port_nn.fused_conv2d_bias_act = spy
+        return self
+
+    def __exit__(self, *exc):
+        port_nn.fused_conv2d_bias_act = self._real
+
+
+def _run_classifier(label, params):
+    """``run --pipeline=train_image_classifier`` in this process with the
+    counts set to 0 just before and read just after. Returns the store, the
+    wall time, the counts and the cuDNN flags seen at every step."""
+    out_dir = _build.BUILD_DIR / label
+    params = [*params, "train_image_classifier.save_every_iters:0",
+              f"train_image_classifier.output_path:{out_dir}"]
+    argv = ["--pipeline=train_image_classifier", "--project-path", str(REPO),
+            "--params", ",".join(params)]
+    flags = collections.Counter()
+    real_step = training.train_step
+
+    def step(*a, **kw):
+        flags[(torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)] += 1
+        return real_step(*a, **kw)
+
+    routes = PreprocessedDataset.batch_transform.routes
+    torch.cuda.reset_peak_memory_stats()
+    fused_augment_normalize.launches = 0
+    fused_conv2d_bias_act.launches = 0
+    routes_before = dict(routes)
+    training.train_step = step
+    try:
+        with _K2Dtypes() as k2_dtypes:
+            t0 = time.perf_counter()
+            store = cli.run(argv)
+            wall = time.perf_counter() - t0
+    finally:
+        training.train_step = real_step
+    counts = {"K1": fused_augment_normalize.launches, "K2": fused_conv2d_bias_act.launches,
+              "routes": {k: routes[k] - routes_before[k] for k in routes},
+              "K2_dtypes": {"/".join(k): v for k, v in k2_dtypes.seen.items()}}
+    return store, argv, wall, counts, flags
+
+
+def phase_classifier_train(card):
+    cudnn = torch.backends.cudnn
+    before = (cudnn.deterministic, cudnn.benchmark)
+    store, argv, wall, counts, flags = _run_classifier(
+        "classifier_train", ["train_image_classifier.epochs:1"])
+    after = (cudnn.deterministic, cudnn.benchmark)
+    h = store["train_results"]["history"]
+    steps = h["steps"]
+    n_valid = len(store["datasets"]["validset"])
+    batch = int(store["context"].params("train_image_classifier.batch_size"))
+    val_forwards = len(h["valid"]) * math.ceil(n_valid / min(32 * batch, n_valid))
+    losses = [e["main_loss"] for e in h["train"]]
+    if steps == 0 or not np.isfinite(losses).all():
+        raise AssertionError(f"classifier_train: {steps} steps, losses {losses[:4]}...")
+    forwards = steps + val_forwards
+    if counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * forwards or counts["K1"] != 0 \
+            or any(counts["routes"].values()):
+        raise AssertionError(f"classifier_train counts {counts} for {steps} steps and "
+                             f"{val_forwards} validation forwards")
+    if dict(flags) != {(True, False): steps} or after != before:
+        raise AssertionError(f"cuDNN (deterministic, benchmark) during the run {dict(flags)}, "
+                             f"before {before}, after {after}")
+    tput = h["throughput_img_s"]
+    emit({"phase": "classifier_train",
+          "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+          "cut": {"epochs": "2 -> 1", "checkpoints": "off (save_every_iters 0)"},
+          "batch": batch, "steps": steps,
+          "data": store["datasets"]["trainset"].dataset.provenance,
+          "train_images": len(store["datasets"]["trainset"]), "valid_images": n_valid,
+          "first_loss": losses[0], "last_loss": losses[-1], "valid": h["valid"][-1],
+          "throughput_img_s": tput, "step_ms": batch / tput[-1] * 1e3, "wall_s": wall,
+          "launches": counts, "launches_per_forward": {"K2": counts["K2"] / forwards},
+          "validation_forwards": val_forwards,
+          "cudnn_during_run": {"deterministic": True, "benchmark": False, "steps": steps},
+          "cudnn_before_after": [list(before), list(after)],
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+    del store
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _steady(tps):
+    """bench.py's ``steady()``: the median of the epochs after the first two
+    (after the first when there are fewer than four)."""
+    warm = tps[2:] if len(tps) >= 4 else (tps[1:] if len(tps) > 1 else tps)
+    return statistics.median(warm)
+
+
+#: kernel-name fragments -> the group a profiled kernel's time is summed in
+PROFILE_GROUPS = (("K1", ("fused_augment_normalize",)),
+                  ("K2", ("fused_conv2d_bias_act",)),
+                  ("cudnn_conv", ("cudnn", "conv", "xmma", "implicit_gemm", "wgrad", "dgrad",
+                                  "sm90_", "nchw", "nhwc")),
+                  ("group_norm", ("group_norm", "GroupNorm")),
+                  ("optimizer", ("multi_tensor", "adam", "Adam")),
+                  ("reduce", ("reduce",)),
+                  ("upload", ("Memcpy HtoD",)),
+                  ("copy", ("copy", "Memcpy", "memcpy", "Memset", "memset")),
+                  ("elementwise", ("elementwise", "vectorized", "unrolled")))
+
+
+def _profile_groups(prof):
+    """Device time (ms) of every kernel in a torch.profiler run, summed by
+    PROFILE_GROUPS, and the ten largest kernels."""
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is None or "CUDA" not in str(e.device_type):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            kernels.append((e.key, us / 1e3, e.count))
+    groups = collections.Counter()
+    for name, ms, _ in kernels:
+        group = next((g for g, frags in PROFILE_GROUPS if any(f in name for f in frags)),
+                     "other")
+        groups[group] += ms
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    return groups, top
+
+
+def phase_augment_train(card, aug_rows, k2_rows):
+    params = [f"cifar10_preprocessing.augmentation_recipe:{BENCH_RECIPE}",
+              "cifar10_preprocessing.split_dataset.validset_ratio:0.05",
+              f"train_image_classifier.epochs:{AUGMENT_EPOCHS}",
+              f"train_image_classifier.batch_size:{AUGMENT_BATCH}",
+              "train_image_classifier.dtype:bfloat16",
+              "train_image_classifier.optimizer:adamw",
+              "train_image_classifier.optimizer_opts:{lr: 1.0e-3, betas: [0.9, 0.999], "
+              "weight_decay: 1.0e-2}",
+              "train_image_classifier.scheduler:null",
+              "train_image_classifier.deterministic:false",
+              "train_image_classifier.validate_every_epochs:1000",
+              "train_image_classifier.log_grad_norm:false",
+              "train_image_classifier.log_progress_every_iters:1000000",
+              "train_image_classifier.handle_preemption:false"]
+    store, argv, wall, counts, _ = _run_classifier("augment_train", params)
+    h = store["train_results"]["history"]
+    steps = h["steps"]
+    losses = [e["main_loss"] for e in h["train"]]
+    if steps == 0 or h["valid"] or not np.isfinite(losses).all():
+        raise AssertionError(f"augment_train: {steps} steps, losses {losses}, "
+                             f"validation {h['valid']}")
+    bf16 = "bfloat16/bfloat16/bfloat16"
+    if counts["K1"] != steps or counts["routes"] != {"K1": steps, "eager": 0} \
+            or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * steps \
+            or counts["K2_dtypes"] != {bf16: CLASSIFIER_CONVS_PER_FORWARD * steps}:
+        raise AssertionError(f"augment_train counts {counts} for {steps} steps")
+    tput = h["throughput_img_s"]
+    steady = _steady(tput)
+    step_ms = AUGMENT_BATCH / steady * 1e3
+    k1_row = aug_rows[(AUGMENT_BATCH, 32, 32, 3)]
+    k2_ms = sum(cnt * k2_rows[(shape, "bfloat16")]["ms"]
+                for shape, cnt in CLASSIFIER_CONVS.items())
+    emit({"phase": "augment_train",
+          "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+          "settings": "bench.py config 1 (recipe, validset_ratio 0.05, batch 4096, "
+                      "bfloat16, AdamW lr 1e-3 betas (0.9, 0.999) wd 1e-2)",
+          "cut": {"epochs": f"88 -> {AUGMENT_EPOCHS}",
+                  "validation": "off", "checkpoints": "off"},
+          "batch": AUGMENT_BATCH, "steps": steps,
+          "data": store["datasets"]["trainset"].dataset.provenance,
+          "train_images": len(store["datasets"]["trainset"]),
+          "loss": losses[-1],
+          "throughput_img_s": tput, "steady_img_s": steady, "step_ms": step_ms,
+          "wall_s": wall, "launches": counts,
+          "launches_per_step": {"K1": counts["K1"] / steps, "K2": counts["K2"] / steps},
+          "k1_ms_per_step": k1_row["ms_noise"], "k2_fwd_ms_per_step": k2_ms,
+          "k1_share_of_step": k1_row["ms_noise"] / step_ms,
+          "k2_share_of_step": k2_ms / step_ms,
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+    del store
+    torch.cuda.empty_cache()
+
+    # where the step's device time goes: one more epoch under torch.profiler
+    # (its host overhead makes that epoch's wall time no measure; the
+    # kernels' device times are), against the unprofiled step time above
+    from torch.profiler import ProfilerActivity, profile
+    prof_params = [p for p in params if not p.startswith("train_image_classifier.epochs:")]
+    prof_params.append("train_image_classifier.epochs:1")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        store, _, _, pcounts, _ = _run_classifier("augment_train_profile", prof_params)
+        torch.cuda.synchronize()
+    psteps = store["train_results"]["history"]["steps"]
+    groups, top = _profile_groups(prof)
+    upload = groups.pop("upload", 0.0)     # the dataset and weights, once per run
+    busy = sum(groups.values()) / psteps
+    emit({"phase": "augment_train_profile", "steps": psteps,
+          "device_ms_per_step": {g: ms / psteps for g, ms in groups.most_common()},
+          "upload_ms_per_run": upload,
+          "device_busy_ms_per_step": busy, "step_ms_unprofiled": step_ms,
+          "device_idle_share": 1.0 - busy / step_ms,
+          "top_kernels_ms_per_step": [[name[:90], ms / psteps, cnt] for name, ms, cnt in top],
+          "launches": pcounts, "card": card})
+    del store, prof
+    torch.cuda.empty_cache()
+    return counts, {"steady_img_s": steady, "step_ms": step_ms}
+
+
+def k1_kernel_line(aug_rows, launches, card):
+    row = aug_rows[(AUGMENT_BATCH, 32, 32, 3)]
+    return {"name": "fused_augment_normalize", "route": "cuda",
+            "source": "deepcv_tpu_torch/csrc/fused_augment.cu",
+            "replaces": "deepcv_tpu/ops/pallas/fused_augment.py:40",
+            "launches": launches, "launches_by_path": {"augment_train": launches},
+            "max_abs_err": row["max_abs_err"]["random"],
+            "ms": row["ms_noise"], "plain_ms": row["plain_ms_noise"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "per": f"one augment_train step: one launch at N,H,W,C {row['shape_nhwc']}, "
+                   "noise on, float32 out",
+            "card": card}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_LIMIT_S, exit=True)
 
@@ -669,13 +1053,20 @@ def main() -> int:
 
     card = phase_device()
     phase_build()
-    phase_kernel(card)
+    k2_rows = phase_kernel(card)
     flash_rows = phase_flash_kernels(card)
     k2_line = phase_serve(card)
     serve_launches = phase_vit_serve(card)
     train_launches = phase_vit_train(card)
-    emit({"kernels": [k2_line, *flash_kernel_lines(flash_rows, serve_launches,
-                                                   train_launches, card)]})
+    aug_rows = phase_augment_kernel(card)
+    classifier_counts = phase_classifier_train(card)
+    augment_counts, _ = phase_augment_train(card, aug_rows, k2_rows)
+    k2_line["launches_by_path"] = {"serve": k2_line["launches"],
+                                   "classifier_train": classifier_counts["K2"],
+                                   "augment_train": augment_counts["K2"]}
+    k2_line["launches"] = sum(k2_line["launches_by_path"].values())
+    emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
+                      *flash_kernel_lines(flash_rows, serve_launches, train_launches, card)]})
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,23 @@ Counterpart of ``deepcv_tpu/data/preprocess.py`` (``preprocess``,
 compile to one batched function applied on the device to each batch of raw
 uint8 NHWC images. Ported transforms: ``to_tensor`` and ``normalize``
 (with given statistics, or the trainset's per-channel mean and std).
-Augmentation recipes and target transforms are not ported yet and raise.
+``augmentation_recipe`` (or the reference's spelling
+``augmentation_reciepe``) compiles through
+:func:`~deepcv_tpu_torch.data.augmentation.apply_augmentation_recipe` and
+augments the trainset's batches; target transforms are not ported yet and
+raise.
+
+A recipe runs one of two routes, counted in
+``PreprocessedDataset.batch_transform.routes``:
+
+* ``K1``: a uint8 batch with three channels whose recipe steps are a
+  subsequence of K1's order goes through one
+  :func:`~deepcv_tpu_torch.ops.kernels.fused_augment.fused_augment_normalize`
+  call (the kernel on a card, its plain version on the CPU), which also
+  normalizes when the transform list is ``to_tensor`` and at most one
+  ``normalize``;
+* ``eager``: any other batch runs ``to_tensor``, the recipe's ported
+  transforms one by one, then the transform list.
 """
 from __future__ import annotations
 
@@ -15,7 +31,10 @@ import numpy as np
 import torch
 
 from deepcv_tpu_torch.data import transforms as T
+from deepcv_tpu_torch.data.augmentation import (
+    AugmentationRecipe, apply_augmentation_recipe, draw_factors)
 from deepcv_tpu_torch.data.datasets import ArrayDataset, split_dataset
+from deepcv_tpu_torch.ops.kernels.fused_augment import fused_augment_normalize
 from deepcv_tpu_torch.hyperparams import to_hyperparameters
 from deepcv_tpu_torch.utils import set_seeds
 
@@ -101,11 +120,14 @@ def parse_transforms_specification(specs: Sequence[Any],
 
 
 class PreprocessedDataset:
-    """A dataset and the transform applied to its batches on the device."""
+    """A dataset, the transform applied to its batches on the device and,
+    for a trainset, the augmentation recipe run before it."""
 
-    def __init__(self, dataset: ArrayDataset, transform: Optional[Compose] = None):
+    def __init__(self, dataset: ArrayDataset, transform: Optional[Compose] = None,
+                 augmentation: Optional[AugmentationRecipe] = None):
         self.dataset = dataset
         self.transform = transform
+        self.augmentation = augmentation
 
     def __len__(self):
         return len(self.dataset)
@@ -123,12 +145,54 @@ class PreprocessedDataset:
         """Post-transform image shape (the transforms keep NHWC shapes)."""
         return self.dataset.image_shape
 
-    def batch_transform(self, images: torch.Tensor) -> torch.Tensor:
-        """Raw (uint8) batch -> transformed float batch, on its device."""
-        return self.transform(images) if self.transform is not None else images
+    def _k1_normalize(self) -> Optional[Tuple[Sequence[float], Sequence[float]]]:
+        """K1's normalize constants when the transform list is ``to_tensor``
+        and at most one ``normalize`` (mean 0, std 1 for no normalize); None
+        when other transforms must run after K1."""
+        steps = self.transform.steps if self.transform is not None else []
+        if not steps or steps[0][0] is not T.to_tensor:
+            return None
+        if len(steps) == 1:
+            return (0.0, 0.0, 0.0), (1.0, 1.0, 1.0)
+        if len(steps) == 2 and steps[1][0] is T.normalize:
+            return steps[1][1]["mean"], steps[1][1]["std"]
+        return None
+
+    def batch_transform(self, images: torch.Tensor,
+                        generator: Optional[torch.Generator] = None,
+                        augment: bool = True) -> torch.Tensor:
+        """Raw (uint8) batch -> transformed float batch, on its device:
+        ``to_tensor``, the augmentation recipe (when ``augment`` and the
+        dataset has one), then the transform list. ``generator`` (on the
+        batch's device) feeds the recipe's draws; augmenting without one
+        raises."""
+        x = images
+        if self.augmentation is not None and augment:
+            if generator is None:
+                raise ValueError("augmentation requires a torch.Generator")
+            if (images.dtype == torch.uint8 and images.dim() == 4
+                    and images.shape[-1] == 3 and self.augmentation.fits_k1()):
+                _ROUTES["K1"] += 1
+                norm = self._k1_normalize()
+                mean, std = norm or ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+                f = draw_factors(self.augmentation, images.shape[0], generator)
+                x = fused_augment_normalize(
+                    images, f["brightness"], f["contrast"], f["saturation"],
+                    f["gamma"], f["noise_sigma"], mean, std, seed=f["seed"])
+                if norm is not None:
+                    return x
+            else:
+                _ROUTES["eager"] += 1
+                x = self.augmentation(T.to_tensor(images), generator)
+        return self.transform(x) if self.transform is not None else x
 
     def __repr__(self):
-        return f"PreprocessedDataset({self.dataset!r}, transform={self.transform})"
+        return (f"PreprocessedDataset({self.dataset!r}, transform={self.transform}, "
+                f"augmentation={self.augmentation})")
+
+
+#: batches augmented by each route in this process
+_ROUTES = PreprocessedDataset.batch_transform.routes = {"K1": 0, "eager": 0}
 
 
 def preprocess(datasets: Mapping[str, ArrayDataset], params: Mapping[str, Any]
@@ -136,9 +200,8 @@ def preprocess(datasets: Mapping[str, ArrayDataset], params: Mapping[str, Any]
     """The preprocess pipeline node: seed -> split -> parse the transform
     list -> wrap. ``datasets`` holds 'trainset' and optionally 'testset'."""
     hp, _ = to_hyperparameters(dict(params), PREPROCESS_DEFAULTS)
-    for key in ("target_transforms", "augmentation_recipe", "augmentation_reciepe"):
-        if hp.get(key):
-            raise NotImplementedError(f"preprocessing '{key}' is not ported yet")
+    if hp.get("target_transforms"):
+        raise NotImplementedError("preprocessing 'target_transforms' is not ported yet")
     set_seeds(int(hp["seed"]))
     split_cfg = dict(hp["split_dataset"])
     splits = split_dataset(datasets["trainset"], datasets.get("testset"),
@@ -146,4 +209,8 @@ def preprocess(datasets: Mapping[str, ArrayDataset], params: Mapping[str, Any]
                            testset_ratio=float(split_cfg.get("testset_ratio", 0.0)),
                            seed=int(hp["seed"]))
     transform = parse_transforms_specification(hp["transforms"], trainset=splits["trainset"])
-    return {name: PreprocessedDataset(ds, transform) for name, ds in splits.items()}
+    recipe = hp.get("augmentation_recipe") or hp.get("augmentation_reciepe")
+    augmentation = apply_augmentation_recipe(recipe) if recipe else None
+    return {name: PreprocessedDataset(
+        ds, transform, augmentation if name == "trainset" else None)
+        for name, ds in splits.items()}

@@ -11,7 +11,10 @@ for the same spec.
     norm scale/bias                          -> weight/bias
     batch_stats mean/var                     -> running_mean/running_var
 
-A layer unit's variables sit under ``op`` and ``norms_<i>``; a ViT node's
+A nested module's variables sit under its node, each of its own nodes a
+level below (``node_impls_<nested>/node_impls_<local>/...`` ->
+``module.nodes.<nested>.nodes.<local>...``). A layer unit's variables sit
+under ``op`` and ``norms_<i>``; a ViT node's
 under its submodules' names, which the port keeps: ``embed/proj``,
 ``embed/cls_token``, ``embed/pos_embedding``, ``enc<i>/ln_1``,
 ``enc<i>/attn/qkv`` (its kernel's columns are ``[q | k | v]``, so the
@@ -54,10 +57,12 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 
 
 def _torch_key(collection: str, path: Tuple[str, ...]) -> str:
-    node, rest = path[0], path[1:]
-    if not node.startswith("node_impls_") or not rest:
+    base, rest = "module", path
+    while rest and rest[0].startswith("node_impls_"):
+        base += f".nodes.{rest[0][len('node_impls_'):]}"
+        rest = rest[1:]
+    if base == "module" or not rest:
         raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
-    base = f"module.nodes.{node[len('node_impls_'):]}"
     if collection == "params" and rest[0] == "op":
         leaf = rest[-1]
         if rest[1:-1] not in ((), ("inner",)) or leaf not in ("kernel", "bias"):

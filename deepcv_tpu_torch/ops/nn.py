@@ -412,8 +412,8 @@ class FusedConv2d(Conv2d):
     call of :func:`fused_conv2d_bias_act` — the CUDA kernel on a card, its
     plain version on the CPU. The counterpart of the JAX package's
     ``PallasConv``; every conv that qualifies is routed here, whatever its
-    channel count. The weight is packed for the kernel once per weight
-    version and dtype."""
+    channel count. Under autocast it runs in autocast's dtype. The weight is
+    packed for the kernel once per weight version and dtype."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  act: Optional[Callable] = None, use_bias: bool = True,
@@ -439,6 +439,12 @@ class FusedConv2d(Conv2d):
         return self._packed
 
     def forward(self, x):
+        # autocast does not reach into the kernel's autograd.Function, so the
+        # conv takes autocast's dtype here, as the JAX package's PallasConv
+        # casts x, kernel and bias to the model's compute dtype
+        dev = x.device.type
+        if dev in ("cpu", "cuda") and torch.is_autocast_enabled(dev):
+            x = x.to(torch.get_autocast_dtype(dev))
         x = x.contiguous(memory_format=torch.channels_last)
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)

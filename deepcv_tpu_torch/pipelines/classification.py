@@ -1,11 +1,14 @@
-"""Image-classification pipelines: ``train_vit`` and ``train_resnet50``.
+"""Image-classification pipelines: ``train_image_classifier`` (CIFAR-10),
+``train_image_classifier_cifar100``, ``train_vit``, ``train_resnet50`` and
+the preprocess-only ``preprocess_cifar10``, ``preprocess_cifar100`` and
+``preprocess_mnist``.
 
 Counterpart of ``deepcv_tpu/pipelines/classification.py``
 (``create_model``, ``train``, ``get_pipelines``): preprocess -> create the
 model from its conf (the input shape and the head's width from the
 dataset) -> train. ``create_model`` carries the ``vit`` and ``resnet`` zoo
-builders and plain architecture specs; other zoo builders are not ported
-yet and raise.
+builders and plain architecture specs, nested modules included; other zoo
+builders are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -89,7 +92,8 @@ def create_model(datasets: Mapping[str, Any], model_params: Mapping[str, Any],
 
 
 def _inject_out_features(arch, num_classes: int) -> bool:
-    """Set ``out_features`` on the last ``fully_connected`` entry if unset."""
+    """Set ``out_features`` on the last ``fully_connected`` entry if unset,
+    looking into nested modules too."""
     for entry in reversed(list(arch)):
         if not isinstance(entry, Mapping):
             continue
@@ -99,6 +103,10 @@ def _inject_out_features(arch, num_classes: int) -> bool:
                 if params.get("out_features") is None:
                     params["out_features"] = int(num_classes)
                 return True
+            if str(key).startswith("_nested"):
+                sub = val.get("architecture") if isinstance(val, Mapping) else val
+                if sub and _inject_out_features(sub, num_classes):
+                    return True
     return False
 
 
@@ -110,6 +118,12 @@ def train(datasets, model: DeepcvModule, hp: Mapping[str, Any], trackers=()):
 
 
 def get_pipelines() -> Dict[str, Pipeline]:
+    def preprocess_pipeline(ds: str, pp_key: str) -> Pipeline:
+        return Pipeline([
+            Node(preprocess_node, [f"{ds}_train", f"{ds}_test", f"params:{pp_key}"],
+                 "datasets", name=f"preprocess_{ds}"),
+        ], name=f"preprocess_{ds}", tags={"preprocess"})
+
     def train_pipeline(name: str, model_key: str, training_key: str, ds: str,
                        pp_key: str) -> Pipeline:
         return Pipeline([
@@ -122,6 +136,15 @@ def get_pipelines() -> Dict[str, Pipeline]:
         ], name=name, tags={"train", "classification"})
 
     return {
+        "preprocess_cifar10": preprocess_pipeline("cifar10", "cifar10_preprocessing"),
+        "preprocess_cifar100": preprocess_pipeline("cifar100", "cifar100_preprocessing"),
+        "preprocess_mnist": preprocess_pipeline("mnist", "mnist_preprocessing"),
+        "train_image_classifier": train_pipeline(
+            "train_image_classifier", "image_classifier_model", "train_image_classifier",
+            ds="cifar10", pp_key="cifar10_preprocessing"),
+        "train_image_classifier_cifar100": train_pipeline(
+            "train_image_classifier_cifar100", "image_classifier_model",
+            "train_image_classifier", ds="cifar100", pp_key="cifar100_preprocessing"),
         "train_resnet50": train_pipeline(
             "train_resnet50", "resnet50_model", "train_resnet50",
             ds="imagenet224", pp_key="imagenet224_preprocessing"),

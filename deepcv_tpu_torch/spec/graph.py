@@ -8,8 +8,11 @@ creator learns its input size and no FLOP is spent (the JAX package used
 ``jax.eval_shape``). Spec faults are :class:`SpecError`\\ s raised here, at
 build time.
 
-Ported: plain creators and links. NAS choice points and nested modules are
-later slices and are refused with a SpecError.
+Ported: plain creators, links and nested modules (``_nested_deepcvmodule``
+or ``_nested_deepcv_module``: a sub-architecture compiled with its own
+hp, whose parameters live under ``nodes.<nested name>.nodes.<local
+name>``). NAS choice points are a later slice and are refused with a
+SpecError.
 """
 from __future__ import annotations
 
@@ -92,13 +95,31 @@ def define_nn_architecture(architecture: Sequence[Any], hp: Mapping[str, Any],
         stored: Dict[str, torch.Tensor] = {}
         for idx, entry in enumerate(architecture):
             explicit_name, key, params = _entry_name_and_params(entry, idx)
-            if key in (T.NAS_LAYER_CHOICE, T.NESTED_DEEPCV_MODULE,
-                       T.NESTED_DEEPCV_MODULE_ALT) or T.FROM_NAS_INPUT_CHOICE in params:
-                raise SpecError(f"Architecture entry #{idx}: '{key}' (NAS choices, "
-                                "nested modules) is not ported yet")
-            name = explicit_name or f"_submodule_{idx}_{_creator_label(key)}"
+            if key == T.NAS_LAYER_CHOICE or T.FROM_NAS_INPUT_CHOICE in params:
+                raise SpecError(f"Architecture entry #{idx}: '{key}' (NAS choices) "
+                                "is not ported yet")
+            nested = key in (T.NESTED_DEEPCV_MODULE, T.NESTED_DEEPCV_MODULE_ALT)
+            if nested:
+                sub_hp = entry[key]
+                sub_hp = dict({"architecture": list(sub_hp)}
+                              if isinstance(sub_hp, (list, tuple)) else sub_hp)
+                if sub_hp.get("architecture") is None:
+                    raise SpecError(f"Nested module entry #{idx} has no 'architecture'")
+                explicit_name = explicit_name or sub_hp.get(T.NAME)
+            name = explicit_name or f"_submodule_{idx}_{'nested' if nested else _creator_label(key)}"
             if name in names_seen:
                 raise SpecError(f"Duplicate submodule name '{name}'")
+            if nested:
+                # the sub-architecture sees only its own hp (its act_fn, its norms)
+                sub = SpecModule(*define_nn_architecture(
+                    sub_hp["architecture"], sub_hp, CreatorContext(hp=sub_hp),
+                    tuple(x.shape))[:3])
+                names_seen[name] = idx
+                metas.append(NodeMeta(name=name, kind="module", creator="nested"))
+                x = sub(x)
+                impls[name], stored[name], shapes[name] = sub, x, tuple(x.shape)
+                ctx = dataclasses.replace(ctx, submodule_names=tuple(names_seen))
+                continue
             refs = params.pop(T.FROM, None)
             refs = tuple([refs] if isinstance(refs, str) else list(refs or []))
             for r in refs:

@@ -8,9 +8,14 @@ card:
 * the whole trainset lives on the device as uint8; each epoch visits every
   sample once in the order of a permutation drawn from a generator keyed by
   (seed, epoch) alone, so a resumed run replays the same order;
-* each step transforms its batch on the device, runs the forward under
+* each step transforms its batch on the device (augmenting it from a
+  generator keyed by (seed, step), so a resumed run augments the same
+  way; validation batches are not augmented), runs the forward under
   ``torch.autocast`` when ``dtype`` is bfloat16 (parameters stay float32),
   computes the loss in float32, and applies one optimizer update;
+* ``deterministic: true`` sets cuDNN's ``deterministic`` and clears its
+  ``benchmark`` (autotuning) for the run, restoring both after it, as the
+  reference's ``setup_cudnn(deterministic, seed)`` did;
 * validation after every ``validate_every_epochs`` epochs, periodic and
   best-k checkpoints, exact resume, SIGTERM preemption and injected crashes;
 * ``history`` has the JAX package's keys, ``throughput_img_s`` one entry
@@ -46,7 +51,8 @@ from deepcv_tpu_torch.train.metrics import MetricAccumulator, accuracy
 from deepcv_tpu_torch.train.schedules import build_schedules
 
 __all__ = ["TRAINING_HP_DEFAULTS", "UNPORTED_HP", "TrainState", "train", "train_step",
-           "build_optimizer", "apply_schedules", "epoch_permutation",
+           "build_optimizer", "apply_schedules", "epoch_permutation", "step_generator",
+           "cudnn_deterministic",
            "CrashIteration", "Preempted", "request_preemption"]
 
 _logger = logging.getLogger(__name__)
@@ -269,6 +275,31 @@ def epoch_permutation(seed: int, epoch: int, n: int) -> torch.Tensor:
     return torch.randperm(n, generator=torch.Generator().manual_seed(key))
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator that augments the batch of update ``step``: on
+    ``device``, keyed by (seed, step) alone."""
+    key = ((int(seed) ^ 0xA06) * 1_000_003 + int(step)) % (2 ** 63)
+    return torch.Generator(device=device).manual_seed(key)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(on: bool):
+    """With ``on``, cuDNN picks deterministic algorithms and does not
+    autotune inside the block; both flags are restored on exit, also when
+    the block raises. ``torch.use_deterministic_algorithms`` is left alone:
+    the backward of the bilinear resize in a ``dense_link`` has no
+    deterministic CUDA implementation, and cuBLAS needs
+    ``CUBLAS_WORKSPACE_CONFIG`` set before its first handle."""
+    cudnn = torch.backends.cudnn
+    prev = (cudnn.deterministic, cudnn.benchmark)
+    if on:
+        cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+
+
 def _refuse_unported(hp: Mapping[str, Any]) -> None:
     for key, off in UNPORTED_HP.items():
         value = hp.get(key, off)
@@ -347,7 +378,7 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
         with torch.no_grad():
             for lo in range(0, len(validset), eval_bs):
                 x = validset.batch_transform(torch.from_numpy(
-                    np.ascontiguousarray(vx[lo:lo + eval_bs])).to(device))
+                    np.ascontiguousarray(vx[lo:lo + eval_bs])).to(device), augment=False)
                 y = torch.from_numpy(vy[lo:lo + eval_bs]).long().to(device)
                 with _autocast(device, dtype):
                     logits = model(x)
@@ -382,53 +413,55 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
     if hp["handle_preemption"] and on_main:
         prev_sigterm = signal.signal(signal.SIGTERM, lambda *_: _PREEMPTION.set())
     model.train()
-    try:
-        epoch = state.step // steps_per_epoch
-        while epoch < epochs:
-            perm = epoch_permutation(seed, epoch, n).to(device)
-            skip = state.step - epoch * steps_per_epoch
-            seen = 0
-            t0 = time.perf_counter()
-            for i in range(skip, steps_per_epoch):
-                if crash_at >= 0 and state.step == crash_at:
-                    raise CrashIteration(f"Injected crash at iteration {crash_at}")
-                if _PREEMPTION.is_set():
-                    _PREEMPTION.clear()
-                    where = ""
-                    if ckpt is not None:
-                        where = f" (checkpoint {ckpt.save(state.step, state.checkpoint())})"
-                    raise Preempted(f"SIGTERM: training stopped at step {state.step}{where}")
-                idx = perm[i * batch_size:(i + 1) * batch_size]
-                x = trainset.batch_transform(images[idx])
-                m = train_step(state, losses, metrics, x, targets[idx], **step_kw)
-                train_acc.update(m)
-                seen += batch_size
-                if state.step % log_every == 0:
-                    flush(state.step)
-                if ckpt is not None and state.step % save_every == 0:
-                    ckpt.save(state.step, state.checkpoint())
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            dt = time.perf_counter() - t0
-            history["throughput_img_s"].append(seen / dt if dt > 0 else 0.0)
-            epoch += 1
-            val = {}
-            if epoch % validate_every == 0:
-                val = run_validation()
-                history["valid"].append({"epoch": epoch, **val})
-                for lg in loggers:
-                    lg.log_metrics(val, step=state.step)
-                key = f"valid_{next(iter(metrics))}"
-                if ckpt is not None and key in val:
-                    ckpt.update_best(state.step, val[key], state.checkpoint())
-            _logger.info("epoch %d/%d  %.1f img/s  %s", epoch, epochs,
-                         history["throughput_img_s"][-1],
-                         " ".join(f"{k}={v:.4f}" for k, v in val.items()))
-        flush(state.step)
-    finally:
-        _PREEMPTION.clear()
-        if prev_sigterm is not None:
-            signal.signal(signal.SIGTERM, prev_sigterm)
+    with cudnn_deterministic(bool(hp["deterministic"])):
+        try:
+            epoch = state.step // steps_per_epoch
+            while epoch < epochs:
+                perm = epoch_permutation(seed, epoch, n).to(device)
+                skip = state.step - epoch * steps_per_epoch
+                seen = 0
+                t0 = time.perf_counter()
+                for i in range(skip, steps_per_epoch):
+                    if crash_at >= 0 and state.step == crash_at:
+                        raise CrashIteration(f"Injected crash at iteration {crash_at}")
+                    if _PREEMPTION.is_set():
+                        _PREEMPTION.clear()
+                        where = ""
+                        if ckpt is not None:
+                            where = f" (checkpoint {ckpt.save(state.step, state.checkpoint())})"
+                        raise Preempted(f"SIGTERM: training stopped at step {state.step}{where}")
+                    idx = perm[i * batch_size:(i + 1) * batch_size]
+                    x = trainset.batch_transform(
+                        images[idx], generator=step_generator(seed, state.step, device))
+                    m = train_step(state, losses, metrics, x, targets[idx], **step_kw)
+                    train_acc.update(m)
+                    seen += batch_size
+                    if state.step % log_every == 0:
+                        flush(state.step)
+                    if ckpt is not None and state.step % save_every == 0:
+                        ckpt.save(state.step, state.checkpoint())
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                dt = time.perf_counter() - t0
+                history["throughput_img_s"].append(seen / dt if dt > 0 else 0.0)
+                epoch += 1
+                val = {}
+                if epoch % validate_every == 0:
+                    val = run_validation()
+                    history["valid"].append({"epoch": epoch, **val})
+                    for lg in loggers:
+                        lg.log_metrics(val, step=state.step)
+                    key = f"valid_{next(iter(metrics))}"
+                    if ckpt is not None and key in val:
+                        ckpt.update_best(state.step, val[key], state.checkpoint())
+                _logger.info("epoch %d/%d  %.1f img/s  %s", epoch, epochs,
+                             history["throughput_img_s"][-1],
+                             " ".join(f"{k}={v:.4f}" for k, v in val.items()))
+            flush(state.step)
+        finally:
+            _PREEMPTION.clear()
+            if prev_sigterm is not None:
+                signal.signal(signal.SIGTERM, prev_sigterm)
     history["total_time_s"] = time.perf_counter() - t_start
     history["steps"] = state.step
     history["output_path"] = str(out_dir)

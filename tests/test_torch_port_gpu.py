@@ -201,3 +201,129 @@ def test_vit_on_card_matches_cpu(cuda):
     got = pred(x)
     assert flash_attention_fwd.launches - before == 2 * pred.forwards == 4
     np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
+
+
+# --------------------------------------------------------------------------- #
+# K1: fused augment + normalize; F1 on the card
+# --------------------------------------------------------------------------- #
+
+AUG_TOL = 1e-5  # absolute, noise off: the same integer grey level and quotients
+MEAN, STD = (0.491, 0.482, 0.447), (0.247, 0.243, 0.261)
+
+
+def _aug_inputs(dev, n, h, w, seed=0):
+    from deepcv_tpu_torch.data import transforms  # noqa: F401  (registers names)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u8 = torch.randint(0, 256, (n, h, w, 3), generator=g, device=dev, dtype=torch.uint8)
+    facs = [0.6 + 0.8 * torch.rand((n,), generator=g, device=dev) for _ in range(3)]
+    facs.append(torch.exp(0.2 * torch.randn((n,), generator=g, device=dev)))
+    return u8, facs
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 5, 7), (16, 32, 32), (2, 224, 224),
+                                   (4096, 32, 32)])
+def test_k1_matches_plain(cuda, shape):
+    from deepcv_tpu_torch.ops.kernels.fused_augment import (
+        fused_augment_normalize, plain_fused_augment_normalize)
+
+    u8, facs = _aug_inputs(cuda, *shape)
+    before = fused_augment_normalize.launches
+    got = fused_augment_normalize(u8, *facs, None, MEAN, STD)
+    ref = plain_fused_augment_normalize(u8, *facs, None, MEAN, STD)
+    torch.cuda.synchronize()
+    assert fused_augment_normalize.launches == before + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert (got - ref).abs().max().item() <= AUG_TOL
+    half = fused_augment_normalize(u8, *facs, None, MEAN, STD, out_dtype=torch.bfloat16)
+    assert half.dtype == torch.bfloat16
+    # one bf16 rounding of values within AUG_TOL of each other
+    assert (half.float() - ref).abs().max().item() <= 2 ** -8 * ref.abs().max().item() + AUG_TOL
+
+
+def test_k1_neutral_factors_are_pure_preprocess_on_card(cuda):
+    from deepcv_tpu_torch.data.transforms import normalize, to_tensor
+    from deepcv_tpu_torch.ops.kernels.fused_augment import fused_augment_normalize
+
+    u8, _ = _aug_inputs(cuda, 8, 17, 19)
+    ones = [torch.ones(8, device=cuda)] * 4
+    got = fused_augment_normalize(u8, *ones, None, MEAN, STD)
+    assert (got - normalize(to_tensor(u8), MEAN, STD)).abs().max().item() <= AUG_TOL
+
+
+def test_k1_noise_statistics_and_seeding(cuda):
+    from deepcv_tpu_torch.ops.kernels.fused_augment import fused_augment_normalize
+
+    n = 512
+    grey = torch.full((n, 32, 32, 3), 128, dtype=torch.uint8, device=cuda)
+    ones = [torch.ones(n, device=cuda)] * 4
+    sigma = torch.full((n,), 0.1, device=cuda)
+    sigma[n // 2:] = 0.0
+    zero, one = (0.0,) * 3, (1.0,) * 3
+    clean = fused_augment_normalize(grey, *ones, None, zero, one)
+    a = fused_augment_normalize(grey, *ones, sigma, zero, one, seed=3)
+    b = fused_augment_normalize(grey, *ones, sigma, zero, one,
+                                seed=torch.tensor([3], device=cuda))
+    c = fused_augment_normalize(grey, *ones, sigma, zero, one, seed=4)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert torch.equal(a[n // 2:], clean[n // 2:])
+    d = (a - clean)[: n // 2].double()
+    # 786,432 draws: the mean's std is 1.1e-4, the std's relative error 8e-4
+    assert abs(d.mean().item()) < 6e-4 and abs(d.std().item() / 0.1 - 1) < 5e-3
+
+
+def test_k1_refuses_what_it_does_not_take_on_card(cuda):
+    from deepcv_tpu_torch.ops.kernels.fused_augment import fused_augment_normalize
+
+    u8, facs = _aug_inputs(cuda, 2, 4, 4)
+    with pytest.raises(ValueError, match="3-channel"):
+        fused_augment_normalize(u8[..., :1].contiguous(), *facs, None, MEAN[:1], STD[:1])
+    with pytest.raises(ValueError, match="images on"):
+        fused_augment_normalize(u8, facs[0].cpu(), *facs[1:], None, MEAN, STD)
+
+
+def test_k1_route_on_card_launches_once_per_batch(cuda):
+    from deepcv_tpu_torch.data.augmentation import apply_augmentation_recipe
+    from deepcv_tpu_torch.data.preprocess import (
+        PreprocessedDataset, parse_transforms_specification)
+    from deepcv_tpu_torch.ops.kernels.fused_augment import fused_augment_normalize
+
+    recipe = apply_augmentation_recipe({"transforms": [
+        {"brightness": 0.2}, {"contrast": 0.1}, {"tweak_colors": 0.1}, {"gamma": 0.05},
+        {"noise": 0.1}]})
+    ds = PreprocessedDataset(None, parse_transforms_specification(
+        ["to_tensor", {"normalize": {"mean": list(MEAN), "std": list(STD)}}]), recipe)
+    u8, _ = _aug_inputs(cuda, 64, 32, 32)
+    before = fused_augment_normalize.launches
+    routes = dict(PreprocessedDataset.batch_transform.routes)
+    for step in range(3):
+        y = ds.batch_transform(u8, torch.Generator(device=cuda).manual_seed(step))
+    torch.cuda.synchronize()
+    assert fused_augment_normalize.launches == before + 3
+    assert PreprocessedDataset.batch_transform.routes["K1"] == routes["K1"] + 3
+    assert y.shape == u8.shape and torch.isfinite(y).all()
+
+
+def test_f1_bf16_backbone_launches_k2_in_bf16(cuda, monkeypatch):
+    from deepcv_tpu_torch.ops import nn as port_nn
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    hp = {"act_fn": "relu", "group_norm": {"num_groups": 4, "eps": 1e-5}, "architecture": [
+        {"conv2d": {"kernel_size": [5, 5], "out_channels": 4, "padding": 2}},
+        {"avg_pooling": ["pool1", {"kernel_size": [2, 2], "stride": [2, 2]}]},
+        {"conv2d": {"kernel_size": [3, 3], "out_channels": 16, "padding": 1}},
+        {"avg_pooling": {"kernel_size": [2, 2], "stride": [2, 2]}},
+        {"dense_link": {"_from": "pool1", "allow_scaling": True}}]}
+    seen = []
+    real = port_nn.fused_conv2d_bias_act
+
+    def spy(x, w, b=None, act=None, *, w_packed=None):
+        seen.append((x.dtype, w.dtype, b.dtype))
+        return real(x, w, b, act, w_packed=w_packed)
+    model = DeepcvModule((32, 32, 3), hp, dtype="bfloat16")
+    monkeypatch.setattr(port_nn, "fused_conv2d_bias_act", spy)
+    before = fused_conv2d_bias_act.launches
+    y = model(torch.rand(8, 32, 32, 3, device=cuda))
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert fused_conv2d_bias_act.launches == before + 2
+    assert seen == [(torch.bfloat16,) * 3] * 2

@@ -107,7 +107,8 @@ from deepcv_tpu_torch.ops.attention import flash_attention
 from deepcv_tpu_torch.ops.kernels import flash_attention as kernels  # noqa
 from deepcv_tpu_torch.pipelines import ProjectContext
 from deepcv_tpu_torch.pipelines import classification, registry  # noqa
-from deepcv_tpu_torch.data import datasets, preprocess  # noqa
+from deepcv_tpu_torch.data import augmentation, datasets, preprocess, transforms  # noqa
+from deepcv_tpu_torch.ops.kernels import fused_augment  # noqa
 from deepcv_tpu_torch.train import checkpoint, losses, metrics, schedules, training  # noqa
 from deepcv_tpu_torch.spec import DeepcvModule
 from deepcv_tpu_torch.spec.zoo import vit_spec
@@ -124,7 +125,9 @@ print(json.dumps({"pipes": pipes, "bad": bad}))
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {"pipes": ["train_resnet50", "train_vit"], "bad": []}
+    assert res == {"pipes": ["preprocess_cifar10", "preprocess_cifar100", "preprocess_mnist",
+                             "train_image_classifier", "train_image_classifier_cifar100",
+                             "train_resnet50", "train_vit"], "bad": []}
 
 
 def test_run_without_device_raises_with_no_card(no_card):

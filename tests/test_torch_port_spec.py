@@ -139,8 +139,9 @@ def test_train_mode_batchnorm_updates_like_jax():
     ([{"conv2d": ["a", {"kernel_size": 3, "out_channels": 4}]},
       {"conv2d": ["a", {"kernel_size": 3, "out_channels": 4}]}], "Duplicate"),
     ([{"conv2d": {"kernel_size": 3, "out_channels": 4, "_from": "x"}}], "undefined"),
-    ([{"_nested_deepcvmodule": {"architecture": [{"flatten": {}}]}}], "not ported"),
+    ([{"_nas_layer_choice": {"_candidates": [{"flatten": {}}]}}], "not ported"),
     ([], "non-empty"),
+    ([{"_nested_deepcvmodule": {"act_fn": "relu"}}], "no 'architecture'"),
 ])
 def test_bad_specs_are_spec_errors_at_build_time(arch, match):
     with pytest.raises(SpecError, match=match):

@@ -75,8 +75,8 @@ def test_synthetic_catalog_entry_and_split_are_the_jax_ones():
     for k in ours:
         np.testing.assert_array_equal(ours[k].images, theirs[k].images)
         np.testing.assert_array_equal(ours[k].targets, theirs[k].targets)
-    with pytest.raises(NotImplementedError, match="cifar10"):
-        load_dataset({"type": "cifar10"})
+    with pytest.raises(NotImplementedError, match="image_folder"):
+        load_dataset({"type": "image_folder"})
 
 
 def test_preprocess_matches_jax(tmp_path):
@@ -93,9 +93,12 @@ def test_preprocess_matches_jax(tmp_path):
         got = ours[k].batch_transform(torch.from_numpy(x)).numpy()
         ref = np.asarray(theirs[k].batch_transform(jnp.asarray(x), augment=False))
         np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="augmentation_recipe"):
+    with pytest.raises(NotImplementedError, match="posterize"):
         preprocess({"trainset": load_dataset(entry)},
-                   dict(params, augmentation_recipe="basic"))
+                   dict(params, augmentation_recipe={"transforms": [{"posterize": 0.05}]}))
+    with pytest.raises(NotImplementedError, match="target_transforms"):
+        preprocess({"trainset": load_dataset(entry)},
+                   dict(params, target_transforms=["to_tensor"]))
     with pytest.raises(NotImplementedError, match="random_crop"):
         preprocess({"trainset": load_dataset(entry)},
                    dict(params, transforms=["random_crop"]))
