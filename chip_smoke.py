@@ -8,7 +8,10 @@ Phases, each printing one JSON line:
 0. device — the card (``nvidia-smi`` name and power limit), torch and CUDA.
 1. build — the port's CUDA kernels (K1, K2, and K3-K5 in one library)
    compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
-   and ``ptxas``'s registers, shared memory and spills.
+   and ``ptxas``'s registers, shared memory and spills; for the flash
+   library also K3's bf16 tensor-core kernel per head dim (registers,
+   spills, its dynamic shared memory) and the ``HMMA`` instructions in the
+   library's SASS (``cuobjdump -sass``), which must be there.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
    conv shapes at batch 64 (plus one ragged case), with and without bias,
    relu and none, float32 and bfloat16, and at image_classifier's conv
@@ -26,12 +29,13 @@ Phases, each printing one JSON line:
    1, 5, 17 and 64 images; every answer is held against the port's CPU path
    on the same weights; K2 must have launched 46 times per forward.
 5. vit_serve — the same for ``vit_spec('b_16', attn_impl='flash')``: K3
-   must have launched 12 times per forward.
+   must have launched 12 times per forward, all on float32 inputs.
 6. vit_train — ``python -m deepcv_tpu_torch run --pipeline=train_vit
    --params vit_model.attn_impl:flash ...`` in this process, at full width
    on the synthetic ``imagenet224`` set (8,192 + 1,024 images), cut to 2
    epochs and no checkpoints: a finite loss, img/s, peak memory, and K3, K4
-   and K5 launches of 12 per step (K3 also 12 per validation forward).
+   and K5 launches of 12 per step (K3 also 12 per validation forward), all
+   on bfloat16 inputs, so K3 on the tensor cores.
 7. augment_kernel — K1 against its plain version (the port's eager chain)
    at 4096x32x32x3 and 256x224x224x3 with random factors, a ragged shape,
    and neutral factors (pure ``to_tensor`` + ``normalize``), noise off,
@@ -68,6 +72,7 @@ import io
 import json
 import math
 import platform
+import re
 import statistics
 import subprocess
 import sys
@@ -88,8 +93,8 @@ from deepcv_tpu_torch.ops.kernels import _build
 from deepcv_tpu_torch.ops.kernels.fused_augment import (
     fused_augment_normalize, plain_fused_augment_normalize)
 from deepcv_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
-    plain_flash_bwd_dkv, plain_flash_bwd_dq, plain_flash_fwd)
+    HEAD_DIMS as FLASH_HEAD_DIMS, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_fwd, plain_flash_bwd_dkv, plain_flash_bwd_dq, plain_flash_fwd)
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
     fused_conv2d_bias_act, plain_conv2d_bias_act)
 from deepcv_tpu_torch.ops.nn import FusedConv2d
@@ -211,6 +216,46 @@ def phase_device():
     return card
 
 
+#: dynamic shared memory of K3's bf16 kernel: 64 q rows and two stages of
+#: 64-key K and V tiles, rows of Dh + 8 bf16 (TcLayout, csrc/flash_attention.cu)
+def tc_smem_bytes(dh):
+    return (64 + 4 * 64) * (dh + 8) * 2
+
+
+def _tc_kernel_stats(log):
+    """Registers and spills of each head dim's flash_fwd_tc_kernel, from
+    ptxas's -v log."""
+    stats, dh = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"flash_fwd_tc_kernelILi(\d+)E", ln)
+        if "Compiling entry" in ln or "Function properties" in ln:
+            dh = int(m.group(1)) if m else None
+        elif dh is not None and "spill" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
+            stats.setdefault(dh, {}).update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+        elif dh is not None and "registers" in ln:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            stats.setdefault(dh, {}).update(
+                registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
+                static_smem_bytes=int(smem.group(1)) if smem else 0,
+                dynamic_smem_bytes=tc_smem_bytes(dh))
+    return stats
+
+
+def _hmma_counts(path):
+    """HMMA (tensor-core) instructions per kernel in a library's SASS."""
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, fn = collections.Counter(), None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :", 1)[1].strip()
+        elif "HMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     """Every kernel library built at once (one nvcc each), then loaded."""
     t0 = time.perf_counter()
@@ -239,9 +284,20 @@ def phase_build():
                 entries = ln.split("'")[1] if "'" in ln else ln
             elif "registers" in ln or "spill" in ln:
                 ptxas.append(f"{entries}: {ln.strip()}" if "registers" in ln else ln.strip())
-        emit({"phase": "build", "kernel": name, "nvcc_s": round(seconds, 3),
-              "wall_s": round(wall, 3), "library": str(path.relative_to(REPO)),
-              "ptxas": ptxas})
+        row = {"phase": "build", "kernel": name, "nvcc_s": round(seconds, 3),
+               "wall_s": round(wall, 3), "library": str(path.relative_to(REPO)),
+               "ptxas": ptxas}
+        if name == "flash_attention":
+            tc = _tc_kernel_stats(log)
+            hmma = _hmma_counts(path)
+            row["k3_bf16_tensor_core_kernel"] = {str(dh): tc.get(dh) for dh in FLASH_HEAD_DIMS}
+            row["hmma"] = {"total": sum(hmma.values()),
+                           "by_kernel": {f: n for f, n in hmma.items() if n}}
+            # log is empty only when the library was built before this run
+            if (log and sorted(tc) != list(FLASH_HEAD_DIMS)) or not any(
+                    "flash_fwd_tc_kernel" in f for f in hmma):
+                raise AssertionError(f"K3's tensor-core kernel: ptxas {tc}, HMMA {dict(hmma)}")
+        emit(row)
 
 
 def _case_tensors(gen, n, h, w, cin, cout, k, dtype):
@@ -625,8 +681,15 @@ def phase_flash_kernels(card):
 def phase_vit_serve(card):
     gpu_model, cpu_model = _bundle_models(vit_spec("b_16", attn_impl="flash"),
                                           "vit_spec('b_16', attn_impl='flash')")
+    flash_attention_fwd.launches_by_dtype = dict.fromkeys(
+        flash_attention_fwd.launches_by_dtype, 0)
     launches = _serve_over_http("vit_serve", gpu_model, cpu_model, flash_attention_fwd,
                                 VIT_BLOCKS, card)
+    # both counts also take the predictor benchmark's forwards after the run
+    if flash_attention_fwd.launches_by_dtype != {"float32": flash_attention_fwd.launches,
+                                                 "bfloat16": 0}:
+        raise AssertionError(f"vit_serve (float32) launched K3 by dtype "
+                             f"{flash_attention_fwd.launches_by_dtype}")
     del gpu_model, cpu_model
     torch.cuda.empty_cache()
     return launches
@@ -646,10 +709,12 @@ def phase_vit_train(card):
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+        c.launches_by_dtype = dict.fromkeys(c.launches_by_dtype, 0)
     t0 = time.perf_counter()
     store = cli.run(argv)
     wall = time.perf_counter() - t0
     k3, k4, k5 = (c.launches for c in counters)
+    by_dtype = {name: dict(c.launches_by_dtype) for name, c in zip(("K3", "K4", "K5"), counters)}
     peak = torch.cuda.max_memory_allocated()
     h = store["train_results"]["history"]
     n_valid = len(store["datasets"]["validset"])
@@ -664,6 +729,10 @@ def phase_vit_train(card):
             k3 != VIT_BLOCKS * (steps + val_forwards):
         raise AssertionError(f"train_vit launches K3 {k3}, K4 {k4}, K5 {k5} for {steps} "
                              f"steps and {val_forwards} validation forwards")
+    # bf16 autocast: every launch takes the bf16 route, K3's on the tensor cores
+    if any(d != {"float32": 0, "bfloat16": n}
+           for d, n in zip(by_dtype.values(), (k3, k4, k5))):
+        raise AssertionError(f"train_vit launches by dtype {by_dtype}")
     tput = h["throughput_img_s"]
     emit({"phase": "vit_train", "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
           "cut": {"epochs": f"10 -> {TRAIN_EPOCHS}", "checkpoints": "off (save_every_iters 0)"},
@@ -672,6 +741,7 @@ def phase_vit_train(card):
           "valid": h["valid"][-1], "throughput_img_s": tput,
           "step_ms": batch / tput[-1] * 1e3, "wall_s": wall,
           "launches": {"K3": k3, "K4": k4, "K5": k5},
+          "launches_by_dtype": by_dtype,
           "launches_per_step": {"K3": (k3 - VIT_BLOCKS * val_forwards) / steps,
                                 "K4": k4 / steps, "K5": k5 / steps},
           "validation_forwards": val_forwards,
@@ -699,7 +769,6 @@ def flash_kernel_lines(rows, serve_launches, train_launches, card):
              {"vit_train": train_launches["K5"]},
              f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
              f"N,H,T,Dh {train_row['shape_n_h_t_dh']})")):
-        k = row[kind]
         errs = row["max_abs_err"]
         max_abs = max(errs[x] for x in ({"fwd": ("o", "lse"), "dq": ("dq",),
                                          "dkv": ("dk", "dv")}[kind]))
@@ -707,11 +776,29 @@ def flash_kernel_lines(rows, serve_launches, train_launches, card):
             "name": name, "route": "cuda", "source": "deepcv_tpu_torch/csrc/flash_attention.cu",
             "replaces": src, "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": max_abs,
-            "ms": VIT_BLOCKS * k["ms"], "plain_ms": VIT_BLOCKS * k["plain_ms"],
-            "bound_ms": VIT_BLOCKS * k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": VIT_BLOCKS * row["library_fwd_ms"] if kind == "fwd" else None,
-            "per": per, "card": card})
+            **_per_unit(row, kind), "per": per, "card": card})
+    # K3's two routes: float32 on the CUDA cores per serving forward (the
+    # entry's own numbers) and bfloat16 on the tensor cores per train step
+    lines[0]["routes"] = {
+        "float32": {"kernel": "flash_fwd_kernel (CUDA cores)",
+                    "launches": serve_launches, **_per_unit(serve, "fwd"),
+                    "max_abs_err": max(serve["max_abs_err"][x] for x in ("o", "lse")),
+                    "per": lines[0]["per"]},
+        "bfloat16": {"kernel": "flash_fwd_tc_kernel (tensor cores, mma.sync)",
+                     "launches": train_launches["K3"], **_per_unit(train_row, "fwd"),
+                     "max_abs_err": max(train_row["max_abs_err"][x] for x in ("o", "lse")),
+                     "per": f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 "
+                            f"launches at N,H,T,Dh {train_row['shape_n_h_t_dh']})"}}
     return lines
+
+
+def _per_unit(row, kind):
+    """A flash_kernels row's per-launch numbers times the 12 launches of one
+    ViT-B/16 forward or step."""
+    k = row[kind]
+    return {"ms": VIT_BLOCKS * k["ms"], "plain_ms": VIT_BLOCKS * k["plain_ms"],
+            "bound_ms": VIT_BLOCKS * k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": VIT_BLOCKS * row["library_fwd_ms"] if kind == "fwd" else None}
 
 
 # --------------------------------------------------------------------------- #

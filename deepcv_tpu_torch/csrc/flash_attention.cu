@@ -2,7 +2,8 @@
 // backward kernels (K4: dQ, K5: dK and dV), with no mask and no dropout.
 //
 // Replaces the TPU kernels of deepcv_tpu/ops/attention.py:
-//   K3 flash_fwd_kernel      <- _flash_kernel (called by _flash_fwd_impl)
+//   K3 flash_fwd_kernel (f32),
+//      flash_fwd_tc_kernel (bf16) <- _flash_kernel (called by _flash_fwd_impl)
 //   K4 flash_bwd_dq_kernel   <- _flash_bwd_dq_kernel (called by _flash_bwd_impl)
 //   K5 flash_bwd_dkv_kernel  <- _flash_bwd_dkv_kernel (called by _flash_bwd_impl)
 // q, k, v, o, dO, dQ, dK, dV are (B, T, Dh) row-major with B = batch * heads;
@@ -19,11 +20,44 @@
 // What bounds them on an H100 SXM: each reads q, k, v (and dO, lse, delta)
 // once and writes its outputs once, 4 (K3), 5 (K4) and 7 (K5) * B * T^2 * Dh
 // FLOPs (the TPU kernels' cost estimates). ViT-B/16 (T = 197, Dh = 64) does
-// ~100 FLOPs per byte, so the bound is the arithmetic rate: 989 TFLOP/s for
-// bf16 on the tensor cores, 67 TFLOP/s for float32 outside them.
+// ~100 FLOPs per byte: in float32 (67 TFLOP/s outside the tensor cores) the
+// bound is the arithmetic rate; in bf16 (989 TFLOP/s on the tensor cores)
+// it is the bytes, about 295 FLOPs per byte being the card's balance point.
 //
-// This first design is simple and makes no claim on that bound. It runs on
-// the CUDA cores in float32 whatever the input type:
+// K3 on bfloat16 inputs: flash_fwd_tc_kernel, on the tensor cores.
+//   Bound at ViT's training shape (B = 256 * 12, T = 197, Dh = 64): 310 MB
+//   read and written, 0.093 ms at 3.35 TB/s, against 30.5 GFLOP, 0.031 ms at
+//   989 TFLOP/s: bytes. So the design reads each operand once from device
+//   memory and keeps the scores in registers:
+//   - a block of 4 warps owns 64 q rows, a warp 16 (one m16 tile); the grid
+//     is 1-D over (head, q-block) with a head's q-blocks adjacent, so they
+//     read the head's K and V from L2 rather than device memory; a warp
+//     whose 16 rows all lie past T does no arithmetic (it still loads and
+//     meets the block's barriers);
+//   - K and V stream in 64-key tiles into shared memory by cp.async (16 B a
+//     thread, zero-fill past T), two stages, so the next tile loads while
+//     this one computes; rows are padded by 16 B so the 8 rows of one
+//     ldmatrix fall in distinct banks;
+//   - S = Q K^T and O += P V by mma.sync m16n8k16 bf16 -> f32: Q's
+//     fragments stay in registers for the whole loop, K comes by ldmatrix, V
+//     by ldmatrix.trans, and P goes from the S accumulator straight into A
+//     fragments (bf16x2 pairs); the row max and sum reduce over the 4 lanes
+//     of a quad;
+//   - numerics: S, m, l and O in f32; the scale is applied to the f32
+//     scores (folded with log2(e) into exp2f's argument; q * scale is never
+//     rounded to bf16); only P is rounded to bf16 before P V, l sums the f32
+//     p; keys past T inside a computed n8 fragment get the finite score
+//     -1e30, and fragments wholly past T are not computed;
+//   - every head dim in HEAD_DIMS is an instantiation; the buffers are
+//     dynamic shared memory (87 KB at Dh = 128, set by cudaFuncSetAttribute
+//     in the launcher).
+//   mma.sync and not wgmma: the shape is bound by bytes, and mma.sync's
+//   peak (roughly half of wgmma's) is still some 10 times what the bytes
+//   allow here; wgmma, TMA and warp specialisation are for a later design,
+//   if this one ends far from its bound.
+//
+// K3 on float32 inputs, K4 and K5 in both types: the first design, on the
+// CUDA cores in float32:
 //   - a block owns 64 rows (q rows for K3/K4, key rows for K5); each row is
 //     shared by Dh/16 threads, each holding 16 of the row's dims in
 //     registers as four float4 chunks interleaved across the threads (chunk
@@ -39,9 +73,7 @@
 //     exp(-inf - -inf) = NaN, as attention.py:95-100 explains); K4 and K5
 //     set p = 0 for keys (K4) and q rows (K5) past T.
 // The TPU kernels' 8-lane lse layout (a Mosaic tiling constraint) is not
-// carried over: lse and delta are plain (B, T) float32. Tensor cores
-// (wgmma), TMA and a pipelined producer/consumer split are what would close
-// the gap to the bound; they come later.
+// carried over: lse and delta are plain (B, T) float32.
 //
 // Plain C interface, no PyTorch headers: the wrappers in
 // deepcv_tpu_torch/ops/kernels/flash_attention.py load the library with
@@ -50,6 +82,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -227,6 +262,259 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
+// ------------------------------------------------- K3, bf16, tensor cores //
+constexpr int TC_WARPS = 4;
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_BK = 64;  // keys per tile
+
+// shared-memory layout of flash_fwd_tc_kernel: the block's Q rows, then two
+// stages of K and V tiles; rows padded by 8 elements (16 B)
+template <int DH>
+struct TcLayout {
+  static constexpr int LD = DH + 8;
+  static constexpr int Q = ROWS * LD;
+  static constexpr int TILE = TC_BK * LD;
+  static constexpr int BYTES = (Q + 4 * TILE) * (int)sizeof(__nv_bfloat16);
+  // blocks per SM the registers must leave room for: shared memory allows 4
+  // up to Dh = 64 (46 KB each) and 2 at Dh = 128 (87 KB); asking for 4 at
+  // Dh = 128 would cap it at 128 registers and spill
+  static constexpr int MIN_BLOCKS = DH <= 64 ? 4 : 2;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = in ? 16 : 0;  // 0: write 16 zero bytes, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col), d f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// rows [r0, r0 + nrows) of a (t_len, DH) matrix into shared memory with row
+// stride DH + 8, by cp.async; rows at or past t_len are zero-filled
+template <int DH, int NROWS>
+__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                        int r0, int t_len, int tid) {
+  constexpr int CPR = DH / 8;  // 16-byte chunks per row
+  constexpr int LD = DH + 8;
+  static_assert((NROWS * CPR) % TC_THREADS == 0, "chunks must split evenly");
+#pragma unroll
+  for (int i = 0; i < NROWS * CPR / TC_THREADS; ++i) {
+    const int c = tid + i * TC_THREADS;
+    const int r = c / CPR, ch = c % CPR;
+    const bool in = r0 + r < t_len;
+    cp_async16(dst + r * LD + ch * 8, src + (long long)(in ? r0 + r : 0) * DH + ch * 8, in);
+  }
+}
+
+// Lane l of a warp holds, in an m16n8 accumulator, rows g = l / 4 and g + 8
+// and columns 2c, 2c + 1 with c = l % 4 ([0..1] row g, [2..3] row g + 8).
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS, TcLayout<DH>::MIN_BLOCKS)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int t_len, int n_qblocks, float scale) {
+  using L = TcLayout<DH>;
+  constexpr int LD = L::LD;
+  constexpr int KS = DH / 16;    // k16 steps over the head dim
+  constexpr int NK = TC_BK / 8;  // n8 key fragments of a tile
+  constexpr int ND = DH / 8;     // n8 head-dim fragments of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + L::Q;
+  __nv_bfloat16* vs = ks + 2 * L::TILE;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long bh = blockIdx.x / n_qblocks;
+  const int q0 = (int)(blockIdx.x % n_qblocks) * ROWS;
+  const long long base = bh * t_len * DH;
+  const int n_tiles = (t_len + TC_BK - 1) / TC_BK;
+  const bool live = q0 + warp * 16 < t_len;
+  // scores are raw q.k in f32; p = 2^((s - m) * scale * log2(e))
+  const float sl2 = scale * 1.4426950408889634f;
+
+  cp_rows<DH, ROWS>(qs, q + base, q0, t_len, tid);
+  cp_async_commit();
+  cp_rows<DH, TC_BK>(ks, k + base, 0, t_len, tid);
+  cp_rows<DH, TC_BK>(vs, v + base, 0, t_len, tid);
+  cp_async_commit();
+
+  // ldmatrix row addresses: lane l supplies row l % 8 of matrix l / 8
+  const int mi = lane / 8, mr = lane % 8;
+  uint32_t qf[KS][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      const int nxt = (t + 1) & 1;
+      cp_rows<DH, TC_BK>(ks + nxt * L::TILE, k + base, (t + 1) * TC_BK, t_len, tid);
+      cp_rows<DH, TC_BK>(vs + nxt * L::TILE, v + base, (t + 1) * TC_BK, t_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (t == 0) {
+        // Q's A fragments: matrices (rows 0-7 | 8-15) x (dims 0-7 | 8-15)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qf[kk], qs + (warp * 16 + mr + (mi & 1) * 8) * LD + kk * 16 + (mi >> 1) * 8);
+      }
+      const __nv_bfloat16* kt = ks + (t & 1) * L::TILE;
+      const __nv_bfloat16* vt = vs + (t & 1) * L::TILE;
+      const int nlive = t_len - t * TC_BK;  // keys of this tile before T (>= 1)
+
+      // S = Q K^T over this tile's key fragments that hold a key before T
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < NK / 2; ++jj) {
+        if (jj * 16 >= nlive) break;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          // matrices: keys (0-7 | 8-15) x dims (0-7 | 8-15) of this group
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + (jj * 16 + mr + (mi >> 1) * 8) * LD + kk * 16 + (mi & 1) * 8);
+          mma_bf16(s[2 * jj], qf[kk], b[0], b[1]);
+          if (jj * 16 + 8 < nlive) mma_bf16(s[2 * jj + 1], qf[kk], b[2], b[3]);
+        }
+      }
+      if (nlive < TC_BK) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const int key = j * 8 + 2 * c;
+          if (key >= nlive) s[j][0] = s[j][2] = kMaskScore;
+          if (key + 1 >= nlive) s[j][1] = s[j][3] = kMaskScore;
+        }
+      }
+
+      // online softmax: new running max, rescale, p in f32
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float a0 = exp2f((m0 - mx0) * sl2), a1 = exp2f((m1 - mx1) * sl2);
+      m0 = mx0;
+      m1 = mx1;
+      const float mb0 = mx0 * sl2, mb1 = mx1 * sl2;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= a0;
+        acc[n][1] *= a0;
+        acc[n][2] *= a1;
+        acc[n][3] *= a1;
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        s[j][0] = exp2f(fmaf(s[j][0], sl2, -mb0));
+        s[j][1] = exp2f(fmaf(s[j][1], sl2, -mb0));
+        s[j][2] = exp2f(fmaf(s[j][2], sl2, -mb1));
+        s[j][3] = exp2f(fmaf(s[j][3], sl2, -mb1));
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+
+      // O += P V over 16-key steps that hold a key before T; P's A fragment
+      // for keys 16kk.. is the S accumulators of fragments 2kk and 2kk + 1
+#pragma unroll
+      for (int kk = 0; kk < NK / 2; ++kk) {
+        if (kk * 16 >= nlive) break;
+        const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                                pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                                pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int n = 0; n < ND / 2; ++n) {
+          // matrices: keys (0-7 | 8-15) x dims (0-7 | 8-15), transposed
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, vt + (kk * 16 + mr + (mi & 1) * 8) * LD + n * 16 + (mi >> 1) * 8);
+          mma_bf16(acc[2 * n], pa, b[0], b[1]);
+          mma_bf16(acc[2 * n + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage read here is the one the next tile fills
+  }
+  if (!live) return;
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int d = n * 8 + 2 * c;
+    if (r0 < t_len)
+      *reinterpret_cast<__nv_bfloat162*>(o + base + (long long)r0 * DH + d) =
+          __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (r1 < t_len)
+      *reinterpret_cast<__nv_bfloat162*>(o + base + (long long)r1 * DH + d) =
+          __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  if (c == 0) {
+    if (r0 < t_len) lse[bh * t_len + r0] = m0 * scale + logf(l0);
+    if (r1 < t_len) lse[bh * t_len + r1] = m1 * scale + logf(l1);
+  }
+}
+
 // ---------------------------------------------------------------- K4 ---- //
 template <typename T, int DH>
 __global__ void __launch_bounds__(ROWS * (DH / DPT))
@@ -348,6 +636,24 @@ struct Args {
   float scale;
 };
 
+// K3 on bf16: one block per (head, 64 q rows), a head's q-blocks adjacent
+template <int DH>
+cudaError_t launch_fwd_tc(const Args& a, cudaStream_t st) {
+  const int n_qblocks = (a.t_len + ROWS - 1) / ROWS;
+  if ((long long)a.bh * n_qblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  constexpr int smem = TcLayout<DH>::BYTES;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  flash_fwd_tc_kernel<DH><<<(unsigned)(a.bh * n_qblocks), TC_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o),
+      static_cast<float*>(a.lse_out), a.t_len, n_qblocks, a.scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int DH>
 cudaError_t launch(int which, const Args& a, cudaStream_t st) {
   const dim3 grid((unsigned)a.bh, (unsigned)((a.t_len + ROWS - 1) / ROWS));
@@ -356,8 +662,12 @@ cudaError_t launch(int which, const Args& a, cudaStream_t st) {
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   if (which == 0) {
-    flash_fwd_kernel<T, DH><<<grid, block, 0, st>>>(
-        q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), a.t_len, a.scale);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      return launch_fwd_tc<DH>(a, st);
+    } else {
+      flash_fwd_kernel<T, DH><<<grid, block, 0, st>>>(
+          q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), a.t_len, a.scale);
+    }
   } else if (which == 1) {
     flash_bwd_dq_kernel<T, DH><<<grid, block, 0, st>>>(
         q, k, v, static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),

@@ -13,7 +13,8 @@ the kernels on an H100 and what this design does about it. The
 Layout: q, k, v, o, dO (N, H, T, Dh) in float32 or bfloat16; lse and delta
 (N, H, T) float32. Outputs take the input's dtype.
 
-Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises);
+Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises;
+K3 has a tensor-core kernel for bfloat16 and a CUDA-core one for float32);
 a CPU or meta tensor takes the plain version, which computes the same
 function in float32 with the (T, T) scores materialised.
 """
@@ -130,6 +131,7 @@ def _launch(name: str, wrapper, args, q: torch.Tensor) -> None:
         raise RuntimeError(f"{name} failed: CUDA error {err} (q {tuple(q.shape)}, "
                            f"{q.dtype})")
     wrapper.launches += 1
+    wrapper.launches_by_dtype[str(q.dtype).removeprefix("torch.")] += 1
 
 
 def _dispatch(device: torch.device, name: str):
@@ -141,7 +143,9 @@ def _dispatch(device: torch.device, name: str):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: ``(o, lse)`` of :func:`plain_flash_fwd`. On a CUDA tensor this
-    launches the kernel and adds one to ``flash_attention_fwd.launches``."""
+    launches the kernel (bfloat16: the tensor-core kernel; float32: the
+    CUDA-core one) and adds one to ``flash_attention_fwd.launches`` and to
+    ``flash_attention_fwd.launches_by_dtype[dtype name]``."""
     _check((q, k, v))
     if not _dispatch(q.device, "flash_attention_fwd"):
         return plain_flash_fwd(q, k, v)
@@ -179,8 +183,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta
     return dk, dv
 
 
-#: launches of each CUDA kernel in this process (each wrapper adds one per
-#: successful launch and nowhere else)
-flash_attention_fwd.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+#: launches of each CUDA kernel in this process, in all and by input dtype
+#: (each wrapper adds one to both per successful launch and nowhere else)
+for _wrapper in (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+del _wrapper

@@ -3,8 +3,10 @@ against the JAX package's Pallas kernels (interpret mode on the CPU, as
 tests/test_attention.py runs them), the port's ``flash_attention``
 autograd.Function against ``jax.grad`` of the JAX one, the wrappers'
 dispatch and checks, the attention modules against their JAX counterparts
-and the CUDA source's interface. The CUDA kernels themselves run only on a
-card (tests/test_torch_port_gpu.py)."""
+the CUDA source's interface, and an emulation of the bf16 tensor-core
+forward's arithmetic. The CUDA kernels themselves run only on a card
+(tests/test_torch_port_gpu.py)."""
+import math
 import re
 
 import jax
@@ -24,6 +26,11 @@ from deepcv_tpu_torch.ops.kernels.flash_attention import (
 KERNEL_TOL = 1e-5  # f32: the plain versions vs the Pallas kernels
 GRAD_RTOL = 1e-3   # gradients through the autograd.Function vs jax.grad
 MODULE_TOL = 1e-4  # module outputs, the bound of tests/test_torch_parity.py
+# K3 on bf16 (the tensor-core kernel's arithmetic) vs the plain version,
+# relative to max|ref|: o is rounded to bf16 once and P once before P.V,
+# within a bf16 ulp (2**-7); lse is f32 throughout, another sum order
+FLASH_BF16_TOL = 1e-2
+LSE_TOL = 2e-5
 
 
 def _qkv(t, dh=16, n=2, h=3, seed=0, k=4):
@@ -97,8 +104,9 @@ def test_xla_and_sdpa_match_jax():
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     q, k, v, g = _t(*_qkv(9, seed=5))
-    before = [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
-                                   flash_attention_bwd_dkv)]
+    wrappers = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    before = [f.launches for f in wrappers]
+    by_dtype = [dict(f.launches_by_dtype) for f in wrappers]
     o, lse = flash_attention_fwd(q, k, v)
     o_p, lse_p = plain_flash_fwd(q, k, v)
     assert torch.equal(o, o_p) and torch.equal(lse, lse_p)
@@ -108,8 +116,8 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     for a, b in zip(flash_attention_bwd_dkv(q, k, v, g, lse, delta),
                     plain_flash_bwd_dkv(q, k, v, g, lse, delta)):
         assert torch.equal(a, b)
-    assert [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
-                                 flash_attention_bwd_dkv)] == before
+    assert [f.launches for f in wrappers] == before
+    assert [f.launches_by_dtype for f in wrappers] == by_dtype
 
 
 def test_wrappers_check_their_operands():
@@ -141,6 +149,79 @@ def test_cuda_source_exports_the_three_launchers_with_the_wrappers_arity():
         assert m, name
         assert len(m.group(1).split(",")) == n, name
     assert "-1e30f" in src and "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+# --------------------------------------------------------------------------- #
+# K3 on bf16: the tensor-core kernel's arithmetic, emulated
+# --------------------------------------------------------------------------- #
+
+def _emulate_tc_fwd(q, k, v, rows=64, keys=64):
+    """What ``flash_fwd_tc_kernel`` (csrc/flash_attention.cu) computes for
+    bf16 (N, H, T, Dh) inputs, in torch: blocks of 64 q rows, 64-key tiles
+    padded past T with the score -1e30 and zero V rows, the online
+    recurrence on raw f32 scores with the scale folded with log2(e) into
+    exp2, l summing the f32 p, P rounded to bf16 before P.V; o in bf16,
+    lse = m * scale + log(l) in f32."""
+    n, h, t, dh = q.shape
+    scale = np.float32(1.0 / math.sqrt(dh))
+    sl2 = float(scale * np.float32(1.4426950408889634))
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o = torch.empty(n, h, t, dh)
+    lse = torch.empty(n, h, t)
+    for r0 in range(0, t, rows):
+        qb = qf[:, :, r0:r0 + rows]
+        m = torch.full(qb.shape[:3], -math.inf)
+        l = torch.zeros(qb.shape[:3])
+        acc = torch.zeros(qb.shape)
+        for k0 in range(0, t, keys):
+            kt, vt = kf[:, :, k0:k0 + keys], vf[:, :, k0:k0 + keys]
+            s = torch.matmul(qb, kt.transpose(-1, -2))
+            pad = keys - kt.shape[2]
+            s = torch.nn.functional.pad(s, (0, pad), value=-1e30)
+            vt = torch.nn.functional.pad(vt, (0, 0, 0, pad))
+            mx = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2((m - mx) * sl2)
+            p = torch.exp2(s * sl2 - (mx * sl2).unsqueeze(-1))
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha.unsqueeze(-1) + torch.matmul(p.bfloat16().float(), vt)
+            m = mx
+        o[:, :, r0:r0 + rows] = acc / l.unsqueeze(-1)
+        lse[:, :, r0:r0 + rows] = m * float(scale) + torch.log(l)
+    return o.bfloat16(), lse
+
+
+def _bf16_qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+                 for _ in range(3))
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return np.abs(got - ref).max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 197, 64)]
+                         + [(1, 2, t, 64) for t in (1, 5, 64, 65, 130)]
+                         + [(1, 2, 197, dh) for dh in (16, 32, 128)])
+def test_tensor_core_fwd_arithmetic_matches_plain(shape):
+    q, k, v = _bf16_qkv(shape, seed=10)
+    o, lse = _emulate_tc_fwd(q, k, v)
+    o_ref, lse_ref = plain_flash_fwd(q, k, v)
+    assert o.dtype == o_ref.dtype == torch.bfloat16 and lse.shape == shape[:3]
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert _rel(o.float(), o_ref.float()) <= FLASH_BF16_TOL
+    assert _rel(lse, lse_ref) <= LSE_TOL
+
+
+def test_tensor_core_fwd_arithmetic_matches_pallas_interpret():
+    q, k, v = _bf16_qkv((1, 2, 197, 64), seed=11)
+    jq, jk, jv = (jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16) for x in (q, k, v))
+    o_j, lse_j = jatt._flash_fwd_impl(jq, jk, jv, return_lse=True)
+    assert o_j.dtype == jnp.bfloat16
+    o, lse = _emulate_tc_fwd(q, k, v)
+    assert _rel(o.float(), np.asarray(o_j, np.float32)) <= FLASH_BF16_TOL
+    assert _rel(lse, np.asarray(lse_j)) <= LSE_TOL
 
 
 # --------------------------------------------------------------------------- #

@@ -10,6 +10,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from deepcv_tpu_torch.ops.kernels.flash_attention import HEAD_DIMS
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
     fused_conv2d_bias_act, plain_conv2d_bias_act)
 
@@ -119,26 +120,39 @@ def _flash_err(got, ref):
     return diff / top if top > 1e-6 else diff
 
 
-def _flash_inputs(dev, n, h, t, dh, dtype, seed=0):
+def _flash_inputs(dev, n, h, t, dh, dtype, seed=0, permuted=False):
+    """q, k, v, dO (N, H, T, Dh); ``permuted``: as non-contiguous views of
+    (N, T, H, Dh) tensors, as a packed qkv projection gives them."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, do = (torch.randn((n, h, t, dh), generator=g, device=dev).to(dtype)
-                   for _ in range(4))
-    return q, k, v, do
+    shape = (n, t, h, dh) if permuted else (n, h, t, dh)
+    xs = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+    return tuple(x.permute(0, 2, 1, 3) if permuted else x for x in xs)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, FLASH_F32_TOL),
-                                       (torch.bfloat16, FLASH_BF16_TOL)])
-@pytest.mark.parametrize("shape", [(2, 3, 1, 64), (2, 3, 17, 64), (4, 12, 197, 64),
-                                   (1, 2, 1024, 64), (2, 2, 77, 16), (2, 2, 130, 32),
-                                   (1, 2, 200, 128)])
-def test_flash_kernels_match_plain(cuda, dtype, tol, shape):
+FLASH_SHAPES = [(2, 3, 1, 64), (2, 3, 17, 64), (4, 12, 197, 64), (1, 2, 1024, 64),
+                (2, 2, 77, 16), (2, 2, 130, 32), (1, 2, 200, 128)]
+#: bf16 (K3 on the tensor cores): T around the 16-row warp tiles, the 64-row
+#: q-blocks and 64-key tiles, and their n8 fragments, at every head dim
+FLASH_BF16_SHAPES = [(1, 2, t, dh) for dh in HEAD_DIMS
+                     for t in (1, 5, 16, 63, 64, 65, 128, 197, 1000)]
+FLASH_CASES = ([(torch.float32, FLASH_F32_TOL, s, False) for s in FLASH_SHAPES]
+               + [(torch.bfloat16, FLASH_BF16_TOL, s, False)
+                  for s in FLASH_SHAPES + FLASH_BF16_SHAPES]
+               + [(torch.bfloat16, FLASH_BF16_TOL, (2, 12, 197, 64), True)])
+
+
+@pytest.mark.parametrize("dtype,tol,shape,permuted", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, dtype, tol, shape, permuted):
     from deepcv_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
         plain_flash_bwd_dkv, plain_flash_bwd_dq, plain_flash_fwd)
 
-    q, k, v, do = _flash_inputs(cuda, *shape, dtype)
+    q, k, v, do = _flash_inputs(cuda, *shape, dtype, permuted=permuted)
+    assert q.is_contiguous() != permuted
     counts = [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
                                    flash_attention_bwd_dkv)]
+    by_dtype = dict(flash_attention_fwd.launches_by_dtype)
+    name = str(dtype).removeprefix("torch.")
     o, lse = flash_attention_fwd(q, k, v)
     o_ref, lse_ref = plain_flash_fwd(q, k, v)
     delta = (do.float() * o_ref.float()).sum(-1)
@@ -149,12 +163,35 @@ def test_flash_kernels_match_plain(cuda, dtype, tol, shape):
     torch.cuda.synchronize()
     assert [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
                                  flash_attention_bwd_dkv)] == [c + 1 for c in counts]
+    assert flash_attention_fwd.launches_by_dtype == {**by_dtype, name: by_dtype[name] + 1}
     assert lse.dtype == torch.float32 and lse.shape == shape[:3]
+    assert torch.isfinite(lse).all()
     assert _flash_err(lse, lse_ref) <= FLASH_F32_TOL
     for got, ref in zip((o, dq, dk, dv), refs):
         assert got.dtype == dtype and got.shape == ref.shape
         assert torch.isfinite(got.float()).all()
         assert _flash_err(got, ref) <= tol
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("t", [1, 65, 129])
+def test_flash_fwd_bf16_padded_key_tiles_give_no_nan(cuda, t, dh):
+    """The last (at T = 1 the only) 64-key tile holds one key and 63 of
+    padding: 7 of its 8 n8 fragments skipped, 7 keys masked in the eighth.
+    Scaled scores have a standard deviation of 64 (|s| up to a few hundred),
+    whose exp overflows f32 unless the running max is subtracted."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, plain_flash_fwd)
+
+    q, k, v, _ = _flash_inputs(cuda, 2, 3, t, dh, torch.float32, seed=1)
+    q, k = (x * 8.0 for x in (q, k))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    o, lse = flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = plain_flash_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert _flash_err(o, o_ref) <= FLASH_BF16_TOL
+    assert _flash_err(lse, lse_ref) <= FLASH_F32_TOL
 
 
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
@@ -181,6 +218,29 @@ def test_flash_attention_autograd_on_card_matches_cpu(cuda):
         grads.append([o.detach().cpu()] + [t.grad.cpu() for t in (qi, ki, vi)])
     for g_card, g_cpu in zip(*grads):
         assert _rel(g_card, g_cpu) <= 1e-4
+
+
+def test_flash_attention_bf16_autograd_on_card_matches_cpu(cuda):
+    """K3 on the tensor cores, then K4 and K5 from its o and lse, against the
+    plain versions on the CPU. The card's o may differ from the CPU's by one
+    bf16 ulp, which reaches the gradients through delta = rowsum(dO o)."""
+    from deepcv_tpu_torch.ops.attention import flash_attention
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+
+    wrappers = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    q, k, v, do = _flash_inputs(cuda, 2, 12, 197, 64, torch.bfloat16)
+    before = [w.launches_by_dtype["bfloat16"] for w in wrappers]
+    grads = []
+    for dev in ("cuda", "cpu"):
+        qi, ki, vi = (t.detach().to(dev).requires_grad_() for t in (q, k, v))
+        o = flash_attention(qi, ki, vi)
+        o.backward(do.to(dev))
+        grads.append([o.detach().cpu()] + [t.grad.cpu() for t in (qi, ki, vi)])
+    assert [w.launches_by_dtype["bfloat16"] for w in wrappers] == [b + 1 for b in before]
+    for g_card, g_cpu in zip(*grads):
+        assert g_card.dtype == torch.bfloat16 and torch.isfinite(g_card.float()).all()
+        assert _flash_err(g_card, g_cpu) <= FLASH_BF16_TOL
 
 
 def test_vit_on_card_matches_cpu(cuda):
