@@ -9,9 +9,10 @@ Phases, each printing one JSON line:
 1. build — the port's CUDA kernels (K1, K2, and K3-K5 in one library)
    compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
    and ``ptxas``'s registers, shared memory and spills; for the flash
-   library also K3's bf16 tensor-core kernel per head dim (registers,
-   spills, its dynamic shared memory) and the ``HMMA`` instructions in the
-   library's SASS (``cuobjdump -sass``), which must be there.
+   library also the bf16 tensor-core kernels of K3, K4 and K5 per head dim
+   (registers, spills, dynamic shared memory) and the ``HMMA`` instructions
+   in the library's SASS (``cuobjdump -sass``), which must be in all three;
+   no bf16 CUDA-core kernel may be compiled.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
    conv shapes at batch 64 (plus one ragged case), with and without bias,
    relu and none, float32 and bfloat16, and at image_classifier's conv
@@ -21,8 +22,9 @@ Phases, each printing one JSON line:
 3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
    attention shapes (batch 64 and the training batch 256, 12 heads, T 197,
    Dh 64), a ragged T and T = 1024, float32 and bfloat16: error relative to
-   max|ref|, times, bounds, and ``F.scaled_dot_product_attention`` forward
-   and forward + backward as the yardstick.
+   max|ref|, times, bounds, and ``F.scaled_dot_product_attention`` forward,
+   forward + backward and their difference, the backward alone (the one
+   call that computes K4's and K5's work together), as the yardstick.
 4. serve — ``resnet_spec(50)`` at 224x224x3, 1000 classes, weights from a
    seed: bundle saved and loaded, ``Predictor`` at batch 64 behind the
    port's ``InferenceServer``; four client threads POST ``.npy`` batches of
@@ -35,7 +37,10 @@ Phases, each printing one JSON line:
    on the synthetic ``imagenet224`` set (8,192 + 1,024 images), cut to 2
    epochs and no checkpoints: a finite loss, img/s, peak memory, and K3, K4
    and K5 launches of 12 per step (K3 also 12 per validation forward), all
-   on bfloat16 inputs, so K3 on the tensor cores.
+   on bfloat16 inputs, so all three on the tensor cores. Then one more
+   epoch, validation off, under ``torch.profiler`` (``vit_train_profile``):
+   device time per step by kernel group, the ten largest kernels, and the
+   device's idle share of the unprofiled step.
 7. augment_kernel — K1 against its plain version (the port's eager chain)
    at 4096x32x32x3 and 256x224x224x3 with random factors, a ragged shape,
    and neutral factors (pure ``to_tensor`` + ``normalize``), noise off,
@@ -216,34 +221,42 @@ def phase_device():
     return card
 
 
-#: dynamic shared memory of K3's bf16 kernel: 64 q rows and two stages of
-#: 64-key K and V tiles, rows of Dh + 8 bf16 (TcLayout, csrc/flash_attention.cu)
-def tc_smem_bytes(dh):
-    return (64 + 4 * 64) * (dh + 8) * 2
+#: dynamic shared memory of the bf16 tensor-core kernels, rows of Dh + 8
+#: bf16 (TcLayout and BwdLayout, csrc/flash_attention.cu): K3 holds 64 q
+#: rows and two stages of 64-key K and V tiles; K4 64 q and dO rows and the
+#: same stages; K5 64 K and V rows, two stages of 64-row Q and dO tiles and
+#: of their lse and delta (f32)
+TC_KERNELS = {
+    "flash_fwd_tc_kernel": lambda dh: (64 + 4 * 64) * (dh + 8) * 2,
+    "flash_bwd_dq_tc_kernel": lambda dh: (2 * 64 + 4 * 64) * (dh + 8) * 2,
+    "flash_bwd_dkv_tc_kernel": lambda dh: (2 * 64 + 4 * 64) * (dh + 8) * 2 + 2 * 2 * 64 * 4,
+}
 
 
 def _tc_kernel_stats(log):
-    """Registers and spills of each head dim's flash_fwd_tc_kernel, from
-    ptxas's -v log."""
-    stats, dh = {}, None
+    """Registers and spills of each tensor-core kernel per head dim, from
+    ptxas's -v log: {kernel: {dh: {...}}}."""
+    stats, key = {}, None
     for ln in log.splitlines():
-        m = re.search(r"flash_fwd_tc_kernelILi(\d+)E", ln)
         if "Compiling entry" in ln or "Function properties" in ln:
-            dh = int(m.group(1)) if m else None
-        elif dh is not None and "spill" in ln:
+            m = re.search("(" + "|".join(TC_KERNELS) + r")ILi(\d+)E", ln)
+            key = (m.group(1), int(m.group(2))) if m else None
+        elif key is not None and "spill" in ln:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
-            stats.setdefault(dh, {}).update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
-        elif dh is not None and "registers" in ln:
+            stats.setdefault(key[0], {}).setdefault(key[1], {}).update(
+                spill_store_bytes=int(st), spill_load_bytes=int(ld))
+        elif key is not None and "registers" in ln:
             smem = re.search(r"(\d+) bytes smem", ln)
-            stats.setdefault(dh, {}).update(
+            stats.setdefault(key[0], {}).setdefault(key[1], {}).update(
                 registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
                 static_smem_bytes=int(smem.group(1)) if smem else 0,
-                dynamic_smem_bytes=tc_smem_bytes(dh))
+                dynamic_smem_bytes=TC_KERNELS[key[0]](key[1]))
     return stats
 
 
 def _hmma_counts(path):
-    """HMMA (tensor-core) instructions per kernel in a library's SASS."""
+    """HMMA (tensor-core) instructions per kernel in a library's SASS, for
+    every kernel it holds (0 where there is none)."""
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
@@ -251,6 +264,7 @@ def _hmma_counts(path):
     for ln in sass.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :", 1)[1].strip()
+            counts[fn] += 0
         elif "HMMA" in ln:
             counts[fn] += 1
     return counts
@@ -290,13 +304,21 @@ def phase_build():
         if name == "flash_attention":
             tc = _tc_kernel_stats(log)
             hmma = _hmma_counts(path)
-            row["k3_bf16_tensor_core_kernel"] = {str(dh): tc.get(dh) for dh in FLASH_HEAD_DIMS}
+            row["bf16_tensor_core_kernels"] = {
+                kern: {str(dh): tc.get(kern, {}).get(dh) for dh in FLASH_HEAD_DIMS}
+                for kern in TC_KERNELS}
             row["hmma"] = {"total": sum(hmma.values()),
                            "by_kernel": {f: n for f, n in hmma.items() if n}}
+            # every bf16 kernel is a tensor-core one: no CUDA-core kernel is
+            # instantiated for __nv_bfloat16 (mangled "I13__nv_bfloat16")
+            cuda_core_bf16 = [f for f in hmma if "_kernelI13__nv_bfloat16" in f]
             # log is empty only when the library was built before this run
-            if (log and sorted(tc) != list(FLASH_HEAD_DIMS)) or not any(
-                    "flash_fwd_tc_kernel" in f for f in hmma):
-                raise AssertionError(f"K3's tensor-core kernel: ptxas {tc}, HMMA {dict(hmma)}")
+            missing = [kern for kern in TC_KERNELS
+                       if (log and sorted(tc.get(kern, {})) != list(FLASH_HEAD_DIMS))
+                       or not any(kern in f and n for f, n in hmma.items())]
+            if missing or cuda_core_bf16:
+                raise AssertionError(f"tensor-core kernels {missing} lack ptxas stats or HMMA "
+                                     f"({dict(hmma)}); bf16 CUDA-core kernels {cuda_core_bf16}")
         emit(row)
 
 
@@ -664,6 +686,9 @@ def phase_flash_kernels(card):
                    "shape_n_h_t_dh": [n, VIT_HEADS, t, VIT_DH], "dtype": dtype,
                    "rel_err": errs, "max_abs_err": abs_errs, "tol": tol,
                    "library_fwd_ms": lib_fwd, "library_fwd_bwd_ms": lib_fwd_bwd,
+                   # the backward alone: dQ, dK and dV in one call, K4's and
+                   # K5's work together
+                   "library_bwd_ms": lib_fwd_bwd - lib_fwd,
                    "card": card}
             for kind, (ms, plain_ms) in times.items():
                 bound_ms, bound_by = flash_bound(kind, n * VIT_HEADS, t, VIT_DH, dtype)
@@ -695,26 +720,37 @@ def phase_vit_serve(card):
     return launches
 
 
-def phase_vit_train(card):
-    """train_vit through the port's ``run``, in this process, so the kernels'
-    counts read here are the run's."""
-    out_dir = _build.BUILD_DIR / "vit_train"
-    cut = {"train_resnet50.epochs": TRAIN_EPOCHS, "train_resnet50.save_every_iters": 0,
+FLASH_COUNTERS = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+
+
+def _run_train_vit(label, epochs, *extra):
+    """``run --pipeline=train_vit`` in this process with the flash kernels'
+    counts set to 0 just before and read just after. Returns the store, the
+    argv, the wall time and the counts by kernel and by dtype."""
+    cut = {"train_resnet50.epochs": epochs, "train_resnet50.save_every_iters": 0,
            "train_resnet50.log_progress_every_iters": 1,
-           "train_resnet50.output_path": str(out_dir)}
+           "train_resnet50.output_path": str(_build.BUILD_DIR / label)}
     argv = ["--pipeline=train_vit", "--project-path", str(REPO),
-            "--params", ",".join([f"vit_model.attn_impl:flash"]
+            "--params", ",".join(["vit_model.attn_impl:flash", *extra]
                                  + [f"{k}:{v}" for k, v in cut.items()])]
-    counters = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
+    for c in FLASH_COUNTERS:
         c.launches = 0
         c.launches_by_dtype = dict.fromkeys(c.launches_by_dtype, 0)
     t0 = time.perf_counter()
     store = cli.run(argv)
     wall = time.perf_counter() - t0
-    k3, k4, k5 = (c.launches for c in counters)
-    by_dtype = {name: dict(c.launches_by_dtype) for name, c in zip(("K3", "K4", "K5"), counters)}
+    counts = {name: c.launches for name, c in zip(("K3", "K4", "K5"), FLASH_COUNTERS)}
+    by_dtype = {name: dict(c.launches_by_dtype)
+                for name, c in zip(("K3", "K4", "K5"), FLASH_COUNTERS)}
+    return store, argv, wall, counts, by_dtype
+
+
+def phase_vit_train(card):
+    """train_vit through the port's ``run``, in this process, so the kernels'
+    counts read here are the run's."""
+    torch.cuda.reset_peak_memory_stats()
+    store, argv, wall, counts, by_dtype = _run_train_vit("vit_train", TRAIN_EPOCHS)
+    k3, k4, k5 = counts["K3"], counts["K4"], counts["K5"]
     peak = torch.cuda.max_memory_allocated()
     h = store["train_results"]["history"]
     n_valid = len(store["datasets"]["validset"])
@@ -729,17 +765,18 @@ def phase_vit_train(card):
             k3 != VIT_BLOCKS * (steps + val_forwards):
         raise AssertionError(f"train_vit launches K3 {k3}, K4 {k4}, K5 {k5} for {steps} "
                              f"steps and {val_forwards} validation forwards")
-    # bf16 autocast: every launch takes the bf16 route, K3's on the tensor cores
+    # bf16 autocast: every launch takes the bf16 route, on the tensor cores
     if any(d != {"float32": 0, "bfloat16": n}
            for d, n in zip(by_dtype.values(), (k3, k4, k5))):
         raise AssertionError(f"train_vit launches by dtype {by_dtype}")
     tput = h["throughput_img_s"]
+    step_ms = batch / tput[-1] * 1e3
     emit({"phase": "vit_train", "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
           "cut": {"epochs": f"10 -> {TRAIN_EPOCHS}", "checkpoints": "off (save_every_iters 0)"},
           "batch": batch, "steps": steps, "train_images": len(store["datasets"]["trainset"]),
           "valid_images": n_valid, "first_loss": losses[0], "last_loss": losses[-1],
           "valid": h["valid"][-1], "throughput_img_s": tput,
-          "step_ms": batch / tput[-1] * 1e3, "wall_s": wall,
+          "step_ms": step_ms, "wall_s": wall,
           "launches": {"K3": k3, "K4": k4, "K5": k5},
           "launches_by_dtype": by_dtype,
           "launches_per_step": {"K3": (k3 - VIT_BLOCKS * val_forwards) / steps,
@@ -748,12 +785,43 @@ def phase_vit_train(card):
           "peak_memory_gib": peak / 2 ** 30, "card": card})
     del store
     torch.cuda.empty_cache()
-    return {"K3": k3, "K4": k4, "K5": k5}
+    return {"K3": k3, "K4": k4, "K5": k5}, step_ms
+
+
+def phase_vit_train_profile(card, step_ms):
+    """Where a train_vit step's device time goes: one more epoch, validation
+    off, under torch.profiler (its host overhead makes that epoch's wall
+    time no measure; the kernels' device times are), against the unprofiled
+    step time of ``vit_train``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        store, _, _, counts, _ = _run_train_vit(
+            "vit_train_profile", 1, "train_resnet50.validate_every_epochs:1000")
+        torch.cuda.synchronize()
+    h = store["train_results"]["history"]
+    steps = h["steps"]
+    if h["valid"] or counts != dict.fromkeys(("K3", "K4", "K5"), VIT_BLOCKS * steps):
+        raise AssertionError(f"vit_train_profile: {counts} launches for {steps} steps, "
+                             f"validation {h['valid']}")
+    groups, top = _profile_groups(prof, VIT_PROFILE_GROUPS)
+    upload = groups.pop("upload", 0.0)     # the dataset and weights, once per run
+    busy = sum(groups.values()) / steps
+    emit({"phase": "vit_train_profile", "steps": steps,
+          "device_ms_per_step": {g: ms / steps for g, ms in groups.most_common()},
+          "upload_ms_per_run": upload,
+          "device_busy_ms_per_step": busy, "step_ms_unprofiled": step_ms,
+          "device_idle_share": 1.0 - busy / step_ms,
+          "top_kernels_ms_per_step": [[name[:160], ms / steps, cnt] for name, ms, cnt in top],
+          "launches": counts, "card": card})
+    del store, prof
+    torch.cuda.empty_cache()
 
 
 def flash_kernel_lines(rows, serve_launches, train_launches, card):
     """K3 per ViT-B/16 forward at the serving batch (f32), K4 and K5 per
-    train step (bf16, batch 256): 12 launches each."""
+    train step (bf16, batch 256): 12 launches each. Each entry's ``routes``
+    give both dtypes' kernels; K4's and K5's f32 route runs on no main path
+    and is timed at the serving shape."""
     serve, train_row = rows[("vit_serve", "float32")], rows[("vit_train", "bfloat16")]
     lines = []
     for name, kind, row, src, launches, per in (
@@ -777,28 +845,44 @@ def flash_kernel_lines(rows, serve_launches, train_launches, card):
             "replaces": src, "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": max_abs,
             **_per_unit(row, kind), "per": per, "card": card})
-    # K3's two routes: float32 on the CUDA cores per serving forward (the
-    # entry's own numbers) and bfloat16 on the tensor cores per train step
-    lines[0]["routes"] = {
-        "float32": {"kernel": "flash_fwd_kernel (CUDA cores)",
-                    "launches": serve_launches, **_per_unit(serve, "fwd"),
-                    "max_abs_err": max(serve["max_abs_err"][x] for x in ("o", "lse")),
-                    "per": lines[0]["per"]},
-        "bfloat16": {"kernel": "flash_fwd_tc_kernel (tensor cores, mma.sync)",
-                     "launches": train_launches["K3"], **_per_unit(train_row, "fwd"),
-                     "max_abs_err": max(train_row["max_abs_err"][x] for x in ("o", "lse")),
-                     "per": f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 "
-                            f"launches at N,H,T,Dh {train_row['shape_n_h_t_dh']})"}}
+    # both routes of each: float32 on the CUDA cores (K3: per serving
+    # forward, the entry's own numbers) and bfloat16 on the tensor cores per
+    # train step (K4, K5: the entries' own numbers)
+    train_per = (f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
+                 f"N,H,T,Dh {train_row['shape_n_h_t_dh']})")
+    outs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
+    for line, kind, kern, k, f32_launches, f32_per in (
+            (lines[0], "fwd", "flash_fwd", "K3", serve_launches, lines[0]["per"]),
+            (lines[1], "dq", "flash_bwd_dq", "K4", 0, None),
+            (lines[2], "dkv", "flash_bwd_dkv", "K5", 0, None)):
+        line["routes"] = {
+            "float32": {"kernel": f"{kern}_kernel (CUDA cores)", "launches": f32_launches,
+                        **_per_unit(serve, kind),
+                        "max_abs_err": max(serve["max_abs_err"][x] for x in outs[kind]),
+                        "per": f32_per or (f"12 launches at N,H,T,Dh "
+                                           f"{serve['shape_n_h_t_dh']}, float32 (no main "
+                                           "path runs it)")},
+            "bfloat16": {"kernel": f"{kern}_tc_kernel (tensor cores, mma.sync)",
+                         "launches": train_launches[k],
+                         **_per_unit(train_row, kind),
+                         "max_abs_err": max(train_row["max_abs_err"][x] for x in outs[kind]),
+                         "per": train_per}}
     return lines
 
 
 def _per_unit(row, kind):
     """A flash_kernels row's per-launch numbers times the 12 launches of one
-    ViT-B/16 forward or step."""
+    ViT-B/16 forward or step. The library's time for K4 and for K5 is its
+    whole backward, the one call that computes both kernels' work."""
     k = row[kind]
-    return {"ms": VIT_BLOCKS * k["ms"], "plain_ms": VIT_BLOCKS * k["plain_ms"],
-            "bound_ms": VIT_BLOCKS * k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": VIT_BLOCKS * row["library_fwd_ms"] if kind == "fwd" else None}
+    out = {"ms": VIT_BLOCKS * k["ms"], "plain_ms": VIT_BLOCKS * k["plain_ms"],
+           "bound_ms": VIT_BLOCKS * k["bound_ms"], "bound_by": k["bound_by"],
+           "library_ms": VIT_BLOCKS * row["library_fwd_ms" if kind == "fwd"
+                                          else "library_bwd_ms"]}
+    if kind != "fwd":
+        out["library_note"] = ("F.scaled_dot_product_attention's backward, one call for "
+                               "dQ, dK and dV: K4's and K5's work together")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1015,9 +1099,25 @@ PROFILE_GROUPS = (("K1", ("fused_augment_normalize",)),
                   ("elementwise", ("elementwise", "vectorized", "unrolled")))
 
 
-def _profile_groups(prof):
+#: PROFILE_GROUPS for a ViT step: the three flash kernels, the matmuls (and
+#: the patch embedding's conv) in cuBLAS (its ``nvjet`` kernels) and cuDNN,
+#: then the rest
+VIT_PROFILE_GROUPS = (("K3", ("flash_fwd",)), ("K4", ("flash_bwd_dq",)),
+                      ("K5", ("flash_bwd_dkv",)),
+                      ("gemm_conv", ("nvjet", "gemm", "Gemm", "cutlass", "xmma", "sm90_",
+                                     "cudnn")),
+                      ("layer_norm", ("layer_norm", "LayerNorm", "GammaBeta")),
+                      ("gelu", ("gelu", "Gelu", "GeLU")),
+                      ("softmax_loss", ("softmax", "nll_loss", "cross_entropy")),
+                      ("optimizer", ("multi_tensor", "sgd", "SGD")),
+                      *((g, f) for g, f in PROFILE_GROUPS
+                        if g in ("reduce", "upload", "copy", "elementwise")))
+
+
+def _profile_groups(prof, table=PROFILE_GROUPS):
     """Device time (ms) of every kernel in a torch.profiler run, summed by
-    PROFILE_GROUPS, and the ten largest kernels."""
+    the groups of ``table`` (the first group a name matches), and the ten
+    largest kernels."""
     kernels = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) is None or "CUDA" not in str(e.device_type):
@@ -1029,8 +1129,7 @@ def _profile_groups(prof):
             kernels.append((e.key, us / 1e3, e.count))
     groups = collections.Counter()
     for name, ms, _ in kernels:
-        group = next((g for g, frags in PROFILE_GROUPS if any(f in name for f in frags)),
-                     "other")
+        group = next((g for g, frags in table if any(f in name for f in frags)), "other")
         groups[group] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:10]
     return groups, top
@@ -1144,7 +1243,8 @@ def main() -> int:
     flash_rows = phase_flash_kernels(card)
     k2_line = phase_serve(card)
     serve_launches = phase_vit_serve(card)
-    train_launches = phase_vit_train(card)
+    train_launches, vit_step_ms = phase_vit_train(card)
+    phase_vit_train_profile(card, vit_step_ms)
     aug_rows = phase_augment_kernel(card)
     classifier_counts = phase_classifier_train(card)
     augment_counts, _ = phase_augment_train(card, aug_rows, k2_rows)

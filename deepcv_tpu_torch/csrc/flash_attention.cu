@@ -3,9 +3,11 @@
 //
 // Replaces the TPU kernels of deepcv_tpu/ops/attention.py:
 //   K3 flash_fwd_kernel (f32),
-//      flash_fwd_tc_kernel (bf16) <- _flash_kernel (called by _flash_fwd_impl)
-//   K4 flash_bwd_dq_kernel   <- _flash_bwd_dq_kernel (called by _flash_bwd_impl)
-//   K5 flash_bwd_dkv_kernel  <- _flash_bwd_dkv_kernel (called by _flash_bwd_impl)
+//      flash_fwd_tc_kernel (bf16)     <- _flash_kernel (called by _flash_fwd_impl)
+//   K4 flash_bwd_dq_kernel (f32),
+//      flash_bwd_dq_tc_kernel (bf16)  <- _flash_bwd_dq_kernel (called by _flash_bwd_impl)
+//   K5 flash_bwd_dkv_kernel (f32),
+//      flash_bwd_dkv_tc_kernel (bf16) <- _flash_bwd_dkv_kernel (called by _flash_bwd_impl)
 // q, k, v, o, dO, dQ, dK, dV are (B, T, Dh) row-major with B = batch * heads;
 // lse and delta are (B, T) float32. The scale is 1/sqrt(Dh).
 //
@@ -56,8 +58,45 @@
 //   allow here; wgmma, TMA and warp specialisation are for a later design,
 //   if this one ends far from its bound.
 //
-// K3 on float32 inputs, K4 and K5 in both types: the first design, on the
-// CUDA cores in float32:
+// K4 and K5 on bfloat16 inputs: flash_bwd_dq_tc_kernel and
+// flash_bwd_dkv_tc_kernel, on the tensor cores with K3's plumbing.
+//   Bound at ViT's training shape: bytes, 392 MB (K4) and 470 MB (K5) read
+//   and written, 0.117 and 0.140 ms at 3.35 TB/s, against 38 and 53 GFLOP,
+//   0.039 and 0.054 ms at 989 TFLOP/s. So again every operand is read once
+//   from device memory and P, dP and dS live only in registers:
+//   - K4 (dQ): a block of 4 warps owns 64 q rows, a warp 16; Q's and dO's A
+//     fragments, and the rows' lse * log2(e) and delta, stay in registers;
+//     K and V stream in 64-key tiles (cp.async, two stages, zero-fill past
+//     T, rows padded by 16 B). Per 16 keys: S = Q K^T and dP = dO V^T (K and
+//     V by ldmatrix), P = exp2(S * scale * log2(e) - lse * log2(e)),
+//     dS = P (dP - delta), then dQ += dS K (K by ldmatrix.trans) with dS
+//     packed from the accumulators into A fragments; dQ * scale written
+//     once. K5 (dK, dV): a block owns 64 key rows; K's and V's A fragments
+//     stay in registers; Q, dO and the tile's lse and delta stream in
+//     64-row tiles. Per 16 q rows: S^T = K Q^T, dP^T = V dO^T (Q and dO by
+//     ldmatrix), P^T with lse per column, dS^T, then dV += P^T dO and
+//     dK += dS^T Q (dO and Q by ldmatrix.trans); dK * scale and dV written
+//     once. Both grids are 1-D over (head, row block), a head's blocks
+//     adjacent, so the streamed operands come from L2.
+//   - The tile is walked 16 rows (K4: keys, K5: q rows) at a time, one k16
+//     step of the second products, rather than a whole 64-row tile of S and
+//     dP at once: 16 accumulator registers live instead of 64, which keeps
+//     K4 at 4 blocks per SM (16 warps) at Dh <= 64.
+//   - numerics (FlashAttention-2's): S, dP, P, dS and the dQ, dK, dV
+//     accumulators in f32; only P and dS are rounded to bf16, and only as
+//     A operands of the second products; the scale is folded into exp2f's
+//     FMA on the raw f32 scores. P = 0 for keys past T (K4) and q rows
+//     past T (K5), by a select after exp2f, and whole n8 fragments past T
+//     are not computed. Zero-filled rows make V and dO NaN-free. Rows that
+//     a block owns past T (lse and delta read as 0 in K4) compute finite or
+//     unused values that never reach memory: an mma's output row depends on
+//     its A row alone; a warp whose 16 rows all lie past T does no
+//     arithmetic but loads and meets every barrier.
+//   - shared memory: K4 holds its Q and dO rows plus two stages of K and V
+//     (55 KB at Dh = 64, 104 KB at 128), K5 the mirror plus two stages of
+//     lse and delta (1 KB more): dynamic, as K3's.
+//
+// K3, K4 and K5 on float32 inputs: the first design, on the CUDA cores:
 //   - a block owns 64 rows (q rows for K3/K4, key rows for K5); each row is
 //     shared by Dh/16 threads, each holding 16 of the row's dims in
 //     registers as four float4 chunks interleaved across the threads (chunk
@@ -65,7 +104,7 @@
 //     banks; dot products are summed across the row's threads with xor
 //     shuffles inside aligned lane groups;
 //   - the streamed operand (k and v, or q, dO, lse and delta) is staged in
-//     shared memory one tile of 4096 / Dh rows at a time, widened to f32;
+//     shared memory one tile of 4096 / Dh rows at a time;
 //   - T needs no padding in memory: tile loads past T read zeros, rows past
 //     T are computed but never stored, and chunks of keys that lie wholly
 //     past T are skipped. Inside a partial chunk, K3 gives the keys past T
@@ -92,6 +131,7 @@ constexpr int ROWS = 64;          // rows a block owns
 constexpr int DPT = 16;           // head dims per thread
 constexpr int TILE_ELEMS = 4096;  // f32 elements of one staged tile (16 KB)
 constexpr float kMaskScore = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
 
@@ -99,21 +139,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(p);
-  h[0] = __floats2bfloat162_rn(v.x, v.y);
-  h[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
 __device__ __forceinline__ float4 smem4(const float* p) {
@@ -377,7 +404,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int n_tiles = (t_len + TC_BK - 1) / TC_BK;
   const bool live = q0 + warp * 16 < t_len;
   // scores are raw q.k in f32; p = 2^((s - m) * scale * log2(e))
-  const float sl2 = scale * 1.4426950408889634f;
+  const float sl2 = scale * kLog2e;
 
   cp_rows<DH, ROWS>(qs, q + base, q0, t_len, tid);
   cp_async_commit();
@@ -515,6 +542,324 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
+// ------------------------------------------- K4 and K5, bf16, tensor cores //
+// shared-memory layout of the two backward kernels: the 64 rows a block owns
+// of two operands (K4: Q, dO; K5: K, V), then two stages of 64-row tiles of
+// the two it streams (K4: K, V; K5: Q, dO), rows padded by 8 elements; K5
+// adds two stages of the tile's lse and delta (f32)
+template <int DH>
+struct BwdLayout {
+  static constexpr int LD = DH + 8;
+  static constexpr int OWN = ROWS * LD;
+  static constexpr int TILE = TC_BK * LD;
+  static constexpr int DQ_BYTES = (2 * OWN + 4 * TILE) * (int)sizeof(__nv_bfloat16);
+  static constexpr int STATS = 2 * TC_BK;  // lse then delta, f32, one stage
+  static constexpr int DKV_BYTES = DQ_BYTES + 2 * STATS * (int)sizeof(float);
+  // blocks per SM the registers must leave room for; shared memory allows 4
+  // up to Dh = 64 and 2 at Dh = 128
+  static constexpr int DQ_MIN_BLOCKS = DH <= 64 ? 4 : 2;
+  static constexpr int DKV_MIN_BLOCKS = DH <= 32 ? 4 : DH == 64 ? 3 : 2;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = in ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+// lse (thread < 64) and delta (thread >= 64) of rows [r0, r0 + 64) into one
+// stage of K5's statistics, by cp.async; rows at or past t_len read as 0
+__device__ __forceinline__ void cp_stats(float* dst, const float* __restrict__ lse,
+                                         const float* __restrict__ delta, int r0, int t_len,
+                                         int tid) {
+  static_assert(TC_THREADS == 2 * TC_BK, "one statistic per thread");
+  const int r = tid % TC_BK;
+  const bool in = r0 + r < t_len;
+  cp_async4(dst + tid, (tid < TC_BK ? lse : delta) + (in ? r0 + r : 0), in);
+}
+
+// K4 on bf16. Lane l holds, in an m16n8 accumulator, rows g = l / 4 and
+// g + 8 and columns 2c, 2c + 1 with c = l % 4, as in flash_fwd_tc_kernel.
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS, BwdLayout<DH>::DQ_MIN_BLOCKS)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dq, int t_len, int n_qblocks, float scale) {
+  using L = BwdLayout<DH>;
+  constexpr int LD = L::LD;
+  constexpr int KS = DH / 16;     // k16 steps over the head dim
+  constexpr int NC = TC_BK / 16;  // 16-key chunks of a tile
+  constexpr int ND = DH / 8;      // n8 head-dim fragments of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* dos = qs + L::OWN;
+  __nv_bfloat16* ks = dos + L::OWN;
+  __nv_bfloat16* vs = ks + 2 * L::TILE;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long bh = blockIdx.x / n_qblocks;
+  const int q0 = (int)(blockIdx.x % n_qblocks) * ROWS;
+  const long long base = bh * t_len * DH;
+  const int n_tiles = (t_len + TC_BK - 1) / TC_BK;
+  const bool live = q0 + warp * 16 < t_len;
+  const float sl2 = scale * kLog2e;
+
+  cp_rows<DH, ROWS>(qs, q + base, q0, t_len, tid);
+  cp_rows<DH, ROWS>(dos, dout + base, q0, t_len, tid);
+  cp_async_commit();
+  cp_rows<DH, TC_BK>(ks, k + base, 0, t_len, tid);
+  cp_rows<DH, TC_BK>(vs, v + base, 0, t_len, tid);
+  cp_async_commit();
+
+  // this lane's rows: lse * log2(e) and delta (0 past T)
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float lb0 = r0 < t_len ? lse[bh * t_len + r0] * kLog2e : 0.f;
+  const float lb1 = r1 < t_len ? lse[bh * t_len + r1] * kLog2e : 0.f;
+  const float d0 = r0 < t_len ? delta[bh * t_len + r0] : 0.f;
+  const float d1 = r1 < t_len ? delta[bh * t_len + r1] : 0.f;
+
+  // ldmatrix row addresses: lane l supplies row l % 8 of matrix l / 8
+  const int mi = lane / 8, mr = lane % 8;
+  uint32_t qf[KS][4], df[KS][4];
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      const int nxt = (t + 1) & 1;
+      cp_rows<DH, TC_BK>(ks + nxt * L::TILE, k + base, (t + 1) * TC_BK, t_len, tid);
+      cp_rows<DH, TC_BK>(vs + nxt * L::TILE, v + base, (t + 1) * TC_BK, t_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (t == 0) {
+        // Q's and dO's A fragments: matrices (rows 0-7 | 8-15) x (dims 0-7 | 8-15)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const int off = (warp * 16 + mr + (mi & 1) * 8) * LD + kk * 16 + (mi >> 1) * 8;
+          ldmatrix_x4(qf[kk], qs + off);
+          ldmatrix_x4(df[kk], dos + off);
+        }
+      }
+      const __nv_bfloat16* kt = ks + (t & 1) * L::TILE;
+      const __nv_bfloat16* vt = vs + (t & 1) * L::TILE;
+      const int nlive = t_len - t * TC_BK;  // keys of this tile before T (>= 1)
+
+#pragma unroll
+      for (int j0 = 0; j0 < NC; ++j0) {
+        if (j0 * 16 >= nlive) break;
+        const bool hi = j0 * 16 + 8 < nlive;  // the second n8 fragment holds a key
+        // S = Q K^T and dP = dO V^T for keys 16 j0 ..; matrices: keys
+        // (0-7 | 8-15) x dims (0-7 | 8-15)
+        float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const int off = (j0 * 16 + mr + (mi >> 1) * 8) * LD + kk * 16 + (mi & 1) * 8;
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + off);
+          mma_bf16(s[0], qf[kk], b[0], b[1]);
+          if (hi) mma_bf16(s[1], qf[kk], b[2], b[3]);
+          ldmatrix_x4(b, vt + off);
+          mma_bf16(dp[0], df[kk], b[0], b[1]);
+          if (hi) mma_bf16(dp[1], df[kk], b[2], b[3]);
+        }
+        // dS = P (dP - delta) in f32, P = 0 for keys past T, packed to bf16
+        // as the A fragment of dS K (keys 2c, 2c + 1 of fragment h are its k
+        // 8h + 2c, 8h + 2c + 1)
+        uint32_t da[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = j0 * 16 + h * 8 + 2 * c;
+          float p0 = exp2f(fmaf(s[h][0], sl2, -lb0)), p1 = exp2f(fmaf(s[h][1], sl2, -lb0));
+          float p2 = exp2f(fmaf(s[h][2], sl2, -lb1)), p3 = exp2f(fmaf(s[h][3], sl2, -lb1));
+          if (key >= nlive) p0 = p2 = 0.f;
+          if (key + 1 >= nlive) p1 = p3 = 0.f;
+          da[2 * h] = pack_bf16x2(p0 * (dp[h][0] - d0), p1 * (dp[h][1] - d0));
+          da[2 * h + 1] = pack_bf16x2(p2 * (dp[h][2] - d1), p3 * (dp[h][3] - d1));
+        }
+        // dQ += dS K; matrices: keys (0-7 | 8-15) x dims (0-7 | 8-15), transposed
+#pragma unroll
+        for (int n = 0; n < ND / 2; ++n) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, kt + (j0 * 16 + mr + (mi & 1) * 8) * LD + n * 16 + (mi >> 1) * 8);
+          mma_bf16(acc[2 * n], da, b[0], b[1]);
+          mma_bf16(acc[2 * n + 1], da, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage read here is the one the next tile fills
+  }
+  if (!live) return;
+
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int d = n * 8 + 2 * c;
+    if (r0 < t_len)
+      *reinterpret_cast<__nv_bfloat162*>(dq + base + (long long)r0 * DH + d) =
+          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
+    if (r1 < t_len)
+      *reinterpret_cast<__nv_bfloat162*>(dq + base + (long long)r1 * DH + d) =
+          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+// K5 on bf16: the accumulators hold key rows g, g + 8 and q columns 2c, 2c + 1
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS, BwdLayout<DH>::DKV_MIN_BLOCKS)
+flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int t_len,
+                        int n_kblocks, float scale) {
+  using L = BwdLayout<DH>;
+  constexpr int LD = L::LD;
+  constexpr int KS = DH / 16;     // k16 steps over the head dim
+  constexpr int NC = TC_BK / 16;  // 16-row chunks of a q tile
+  constexpr int ND = DH / 8;      // n8 head-dim fragments of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* vs = ks + L::OWN;
+  __nv_bfloat16* qs = vs + L::OWN;
+  __nv_bfloat16* dos = qs + 2 * L::TILE;
+  float* stats = reinterpret_cast<float*>(dos + 2 * L::TILE);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long bh = blockIdx.x / n_kblocks;
+  const int k0 = (int)(blockIdx.x % n_kblocks) * ROWS;
+  const long long base = bh * t_len * DH;
+  const float* lse_bh = lse + bh * t_len;
+  const float* delta_bh = delta + bh * t_len;
+  const int n_tiles = (t_len + TC_BK - 1) / TC_BK;
+  const bool live = k0 + warp * 16 < t_len;
+  const float sl2 = scale * kLog2e;
+
+  cp_rows<DH, ROWS>(ks, k + base, k0, t_len, tid);
+  cp_rows<DH, ROWS>(vs, v + base, k0, t_len, tid);
+  cp_async_commit();
+  cp_rows<DH, TC_BK>(qs, q + base, 0, t_len, tid);
+  cp_rows<DH, TC_BK>(dos, dout + base, 0, t_len, tid);
+  cp_stats(stats, lse_bh, delta_bh, 0, t_len, tid);
+  cp_async_commit();
+
+  const int mi = lane / 8, mr = lane % 8;
+  uint32_t kf[KS][4], vf[KS][4];
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      const int nxt = (t + 1) & 1;
+      cp_rows<DH, TC_BK>(qs + nxt * L::TILE, q + base, (t + 1) * TC_BK, t_len, tid);
+      cp_rows<DH, TC_BK>(dos + nxt * L::TILE, dout + base, (t + 1) * TC_BK, t_len, tid);
+      cp_stats(stats + nxt * L::STATS, lse_bh, delta_bh, (t + 1) * TC_BK, t_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      if (t == 0) {
+        // K's and V's A fragments: matrices (rows 0-7 | 8-15) x (dims 0-7 | 8-15)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const int off = (warp * 16 + mr + (mi & 1) * 8) * LD + kk * 16 + (mi >> 1) * 8;
+          ldmatrix_x4(kf[kk], ks + off);
+          ldmatrix_x4(vf[kk], vs + off);
+        }
+      }
+      const __nv_bfloat16* qt = qs + (t & 1) * L::TILE;
+      const __nv_bfloat16* dt = dos + (t & 1) * L::TILE;
+      const float* lt = stats + (t & 1) * L::STATS;
+      const float* et = lt + TC_BK;
+      const int nlive = t_len - t * TC_BK;  // q rows of this tile before T (>= 1)
+
+#pragma unroll
+      for (int i0 = 0; i0 < NC; ++i0) {
+        if (i0 * 16 >= nlive) break;
+        const bool hi = i0 * 16 + 8 < nlive;  // the second n8 fragment holds a q row
+        // S^T = K Q^T and dP^T = V dO^T for q rows 16 i0 ..; matrices: q
+        // rows (0-7 | 8-15) x dims (0-7 | 8-15)
+        float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const int off = (i0 * 16 + mr + (mi >> 1) * 8) * LD + kk * 16 + (mi & 1) * 8;
+          uint32_t b[4];
+          ldmatrix_x4(b, qt + off);
+          mma_bf16(s[0], kf[kk], b[0], b[1]);
+          if (hi) mma_bf16(s[1], kf[kk], b[2], b[3]);
+          ldmatrix_x4(b, dt + off);
+          mma_bf16(dp[0], vf[kk], b[0], b[1]);
+          if (hi) mma_bf16(dp[1], vf[kk], b[2], b[3]);
+        }
+        // P^T with each column's lse and dS^T = P^T (dP^T - delta), in f32;
+        // P = 0 for q rows past T; both packed to bf16 A fragments
+        uint32_t pa[4], da[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int qi = i0 * 16 + h * 8 + 2 * c;
+          const float2 l2 = *reinterpret_cast<const float2*>(lt + qi);
+          const float2 e2 = *reinterpret_cast<const float2*>(et + qi);
+          const float la = l2.x * kLog2e, lb = l2.y * kLog2e;
+          float p0 = exp2f(fmaf(s[h][0], sl2, -la)), p1 = exp2f(fmaf(s[h][1], sl2, -lb));
+          float p2 = exp2f(fmaf(s[h][2], sl2, -la)), p3 = exp2f(fmaf(s[h][3], sl2, -lb));
+          if (qi >= nlive) p0 = p2 = 0.f;
+          if (qi + 1 >= nlive) p1 = p3 = 0.f;
+          pa[2 * h] = pack_bf16x2(p0, p1);
+          pa[2 * h + 1] = pack_bf16x2(p2, p3);
+          da[2 * h] = pack_bf16x2(p0 * (dp[h][0] - e2.x), p1 * (dp[h][1] - e2.y));
+          da[2 * h + 1] = pack_bf16x2(p2 * (dp[h][2] - e2.x), p3 * (dp[h][3] - e2.y));
+        }
+        // dV += P^T dO and dK += dS^T Q; matrices: q rows (0-7 | 8-15) x
+        // dims (0-7 | 8-15), transposed
+#pragma unroll
+        for (int n = 0; n < ND / 2; ++n) {
+          const int off = (i0 * 16 + mr + (mi & 1) * 8) * LD + n * 16 + (mi >> 1) * 8;
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, dt + off);
+          mma_bf16(dva[2 * n], pa, b[0], b[1]);
+          mma_bf16(dva[2 * n + 1], pa, b[2], b[3]);
+          ldmatrix_x4_trans(b, qt + off);
+          mma_bf16(dka[2 * n], da, b[0], b[1]);
+          mma_bf16(dka[2 * n + 1], da, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // the stage read here is the one the next tile fills
+  }
+  if (!live) return;
+
+  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int d = n * 8 + 2 * c;
+    if (r0 < t_len) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + base + (long long)r0 * DH + d) =
+          __floats2bfloat162_rn(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + base + (long long)r0 * DH + d) =
+          __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+    }
+    if (r1 < t_len) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + base + (long long)r1 * DH + d) =
+          __floats2bfloat162_rn(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + base + (long long)r1 * DH + d) =
+          __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- K4 ---- //
 template <typename T, int DH>
 __global__ void __launch_bounds__(ROWS * (DH / DPT))
@@ -636,49 +981,56 @@ struct Args {
   float scale;
 };
 
-// K3 on bf16: one block per (head, 64 q rows), a head's q-blocks adjacent
-template <int DH>
-cudaError_t launch_fwd_tc(const Args& a, cudaStream_t st) {
-  const int n_qblocks = (a.t_len + ROWS - 1) / ROWS;
-  if ((long long)a.bh * n_qblocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  constexpr int smem = TcLayout<DH>::BYTES;
+// a tensor-core kernel: one block of TC_THREADS per (head, 64-row block), a
+// head's blocks adjacent; dynamic shared memory above 48 KB is opted into
+template <typename Kernel, typename... Ptrs>
+cudaError_t launch_tc(Kernel kernel, int smem, const Args& a, cudaStream_t st, Ptrs... ptrs) {
+  const int n_blocks = (a.t_len + ROWS - 1) / ROWS;
+  if ((long long)a.bh * n_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  flash_fwd_tc_kernel<DH><<<(unsigned)(a.bh * n_qblocks), TC_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.o),
-      static_cast<float*>(a.lse_out), a.t_len, n_qblocks, a.scale);
+  kernel<<<(unsigned)(a.bh * n_blocks), TC_THREADS, smem, st>>>(ptrs..., a.t_len, n_blocks,
+                                                                a.scale);
   return cudaGetLastError();
 }
 
+// bfloat16 takes the tensor-core kernels, float32 the CUDA-core ones
 template <typename T, int DH>
 cudaError_t launch(int which, const Args& a, cudaStream_t st) {
-  const dim3 grid((unsigned)a.bh, (unsigned)((a.t_len + ROWS - 1) / ROWS));
-  const dim3 block(ROWS * (DH / DPT));
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  if (which == 0) {
-    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-      return launch_fwd_tc<DH>(a, st);
-    } else {
+  const T* dout = static_cast<const T*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (which == 0)
+      return launch_tc(flash_fwd_tc_kernel<DH>, TcLayout<DH>::BYTES, a, st, q, k, v,
+                       static_cast<T*>(a.o), static_cast<float*>(a.lse_out));
+    if (which == 1)
+      return launch_tc(flash_bwd_dq_tc_kernel<DH>, BwdLayout<DH>::DQ_BYTES, a, st, q, k, v,
+                       dout, lse, delta, static_cast<T*>(a.dq));
+    return launch_tc(flash_bwd_dkv_tc_kernel<DH>, BwdLayout<DH>::DKV_BYTES, a, st, q, k, v,
+                     dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv));
+  } else {
+    const dim3 grid((unsigned)a.bh, (unsigned)((a.t_len + ROWS - 1) / ROWS));
+    const dim3 block(ROWS * (DH / DPT));
+    if (which == 0) {
       flash_fwd_kernel<T, DH><<<grid, block, 0, st>>>(
           q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), a.t_len, a.scale);
+    } else if (which == 1) {
+      flash_bwd_dq_kernel<T, DH><<<grid, block, 0, st>>>(q, k, v, dout, lse, delta,
+                                                         static_cast<T*>(a.dq), a.t_len, a.scale);
+    } else {
+      flash_bwd_dkv_kernel<T, DH><<<grid, block, 0, st>>>(q, k, v, dout, lse, delta,
+                                                          static_cast<T*>(a.dk),
+                                                          static_cast<T*>(a.dv), a.t_len, a.scale);
     }
-  } else if (which == 1) {
-    flash_bwd_dq_kernel<T, DH><<<grid, block, 0, st>>>(
-        q, k, v, static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.t_len, a.scale);
-  } else {
-    flash_bwd_dkv_kernel<T, DH><<<grid, block, 0, st>>>(
-        q, k, v, static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-        static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-        a.t_len, a.scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

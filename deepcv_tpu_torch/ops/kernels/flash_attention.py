@@ -14,7 +14,8 @@ Layout: q, k, v, o, dO (N, H, T, Dh) in float32 or bfloat16; lse and delta
 (N, H, T) float32. Outputs take the input's dtype.
 
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises;
-K3 has a tensor-core kernel for bfloat16 and a CUDA-core one for float32);
+each of K3, K4 and K5 has a tensor-core kernel for bfloat16 and a CUDA-core
+one for float32);
 a CPU or meta tensor takes the plain version, which computes the same
 function in float32 with the (T, T) scores materialised.
 """
@@ -157,8 +158,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:
-    """K4: dQ of :func:`plain_flash_bwd_dq`; counts its launches in
-    ``flash_attention_bwd_dq.launches``."""
+    """K4: dQ of :func:`plain_flash_bwd_dq`. On a CUDA tensor this launches
+    the kernel (bfloat16: the tensor-core kernel; float32: the CUDA-core one)
+    and counts it in ``flash_attention_bwd_dq.launches`` and
+    ``.launches_by_dtype``."""
     _check((q, k, v, dout), (lse, delta))
     if not _dispatch(q.device, "flash_attention_bwd_dq"):
         return plain_flash_bwd_dq(q, k, v, dout, lse, delta)
@@ -171,8 +174,10 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5: ``(dK, dV)`` of :func:`plain_flash_bwd_dkv`; counts its launches
-    in ``flash_attention_bwd_dkv.launches``."""
+    """K5: ``(dK, dV)`` of :func:`plain_flash_bwd_dkv`. On a CUDA tensor
+    this launches the kernel (bfloat16: the tensor-core kernel; float32: the
+    CUDA-core one) and counts it in ``flash_attention_bwd_dkv.launches`` and
+    ``.launches_by_dtype``."""
     _check((q, k, v, dout), (lse, delta))
     if not _dispatch(q.device, "flash_attention_bwd_dkv"):
         return plain_flash_bwd_dkv(q, k, v, dout, lse, delta)

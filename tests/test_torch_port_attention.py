@@ -3,9 +3,9 @@ against the JAX package's Pallas kernels (interpret mode on the CPU, as
 tests/test_attention.py runs them), the port's ``flash_attention``
 autograd.Function against ``jax.grad`` of the JAX one, the wrappers'
 dispatch and checks, the attention modules against their JAX counterparts
-the CUDA source's interface, and an emulation of the bf16 tensor-core
-forward's arithmetic. The CUDA kernels themselves run only on a card
-(tests/test_torch_port_gpu.py)."""
+the CUDA source's interface, and emulations of the bf16 tensor-core
+kernels' arithmetic (the forward, K3, and the backward, K4 and K5). The
+CUDA kernels themselves run only on a card (tests/test_torch_port_gpu.py)."""
 import math
 import re
 
@@ -222,6 +222,85 @@ def test_tensor_core_fwd_arithmetic_matches_pallas_interpret():
     o, lse = _emulate_tc_fwd(q, k, v)
     assert _rel(o.float(), np.asarray(o_j, np.float32)) <= FLASH_BF16_TOL
     assert _rel(lse, np.asarray(lse_j)) <= LSE_TOL
+
+
+# --------------------------------------------------------------------------- #
+# K4 and K5 on bf16: the tensor-core kernels' arithmetic, emulated
+# --------------------------------------------------------------------------- #
+
+def _emulate_tc_bwd(q, k, v, do, lse, delta, step=16):
+    """What ``flash_bwd_dq_tc_kernel`` and ``flash_bwd_dkv_tc_kernel``
+    (csrc/flash_attention.cu) compute for bf16 (N, H, T, Dh) inputs, in
+    torch: raw f32 scores S = q kᵀ and dP = dO vᵀ; P = exp2(S · scale ·
+    log2(e) − lse · log2(e)) and dS = P (dP − δ) in f32; P and dS rounded
+    to bf16 as the A operands of dQ += dS k, dK += dSᵀ q and dV += Pᵀ dO,
+    accumulated in f32 over the kernels' 16-row steps (keys for dQ, q rows
+    for dK and dV) of their 64-row tiles; dQ · scale, dK · scale and dV
+    rounded to bf16. Rows past T are the tiles' zero padding, whose P is 0,
+    so they add nothing and are left out."""
+    t, dh = q.shape[-2:]
+    scale = np.float32(1.0 / math.sqrt(dh))
+    log2e = np.float32(1.4426950408889634)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    p = torch.exp2(s * float(scale * log2e) - (lse * float(log2e)).unsqueeze(-1))
+    ds = p * (dp - delta.unsqueeze(-1))
+    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
+    dq, dk, dv = torch.zeros(qf.shape), torch.zeros(qf.shape), torch.zeros(qf.shape)
+    for j in range(0, t, step):
+        sl = slice(j, j + step)
+        dq += torch.matmul(dsb[..., sl], kf[:, :, sl])
+        dk += torch.matmul(dsb[:, :, sl].transpose(-1, -2), qf[:, :, sl])
+        dv += torch.matmul(pb[:, :, sl].transpose(-1, -2), dof[:, :, sl])
+    return (dq * float(scale)).bfloat16(), (dk * float(scale)).bfloat16(), dv.bfloat16()
+
+
+def _bf16_bwd_inputs(shape, seed):
+    """bf16 q, k, v, dO and, from the plain forward, lse and
+    δ = rowsum(dO ⊙ o) with o rounded to bf16, as the autograd.Function
+    hands them to K4 and K5."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+                   for _ in range(4))
+    o, lse = plain_flash_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+def _bwd_err(got, ref):
+    """Error relative to max|ref|; absolute where the reference is zero up to
+    rounding (dQ and dK at T = 1, where the softmax has one entry)."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    diff, top = np.abs(got - ref).max(), np.abs(ref).max()
+    return diff / top if top > 1e-6 else diff
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("t", [1, 5, 64, 65, 130, 197])
+def test_tensor_core_bwd_arithmetic_matches_plain(t, dh):
+    q, k, v, do, lse, delta = _bf16_bwd_inputs((1, 2, t, dh), seed=12)
+    dq, dk, dv = _emulate_tc_bwd(q, k, v, do, lse, delta)
+    refs = (plain_flash_bwd_dq(q, k, v, do, lse, delta),
+            *plain_flash_bwd_dkv(q, k, v, do, lse, delta))
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert torch.isfinite(got.float()).all()
+        assert _bwd_err(got.float(), ref.float()) <= FLASH_BF16_TOL
+
+
+def test_tensor_core_bwd_arithmetic_matches_pallas_interpret():
+    q, k, v, do, _, _ = _bf16_bwd_inputs((1, 2, 197, 64), seed=13)
+    jq, jk, jv, jdo = (jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16)
+                       for x in (q, k, v, do))
+    o_j, lse_j = jatt._flash_fwd_impl(jq, jk, jv, return_lse=True)
+    grads_j = jatt._flash_bwd_impl(jq, jk, jv, o_j, lse_j, jdo)
+    assert all(g.dtype == jnp.bfloat16 for g in grads_j)
+    # the kernels' inputs from the same forward: JAX's o (bf16) and lse
+    lse = torch.from_numpy(np.array(lse_j))
+    delta = (do.float() * torch.from_numpy(np.asarray(o_j, np.float32))).sum(-1)
+    for got, ref in zip(_emulate_tc_bwd(q, k, v, do, lse, delta), grads_j):
+        assert _bwd_err(got.float(), np.asarray(ref, np.float32)) <= FLASH_BF16_TOL
 
 
 # --------------------------------------------------------------------------- #

@@ -112,12 +112,13 @@ FLASH_F32_TOL = 2e-5  # relative to max|ref|: both accumulate in f32, another or
 FLASH_BF16_TOL = 1e-2  # both round one f32 result to bf16: within a bf16 ulp
 
 
-def _flash_err(got, ref):
+def _flash_err(got, ref, zero=1e-6):
     """Error relative to max|ref|; absolute where the reference is zero up to
-    rounding (dQ and dK at T = 1, where the softmax has one entry)."""
+    rounding, max|ref| <= ``zero`` (dQ and dK at T = 1, where the softmax has
+    one entry)."""
     diff = (got.float() - ref.float()).abs().max().item()
     top = ref.float().abs().max().item()
-    return diff / top if top > 1e-6 else diff
+    return diff / top if top > zero else diff
 
 
 def _flash_inputs(dev, n, h, t, dh, dtype, seed=0, permuted=False):
@@ -131,8 +132,8 @@ def _flash_inputs(dev, n, h, t, dh, dtype, seed=0, permuted=False):
 
 FLASH_SHAPES = [(2, 3, 1, 64), (2, 3, 17, 64), (4, 12, 197, 64), (1, 2, 1024, 64),
                 (2, 2, 77, 16), (2, 2, 130, 32), (1, 2, 200, 128)]
-#: bf16 (K3 on the tensor cores): T around the 16-row warp tiles, the 64-row
-#: q-blocks and 64-key tiles, and their n8 fragments, at every head dim
+#: bf16 (K3, K4 and K5 on the tensor cores): T around the 16-row warp tiles,
+#: the 64-row blocks and 64-row tiles, and their n8 fragments, at every head dim
 FLASH_BF16_SHAPES = [(1, 2, t, dh) for dh in HEAD_DIMS
                      for t in (1, 5, 16, 63, 64, 65, 128, 197, 1000)]
 FLASH_CASES = ([(torch.float32, FLASH_F32_TOL, s, False) for s in FLASH_SHAPES]
@@ -149,9 +150,9 @@ def test_flash_kernels_match_plain(cuda, dtype, tol, shape, permuted):
 
     q, k, v, do = _flash_inputs(cuda, *shape, dtype, permuted=permuted)
     assert q.is_contiguous() != permuted
-    counts = [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
-                                   flash_attention_bwd_dkv)]
-    by_dtype = dict(flash_attention_fwd.launches_by_dtype)
+    wrappers = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    counts = [f.launches for f in wrappers]
+    by_dtype = [dict(f.launches_by_dtype) for f in wrappers]
     name = str(dtype).removeprefix("torch.")
     o, lse = flash_attention_fwd(q, k, v)
     o_ref, lse_ref = plain_flash_fwd(q, k, v)
@@ -161,9 +162,9 @@ def test_flash_kernels_match_plain(cuda, dtype, tol, shape, permuted):
     refs = (o_ref, plain_flash_bwd_dq(q, k, v, do, lse_ref, delta),
             *plain_flash_bwd_dkv(q, k, v, do, lse_ref, delta))
     torch.cuda.synchronize()
-    assert [f.launches for f in (flash_attention_fwd, flash_attention_bwd_dq,
-                                 flash_attention_bwd_dkv)] == [c + 1 for c in counts]
-    assert flash_attention_fwd.launches_by_dtype == {**by_dtype, name: by_dtype[name] + 1}
+    assert [f.launches for f in wrappers] == [c + 1 for c in counts]
+    assert [f.launches_by_dtype for f in wrappers] == [{**d, name: d[name] + 1}
+                                                       for d in by_dtype]
     assert lse.dtype == torch.float32 and lse.shape == shape[:3]
     assert torch.isfinite(lse).all()
     assert _flash_err(lse, lse_ref) <= FLASH_F32_TOL
@@ -194,6 +195,36 @@ def test_flash_fwd_bf16_padded_key_tiles_give_no_nan(cuda, t, dh):
     assert _flash_err(lse, lse_ref) <= FLASH_F32_TOL
 
 
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("t", [1, 65, 129])
+def test_flash_bwd_bf16_padded_tiles_give_no_nan(cuda, t, dh):
+    """K4 and K5 on the tensor cores where the last (at T = 1 the only)
+    64-row tile holds one live row: the keys (K4) and q rows (K5) past T are
+    zero padding whose P must be 0. Scaled scores with a standard deviation
+    of 64 put exp(s - lse) far outside f32 for the padding unless it is
+    masked; lse comes from the plain forward. At T = 1, dQ and dK are zero
+    up to the rounding of dP − δ, which k and q, 8 times larger here, carry
+    into the plain version's output at up to ~1e-5; the gradients of the
+    other cases are of order 1, so 1e-4 tells the two apart."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, plain_flash_bwd_dkv,
+        plain_flash_bwd_dq, plain_flash_fwd)
+
+    q, k, v, do = _flash_inputs(cuda, 2, 3, t, dh, torch.float32, seed=2)
+    q, k = (x * 8.0 for x in (q, k))
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    o_ref, lse = plain_flash_fwd(q, k, v)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    got = (flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           *flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    refs = (plain_flash_bwd_dq(q, k, v, do, lse, delta),
+            *plain_flash_bwd_dkv(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    for g, ref in zip(got, refs):
+        assert g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all()
+        assert _flash_err(g, ref, zero=1e-4) <= FLASH_BF16_TOL
+
+
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     from deepcv_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
 
@@ -221,8 +252,8 @@ def test_flash_attention_autograd_on_card_matches_cpu(cuda):
 
 
 def test_flash_attention_bf16_autograd_on_card_matches_cpu(cuda):
-    """K3 on the tensor cores, then K4 and K5 from its o and lse, against the
-    plain versions on the CPU. The card's o may differ from the CPU's by one
+    """K3, then K4 and K5 from its o and lse, all on the tensor cores, against
+    the plain versions on the CPU. The card's o may differ from the CPU's by one
     bf16 ulp, which reaches the gradients through delta = rowsum(dO o)."""
     from deepcv_tpu_torch.ops.attention import flash_attention
     from deepcv_tpu_torch.ops.kernels.flash_attention import (
