@@ -8,17 +8,19 @@ Phases, each printing one JSON line:
 0. device — the card (``nvidia-smi`` name and power limit), torch and CUDA.
 1. build — the port's CUDA kernels (K1, K2, and K3-K5 in one library)
    compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
-   and ``ptxas``'s registers, shared memory and spills; for the flash
-   library also the bf16 tensor-core kernels of K3, K4 and K5 per head dim
-   (registers, spills, dynamic shared memory) and the ``HMMA`` instructions
-   in the library's SASS (``cuobjdump -sass``), which must be in all three;
-   no bf16 CUDA-core kernel may be compiled.
+   and ``ptxas``'s registers, shared memory and spills; for the K2 and flash
+   libraries also their bf16 tensor-core kernels (K2 per tile width BN, K3,
+   K4 and K5 per head dim: registers, spills, shared memory) and the
+   ``HMMA`` instructions in the library's SASS (``cuobjdump -sass``), which
+   must be in every one of them; no bf16 CUDA-core kernel may be compiled.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
    conv shapes at batch 64 (plus one ragged case), with and without bias,
    relu and none, float32 and bfloat16, and at image_classifier's conv
    shapes at batch 4096 in bfloat16; error relative to max|ref|, kernel
    time (median of CUDA-event timed launches), its bound on the card, and
-   the same ``F.conv2d`` call's time as a yardstick.
+   the same ``F.conv2d`` call's time as a yardstick. Then per-forward sums
+   in bfloat16: image_classifier's five convs at batch 4096, and all 46 of
+   ResNet-50's stride-1 convs at batch 64 (``kernel_forward_bf16``).
 3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
    attention shapes (batch 64 and the training batch 256, 12 heads, T 197,
    Dh 64), a ragged T and T = 1024, float32 and bfloat16: error relative to
@@ -67,6 +69,12 @@ Then the kernels line and, last, the contract line
 exits non-zero without the last line. With no CUDA device, or without the
 repository beside it, it exits non-zero at once. A hang dumps the stacks and
 exits non-zero after ``HANG_LIMIT_S``.
+
+    python3 chip_smoke.py --k2-forward
+
+runs only the device phase and ``kernel_forward_bf16`` with whatever K2 the
+package beside the script has (no build checks, no contract line): the
+way to time an earlier K2 against this one on the same card.
 """
 from __future__ import annotations
 
@@ -102,6 +110,7 @@ from deepcv_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd, plain_flash_bwd_dkv, plain_flash_bwd_dq, plain_flash_fwd)
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
     fused_conv2d_bias_act, plain_conv2d_bias_act)
+from deepcv_tpu_torch.ops.kernels import fused_layer
 from deepcv_tpu_torch.ops.nn import FusedConv2d
 from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bundle
 from deepcv_tpu_torch.server import InferenceServer
@@ -136,6 +145,16 @@ PHASE2_SHAPES = [
 #: each runs per forward; Cin 3 and Cout 4 leave partial tiles
 CLASSIFIER_CONVS = {(4096, 32, 32, 3, 4, 5): 1, (4096, 32, 32, 4, 4, 5): 2,
                     (4096, 16, 16, 4, 16, 3): 1, (4096, 16, 16, 16, 16, 3): 1}
+#: all 46 stride-1 convs of one resnet_spec(50) forward at the serving batch,
+#: by shape, with how often each runs (the model's FusedConv2d calls)
+RESNET50_CONVS = {
+    (64, 56, 56, 64, 64, 1): 1, (64, 56, 56, 64, 64, 3): 3, (64, 56, 56, 64, 256, 1): 4,
+    (64, 56, 56, 256, 64, 1): 2, (64, 56, 56, 256, 128, 1): 1,
+    (64, 28, 28, 128, 512, 1): 4, (64, 28, 28, 512, 128, 1): 3,
+    (64, 28, 28, 128, 128, 3): 3, (64, 28, 28, 512, 256, 1): 1,
+    (64, 14, 14, 256, 1024, 1): 6, (64, 14, 14, 1024, 256, 1): 5,
+    (64, 14, 14, 256, 256, 3): 5, (64, 14, 14, 1024, 512, 1): 1,
+    (64, 7, 7, 512, 2048, 1): 3, (64, 7, 7, 2048, 512, 1): 2, (64, 7, 7, 512, 512, 3): 2}
 DEVICE = "cuda"
 IMAGE_SHAPE = (224, 224, 3)
 SERVE_BATCH = 64
@@ -195,6 +214,21 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: every kernel's time under torch.profiler over
+    ``iters`` calls, summed and divided (no host gaps, unlike ``cuda_ms`` at
+    the smallest shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages())
+    return us / 1e3 / iters
+
+
 def conv_bound(n, h, w, cin, cout, k, dtype: str, bias: bool):
     """Least time for the work on an H100 SXM: each input read once, the
     output written once, FLOPs at the type's peak. Returns (ms, bound_by)."""
@@ -233,13 +267,27 @@ TC_KERNELS = {
 }
 
 
-def _tc_kernel_stats(log):
-    """Registers and spills of each tensor-core kernel per head dim, from
-    ptxas's -v log: {kernel: {dh: {...}}}."""
+#: K2's bf16 kernel, one instantiation per tile width BN; its dynamic shared
+#: memory follows the conv's shape (fused_layer.tc_plan)
+K2_TC_KERNEL = "fused_conv2d_bias_act_tc_kernel"
+
+
+def _k2_tc_smem(bn):
+    """The most dynamic shared memory the BN instantiation takes at the
+    shapes this script runs in bf16."""
+    shapes = [*PHASE2_SHAPES, *CLASSIFIER_CONVS, *RESNET50_CONVS]
+    return max((p.smem_bytes for p in (fused_layer.tc_plan(*s[:5], s[5], s[5]) for s in shapes)
+                if p.bn == bn), default=None)
+
+
+def _tc_kernel_stats(log, kernels=TC_KERNELS):
+    """Registers and spills of each tensor-core kernel per template argument
+    (head dim, or BN), from ptxas's -v log: {kernel: {arg: {...}}}; the
+    dynamic shared memory from ``kernels[name](arg)``."""
     stats, key = {}, None
     for ln in log.splitlines():
         if "Compiling entry" in ln or "Function properties" in ln:
-            m = re.search("(" + "|".join(TC_KERNELS) + r")ILi(\d+)E", ln)
+            m = re.search("(" + "|".join(kernels) + r")ILi(\d+)E", ln)
             key = (m.group(1), int(m.group(2))) if m else None
         elif key is not None and "spill" in ln:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
@@ -250,7 +298,7 @@ def _tc_kernel_stats(log):
             stats.setdefault(key[0], {}).setdefault(key[1], {}).update(
                 registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
                 static_smem_bytes=int(smem.group(1)) if smem else 0,
-                dynamic_smem_bytes=TC_KERNELS[key[0]](key[1]))
+                dynamic_smem_bytes=kernels[key[0]](key[1]))
     return stats
 
 
@@ -319,6 +367,23 @@ def phase_build():
             if missing or cuda_core_bf16:
                 raise AssertionError(f"tensor-core kernels {missing} lack ptxas stats or HMMA "
                                      f"({dict(hmma)}); bf16 CUDA-core kernels {cuda_core_bf16}")
+        if name == "fused_conv2d_bias_act":
+            tc = _tc_kernel_stats(log, {K2_TC_KERNEL: _k2_tc_smem}).get(K2_TC_KERNEL, {})
+            hmma = _hmma_counts(path)
+            row["bf16_tensor_core_kernels"] = {str(bn): tc.get(bn)
+                                               for bn in fused_layer.TC_BN}
+            row["hmma"] = {"total": sum(hmma.values()),
+                           "by_kernel": {f: n for f, n in hmma.items() if n}}
+            # bf16 runs on the tensor cores only: no CUDA-core kernel is
+            # instantiated for __nv_bfloat16, and every BN has HMMA
+            cuda_core_bf16 = [f for f in hmma if "_kernelI13__nv_bfloat16" in f]
+            missing = [bn for bn in fused_layer.TC_BN
+                       if (log and bn not in tc)
+                       or not any(f"{K2_TC_KERNEL}ILi{bn}E" in f and n for f, n in hmma.items())]
+            if missing or cuda_core_bf16:
+                raise AssertionError(f"K2 tensor-core kernels BN {missing} lack ptxas stats or "
+                                     f"HMMA ({dict(hmma)}); bf16 CUDA-core kernels "
+                                     f"{cuda_core_bf16}")
         emit(row)
 
 
@@ -384,7 +449,56 @@ def phase_kernel(card):
     torch.cuda.empty_cache()
     emit({"phase": "kernel_summary", "max_rel_err": worst,
           "tol": {"float32": F32_TOL, "bfloat16": BF16_TOL}, "card": card})
+    rows["forward_bf16"] = phase_kernel_forward_bf16(card)
     return rows
+
+
+def phase_kernel_forward_bf16(card):
+    """K2 in bf16 per model forward: each conv shape of image_classifier at
+    batch 4096 and of resnet_spec(50) at batch 64 checked against the plain
+    version (relu, with bias) and timed, then the kernel's, the plain
+    version's, ``F.conv2d``'s and the bound's times summed over one forward
+    by how often each shape runs. The kernel takes its packed weight, as
+    ``FusedConv2d`` passes it; ``*_device_ms`` are the same calls' device
+    time from the profiler."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    out = {}
+    for model, convs in (("image_classifier", CLASSIFIER_CONVS),
+                         ("resnet_spec(50)", RESNET50_CONVS)):
+        tot, max_abs, shapes = collections.Counter(), 0.0, []
+        for (n, h, w, cin, cout, k), count in convs.items():
+            x, wt, b = _case_tensors(gen, n, h, w, cin, cout, k, torch.bfloat16)
+            wp = fused_layer.pack_weight(wt)
+            got = fused_conv2d_bias_act(x, wt, b, "relu", w_packed=wp)
+            ref = plain_conv2d_bias_act(x, wt, b, "relu")
+            rel, err = _rel_err(got, ref)
+            if not rel <= BF16_TOL:
+                raise AssertionError(f"{model} bf16 conv {(n, h, w, cin, cout, k)}: rel err "
+                                     f"{rel:.3e} > {BF16_TOL:.0e}")
+            max_abs = max(max_abs, err)
+            bound_ms, bound_by = conv_bound(n, h, w, cin, cout, k, "bfloat16", True)
+            kern = lambda: fused_conv2d_bias_act(x, wt, b, "relu", w_packed=wp)  # noqa: E731
+            lib = _library_call(x, wt, b, "relu")
+            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern),
+                 "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, "relu")),
+                 "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib),
+                 "bound_ms": bound_ms}
+            for key, v in t.items():
+                tot[key] += count * v
+            tot[bound_by] += count * bound_ms
+            shapes.append({"shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k], "count": count,
+                           "rel_err": rel, **t, "bound_by": bound_by})
+            del x, wt, b, wp, got, ref
+        torch.cuda.empty_cache()
+        per = {key: tot[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                         "library_device_ms", "bound_ms")}
+        per["bound_by"] = "operations" if tot["operations"] >= tot["bytes"] else "bytes"
+        out[model] = {**per, "max_abs_err": max_abs}
+        emit({"phase": "kernel_forward_bf16", "model": model,
+              "batch": next(iter(convs))[0], "convs": sum(convs.values()),
+              "per_forward": per, "ms_over_library": per["ms"] / per["library_ms"],
+              "shapes": shapes, "card": card})
+    return out
 
 
 def _preprocess(x):
@@ -591,8 +705,15 @@ def _serve_over_http(phase, gpu_model, cpu_model, counter, per_forward, card):
 def phase_serve(card):
     gpu_model, cpu_model = _bundle_models(resnet_spec(50), "resnet_spec(50)")
     kern_tot, max_abs = _main_path_kernels(gpu_model, card)
+    fused_conv2d_bias_act.launches_by_dtype = dict.fromkeys(
+        fused_conv2d_bias_act.launches_by_dtype, 0)
     launches = _serve_over_http("serve", gpu_model, cpu_model, fused_conv2d_bias_act,
                                 LAUNCHES_PER_FORWARD, card)
+    # both counts also take the predictor benchmark's forwards after the run
+    if fused_conv2d_bias_act.launches_by_dtype != {"float32": fused_conv2d_bias_act.launches,
+                                                   "bfloat16": 0}:
+        raise AssertionError(f"serve (float32) launched K2 by dtype "
+                             f"{fused_conv2d_bias_act.launches_by_dtype}")
     return {"name": "fused_conv2d_bias_act", "route": "cuda",
             "source": "deepcv_tpu_torch/csrc/fused_conv2d_bias_act.cu",
             "replaces": "deepcv_tpu/ops/pallas/fused_layer.py:92",
@@ -1023,6 +1144,8 @@ def _run_classifier(label, params):
     torch.cuda.reset_peak_memory_stats()
     fused_augment_normalize.launches = 0
     fused_conv2d_bias_act.launches = 0
+    fused_conv2d_bias_act.launches_by_dtype = dict.fromkeys(
+        fused_conv2d_bias_act.launches_by_dtype, 0)
     routes_before = dict(routes)
     training.train_step = step
     try:
@@ -1033,6 +1156,7 @@ def _run_classifier(label, params):
     finally:
         training.train_step = real_step
     counts = {"K1": fused_augment_normalize.launches, "K2": fused_conv2d_bias_act.launches,
+              "K2_by_dtype": dict(fused_conv2d_bias_act.launches_by_dtype),
               "routes": {k: routes[k] - routes_before[k] for k in routes},
               "K2_dtypes": {"/".join(k): v for k, v in k2_dtypes.seen.items()}}
     return store, argv, wall, counts, flags
@@ -1054,6 +1178,7 @@ def phase_classifier_train(card):
         raise AssertionError(f"classifier_train: {steps} steps, losses {losses[:4]}...")
     forwards = steps + val_forwards
     if counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * forwards or counts["K1"] != 0 \
+            or counts["K2_by_dtype"] != {"float32": counts["K2"], "bfloat16": 0} \
             or any(counts["routes"].values()):
         raise AssertionError(f"classifier_train counts {counts} for {steps} steps and "
                              f"{val_forwards} validation forwards")
@@ -1160,7 +1285,8 @@ def phase_augment_train(card, aug_rows, k2_rows):
     bf16 = "bfloat16/bfloat16/bfloat16"
     if counts["K1"] != steps or counts["routes"] != {"K1": steps, "eager": 0} \
             or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * steps \
-            or counts["K2_dtypes"] != {bf16: CLASSIFIER_CONVS_PER_FORWARD * steps}:
+            or counts["K2_dtypes"] != {bf16: CLASSIFIER_CONVS_PER_FORWARD * steps} \
+            or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": counts["K2"]}:
         raise AssertionError(f"augment_train counts {counts} for {steps} steps")
     tput = h["throughput_img_s"]
     steady = _steady(tput)
@@ -1227,11 +1353,43 @@ def k1_kernel_line(aug_rows, launches, card):
             "card": card}
 
 
+def k2_routes(line, forward_bf16, bf16_launches):
+    """K2's entry in the kernels line gains both routes: float32 on the CUDA
+    cores (serving ResNet-50 and ``classifier_train``: the entry's own
+    numbers, per ResNet-50 forward) and bfloat16 on the tensor cores
+    (``augment_train``: per image_classifier forward at batch 4096, and per
+    ResNet-50 forward at batch 64, the bf16 shape set no main path runs
+    yet)."""
+    f32_launches = line["launches"] - bf16_launches
+    line["launches_by_dtype"] = {"float32": f32_launches, "bfloat16": bf16_launches}
+    line["routes"] = {
+        "float32": {"kernel": "fused_conv2d_bias_act_kernel<float> (CUDA cores)",
+                    "launches": f32_launches,
+                    **{k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "max_abs_err", "per")}},
+        "bfloat16": {"kernel": "fused_conv2d_bias_act_tc_kernel<BN> (tensor cores, mma.sync)",
+                     "launches": bf16_launches,
+                     **forward_bf16["image_classifier"],
+                     "per": f"one image_classifier forward at batch {AUGMENT_BATCH}, "
+                            "bfloat16 (5 launches)",
+                     "resnet50": {**forward_bf16["resnet_spec(50)"],
+                                  "per": f"one resnet_spec(50) forward's 46 stride-1 convs "
+                                         f"at batch {SERVE_BATCH}, bfloat16 (no main path "
+                                         "runs it)"}}}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(HANG_LIMIT_S, exit=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
+        return 2
+    if sys.argv[1:] == ["--k2-forward"]:
+        torch.backends.cudnn.allow_tf32 = False
+        phase_kernel_forward_bf16(phase_device())
+        return 0
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
     # references in true float32: cuDNN convs default to TF32
     torch.backends.cudnn.allow_tf32 = False
@@ -1252,6 +1410,7 @@ def main() -> int:
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"]}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
+    k2_routes(k2_line, k2_rows["forward_bf16"], augment_counts["K2"])
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches, card)]})
     faulthandler.cancel_dump_traceback_later()

@@ -11,6 +11,9 @@ Layout: ``x`` is NCHW-logical in ``torch.channels_last`` memory (NHWC bytes),
 (kh*kw*Cin, Cout), the order of ``w.reshape`` in the TPU kernel's
 ``_forward_pallas``. The output has ``x``'s dtype and memory format.
 
+On the card, float32 runs the CUDA-core kernel and bfloat16 the tensor-core
+kernel, whose output tile :func:`tc_plan` fits to the conv's shape.
+
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises);
 a CPU tensor takes :func:`plain_conv2d_bias_act`; a meta tensor (shape
 inference at model build) takes the plain version too, which computes no
@@ -19,12 +22,13 @@ values there.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Optional, Union
+import functools
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["EPILOGUE_ACTS", "LEAKY_RELU_SLOPE", "pack_weight",
+__all__ = ["EPILOGUE_ACTS", "LEAKY_RELU_SLOPE", "TcPlan", "tc_plan", "pack_weight",
            "plain_conv2d_bias_act", "fused_conv2d_bias_act"]
 
 #: activations the kernel applies in its epilogue, by launcher code
@@ -37,6 +41,78 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL = "fused_conv2d_bias_act"
 
 Act = Union[None, str, Callable[[torch.Tensor], torch.Tensor]]
+
+#: the bf16 kernel's output tile widths along Cout, and output pixels per
+#: block by tile width (4 warps of 4 m16 tiles for the narrow ones, else of
+#: 2); input channels per chunk; bytes of a weight stage it aims for; the
+#: shared memory a block may use (csrc header note)
+TC_BN = (8, 16, 32, 64, 128)
+TC_BM = {8: 256, 16: 256, 32: 128, 64: 128, 128: 128}
+TC_CHUNKS = (64, 32, 16)
+TC_WSTAGE_BYTES = 24 * 1024
+TC_SMEM_MAX = 227 * 1024
+
+
+class TcPlan(NamedTuple):
+    """The bf16 tensor-core kernel's tiling of one conv shape; the first
+    seven fields are what the launcher takes."""
+    bn: int          # output channels per block
+    flat: bool       # 1x1: bm consecutive pixels per block, across images
+    ti: int          # spatial: images x rows x columns of output per block
+    th: int
+    tw: int
+    ck: int          # input channels per chunk (Cin padded to 16 in chunks)
+    tg: int          # taps per weight stage
+    bm: int          # output pixels a block holds (TC_BM[bn])
+    smem_bytes: int  # dynamic shared memory per block
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=512)
+def tc_plan(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int) -> TcPlan:
+    """The tile of the bf16 kernel for an (N, H, W, Cin) -> Cout conv with a
+    kh x kw kernel: BN is the smallest of :data:`TC_BN` at or above Cout; a
+    1x1 conv takes flat tiles of BM pixels; a map of at most BM pixels
+    takes whole images, as many as fit; otherwise the TH x TW rectangle of
+    at most BM pixels with the least tiles x (BM x taps + patch pixels):
+    the tile pixels the products pay for, plus the halo the loads pay for.
+    The channel chunk (64, 32 or 16) shrinks where
+    the patch and weight stages would not fit in shared memory. Raises
+    ValueError when nothing fits."""
+    bn = next((b for b in TC_BN if b >= cout), TC_BN[-1])
+    bm = TC_BM[bn]
+    ldb = 8 if bn == 8 else bn + 8
+    cp = _cdiv(cin, 16) * 16
+    taps = kh * kw
+    if kh == kw == 1:
+        cands = [(True, 1, 1, bm)]
+    elif h * w <= bm:
+        cands = [(False, min(n, bm // (h * w)), h, w)]
+    else:
+        cands = [(False, 1, min(h, bm // tw), tw) for tw in range(1, min(w, bm) + 1)]
+    for ck in (c for c in TC_CHUNKS if c <= cp):
+        nchunks = _cdiv(cp, ck)
+        tap_bytes = 2 * ck * ldb
+        tg = max(1, min(taps, TC_WSTAGE_BYTES // tap_bytes))
+        wbytes = (2 if nchunks * _cdiv(taps, tg) > 1 else 1) * tg * tap_bytes
+        best = None
+        for flat, ti, th, tw in cands:
+            pph, ppw = (1, bm) if flat else (th + kh - 1, tw + kw - 1)
+            smem = (2 if nchunks > 1 else 1) * 2 * ti * pph * ppw * (ck + 8) + wbytes
+            if smem > TC_SMEM_MAX:
+                continue
+            tiles = (_cdiv(n * h * w, bm) if flat
+                     else _cdiv(n, ti) * _cdiv(h, th) * _cdiv(w, tw))
+            cost = tiles * (bm * taps + ti * pph * ppw)
+            if best is None or cost < best[0]:
+                best = (cost, TcPlan(bn, flat, ti, th, tw, ck, tg, bm, smem))
+        if best is not None:
+            return best[1]
+    raise ValueError(f"no bf16 tile fits shared memory for a {kh}x{kw} conv at "
+                     f"({n}, {h}, {w}, {cin}) -> {cout}")
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -105,8 +181,8 @@ def _launcher():
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 6
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -119,6 +195,9 @@ def _run_kernel(x: torch.Tensor, w: torch.Tensor, w_packed: torch.Tensor,
                     memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
+    # float32 takes no tile plan
+    plan = (tc_plan(n, h, wd, cin, cout, kh, kw)[:7] if x.dtype == torch.bfloat16
+            else (0,) * 7)
     fn = _launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -127,11 +206,13 @@ def _run_kernel(x: torch.Tensor, w: torch.Tensor, w_packed: torch.Tensor,
                  n, h, wd, cin, cout, kh, kw,
                  x.stride(0), x.stride(2), x.stride(3),
                  y.stride(0), y.stride(2), y.stride(3),
-                 _DTYPE_CODES[x.dtype], act_code, LEAKY_RELU_SLOPE, stream)
+                 _DTYPE_CODES[x.dtype], act_code, LEAKY_RELU_SLOPE,
+                 *(int(v) for v in plan), stream)
     if err != 0:
         raise RuntimeError(f"{_KERNEL} launch failed: CUDA error {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)})")
     fused_conv2d_bias_act.launches += 1
+    fused_conv2d_bias_act.launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return y
 
 
@@ -171,8 +252,11 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
     epilogue) or any other callable (the kernel runs without an activation
     and the callable is applied afterwards). ``w_packed`` is
     :func:`pack_weight` of ``w``, passed by callers that keep it; it is
-    packed here otherwise. On a CUDA tensor this launches the kernel and
-    adds one to ``fused_conv2d_bias_act.launches``; a failed launch raises.
+    packed here otherwise. On a CUDA tensor this launches the kernel
+    (bfloat16: the tensor-core kernel; float32: the CUDA-core one) and adds
+    one to ``fused_conv2d_bias_act.launches`` and to
+    ``fused_conv2d_bias_act.launches_by_dtype[dtype name]``; a failed launch
+    raises.
     """
     _check(x, w, b, w_packed)
     fused = act if isinstance(act, str) or act is None else None
@@ -190,6 +274,7 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
     raise RuntimeError(f"no {_KERNEL} for device {x.device}")
 
 
-#: launches of the CUDA kernel in this process (the wrapper adds one per
-#: successful launch and nowhere else)
+#: launches of the CUDA kernel in this process, in all and by input dtype
+#: (the wrapper adds one to both per successful launch and nowhere else)
 fused_conv2d_bias_act.launches = 0
+fused_conv2d_bias_act.launches_by_dtype = {"float32": 0, "bfloat16": 0}

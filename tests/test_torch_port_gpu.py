@@ -42,10 +42,18 @@ def _rel(got, ref):
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
+#: (N, H, W, Cin, Cout, k): ragged channel counts and kernels, then
+#: image_classifier's four convs at batch 8 (Cin 3 and 4 with Cout 4 at 5x5,
+#: 4 -> 16 and 16 -> 16 at 3x3), ResNet-50's 7x7 map, and a map that leaves a
+#: partial bf16 tile on both axes (37x23 in 10x12 tiles)
+K2_SHAPES = [(2, 9, 11, 3, 5, 1), (2, 9, 11, 16, 70, 3), (1, 17, 13, 33, 64, 5),
+             (3, 6, 6, 65, 129, 7), (1, 1, 1, 512, 2048, 1),
+             (8, 32, 32, 3, 4, 5), (8, 32, 32, 4, 4, 5), (8, 16, 16, 4, 16, 3),
+             (8, 16, 16, 16, 16, 3), (4, 7, 7, 512, 512, 3), (2, 37, 23, 8, 32, 3)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
-@pytest.mark.parametrize("shape", [(2, 9, 11, 3, 5, 1), (2, 9, 11, 16, 70, 3),
-                                   (1, 17, 13, 33, 64, 5), (3, 6, 6, 65, 129, 7),
-                                   (1, 1, 1, 512, 2048, 1)])
+@pytest.mark.parametrize("shape", K2_SHAPES)
 @pytest.mark.parametrize("act", [None, "relu", "leaky_relu", torch.sigmoid])
 @pytest.mark.parametrize("bias", [False, True])
 def test_kernel_matches_plain(cuda, dtype, tol, shape, act, bias):
@@ -59,6 +67,22 @@ def test_kernel_matches_plain(cuda, dtype, tol, shape, act, bias):
     assert got.dtype == dtype and got.shape == ref.shape
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert _rel(got, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_counts_launches_by_dtype(cuda, dtype):
+    """bfloat16 launches the tensor-core kernel, float32 the CUDA-core one;
+    each launch adds one to ``launches`` and to its dtype's count."""
+    x, wt, b = _inputs(cuda, 8, 32, 32, 4, 4, 5, dtype)
+    name = str(dtype).removeprefix("torch.")
+    total, by_dtype = fused_conv2d_bias_act.launches, dict(fused_conv2d_bias_act.launches_by_dtype)
+    for _ in range(3):
+        y = fused_conv2d_bias_act(x, wt, b, "relu")
+    torch.cuda.synchronize()
+    assert fused_conv2d_bias_act.launches == total + 3
+    assert fused_conv2d_bias_act.launches_by_dtype == {**by_dtype, name: by_dtype[name] + 3}
+    assert _rel(y, plain_conv2d_bias_act(x, wt, b, "relu")) <= (
+        BF16_TOL if dtype == torch.bfloat16 else F32_TOL)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
