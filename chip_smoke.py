@@ -9,10 +9,12 @@ Phases, each printing one JSON line:
 1. build — the port's CUDA kernels (K1, K2, and K3-K5 in one library)
    compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
    and ``ptxas``'s registers, shared memory and spills; for the K2 and flash
-   libraries also their bf16 tensor-core kernels (K2 per tile width BN, K3,
-   K4 and K5 per head dim: registers, spills, shared memory) and the
+   libraries also their tensor-core kernels (K2's bf16 kernel per tile
+   width BN; K3 in bf16 and in f32 by 3xTF32, K4 and K5 in bf16, each per
+   head dim, 80 included: registers, spills, shared memory) and the
    ``HMMA`` instructions in the library's SASS (``cuobjdump -sass``), which
-   must be in every one of them; no bf16 CUDA-core kernel may be compiled.
+   must be in every instantiation of them (TF32 ones in every f32 K3); no
+   bf16 CUDA-core kernel and no CUDA-core f32 K3 may be compiled.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
    conv shapes at batch 64 (plus one ragged case), with and without bias,
    relu and none, float32 and bfloat16, and at image_classifier's conv
@@ -23,17 +25,21 @@ Phases, each printing one JSON line:
    ResNet-50's stride-1 convs at batch 64 (``kernel_forward_bf16``).
 3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
    attention shapes (batch 64 and the training batch 256, 12 heads, T 197,
-   Dh 64), a ragged T and T = 1024, float32 and bfloat16: error relative to
-   max|ref|, times, bounds, and ``F.scaled_dot_product_attention`` forward,
-   forward + backward and their difference, the backward alone (the one
-   call that computes K4's and K5's work together), as the yardstick.
+   Dh 64), ViT-H/14's (16 heads of Dh 80), a ragged T and T = 1024, float32
+   and bfloat16: error relative to max|ref|, times, bounds (K3 on f32 also
+   the CUDA-core one beside its 3xTF32 one), and
+   ``F.scaled_dot_product_attention`` forward (with the names of its device
+   kernels, from ``torch.profiler``), forward + backward and their
+   difference, the backward alone (the one call that computes K4's and K5's
+   work together), as the yardstick.
 4. serve — ``resnet_spec(50)`` at 224x224x3, 1000 classes, weights from a
    seed: bundle saved and loaded, ``Predictor`` at batch 64 behind the
    port's ``InferenceServer``; four client threads POST ``.npy`` batches of
    1, 5, 17 and 64 images; every answer is held against the port's CPU path
    on the same weights; K2 must have launched 46 times per forward.
 5. vit_serve — the same for ``vit_spec('b_16', attn_impl='flash')``: K3
-   must have launched 12 times per forward, all on float32 inputs.
+   must have launched 12 times per forward, all on float32 inputs, so all
+   on ``flash_fwd_f32tc_kernel`` (3xTF32 on the tensor cores).
 6. vit_train — ``python -m deepcv_tpu_torch run --pipeline=train_vit
    --params vit_model.attn_impl:flash ...`` in this process, at full width
    on the synthetic ``imagenet224`` set (8,192 + 1,024 images), cut to 2
@@ -75,6 +81,12 @@ exits non-zero after ``HANG_LIMIT_S``.
 runs only the device phase and ``kernel_forward_bf16`` with whatever K2 the
 package beside the script has (no build checks, no contract line): the
 way to time an earlier K2 against this one on the same card.
+
+    python3 chip_smoke.py --k3-forward
+
+does the same for K3's float32 route (``k3_forward_f32``): 12 launches at
+ViT-B/16's serving shape against SDPA's f32 forward, and the ViT-B/16
+predictor's forward at batch 64 in float32.
 """
 from __future__ import annotations
 
@@ -130,8 +142,8 @@ BF16_TOL = 1e-2
 SERVE_REL_L2 = 1e-3  # card vs CPU, both f32 with TF32 off
 
 #: published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-#: cores, bf16 dense on the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+#: cores, bf16 and TF32 dense on the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 494.7e12}
 HBM_BYTES_PER_S = 3.35e12
 
 #: ResNet-50's stride-1 conv shapes at the serving batch: (N, H, W, Cin, Cout, k)
@@ -166,12 +178,14 @@ KERNEL_LIBRARIES = ("fused_augment", "fused_conv2d_bias_act", "flash_attention")
 VIT_BLOCKS, VIT_HEADS, VIT_T, VIT_DH = 12, 12, 197, 64
 TRAIN_BATCH = 256          # train_resnet50's batch_size, which train_vit uses
 TRAIN_EPOCHS = 2           # cut from train_resnet50's 10
-#: (label, N, T, dtypes): the serve and train shapes of the main paths, a
+#: (label, N, H, T, Dh, dtypes): the serve and train shapes of the main
+#: paths, ViT-H/14's attention (16 heads of 80: F3) at a small batch, a
 #: ragged T and T = 1024
-FLASH_CASES = [("vit_serve", SERVE_BATCH, VIT_T, ("float32", "bfloat16")),
-               ("vit_train", TRAIN_BATCH, VIT_T, ("bfloat16",)),
-               ("ragged", 8, 77, ("float32", "bfloat16")),
-               ("t1024", 4, 1024, ("float32", "bfloat16"))]
+FLASH_CASES = [("vit_serve", SERVE_BATCH, VIT_HEADS, VIT_T, VIT_DH, ("float32", "bfloat16")),
+               ("vit_train", TRAIN_BATCH, VIT_HEADS, VIT_T, VIT_DH, ("bfloat16",)),
+               ("h_14", 8, 16, VIT_T, 80, ("float32", "bfloat16")),
+               ("ragged", 8, VIT_HEADS, 77, VIT_DH, ("float32", "bfloat16")),
+               ("t1024", 4, VIT_HEADS, 1024, VIT_DH, ("float32", "bfloat16"))]
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 CIFAR_MEAN = (0.491, 0.482, 0.447)
@@ -255,16 +269,21 @@ def phase_device():
     return card
 
 
-#: dynamic shared memory of the bf16 tensor-core kernels, rows of Dh + 8
-#: bf16 (TcLayout and BwdLayout, csrc/flash_attention.cu): K3 holds 64 q
-#: rows and two stages of 64-key K and V tiles; K4 64 q and dO rows and the
-#: same stages; K5 64 K and V rows, two stages of 64-row Q and dO tiles and
-#: of their lse and delta (f32)
+#: dynamic shared memory of the flash tensor-core kernels (TcLayout,
+#: BwdLayout and F32TcLayout, csrc/flash_attention.cu). bf16, rows of Dh + 8:
+#: K3 holds 64 q rows and two stages of 64-key K and V tiles; K4 64 q and dO
+#: rows and the same stages; K5 64 K and V rows, two stages of 64-row Q and
+#: dO tiles and of their lse and delta (f32). f32 K3: 64 q rows and two
+#: stages of 32-key K tiles in rows of Dh + 8 floats, two of V in Dh + 4
 TC_KERNELS = {
     "flash_fwd_tc_kernel": lambda dh: (64 + 4 * 64) * (dh + 8) * 2,
     "flash_bwd_dq_tc_kernel": lambda dh: (2 * 64 + 4 * 64) * (dh + 8) * 2,
     "flash_bwd_dkv_tc_kernel": lambda dh: (2 * 64 + 4 * 64) * (dh + 8) * 2 + 2 * 2 * 64 * 4,
+    "flash_fwd_f32tc_kernel": lambda dh: ((64 + 2 * 32) * (dh + 8) + 2 * 32 * (dh + 4)) * 4,
 }
+#: the f32 K3 on the tensor cores (its HMMA must be TF32 ones) and the
+#: CUDA-core f32 K3 it replaced, which must not be compiled
+F32_K3_KERNEL, OLD_F32_K3_KERNEL = "flash_fwd_f32tc_kernel", "flash_fwd_kernel"
 
 
 #: K2's bf16 kernel, one instantiation per tile width BN; its dynamic shared
@@ -302,9 +321,10 @@ def _tc_kernel_stats(log, kernels=TC_KERNELS):
     return stats
 
 
-def _hmma_counts(path):
+def _hmma_counts(path, kind=""):
     """HMMA (tensor-core) instructions per kernel in a library's SASS, for
-    every kernel it holds (0 where there is none)."""
+    every kernel it holds (0 where there is none); with ``kind`` (as "TF32")
+    only the HMMA instructions whose line names it."""
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
@@ -313,7 +333,7 @@ def _hmma_counts(path):
         if "Function :" in ln:
             fn = ln.split("Function :", 1)[1].strip()
             counts[fn] += 0
-        elif "HMMA" in ln:
+        elif "HMMA" in ln and kind in ln:
             counts[fn] += 1
     return counts
 
@@ -351,22 +371,33 @@ def phase_build():
                "ptxas": ptxas}
         if name == "flash_attention":
             tc = _tc_kernel_stats(log)
-            hmma = _hmma_counts(path)
-            row["bf16_tensor_core_kernels"] = {
-                kern: {str(dh): tc.get(kern, {}).get(dh) for dh in FLASH_HEAD_DIMS}
+            hmma, tf32 = _hmma_counts(path), _hmma_counts(path, "TF32")
+
+            def count(counts, kern, dh):
+                return sum(n for f, n in counts.items() if f"{kern}ILi{dh}E" in f)
+            row["tensor_core_kernels"] = {
+                kern: {str(dh): {**(tc.get(kern, {}).get(dh) or {}),
+                                 "hmma": count(hmma, kern, dh),
+                                 "hmma_tf32": count(tf32, kern, dh)}
+                       for dh in FLASH_HEAD_DIMS}
                 for kern in TC_KERNELS}
-            row["hmma"] = {"total": sum(hmma.values()),
+            row["hmma"] = {"total": sum(hmma.values()), "tf32": sum(tf32.values()),
                            "by_kernel": {f: n for f, n in hmma.items() if n}}
             # every bf16 kernel is a tensor-core one: no CUDA-core kernel is
-            # instantiated for __nv_bfloat16 (mangled "I13__nv_bfloat16")
-            cuda_core_bf16 = [f for f in hmma if "_kernelI13__nv_bfloat16" in f]
-            # log is empty only when the library was built before this run
-            missing = [kern for kern in TC_KERNELS
-                       if (log and sorted(tc.get(kern, {})) != list(FLASH_HEAD_DIMS))
-                       or not any(kern in f and n for f, n in hmma.items())]
-            if missing or cuda_core_bf16:
-                raise AssertionError(f"tensor-core kernels {missing} lack ptxas stats or HMMA "
-                                     f"({dict(hmma)}); bf16 CUDA-core kernels {cuda_core_bf16}")
+            # instantiated for __nv_bfloat16 (mangled "I13__nv_bfloat16"),
+            # and neither is the CUDA-core f32 K3
+            cuda_core = [f for f in hmma if "_kernelI13__nv_bfloat16" in f
+                         or f"{OLD_F32_K3_KERNEL}I" in f]
+            # log is empty only when the library was built before this run;
+            # each instantiation has HMMA, TF32 ones in the f32 K3
+            missing = [(kern, dh) for kern in TC_KERNELS for dh in FLASH_HEAD_DIMS
+                       if (log and dh not in tc.get(kern, {}))
+                       or not count(hmma, kern, dh)
+                       or (kern == F32_K3_KERNEL) != bool(count(tf32, kern, dh))]
+            if missing or cuda_core:
+                raise AssertionError(f"tensor-core kernels {missing} lack ptxas stats or (TF32) "
+                                     f"HMMA ({dict(hmma)}); CUDA-core kernels that must not "
+                                     f"be compiled: {cuda_core}")
         if name == "fused_conv2d_bias_act":
             tc = _tc_kernel_stats(log, {K2_TC_KERNEL: _k2_tc_smem}).get(K2_TC_KERNEL, {})
             hmma = _hmma_counts(path)
@@ -735,24 +766,38 @@ def phase_serve(card):
 FLASH_FLOPS = {"fwd": 4, "dq": 5, "dkv": 7}
 
 
-def flash_bound(kind, b, t, dh, dtype):
+def flash_bound(kind, b, t, dh, dtype, tf32x3=False):
     """Least time on an H100 SXM: FLOPs at the type's peak, or each input
-    read once and each output written once at 3.35 TB/s. Returns (ms,
-    bound_by)."""
+    read once and each output written once at 3.35 TB/s. ``tf32x3``: the
+    operations of K3's f32 route, three TF32 products per f32 FLOP at the
+    TF32 tensor-core peak. Returns (ms, bound_by)."""
     item = 4 if dtype == "float32" else 2
     rows = b * t * dh
     mats_in, mats_out, stats = {"fwd": (3, 1, 1), "dq": (4, 1, 2), "dkv": (4, 2, 2)}[kind]
     nbytes = item * rows * (mats_in + mats_out) + 4 * b * t * stats
     flops = FLASH_FLOPS[kind] * b * t * t * dh
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * flops / PEAK_FLOPS["tf32"] if tf32x3 else flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def _flash_case(gen, n, t, dtype):
+def _flash_case(gen, n, h, t, dh, dtype):
     dt = getattr(torch, dtype)
-    q, k, v, do = (torch.randn((n, VIT_HEADS, t, VIT_DH), generator=gen, device=DEVICE)
+    q, k, v, do = (torch.randn((n, h, t, dh), generator=gen, device=DEVICE)
                    .to(dt) for _ in range(4))
     return q, k, v, do
+
+
+def _device_kernel_names(fn):
+    """The device kernels one call of ``fn`` launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if (getattr(e, "self_device_time_total", 0) or 0) > 0})
 
 
 def _library_fwd_bwd(q, k, v, do):
@@ -770,10 +815,10 @@ def phase_flash_kernels(card):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     rows = {}
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for label, n, t, dtypes in FLASH_CASES:
+    for label, n, h, t, dh, dtypes in FLASH_CASES:
         for dtype in dtypes:
             tol = F32_TOL if dtype == "float32" else BF16_TOL
-            q, k, v, do = _flash_case(gen, n, t, dtype)
+            q, k, v, do = _flash_case(gen, n, h, t, dh, dtype)
             o, lse = flash_attention_fwd(q, k, v)
             o_ref, lse_ref = plain_flash_fwd(q, k, v)
             delta = (do.float() * o_ref.float()).sum(-1)
@@ -804,17 +849,22 @@ def phase_flash_kernels(card):
             lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             lib_fwd_bwd = cuda_ms(_library_fwd_bwd(q, k, v, do))
             row = {"phase": "flash_kernels", "case": label,
-                   "shape_n_h_t_dh": [n, VIT_HEADS, t, VIT_DH], "dtype": dtype,
+                   "shape_n_h_t_dh": [n, h, t, dh], "dtype": dtype,
                    "rel_err": errs, "max_abs_err": abs_errs, "tol": tol,
                    "library_fwd_ms": lib_fwd, "library_fwd_bwd_ms": lib_fwd_bwd,
+                   "library_fwd_kernels": _device_kernel_names(
+                       lambda: F.scaled_dot_product_attention(q, k, v)),
                    # the backward alone: dQ, dK and dV in one call, K4's and
                    # K5's work together
                    "library_bwd_ms": lib_fwd_bwd - lib_fwd,
                    "card": card}
             for kind, (ms, plain_ms) in times.items():
-                bound_ms, bound_by = flash_bound(kind, n * VIT_HEADS, t, VIT_DH, dtype)
+                f32_fwd = kind == "fwd" and dtype == "float32"
+                bound_ms, bound_by = flash_bound(kind, n * h, t, dh, dtype, tf32x3=f32_fwd)
                 row[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by}
+                if f32_fwd:   # the same work's bound on the CUDA cores
+                    row[kind]["cuda_core_bound_ms"] = flash_bound(kind, n * h, t, dh, dtype)[0]
             emit(row)
             rows[(label, dtype)] = row
             del q, k, v, do, lse_ref, delta
@@ -822,6 +872,37 @@ def phase_flash_kernels(card):
     emit({"phase": "flash_summary", "max_rel_err": worst,
           "tol": {"float32": F32_TOL, "bfloat16": BF16_TOL}, "card": card})
     return rows
+
+
+def phase_k3_forward_f32(card):
+    """K3's float32 route per ViT-B/16 serving forward (12 launches at batch
+    64), checked against the plain version and timed beside SDPA's f32
+    forward (CUDA events and profiler device time), and the ViT-B/16 flash
+    predictor's forward at batch 64 in float32 (random weights from the
+    seed; steady state, as ``vit_serve_predictor_benchmark``)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    q, k, v, _ = _flash_case(gen, SERVE_BATCH, VIT_HEADS, VIT_T, VIT_DH, "float32")
+    o, lse = flash_attention_fwd(q, k, v)
+    o_ref, lse_ref = plain_flash_fwd(q, k, v)
+    errs = {"o": _rel_err(o, o_ref)[0], "lse": _rel_err(lse, lse_ref)[0]}
+    if not max(errs.values()) <= F32_TOL:
+        raise AssertionError(f"K3 f32 at the serving shape: rel err {errs}")
+    kern = lambda: flash_attention_fwd(q, k, v)  # noqa: E731
+    lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    per = {"ms": VIT_BLOCKS * cuda_ms(kern), "device_ms": VIT_BLOCKS * device_ms(kern),
+           "library_ms": VIT_BLOCKS * cuda_ms(lib), "library_device_ms": VIT_BLOCKS * device_ms(lib)}
+    del q, k, v, o, lse, o_ref, lse_ref
+    model = DeepcvModule(IMAGE_SHAPE, vit_spec("b_16", attn_impl="flash"), device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED)).eval()
+    pred = Predictor(model, batch_size=SERVE_BATCH, preprocess=_preprocess,
+                     dtype=torch.float32, device=DEVICE)
+    bench = pred.benchmark(batch=SERVE_BATCH, n_iters=10)
+    emit({"phase": "k3_forward_f32", "shape_n_h_t_dh": [SERVE_BATCH, VIT_HEADS, VIT_T, VIT_DH],
+          "launches_per_forward": VIT_BLOCKS, "rel_err": errs, "per_forward": per,
+          "ms_over_library": per["ms"] / per["library_ms"],
+          "vit_b16_predictor_forward_ms": bench["latency_ms"], "card": card})
+    del model, pred
+    torch.cuda.empty_cache()
 
 
 def phase_vit_serve(card):
@@ -942,14 +1023,16 @@ def flash_kernel_lines(rows, serve_launches, train_launches, card):
     """K3 per ViT-B/16 forward at the serving batch (f32), K4 and K5 per
     train step (bf16, batch 256): 12 launches each. Each entry's ``routes``
     give both dtypes' kernels; K4's and K5's f32 route runs on no main path
-    and is timed at the serving shape."""
+    and is timed at the serving shape. K3's f32 bound is that of its 3xTF32
+    products, with the CUDA-core one beside it."""
     serve, train_row = rows[("vit_serve", "float32")], rows[("vit_train", "bfloat16")]
     lines = []
     for name, kind, row, src, launches, per in (
             ("flash_attention_fwd", "fwd", serve, "deepcv_tpu/ops/attention.py:73",
              {"vit_serve": serve_launches, "vit_train": train_launches["K3"]},
              f"one forward of vit_spec('b_16') at batch {SERVE_BATCH}, float32 "
-             f"(12 launches at N,H,T,Dh {serve['shape_n_h_t_dh']})"),
+             f"(12 launches of flash_fwd_f32tc_kernel at N,H,T,Dh "
+             f"{serve['shape_n_h_t_dh']})"),
             ("flash_attention_bwd_dq", "dq", train_row, "deepcv_tpu/ops/attention.py:185",
              {"vit_train": train_launches["K4"]},
              f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
@@ -966,18 +1049,21 @@ def flash_kernel_lines(rows, serve_launches, train_launches, card):
             "replaces": src, "launches": sum(launches.values()),
             "launches_by_path": launches, "max_abs_err": max_abs,
             **_per_unit(row, kind), "per": per, "card": card})
-    # both routes of each: float32 on the CUDA cores (K3: per serving
-    # forward, the entry's own numbers) and bfloat16 on the tensor cores per
-    # train step (K4, K5: the entries' own numbers)
+    # both routes of each: float32 (K3: 3xTF32 on the tensor cores, per
+    # serving forward, the entry's own numbers; K4, K5: the CUDA cores) and
+    # bfloat16 on the tensor cores per train step (K4, K5: the entries' own
+    # numbers)
     train_per = (f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
                  f"N,H,T,Dh {train_row['shape_n_h_t_dh']})")
     outs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
-    for line, kind, kern, k, f32_launches, f32_per in (
-            (lines[0], "fwd", "flash_fwd", "K3", serve_launches, lines[0]["per"]),
-            (lines[1], "dq", "flash_bwd_dq", "K4", 0, None),
-            (lines[2], "dkv", "flash_bwd_dkv", "K5", 0, None)):
+    for line, kind, kern, f32_kern, k, f32_launches, f32_per in (
+            (lines[0], "fwd", "flash_fwd", "flash_fwd_f32tc_kernel (tensor cores, mma.sync, "
+             "3xTF32)", "K3", serve_launches, lines[0]["per"]),
+            (lines[1], "dq", "flash_bwd_dq", "flash_bwd_dq_kernel (CUDA cores)", "K4", 0, None),
+            (lines[2], "dkv", "flash_bwd_dkv", "flash_bwd_dkv_kernel (CUDA cores)", "K5", 0,
+             None)):
         line["routes"] = {
-            "float32": {"kernel": f"{kern}_kernel (CUDA cores)", "launches": f32_launches,
+            "float32": {"kernel": f32_kern, "launches": f32_launches,
                         **_per_unit(serve, kind),
                         "max_abs_err": max(serve["max_abs_err"][x] for x in outs[kind]),
                         "per": f32_per or (f"12 launches at N,H,T,Dh "
@@ -1000,7 +1086,11 @@ def _per_unit(row, kind):
            "bound_ms": VIT_BLOCKS * k["bound_ms"], "bound_by": k["bound_by"],
            "library_ms": VIT_BLOCKS * row["library_fwd_ms" if kind == "fwd"
                                           else "library_bwd_ms"]}
-    if kind != "fwd":
+    if "cuda_core_bound_ms" in k:
+        out["cuda_core_bound_ms"] = VIT_BLOCKS * k["cuda_core_bound_ms"]
+    if kind == "fwd":
+        out["library_kernels"] = row["library_fwd_kernels"]
+    else:
         out["library_note"] = ("F.scaled_dot_product_attention's backward, one call for "
                                "dQ, dK and dV: K4's and K5's work together")
     return out
@@ -1387,6 +1477,11 @@ def main() -> int:
     if sys.argv[1:] == ["--k2-forward"]:
         torch.backends.cudnn.allow_tf32 = False
         phase_kernel_forward_bf16(phase_device())
+        return 0
+    if sys.argv[1:] == ["--k3-forward"]:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        phase_k3_forward_f32(phase_device())
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)

@@ -2,14 +2,16 @@
 // backward kernels (K4: dQ, K5: dK and dV), with no mask and no dropout.
 //
 // Replaces the TPU kernels of deepcv_tpu/ops/attention.py:
-//   K3 flash_fwd_kernel (f32),
+//   K3 flash_fwd_f32tc_kernel (f32),
 //      flash_fwd_tc_kernel (bf16)     <- _flash_kernel (called by _flash_fwd_impl)
 //   K4 flash_bwd_dq_kernel (f32),
 //      flash_bwd_dq_tc_kernel (bf16)  <- _flash_bwd_dq_kernel (called by _flash_bwd_impl)
 //   K5 flash_bwd_dkv_kernel (f32),
 //      flash_bwd_dkv_tc_kernel (bf16) <- _flash_bwd_dkv_kernel (called by _flash_bwd_impl)
 // q, k, v, o, dO, dQ, dK, dV are (B, T, Dh) row-major with B = batch * heads;
-// lse and delta are (B, T) float32. The scale is 1/sqrt(Dh).
+// lse and delta are (B, T) float32. The scale is 1/sqrt(Dh). Every kernel is
+// instantiated for each head dim in HEAD_DIMS (16, 32, 64, 80, 128; 80 is
+// ViT-H/14's 1280 / 16).
 //
 //   K3: s = (q * scale) k^T, o = softmax(s) v, lse = logsumexp(s) per row,
 //       by the online-softmax recurrence over key tiles (running max m,
@@ -22,9 +24,9 @@
 // What bounds them on an H100 SXM: each reads q, k, v (and dO, lse, delta)
 // once and writes its outputs once, 4 (K3), 5 (K4) and 7 (K5) * B * T^2 * Dh
 // FLOPs (the TPU kernels' cost estimates). ViT-B/16 (T = 197, Dh = 64) does
-// ~100 FLOPs per byte: in float32 (67 TFLOP/s outside the tensor cores) the
-// bound is the arithmetic rate; in bf16 (989 TFLOP/s on the tensor cores)
-// it is the bytes, about 295 FLOPs per byte being the card's balance point.
+// ~100 FLOPs per byte: in float32 on the CUDA cores (67 TFLOP/s) the bound
+// is the arithmetic rate; in bf16 (989 TFLOP/s on the tensor cores) it is
+// the bytes, about 295 FLOPs per byte being the card's balance point.
 //
 // K3 on bfloat16 inputs: flash_fwd_tc_kernel, on the tensor cores.
 //   Bound at ViT's training shape (B = 256 * 12, T = 197, Dh = 64): 310 MB
@@ -50,13 +52,61 @@
 //     rounded to bf16); only P is rounded to bf16 before P V, l sums the f32
 //     p; keys past T inside a computed n8 fragment get the finite score
 //     -1e30, and fragments wholly past T are not computed;
-//   - every head dim in HEAD_DIMS is an instantiation; the buffers are
-//     dynamic shared memory (87 KB at Dh = 128, set by cudaFuncSetAttribute
+//   - every head dim in HEAD_DIMS is an instantiation (80: five k16 steps
+//     and five 16-column ldmatrix.x4 groups; its 88-element, 176-byte row
+//     stride puts an ldmatrix's 8 rows in distinct 16-byte bank groups, as
+//     the 16-byte padding does at every Dh); the buffers are dynamic shared
+//     memory (55 KB at Dh = 80, 87 KB at 128, set by cudaFuncSetAttribute
 //     in the launcher).
 //   mma.sync and not wgmma: the shape is bound by bytes, and mma.sync's
 //   peak (roughly half of wgmma's) is still some 10 times what the bytes
 //   allow here; wgmma, TMA and warp specialisation are for a later design,
 //   if this one ends far from its bound.
+//
+// K3 on float32 inputs: flash_fwd_f32tc_kernel, on the tensor cores by
+// 3xTF32.
+//   Arithmetic: mma.sync m16n8k8 tf32 -> f32. Every f32 operand x is split
+//   into hi = rna(x) and lo = rna(x - hi), rna being cvt.rna.tf32.f32's
+//   rounding done in integer operations (x - hi is exact; handing the mma
+//   raw f32 bits would truncate instead of round), and each
+//   product is lo*hi + hi*lo + hi*hi, accumulated in f32; lo*lo, about
+//   2^-22 relative, is dropped. So S = Q K^T and O += P V (P split as well)
+//   keep f32 accuracy (within 2e-5 of the f32 plain version), where one
+//   TF32 product (10 mantissa bits) would not. This is the kernel's own
+//   arithmetic: torch.backends.cuda.matmul.allow_tf32, which governs cuBLAS,
+//   does not reach it.
+//   Bound at ViT-B/16's serving shape (B = 64 * 12, T = 197, Dh = 64): 155.5
+//   MB read and written, 0.046 ms at 3.35 TB/s, against 3 * 7.6 GFLOP of
+//   TF32 products, 0.046 ms at 494.7 TFLOP/s: the two agree, so the design
+//   reads every operand once and keeps the three products on the tensor
+//   cores. K3's bf16 plumbing carries over:
+//   - a block of 4 warps owns 64 q rows, a warp one m16 tile; the same 1-D
+//     grid over (head, q-block), a head's blocks adjacent (K and V from L2);
+//   - K and V stream in 32-key tiles by cp.async (16 B = 4 floats, zero-fill
+//     past T), two stages: 53 KB of shared memory at Dh = 64, so 4 blocks
+//     (16 warps) share an SM, 3 at Dh = 80 and 2 at 128;
+//   - there is no ldmatrix for 32-bit operands, so fragments are read from
+//     padded rows: Q and K (stride Dh + 8 floats) by 8-byte loads, with the
+//     head-dim index of Q K^T permuted (mma k t <- dim 2t, k t + 4 <- dim
+//     2t + 1 of each 8) so that a lane's two A and two B values are adjacent;
+//     V (stride Dh + 4) by 4-byte loads of rows 2t and 2t + 1. Half a warp's
+//     8-byte loads fall in rows 8g apart mod 32 banks and a warp's V loads
+//     in 8t + g: no bank conflict at any head dim;
+//   - P's A fragment is the S accumulator, with the key index of P V
+//     permuted the same way (a0 = c0, a1 = c2, a2 = c1, a3 = c3: mma k t <-
+//     key 2t, k t + 4 <- key 2t + 1) and V's B fragment read from keys 2t
+//     and 2t + 1 to match: no shuffle, no shared memory;
+//   - Q's fragments are read from shared memory and split once per key tile
+//     (per k8 step, then used by the tile's 4 key fragments), and K's and V's
+//     after each load: no register holds Q for the whole loop, which keeps
+//     Dh = 128 out of spills;
+//   - the online softmax runs in f32 on raw scores, the scale folded with
+//     log2(e) into exp2f's FMA; keys past T inside a computed n8 fragment get
+//     the finite score -1e30 and P = 0 by a select after exp2f; fragments
+//     wholly past T are not computed.
+//   mma.sync and not wgmma: the kernel's first tensor-core design. Its
+//   three TF32 mmas per product, not the bytes, hold it from the bound;
+//   wgmma's tf32 form (m64nNk8) is the way past them.
 //
 // K4 and K5 on bfloat16 inputs: flash_bwd_dq_tc_kernel and
 // flash_bwd_dkv_tc_kernel, on the tensor cores with K3's plumbing.
@@ -93,24 +143,25 @@
 //     its A row alone; a warp whose 16 rows all lie past T does no
 //     arithmetic but loads and meets every barrier.
 //   - shared memory: K4 holds its Q and dO rows plus two stages of K and V
-//     (55 KB at Dh = 64, 104 KB at 128), K5 the mirror plus two stages of
+//     (55 KB at Dh = 64, 66 KB at 80, 104 KB at 128), K5 the mirror plus two stages of
 //     lse and delta (1 KB more): dynamic, as K3's.
 //
-// K3, K4 and K5 on float32 inputs: the first design, on the CUDA cores:
-//   - a block owns 64 rows (q rows for K3/K4, key rows for K5); each row is
-//     shared by Dh/16 threads, each holding 16 of the row's dims in
-//     registers as four float4 chunks interleaved across the threads (chunk
-//     c = i * Dh/16 + g), so the shared-memory reads of a warp hit distinct
-//     banks; dot products are summed across the row's threads with xor
-//     shuffles inside aligned lane groups;
+// K4 and K5 on float32 inputs: the first design, on the CUDA cores:
+//   - a block owns 64 rows (q rows for K4, key rows for K5); each row is
+//     shared by TPR threads, a power of two so that they are aligned lanes
+//     of one warp (Dh / 16, and 4 at Dh = 80), each holding DPT = Dh / TPR
+//     of the row's dims (16, or 20 at Dh = 80) in registers as float4 chunks
+//     interleaved across the threads (chunk c = i * TPR + g), so the
+//     shared-memory reads of a warp hit distinct banks; dot products are
+//     summed across the row's threads with xor shuffles inside the group;
 //   - the streamed operand (k and v, or q, dO, lse and delta) is staged in
-//     shared memory one tile of 4096 / Dh rows at a time;
+//     shared memory one tile of about 4096 / Dh rows at a time;
 //   - T needs no padding in memory: tile loads past T read zeros, rows past
 //     T are computed but never stored, and chunks of keys that lie wholly
-//     past T are skipped. Inside a partial chunk, K3 gives the keys past T
-//     the finite score -1e30 (never -inf, so no all-padding tile can make
-//     exp(-inf - -inf) = NaN, as attention.py:95-100 explains); K4 and K5
-//     set p = 0 for keys (K4) and q rows (K5) past T.
+//     past T are skipped; K4 and K5 set p = 0 for keys (K4) and q rows (K5)
+//     past T. (The finite score -1e30 that K3 gives padded keys keeps an
+//     all-padding tile from making exp(-inf - -inf) = NaN, as
+//     attention.py:95-100 explains.)
 // The TPU kernels' 8-lane lse layout (a Mosaic tiling constraint) is not
 // carried over: lse and delta are plain (B, T) float32.
 //
@@ -128,12 +179,30 @@
 namespace {
 
 constexpr int ROWS = 64;          // rows a block owns
-constexpr int DPT = 16;           // head dims per thread
 constexpr int TILE_ELEMS = 4096;  // f32 elements of one staged tile (16 KB)
 constexpr float kMaskScore = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
+
+// The CUDA-core kernels (K4, K5 on f32) share a row among TPR threads: the
+// largest power of two up to Dh / 16 that divides the row's Dh / 4 float4
+// chunks, so a row's threads are aligned lanes of one warp and group_sum's
+// xor shuffles stay among them (Dh / 16 threads of 16 dims each, and at
+// Dh = 80 four threads of 20 dims: five float4 chunks each).
+constexpr int threads_per_row(int dh) {
+  int p = 1;
+  while (2 * p <= dh / 16 && (dh / 4) % (2 * p) == 0) p *= 2;
+  return p;
+}
+
+template <int DH>
+struct RowSplit {
+  static constexpr int TPR = threads_per_row(DH);  // threads per row
+  static constexpr int DPT = DH / TPR;             // head dims per thread
+  static constexpr int NT = ROWS * TPR;            // threads per block
+  static_assert(DH % (4 * TPR) == 0 && 32 % TPR == 0, "a row splits into float4 chunks");
+};
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -155,14 +224,14 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// this thread's 16 dims of row `r` of a (rows, DH) matrix, f32; zeros when
+// this thread's DPT dims of row `r` of a (rows, DH) matrix, f32; zeros when
 // the row is not live
 template <typename T, int DH>
-__device__ __forceinline__ void load_row(float (&dst)[DPT], const T* __restrict__ src,
+__device__ __forceinline__ void load_row(float (&dst)[RowSplit<DH>::DPT], const T* __restrict__ src,
                                          long long r, bool live, int g, float mul) {
-  constexpr int TPR = DH / DPT;
+  constexpr int TPR = RowSplit<DH>::TPR;
 #pragma unroll
-  for (int i = 0; i < DPT / 4; ++i) {
+  for (int i = 0; i < RowSplit<DH>::DPT / 4; ++i) {
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (live) x = load4(src + r * DH + (i * TPR + g) * 4);
     dst[4 * i + 0] = x.x * mul;
@@ -173,25 +242,25 @@ __device__ __forceinline__ void load_row(float (&dst)[DPT], const T* __restrict_
 }
 
 template <typename T, int DH>
-__device__ __forceinline__ void store_row(T* __restrict__ dst, const float (&src)[DPT],
+__device__ __forceinline__ void store_row(T* __restrict__ dst, const float (&src)[RowSplit<DH>::DPT],
                                           long long r, int g, float mul) {
-  constexpr int TPR = DH / DPT;
+  constexpr int TPR = RowSplit<DH>::TPR;
 #pragma unroll
-  for (int i = 0; i < DPT / 4; ++i) {
+  for (int i = 0; i < RowSplit<DH>::DPT / 4; ++i) {
     store4(dst + r * DH + (i * TPR + g) * 4,
            make_float4(src[4 * i] * mul, src[4 * i + 1] * mul, src[4 * i + 2] * mul,
                        src[4 * i + 3] * mul));
   }
 }
 
-// partial dot product of this thread's 16 dims with row `j` of a staged tile
+// partial dot product of this thread's DPT dims with row `j` of a staged tile
 template <int DH>
-__device__ __forceinline__ float dot_tile(const float (&a)[DPT], const float* __restrict__ tile,
-                                          int j, int g) {
-  constexpr int TPR = DH / DPT;
+__device__ __forceinline__ float dot_tile(const float (&a)[RowSplit<DH>::DPT],
+                                          const float* __restrict__ tile, int j, int g) {
+  constexpr int TPR = RowSplit<DH>::TPR;
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < DPT / 4; ++i) {
+  for (int i = 0; i < RowSplit<DH>::DPT / 4; ++i) {
     const float4 b = smem4(tile + j * DH + (i * TPR + g) * 4);
     s = fmaf(a[4 * i], b.x, s);
     s = fmaf(a[4 * i + 1], b.y, s);
@@ -201,13 +270,13 @@ __device__ __forceinline__ float dot_tile(const float (&a)[DPT], const float* __
   return s;
 }
 
-// acc += w * row `j` of a staged tile (this thread's 16 dims)
+// acc += w * row `j` of a staged tile (this thread's DPT dims)
 template <int DH>
-__device__ __forceinline__ void axpy_tile(float (&acc)[DPT], float w, const float* __restrict__ tile,
-                                          int j, int g) {
-  constexpr int TPR = DH / DPT;
+__device__ __forceinline__ void axpy_tile(float (&acc)[RowSplit<DH>::DPT], float w,
+                                          const float* __restrict__ tile, int j, int g) {
+  constexpr int TPR = RowSplit<DH>::TPR;
 #pragma unroll
-  for (int i = 0; i < DPT / 4; ++i) {
+  for (int i = 0; i < RowSplit<DH>::DPT / 4; ++i) {
     const float4 b = smem4(tile + j * DH + (i * TPR + g) * 4);
     acc[4 * i] = fmaf(w, b.x, acc[4 * i]);
     acc[4 * i + 1] = fmaf(w, b.y, acc[4 * i + 1]);
@@ -230,65 +299,6 @@ __device__ __forceinline__ void stage_tile(float* __restrict__ dst, const T* __r
   }
 }
 
-// ---------------------------------------------------------------- K3 ---- //
-template <typename T, int DH>
-__global__ void __launch_bounds__(ROWS * (DH / DPT))
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int t_len, float scale) {
-  constexpr int TPR = DH / DPT;
-  constexpr int NT = ROWS * TPR;
-  constexpr int BK = TILE_ELEMS / DH;
-  constexpr int CH = 16;  // keys per online-softmax step
-  __shared__ __align__(16) float ks[BK * DH];
-  __shared__ __align__(16) float vs[BK * DH];
-
-  const int tid = threadIdx.x, g = tid % TPR;
-  const long long bh = blockIdx.x;
-  const int qi = blockIdx.y * ROWS + tid / TPR;
-  const bool live = qi < t_len;
-  const long long base = bh * t_len * DH;
-
-  float qr[DPT], acc[DPT];
-  load_row<T, DH>(qr, q + base, qi, live, g, scale);
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
-  float m = -INFINITY, l = 0.f;
-
-  for (int k0 = 0; k0 < t_len; k0 += BK) {
-    __syncthreads();
-    stage_tile<T, DH, NT>(ks, k + base, k0, BK, t_len, tid);
-    stage_tile<T, DH, NT>(vs, v + base, k0, BK, t_len, tid);
-    __syncthreads();
-    for (int j0 = 0; j0 < BK && k0 + j0 < t_len; j0 += CH) {
-      float s[CH];
-#pragma unroll
-      for (int j = 0; j < CH; ++j) s[j] = dot_tile<DH>(qr, ks, j0 + j, g);
-      float mc = m;
-#pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        s[j] = group_sum<TPR>(s[j]);
-        if (k0 + j0 + j >= t_len) s[j] = kMaskScore;
-        mc = fmaxf(mc, s[j]);
-      }
-      const float alpha = expf(m - mc);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < DPT; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const float p = expf(s[j] - mc);
-        l += p;
-        axpy_tile<DH>(acc, p, vs, j0 + j, g);
-      }
-      m = mc;
-    }
-  }
-  if (live) {
-    store_row<T, DH>(o + base, acc, qi, g, 1.f / l);
-    if (g == 0) lse[bh * t_len + qi] = m + logf(l);
-  }
-}
-
 // ------------------------------------------------- K3, bf16, tensor cores //
 constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = 32 * TC_WARPS;
@@ -303,9 +313,10 @@ struct TcLayout {
   static constexpr int TILE = TC_BK * LD;
   static constexpr int BYTES = (Q + 4 * TILE) * (int)sizeof(__nv_bfloat16);
   // blocks per SM the registers must leave room for: shared memory allows 4
-  // up to Dh = 64 (46 KB each) and 2 at Dh = 128 (87 KB); asking for 4 at
-  // Dh = 128 would cap it at 128 registers and spill
-  static constexpr int MIN_BLOCKS = DH <= 64 ? 4 : 2;
+  // up to Dh = 80 (46 KB each at 64, 55 KB at 80) and 2 at Dh = 128 (87 KB);
+  // asking for 4 at Dh = 128 would cap it at 128 registers and spill, and at
+  // Dh = 80 (O and Q's fragments 25 % larger than at 64) 3 keeps 168
+  static constexpr int MIN_BLOCKS = DH <= 64 ? 4 : DH <= 80 ? 3 : 2;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
@@ -542,6 +553,249 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
 }
 
+// ------------------------------------------------ K3, f32, tensor cores //
+constexpr int F32_BK = 32;  // keys per tile
+
+// shared-memory layout of flash_fwd_f32tc_kernel: the block's Q rows, then
+// two stages of K tiles and two of V tiles, f32; Q and K rows padded by 8
+// floats (8-byte fragment loads), V rows by 4 (4-byte loads)
+template <int DH>
+struct F32TcLayout {
+  static constexpr int LDK = DH + 8;
+  static constexpr int LDV = DH + 4;
+  static constexpr int Q = ROWS * LDK;
+  static constexpr int KT = F32_BK * LDK;
+  static constexpr int VT = F32_BK * LDV;
+  static constexpr int BYTES = (Q + 2 * KT + 2 * VT) * (int)sizeof(float);
+  // blocks per SM that shared memory allows (53 KB at Dh = 64, 65 KB at 80,
+  // 101 KB at 128), which the registers must leave room for
+  static constexpr int MIN_BLOCKS = DH <= 64 ? 4 : DH <= 80 ? 3 : 2;
+};
+
+// rows [r0, r0 + NROWS) of a (t_len, DH) f32 matrix into shared memory with
+// row stride LD, by cp.async; rows at or past t_len are zero-filled
+template <int DH, int NROWS, int LD>
+__device__ __forceinline__ void cp_rows_f32(float* dst, const float* __restrict__ src, int r0,
+                                            int t_len, int tid) {
+  constexpr int CPR = DH / 4;  // 16-byte chunks per row
+  static_assert((NROWS * CPR) % TC_THREADS == 0, "chunks must split evenly");
+#pragma unroll
+  for (int i = 0; i < NROWS * CPR / TC_THREADS; ++i) {
+    const int c = tid + i * TC_THREADS;
+    const int r = c / CPR, ch = c % CPR;
+    const bool in = r0 + r < t_len;
+    cp_async16(dst + r * LD + ch * 4, src + (long long)(in ? r0 + r : 0) * DH + ch * 4, in);
+  }
+}
+
+// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero: the
+// rounding of cvt.rna.tf32.f32, by adding half a tf32 ulp to the magnitude
+// bits and clearing the 13 low ones (it equals cvt.rna on every finite float
+// and on the infinities; ptxas expands cvt.rna into a longer sequence of
+// compares and selects)
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + (|x| 2^-22 or less): hi and lo rounded to tf32 to nearest,
+// ties away from zero; x - hi is exact in f32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b for one m16n8k8 tile: a 16x8 tf32 (row), b 8x8 tf32 (col), d f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b at f32 accuracy (3xTF32): the small products first, then hi * hi
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// K3 on f32. In an m16n8k8 tf32 mma, lane l (g = l / 4, c = l % 4) holds A
+// at (row g | g + 8, k c | c + 4) as a0 (g, c), a1 (g + 8, c), a2 (g, c + 4),
+// a3 (g + 8, c + 4); B at (k c | c + 4, n g); the accumulator at rows g,
+// g + 8 and columns 2c, 2c + 1 ([0..1] row g, [2..3] row g + 8). The k index
+// is permuted in both products (k c <- 2c, k c + 4 <- 2c + 1 of each 8), so
+// a lane's A and B values are adjacent dims of Q and K and its S
+// accumulator is already P's A fragment.
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS, F32TcLayout<DH>::MIN_BLOCKS)
+flash_fwd_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
+                       float* __restrict__ lse, int t_len, int n_qblocks, float scale) {
+  using L = F32TcLayout<DH>;
+  constexpr int LDK = L::LDK, LDV = L::LDV;
+  constexpr int KS = DH / 8;      // k8 steps over the head dim
+  constexpr int NK = F32_BK / 8;  // n8 key fragments of a tile (k8 steps of P V)
+  constexpr int ND = DH / 8;      // n8 head-dim fragments of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + L::Q;
+  float* vs = ks + 2 * L::KT;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long bh = blockIdx.x / n_qblocks;
+  const int q0 = (int)(blockIdx.x % n_qblocks) * ROWS;
+  const long long base = bh * t_len * DH;
+  const int n_tiles = (t_len + F32_BK - 1) / F32_BK;
+  const bool live = q0 + warp * 16 < t_len;
+  // scores are raw q.k in f32; p = 2^((s - m) * scale * log2(e))
+  const float sl2 = scale * kLog2e;
+
+  cp_rows_f32<DH, ROWS, LDK>(qs, q + base, q0, t_len, tid);
+  cp_rows_f32<DH, F32_BK, LDK>(ks, k + base, 0, t_len, tid);
+  cp_rows_f32<DH, F32_BK, LDV>(vs, v + base, 0, t_len, tid);
+  cp_async_commit();
+
+  // this lane's Q rows g and g + 8 of the warp's tile, dims 2c and 2c + 1
+  // of each k8 step
+  const float* qw = qs + (warp * 16 + g) * LDK + 2 * c;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      const int nxt = (t + 1) & 1;
+      cp_rows_f32<DH, F32_BK, LDK>(ks + nxt * L::KT, k + base, (t + 1) * F32_BK, t_len, tid);
+      cp_rows_f32<DH, F32_BK, LDV>(vs + nxt * L::VT, v + base, (t + 1) * F32_BK, t_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      const float* kt = ks + (t & 1) * L::KT;
+      const float* vt = vs + (t & 1) * L::VT;
+      const int nlive = t_len - t * F32_BK;  // keys of this tile before T (>= 1)
+
+      // S = Q K^T over this tile's key fragments that hold a key before T;
+      // Q's A fragment read and split once per k8 step for all of them
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const float2 x0 = *reinterpret_cast<const float2*>(qw + kk * 8);
+        const float2 x1 = *reinterpret_cast<const float2*>(qw + 8 * LDK + kk * 8);
+        uint32_t ah[4], al[4];
+        split_tf32(x0.x, ah[0], al[0]);
+        split_tf32(x1.x, ah[1], al[1]);
+        split_tf32(x0.y, ah[2], al[2]);
+        split_tf32(x1.y, ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          if (j * 8 >= nlive) break;
+          // key j * 8 + g, dims 2c and 2c + 1 of this k8 step
+          const float2 y = *reinterpret_cast<const float2*>(kt + (j * 8 + g) * LDK + kk * 8 + 2 * c);
+          uint32_t bh2[2], bl2[2];
+          split_tf32(y.x, bh2[0], bl2[0]);
+          split_tf32(y.y, bh2[1], bl2[1]);
+          mma_3xtf32(s[j], ah, al, bh2, bl2);
+        }
+      }
+      if (nlive < F32_BK) {
+#pragma unroll
+        for (int j = 0; j < NK; ++j) {
+          const int key = j * 8 + 2 * c;
+          if (key >= nlive) s[j][0] = s[j][2] = kMaskScore;
+          if (key + 1 >= nlive) s[j][1] = s[j][3] = kMaskScore;
+        }
+      }
+
+      // online softmax: new running max, rescale, p in f32
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float a0 = exp2f((m0 - mx0) * sl2), a1 = exp2f((m1 - mx1) * sl2);
+      m0 = mx0;
+      m1 = mx1;
+      const float mb0 = mx0 * sl2, mb1 = mx1 * sl2;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= a0;
+        acc[n][1] *= a0;
+        acc[n][2] *= a1;
+        acc[n][3] *= a1;
+      }
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const int key = j * 8 + 2 * c;
+        s[j][0] = key < nlive ? exp2f(fmaf(s[j][0], sl2, -mb0)) : 0.f;
+        s[j][1] = key + 1 < nlive ? exp2f(fmaf(s[j][1], sl2, -mb0)) : 0.f;
+        s[j][2] = key < nlive ? exp2f(fmaf(s[j][2], sl2, -mb1)) : 0.f;
+        s[j][3] = key + 1 < nlive ? exp2f(fmaf(s[j][3], sl2, -mb1)) : 0.f;
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+
+      // O += P V over the k8 steps that hold a key before T: P's A fragment
+      // is S accumulator j (a0 = c0, a1 = c2, a2 = c1, a3 = c3: k c <- key
+      // 2c, k c + 4 <- key 2c + 1), V's B fragment keys 2c and 2c + 1 at dim g
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        if (j * 8 >= nlive) break;
+        uint32_t ph[4], pl[4];
+        split_tf32(s[j][0], ph[0], pl[0]);
+        split_tf32(s[j][2], ph[1], pl[1]);
+        split_tf32(s[j][1], ph[2], pl[2]);
+        split_tf32(s[j][3], ph[3], pl[3]);
+        const float* v0 = vt + (j * 8 + 2 * c) * LDV + g;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          uint32_t bh2[2], bl2[2];
+          split_tf32(v0[n * 8], bh2[0], bl2[0]);
+          split_tf32(v0[LDV + n * 8], bh2[1], bl2[1]);
+          mma_3xtf32(acc[n], ph, pl, bh2, bl2);
+        }
+      }
+    }
+    __syncthreads();  // the stage read here is the one the next tile fills
+  }
+  if (!live) return;
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int d = n * 8 + 2 * c;
+    if (r0 < t_len)
+      *reinterpret_cast<float2*>(o + base + (long long)r0 * DH + d) =
+          make_float2(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (r1 < t_len)
+      *reinterpret_cast<float2*>(o + base + (long long)r1 * DH + d) =
+          make_float2(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+  if (c == 0) {
+    if (r0 < t_len) lse[bh * t_len + r0] = m0 * scale + logf(l0);
+    if (r1 < t_len) lse[bh * t_len + r1] = m1 * scale + logf(l1);
+  }
+}
+
 // ------------------------------------------- K4 and K5, bf16, tensor cores //
 // shared-memory layout of the two backward kernels: the 64 rows a block owns
 // of two operands (K4: Q, dO; K5: K, V), then two stages of 64-row tiles of
@@ -556,8 +810,10 @@ struct BwdLayout {
   static constexpr int STATS = 2 * TC_BK;  // lse then delta, f32, one stage
   static constexpr int DKV_BYTES = DQ_BYTES + 2 * STATS * (int)sizeof(float);
   // blocks per SM the registers must leave room for; shared memory allows 4
-  // up to Dh = 64 and 2 at Dh = 128
-  static constexpr int DQ_MIN_BLOCKS = DH <= 64 ? 4 : 2;
+  // up to Dh = 64, 3 at Dh = 80 (66 KB and 67 KB) and 2 at Dh = 128; K5
+  // holds twice K4's accumulators and needs 2 at Dh = 80 (167 registers at
+  // 64 already)
+  static constexpr int DQ_MIN_BLOCKS = DH <= 64 ? 4 : DH <= 80 ? 3 : 2;
   static constexpr int DKV_MIN_BLOCKS = DH <= 32 ? 4 : DH == 64 ? 3 : 2;
 };
 
@@ -862,15 +1118,14 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
 
 // ---------------------------------------------------------------- K4 ---- //
 template <typename T, int DH>
-__global__ void __launch_bounds__(ROWS * (DH / DPT))
+__global__ void __launch_bounds__(RowSplit<DH>::NT)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, int t_len,
                     float scale) {
-  constexpr int TPR = DH / DPT;
-  constexpr int NT = ROWS * TPR;
-  constexpr int BK = TILE_ELEMS / DH;
+  constexpr int TPR = RowSplit<DH>::TPR, DPT = RowSplit<DH>::DPT, NT = RowSplit<DH>::NT;
   constexpr int CH = 8;
+  constexpr int BK = TILE_ELEMS / DH / CH * CH;  // keys per staged tile
   __shared__ __align__(16) float ks[BK * DH];
   __shared__ __align__(16) float vs[BK * DH];
 
@@ -914,15 +1169,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 // ---------------------------------------------------------------- K5 ---- //
 template <typename T, int DH>
-__global__ void __launch_bounds__(ROWS * (DH / DPT))
+__global__ void __launch_bounds__(RowSplit<DH>::NT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      int t_len, float scale) {
-  constexpr int TPR = DH / DPT;
-  constexpr int NT = ROWS * TPR;
-  constexpr int BQ = TILE_ELEMS / DH;
+  constexpr int TPR = RowSplit<DH>::TPR, DPT = RowSplit<DH>::DPT, NT = RowSplit<DH>::NT;
   constexpr int CH = 8;
+  constexpr int BQ = TILE_ELEMS / DH / CH * CH;  // q rows per staged tile
   __shared__ __align__(16) float qs[BQ * DH];
   __shared__ __align__(16) float dos[BQ * DH];
   __shared__ float lses[BQ];
@@ -997,7 +1251,9 @@ cudaError_t launch_tc(Kernel kernel, int smem, const Args& a, cudaStream_t st, P
   return cudaGetLastError();
 }
 
-// bfloat16 takes the tensor-core kernels, float32 the CUDA-core ones
+// K3 takes a tensor-core kernel in both types (bf16: flash_fwd_tc_kernel;
+// f32: flash_fwd_f32tc_kernel, 3xTF32); K4 and K5 take the tensor-core
+// kernels for bfloat16 and the CUDA-core ones for float32
 template <typename T, int DH>
 cudaError_t launch(int which, const Args& a, cudaStream_t st) {
   const T* q = static_cast<const T*>(a.q);
@@ -1016,12 +1272,15 @@ cudaError_t launch(int which, const Args& a, cudaStream_t st) {
     return launch_tc(flash_bwd_dkv_tc_kernel<DH>, BwdLayout<DH>::DKV_BYTES, a, st, q, k, v,
                      dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv));
   } else {
-    const dim3 grid((unsigned)a.bh, (unsigned)((a.t_len + ROWS - 1) / ROWS));
-    const dim3 block(ROWS * (DH / DPT));
-    if (which == 0) {
-      flash_fwd_kernel<T, DH><<<grid, block, 0, st>>>(
-          q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), a.t_len, a.scale);
-    } else if (which == 1) {
+    if (which == 0)
+      return launch_tc(flash_fwd_f32tc_kernel<DH>, F32TcLayout<DH>::BYTES, a, st, q, k, v,
+                       static_cast<T*>(a.o), static_cast<float*>(a.lse_out));
+    // the CUDA-core kernels' grid is (head, row block): at most 65535 blocks of rows
+    const int n_blocks = (a.t_len + ROWS - 1) / ROWS;
+    if (n_blocks > 65535) return cudaErrorInvalidValue;
+    const dim3 grid((unsigned)a.bh, (unsigned)n_blocks);
+    const dim3 block(RowSplit<DH>::NT);
+    if (which == 1) {
       flash_bwd_dq_kernel<T, DH><<<grid, block, 0, st>>>(q, k, v, dout, lse, delta,
                                                          static_cast<T*>(a.dq), a.t_len, a.scale);
     } else {
@@ -1039,14 +1298,14 @@ cudaError_t dispatch_dh(int which, int dh, const Args& a, cudaStream_t st) {
     case 16: return launch<T, 16>(which, a, st);
     case 32: return launch<T, 32>(which, a, st);
     case 64: return launch<T, 64>(which, a, st);
+    case 80: return launch<T, 80>(which, a, st);
     case 128: return launch<T, 128>(which, a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int run(int which, int dh, int dtype, const Args& a, void* stream) {
-  if (a.bh < 0 || a.t_len < 0 || (a.t_len + ROWS - 1) / ROWS > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (a.bh < 0 || a.t_len < 0) return (int)cudaErrorInvalidValue;
   if (a.bh == 0 || a.t_len == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -1060,7 +1319,7 @@ int run(int which, int dh, int dtype, const Args& a, void* stream) {
 
 // Each returns the CUDA error of its launch (0 on success) and launches
 // nothing for an empty input. Pointers are device pointers to contiguous
-// tensors; dh is 16, 32, 64 or 128.
+// tensors; dh is 16, 32, 64, 80 or 128.
 
 // K3: o (B, T, Dh) in the input type and lse (B, T) float32
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v,

@@ -13,11 +13,14 @@ the kernels on an H100 and what this design does about it. The
 Layout: q, k, v, o, dO (N, H, T, Dh) in float32 or bfloat16; lse and delta
 (N, H, T) float32. Outputs take the input's dtype.
 
-Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises;
-each of K3, K4 and K5 has a tensor-core kernel for bfloat16 and a CUDA-core
-one for float32);
+Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises);
 a CPU or meta tensor takes the plain version, which computes the same
-function in float32 with the (T, T) scores materialised.
+function in float32 with the (T, T) scores materialised. On the card, K3 runs
+on the tensor cores in both dtypes: for bfloat16 in bf16 products, for
+float32 by 3xTF32 (each operand split into two TF32 parts, three products
+accumulated in f32), which keeps float32 accuracy and does not depend on
+``torch.backends.cuda.matmul.allow_tf32``. K4 and K5 have a tensor-core
+kernel for bfloat16 and a CUDA-core one for float32.
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ __all__ = ["HEAD_DIMS", "plain_flash_fwd", "plain_flash_bwd_dq",
            "plain_flash_bwd_dkv", "flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv"]
 
-#: head dims the CUDA kernels are instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the CUDA kernels are instantiated for: every head dim of the
+#: zoo's ViTs (64, and 80 for ViT-H/14) and the powers of two around them
+HEAD_DIMS = (16, 32, 64, 80, 128)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL = "flash_attention"
@@ -144,8 +148,9 @@ def _dispatch(device: torch.device, name: str):
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: ``(o, lse)`` of :func:`plain_flash_fwd`. On a CUDA tensor this
-    launches the kernel (bfloat16: the tensor-core kernel; float32: the
-    CUDA-core one) and adds one to ``flash_attention_fwd.launches`` and to
+    launches the kernel (bfloat16: ``flash_fwd_tc_kernel``; float32:
+    ``flash_fwd_f32tc_kernel``, 3xTF32; both on the tensor cores) and adds
+    one to ``flash_attention_fwd.launches`` and to
     ``flash_attention_fwd.launches_by_dtype[dtype name]``."""
     _check((q, k, v))
     if not _dispatch(q.device, "flash_attention_fwd"):

@@ -4,8 +4,10 @@ tests/test_attention.py runs them), the port's ``flash_attention``
 autograd.Function against ``jax.grad`` of the JAX one, the wrappers'
 dispatch and checks, the attention modules against their JAX counterparts
 the CUDA source's interface, and emulations of the bf16 tensor-core
-kernels' arithmetic (the forward, K3, and the backward, K4 and K5). The
-CUDA kernels themselves run only on a card (tests/test_torch_port_gpu.py)."""
+kernels' arithmetic (the forward, K3, in bf16 and in 3xTF32 for f32, and
+the backward, K4 and K5), and F3: every head dim of the zoo's ViTs has a
+kernel. The CUDA kernels themselves run only on a card
+(tests/test_torch_port_gpu.py)."""
 import math
 import re
 
@@ -20,8 +22,9 @@ from deepcv_tpu_torch.ops import attention as tatt
 from deepcv_tpu_torch.ops import nn as tnn
 from deepcv_tpu_torch.ops.kernels import _build
 from deepcv_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
+    HEAD_DIMS, flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd,
     plain_flash_bwd_dkv, plain_flash_bwd_dq, plain_flash_fwd)
+from deepcv_tpu_torch.spec.zoo import VIT_SETTINGS
 
 KERNEL_TOL = 1e-5  # f32: the plain versions vs the Pallas kernels
 GRAD_RTOL = 1e-3   # gradients through the autograd.Function vs jax.grad
@@ -31,6 +34,9 @@ MODULE_TOL = 1e-4  # module outputs, the bound of tests/test_torch_parity.py
 # within a bf16 ulp (2**-7); lse is f32 throughout, another sum order
 FLASH_BF16_TOL = 1e-2
 LSE_TOL = 2e-5
+# K3 on f32 (3xTF32, the tensor-core kernel's arithmetic) vs the plain
+# version, relative to max|ref|: the f32 bound of chip_smoke.py and the GPU tests
+FLASH_F32_TOL = 2e-5
 
 
 def _qkv(t, dh=16, n=2, h=3, seed=0, k=4):
@@ -203,7 +209,7 @@ def _rel(got, ref):
 
 @pytest.mark.parametrize("shape", [(1, 2, 197, 64)]
                          + [(1, 2, t, 64) for t in (1, 5, 64, 65, 130)]
-                         + [(1, 2, 197, dh) for dh in (16, 32, 128)])
+                         + [(1, 2, 197, dh) for dh in (16, 32, 128, 80)])
 def test_tensor_core_fwd_arithmetic_matches_plain(shape):
     q, k, v = _bf16_qkv(shape, seed=10)
     o, lse = _emulate_tc_fwd(q, k, v)
@@ -222,6 +228,221 @@ def test_tensor_core_fwd_arithmetic_matches_pallas_interpret():
     o, lse = _emulate_tc_fwd(q, k, v)
     assert _rel(o.float(), np.asarray(o_j, np.float32)) <= FLASH_BF16_TOL
     assert _rel(lse, np.asarray(lse_j)) <= LSE_TOL
+
+
+# --------------------------------------------------------------------------- #
+# K3 on f32: the tensor-core kernel's 3xTF32 arithmetic, emulated
+# --------------------------------------------------------------------------- #
+
+def _tf32_split(x):
+    """``(hi, lo)``: x rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds, and x − hi rounded the
+    same way; by bit operations on the float32 view (adding half a TF32 ulp
+    to the magnitude bits and clearing the 13 low bits), as the kernel's
+    ``rna_tf32`` does."""
+    def rna(v):
+        b = v.float().contiguous().view(torch.int32)
+        return ((b + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x)
+    return hi, rna(x.float() - hi)
+
+
+# m16n8k8 tf32 fragments (PTX ISA): lane l holds A register i at (row, k),
+# B register i at (k, n) and accumulator register i at (row, col)
+_LANE = torch.arange(32)
+_G, _C = _LANE // 4, _LANE % 4
+
+
+def _a_at(i):
+    return _G + 8 * (i & 1), _C + 4 * (i >> 1)
+
+
+def _b_at(i):
+    return _C + 4 * i, _G
+
+
+def _acc_at(i):
+    return _G + 8 * (i >> 1), 2 * _C + (i & 1)
+
+
+#: flash_fwd_f32tc_kernel's choices (csrc/flash_attention.cu): where each
+#: lane reads its A and B registers from, in a 16x8 block of Q (rows, dims),
+#: an 8x8 block of K (keys, dims), the 16x8 S accumulator (rows, keys) and an
+#: 8x8 block of V (keys, dims). Q K^T: k c <- dim 2c, k c + 4 <- dim 2c + 1
+#: (8-byte loads); P V: P's A register i is accumulator register (0, 2, 1,
+#: 3)[i], so k c <- key 2c, k c + 4 <- key 2c + 1, and V's B register i is
+#: key 2c + i at dim g.
+_Q_FROM = [(_G + 8 * (i & 1), 2 * _C + (i >> 1)) for i in range(4)]
+_K_FROM = [(_G, 2 * _C + i) for i in range(2)]
+_P_FROM = [_acc_at(j) for j in (0, 2, 1, 3)]
+_V_FROM = [(2 * _C + i, _G) for i in range(2)]
+
+
+def _operand(x, regs_at, src, rows):
+    """The (rows, 8) matrix an mma sees as its A (rows 16) or B (rows 8,
+    indexed (k, n)) operand when each lane loads register i of its fragment
+    from ``x[..., src[i]]`` (x's last two dims a 16x8 or 8x8 block)."""
+    out = torch.zeros((*x.shape[:-2], rows, 8), dtype=x.dtype)
+    for i, (sr, sc) in enumerate(src):
+        r, k = regs_at(i)
+        out[..., r, k] = x[..., sr, sc]
+    return out
+
+
+def _mma_tf32(a, b, products=3):
+    """Σ_k a b over the k8 steps of a product, as the kernel's three TF32
+    mmas give it: lo·hi + hi·lo + hi·hi, each product exact, sums in f32
+    (``products=1``: hi·hi alone, one TF32 mma)."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    if products == 1:
+        return torch.matmul(ah, bh)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+def _blocks(x, r):
+    """(..., R, C) -> (..., R / r, C / 8, r, 8): r x 8 blocks."""
+    *lead, rr, cc = x.shape
+    return x.reshape(*lead, rr // r, r, cc // 8, 8).transpose(-3, -2)
+
+
+def _emulate_f32tc_fwd(q, k, v, keys=32, products=3):
+    """What ``flash_fwd_f32tc_kernel`` (csrc/flash_attention.cu) computes for
+    f32 (N, H, T, Dh) inputs, in torch, fragment by fragment: q rows padded
+    to m16 tiles and keys to 32-key tiles (zero rows); per tile, S = Q Kᵀ
+    and O += P V from the operands each lane loads (``_Q_FROM``, ``_K_FROM``,
+    ``_P_FROM``, ``_V_FROM``), each product by 3xTF32; keys past T get the
+    score -1e30 and p = 0; the online recurrence on raw f32 scores with the
+    scale folded with log2(e) into exp2, l summing the f32 p; o = acc / l,
+    lse = m · scale + log(l)."""
+    n, h, t, dh = q.shape
+    scale = np.float32(1.0 / math.sqrt(dh))
+    sl2 = float(scale * np.float32(1.4426950408889634))
+    tq, tk = -(-t // 16) * 16, -(-t // keys) * keys
+    pad = torch.nn.functional.pad
+    qf = pad(q.float(), (0, 0, 0, tq - t))
+    kf, vf = (pad(x.float(), (0, 0, 0, tk - t)) for x in (k, v))
+    qa = _operand(_blocks(qf, 16), _a_at, _Q_FROM, 16)       # (n, h, m, ks, 16, 8)
+    m = torch.full((n, h, tq), -math.inf)
+    l = torch.zeros((n, h, tq))
+    acc = torch.zeros((n, h, tq, dh))
+    for k0 in range(0, tk, keys):
+        kb = _operand(_blocks(kf[:, :, k0:k0 + keys], 8), _b_at, _K_FROM, 8)  # (n, h, j, ks, 8k, 8n)
+        # S[m, j] = Σ_kk A(Q)[m, kk] B(K)[j, kk]: one 16x8 accumulator each
+        sacc = _mma_tf32(qa.unsqueeze(3), kb.unsqueeze(2), products).sum(-3)      # (n, h, m, j, 16, 8)
+        s = sacc.transpose(-3, -2).reshape(n, h, tq, keys)
+        live = torch.arange(k0, k0 + keys) < t
+        s = torch.where(live, s, torch.tensor(-1e30))
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2((m - mx) * sl2)
+        p = torch.where(live, torch.exp2(s * sl2 - (mx * sl2).unsqueeze(-1)), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1)
+        # O += P V: P's A operand from its accumulator registers, V's B
+        # operand from keys 2c and 2c + 1 of each k8 step
+        pa = _operand(_blocks(p, 16), _a_at, _P_FROM, 16)    # (n, h, m, j, 16, 8)
+        vb = _operand(_blocks(vf[:, :, k0:k0 + keys], 8), _b_at, _V_FROM, 8)  # (n, h, j, nd, 8, 8)
+        pv = _mma_tf32(pa.unsqueeze(3), vb.transpose(2, 3).unsqueeze(2), products).sum(-3)  # (n, h, m, nd, 16, 8)
+        acc = acc * alpha.unsqueeze(-1) + pv.transpose(-3, -2).reshape(n, h, tq, dh)
+        m = mx
+    o = (acc / l.unsqueeze(-1))[:, :, :t]
+    lse = (m * float(scale) + torch.log(l))[:, :, :t]
+    return o, lse
+
+
+def test_tf32_split_rounds_to_nearest_away_and_keeps_f32_accuracy():
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(np.concatenate([
+        rng.normal(size=4096) * 10.0 ** rng.integers(-20, 20, size=4096),
+        [1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -11, 2 ** -30, 0.0]]).astype(np.float32))
+    hi, lo = _tf32_split(x)
+    for part in (hi, lo):
+        assert (part.view(torch.int32) & 0x1FFF == 0).all()
+    err = (x.double() - hi.double() - lo.double()).abs()
+    assert (err <= 2.0 ** -21 * x.double().abs()).all()
+    # ties go away from zero: 1 + 2^-11 is half a TF32 ulp above 1
+    assert hi[-5].item() == 1 + 2 ** -10 and hi[-4].item() == -(1 + 2 ** -10)
+    assert hi[-3].item() == 1 + 2 ** -9 and lo[-5].item() == -(2 ** -11)
+    # one TF32 product is not f32-accurate; the split is
+    assert ((x.double() - hi.double()).abs() > 2.0 ** -21 * x.double().abs()).any()
+
+
+def test_f32tc_fragment_loads_give_the_products():
+    """The kernel's fragment choices are a permutation of each k8 step's k
+    index, the same on both operands: the mma of the loaded operands is the
+    product itself (exactly, in float64)."""
+    rng = np.random.default_rng(21)
+    q, kt, p = (torch.from_numpy(rng.normal(size=sh)) for sh in ((16, 8), (8, 8), (16, 8)))
+    v = torch.from_numpy(rng.normal(size=(8, 8)))
+    qa, kb = _operand(q, _a_at, _Q_FROM, 16), _operand(kt, _b_at, _K_FROM, 8)
+    pa, vb = _operand(p, _a_at, _P_FROM, 16), _operand(v, _b_at, _V_FROM, 8)
+    torch.testing.assert_close(qa @ kb, q @ kt.T, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(pa @ vb, p @ v, rtol=1e-12, atol=1e-12)
+    # P's A operand is a permutation of the accumulator's columns, not them:
+    # the unpermuted pairing (a_i from accumulator register i) is wrong
+    wrong = _operand(p, _a_at, [_acc_at(j) for j in range(4)], 16)
+    assert not torch.allclose(wrong @ vb, p @ v)
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("t", [1, 5, 64, 65, 130, 197])
+def test_f32_tensor_core_fwd_arithmetic_matches_plain(t, dh):
+    q, k, v = _t(*_qkv(t, dh=dh, n=1, h=2, seed=14, k=3))
+    o, lse = _emulate_f32tc_fwd(q, k, v)
+    o_ref, lse_ref = plain_flash_fwd(q, k, v)
+    assert o.dtype == torch.float32 and o.shape == o_ref.shape and lse.shape == (1, 2, t)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert _rel(o, o_ref) <= FLASH_F32_TOL
+    assert _rel(lse, lse_ref) <= LSE_TOL
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+def test_f32_tensor_core_fwd_arithmetic_matches_pallas_interpret(dh):
+    q, k, v = _qkv(197, dh=dh, n=1, h=2, seed=15, k=3)
+    o_j, lse_j = jatt._flash_fwd_impl(*map(jnp.asarray, (q, k, v)), return_lse=True)
+    o, lse = _emulate_f32tc_fwd(*_t(q, k, v))
+    assert _rel(o, np.asarray(o_j)) <= FLASH_F32_TOL
+    assert _rel(lse, np.asarray(lse_j)) <= LSE_TOL
+
+
+def test_one_tf32_product_would_miss_the_f32_bound():
+    """Why 3xTF32: the same recurrence with one TF32 product per mma (hi·hi
+    only) misses the 2e-5 bound at ViT's shape (by some 20 times)."""
+    q, k, v = _t(*_qkv(197, dh=64, n=1, h=2, seed=16, k=3))
+    o, _ = _emulate_f32tc_fwd(q, k, v, products=1)
+    assert _rel(o, plain_flash_fwd(q, k, v)[0]) > FLASH_F32_TOL
+
+
+# --------------------------------------------------------------------------- #
+# F3: every head dim of the zoo's ViTs has a kernel
+# --------------------------------------------------------------------------- #
+
+def test_every_vit_setting_head_dim_has_a_kernel():
+    dims = {name: hidden // heads for name, (_, _, heads, hidden, _) in VIT_SETTINGS.items()}
+    assert all(hidden % heads == 0 for _, _, heads, hidden, _ in VIT_SETTINGS.values())
+    assert set(dims.values()) <= set(HEAD_DIMS), dims
+    assert dims["h_14"] == 80
+
+
+def test_cuda_dispatch_covers_head_dims():
+    src = (_build.CSRC_DIR / "flash_attention.cu").read_text()
+    body = re.search(r"cudaError_t dispatch_dh\(.*?\n}\n", src, re.S).group(0)
+    cases = [(int(a), int(b)) for a, b in
+             re.findall(r"case (\d+): return launch<T, (\d+)>", body)]
+    assert [a for a, _ in cases] == [b for _, b in cases] == list(HEAD_DIMS)
+
+
+@pytest.mark.parametrize("t", [65, 197])
+def test_plain_flash_matches_pallas_interpret_at_head_dim_80(t):
+    q, k, v, g = _qkv(t, dh=80, n=1, h=2, seed=17)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    o_j, lse_j = jatt._flash_fwd_impl(jq, jk, jv, return_lse=True)
+    dq_j, dk_j, dv_j = jatt._flash_bwd_impl(jq, jk, jv, o_j, lse_j, jg)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    o, lse = plain_flash_fwd(tq, tk, tv)
+    delta = (tg * o).sum(-1)
+    grads = (plain_flash_bwd_dq(tq, tk, tv, tg, lse, delta),
+             *plain_flash_bwd_dkv(tq, tk, tv, tg, lse, delta))
+    for got, ref in ((o, o_j), (lse, lse_j), *zip(grads, (dq_j, dk_j, dv_j))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=KERNEL_TOL, rtol=0)
 
 
 # --------------------------------------------------------------------------- #
@@ -276,7 +497,7 @@ def _bwd_err(got, ref):
     return diff / top if top > 1e-6 else diff
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 80])
 @pytest.mark.parametrize("t", [1, 5, 64, 65, 130, 197])
 def test_tensor_core_bwd_arithmetic_matches_plain(t, dh):
     q, k, v, do, lse, delta = _bf16_bwd_inputs((1, 2, t, dh), seed=12)

@@ -154,13 +154,19 @@ def _flash_inputs(dev, n, h, t, dh, dtype, seed=0, permuted=False):
     return tuple(x.permute(0, 2, 1, 3) if permuted else x for x in xs)
 
 
+#: both dtypes; (2, 16, 197, 80) is ViT-H/14's attention (16 heads of 80)
 FLASH_SHAPES = [(2, 3, 1, 64), (2, 3, 17, 64), (4, 12, 197, 64), (1, 2, 1024, 64),
-                (2, 2, 77, 16), (2, 2, 130, 32), (1, 2, 200, 128)]
+                (2, 2, 77, 16), (2, 2, 130, 32), (1, 2, 200, 128), (2, 16, 197, 80)]
 #: bf16 (K3, K4 and K5 on the tensor cores): T around the 16-row warp tiles,
 #: the 64-row blocks and 64-row tiles, and their n8 fragments, at every head dim
 FLASH_BF16_SHAPES = [(1, 2, t, dh) for dh in HEAD_DIMS
                      for t in (1, 5, 16, 63, 64, 65, 128, 197, 1000)]
-FLASH_CASES = ([(torch.float32, FLASH_F32_TOL, s, False) for s in FLASH_SHAPES]
+#: f32 (K3 on the tensor cores by 3xTF32): T around the 16-row warp tiles,
+#: the 32-key tiles, the 64-row blocks and the n8 key fragments, at every head dim
+FLASH_F32_SHAPES = [(1, 2, t, dh) for dh in HEAD_DIMS
+                    for t in (1, 5, 16, 31, 32, 33, 65, 197)]
+FLASH_CASES = ([(torch.float32, FLASH_F32_TOL, s, False)
+                for s in FLASH_SHAPES + FLASH_F32_SHAPES]
                + [(torch.bfloat16, FLASH_BF16_TOL, s, False)
                   for s in FLASH_SHAPES + FLASH_BF16_SHAPES]
                + [(torch.bfloat16, FLASH_BF16_TOL, (2, 12, 197, 64), True)])
@@ -217,6 +223,58 @@ def test_flash_fwd_bf16_padded_key_tiles_give_no_nan(cuda, t, dh):
     assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
     assert _flash_err(o, o_ref) <= FLASH_BF16_TOL
     assert _flash_err(lse, lse_ref) <= FLASH_F32_TOL
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("t", [1, 33, 65, 129])
+def test_flash_fwd_f32_padded_key_tiles_give_no_nan(cuda, t, dh):
+    """K3 on f32 (3xTF32) where the last (at T = 1 the only) 32-key tile
+    holds one key: 3 of its 4 n8 fragments skipped, 7 keys masked in the
+    first. Scaled scores with a standard deviation of 64 overflow exp in f32
+    unless the running max is subtracted. They also amplify the rounding of
+    the scores past the f32 bound: the f32 plain version itself is up to
+    ~3e-5 from the exact result here, and the kernel (3xTF32 products
+    summed inside the tensor cores) up to 1.5 times that (2.9e-5 against
+    2.0e-5 at T 129, Dh 128 on an H100). So both are held against a float64
+    reference: the kernel to the f32 bound or to twice the plain version's
+    own error, whichever is larger."""
+    import math
+
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, plain_flash_fwd)
+
+    q, k, v, _ = _flash_inputs(cuda, 2, 3, t, dh, torch.float32, seed=1)
+    q, k = (x * 8.0 for x in (q, k))
+    o, lse = flash_attention_fwd(q, k, v)
+    o_plain, lse_plain = plain_flash_fwd(q, k, v)
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) / math.sqrt(dh)
+    lse_ref = torch.logsumexp(s, dim=-1)
+    o_ref = torch.matmul(torch.exp(s - lse_ref.unsqueeze(-1)), v.double())
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert _flash_err(o, o_ref) <= max(FLASH_F32_TOL, 2 * _flash_err(o_plain, o_ref))
+    assert _flash_err(lse, lse_ref) <= max(FLASH_F32_TOL, 2 * _flash_err(lse_plain, lse_ref))
+
+
+def test_flash_fwd_f32_ignores_allow_tf32(cuda):
+    """3xTF32 is the kernel's own arithmetic: with cuBLAS's TF32 switch on,
+    the kernel still holds the f32 bound against the plain version computed
+    with it off, and gives the same bits as with it off."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd, plain_flash_fwd)
+
+    q, k, v, _ = _flash_inputs(cuda, 2, 12, 197, 64, torch.float32, seed=3)
+    o_ref, lse_ref = plain_flash_fwd(q, k, v)
+    o_off, lse_off = flash_attention_fwd(q, k, v)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        o_on, lse_on = flash_attention_fwd(q, k, v)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    assert torch.equal(o_on, o_off) and torch.equal(lse_on, lse_off)
+    assert _flash_err(o_on, o_ref) <= FLASH_F32_TOL
+    assert _flash_err(lse_on, lse_ref) <= FLASH_F32_TOL
 
 
 @pytest.mark.parametrize("dh", HEAD_DIMS)
@@ -315,6 +373,29 @@ def test_vit_on_card_matches_cpu(cuda):
     before = flash_attention_fwd.launches
     got = pred(x)
     assert flash_attention_fwd.launches - before == 2 * pred.forwards == 4
+    np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
+
+
+def test_vit_h14_on_card_matches_cpu(cuda):
+    """F3: ViT-H/14's head dim 80 (1280 / 16) runs on the card. Two blocks
+    at 112x112 (T = 65: two 64-row blocks, three 32-key tiles)."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
+    from deepcv_tpu_torch.serve import Predictor
+    from deepcv_tpu_torch.spec import DeepcvModule
+    from deepcv_tpu_torch.spec.zoo import vit_spec
+
+    hp = vit_spec("h_14", num_classes=10, attn_impl="flash")
+    hp["architecture"] = hp["architecture"][:3] + hp["architecture"][-3:]
+    cpu = DeepcvModule((112, 112, 3), hp, device="cpu").eval()
+    gpu = DeepcvModule((112, 112, 3), hp).eval()
+    x = np.random.default_rng(0).integers(0, 256, (5, 112, 112, 3)).astype(np.uint8)
+    pre = lambda t: t.float() / 255.0  # noqa: E731
+    ref = Predictor(cpu, batch_size=4, preprocess=pre, device="cpu")(x)
+    pred = Predictor(gpu, batch_size=4, preprocess=pre)
+    before = dict(flash_attention_fwd.launches_by_dtype)
+    got = pred(x)
+    assert flash_attention_fwd.launches_by_dtype["float32"] - before["float32"] \
+        == 2 * pred.forwards == 4
     np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
 
 
