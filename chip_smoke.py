@@ -9,20 +9,28 @@ Phases, each printing one JSON line:
 1. build — the port's CUDA kernels (K1, K2, and K3-K5 in one library)
    compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
    and ``ptxas``'s registers, shared memory and spills; for the K2 and flash
-   libraries also their tensor-core kernels (K2's bf16 kernel per tile
-   width BN; K3 in bf16 and in f32 by 3xTF32, K4 and K5 in bf16, each per
-   head dim, 80 included: registers, spills, shared memory) and the
-   ``HMMA`` instructions in the library's SASS (``cuobjdump -sass``), which
-   must be in every instantiation of them (TF32 ones in every f32 K3); no
-   bf16 CUDA-core kernel and no CUDA-core f32 K3 may be compiled.
+   libraries also their tensor-core kernels (K2 in bf16 and in f32 by
+   3xTF32, per tile width BN; K3 in bf16 and in f32 by 3xTF32, K4 and K5 in
+   bf16, each per head dim, 80 included: registers, spills, shared memory)
+   and the ``HMMA`` instructions in the library's SASS (``cuobjdump
+   -sass``), which must be in every instantiation of them (TF32 ones in
+   every f32 K2 and K3, bf16 ones in every bf16 K2); no CUDA-core K2 in
+   either dtype, no bf16 CUDA-core kernel and no CUDA-core f32 K3 may be
+   compiled, and no f32 K2 may spill. K2's f32 tile plan per ResNet-50 and
+   ``classifier_train`` conv shape: tile, chunk, shared memory and blocks
+   an SM.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
    conv shapes at batch 64 (plus one ragged case), with and without bias,
    relu and none, float32 and bfloat16, and at image_classifier's conv
    shapes at batch 4096 in bfloat16; error relative to max|ref|, kernel
-   time (median of CUDA-event timed launches), its bound on the card, and
-   the same ``F.conv2d`` call's time as a yardstick. Then per-forward sums
-   in bfloat16: image_classifier's five convs at batch 4096, and all 46 of
-   ResNet-50's stride-1 convs at batch 64 (``kernel_forward_bf16``).
+   time (median of CUDA-event timed launches), its bound on the card (f32:
+   by 3xTF32, with the CUDA-core one beside it), and the same ``F.conv2d``
+   call's time as a yardstick. Then per-forward sums: in bfloat16,
+   image_classifier's five convs at batch 4096 and all 46 of ResNet-50's
+   stride-1 convs at batch 64 (``kernel_forward_bf16``); in float32, the
+   same 46 (the serving forward) and image_classifier's five at
+   ``classifier_train``'s batch 32 (``kernel_forward_f32``), each with
+   cuDNN's device kernels by name (``torch.profiler``).
 3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
    attention shapes (batch 64 and the training batch 256, 12 heads, T 197,
    Dh 64), ViT-H/14's (16 heads of Dh 80), a ragged T and T = 1024, float32
@@ -36,7 +44,8 @@ Phases, each printing one JSON line:
    seed: bundle saved and loaded, ``Predictor`` at batch 64 behind the
    port's ``InferenceServer``; four client threads POST ``.npy`` batches of
    1, 5, 17 and 64 images; every answer is held against the port's CPU path
-   on the same weights; K2 must have launched 46 times per forward.
+   on the same weights; K2 must have launched 46 times per forward, all on
+   float32 inputs, so all on ``fused_conv2d_bias_act_f32tc_kernel``.
 5. vit_serve — the same for ``vit_spec('b_16', attn_impl='flash')``: K3
    must have launched 12 times per forward, all on float32 inputs, so all
    on ``flash_fwd_f32tc_kernel`` (3xTF32 on the tensor cores).
@@ -78,9 +87,11 @@ exits non-zero after ``HANG_LIMIT_S``.
 
     python3 chip_smoke.py --k2-forward
 
-runs only the device phase and ``kernel_forward_bf16`` with whatever K2 the
-package beside the script has (no build checks, no contract line): the
-way to time an earlier K2 against this one on the same card.
+runs only the device phase, ``kernel_forward_bf16``, ``kernel_forward_f32``
+and the ResNet-50 predictor's forward at batch 64 in float32
+(``resnet50_predictor_forward``) with whatever K2 the package beside the
+script has (no build checks, no contract line): the way to time an earlier
+K2 against this one on the same card.
 
     python3 chip_smoke.py --k3-forward
 
@@ -134,9 +145,10 @@ REPO = Path(__file__).resolve().parent
 HANG_LIMIT_S = 1000
 SEED = 20261017
 
-# relative to max|ref|. f32: both accumulate in f32, in another order (3.2e-6
-# measured at these shapes on an H100). bf16: both round one f32 result to
-# bf16, so they differ by at most one ulp, 2**-7 of the largest value.
+# relative to max|ref|. f32: both accumulate in f32, in another order, the
+# kernels by 3xTF32 (K2: 3.3e-6 at K = 4,608 on an H100). bf16: both round
+# one f32 result to bf16, so they differ by at most one ulp, 2**-7 of the
+# largest value.
 F32_TOL = 2e-5
 BF16_TOL = 1e-2
 SERVE_REL_L2 = 1e-3  # card vs CPU, both f32 with TF32 off
@@ -167,6 +179,8 @@ RESNET50_CONVS = {
     (64, 14, 14, 256, 1024, 1): 6, (64, 14, 14, 1024, 256, 1): 5,
     (64, 14, 14, 256, 256, 3): 5, (64, 14, 14, 1024, 512, 1): 1,
     (64, 7, 7, 512, 2048, 1): 3, (64, 7, 7, 2048, 512, 1): 2, (64, 7, 7, 512, 512, 3): 2}
+#: image_classifier's convs at classifier_train's batch 32 (the conf's hp)
+CLASSIFIER_TRAIN_CONVS = {(32, *shape[1:]): count for shape, count in CLASSIFIER_CONVS.items()}
 DEVICE = "cuda"
 IMAGE_SHAPE = (224, 224, 3)
 SERVE_BATCH = 64
@@ -243,15 +257,29 @@ def device_ms(fn, iters: int = 20) -> float:
     return us / 1e3 / iters
 
 
-def conv_bound(n, h, w, cin, cout, k, dtype: str, bias: bool):
+def conv_bound(n, h, w, cin, cout, k, dtype: str, bias: bool, tf32x3=False):
     """Least time for the work on an H100 SXM: each input read once, the
-    output written once, FLOPs at the type's peak. Returns (ms, bound_by)."""
+    output written once, FLOPs at the type's peak. ``tf32x3``: the
+    operations of K2's f32 route, three TF32 products per f32 FLOP at the
+    TF32 tensor-core peak. Returns (ms, bound_by)."""
     item = 4 if dtype == "float32" else 2
     flops = 2.0 * n * h * w * k * k * cin * cout
     nbytes = item * (n * h * w * cin + k * k * cin * cout + n * h * w * cout
                      + (cout if bias else 0))
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * flops / PEAK_FLOPS["tf32"] if tf32x3 else flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k2_bounds(n, h, w, cin, cout, k, dtype: str, bias: bool):
+    """K2's bound for its route (f32: by 3xTF32) as {"bound_ms", "bound_by"},
+    with the CUDA-core bound of the same f32 work as ``cuda_core_bound_ms``."""
+    bound_ms, bound_by = conv_bound(n, h, w, cin, cout, k, dtype, bias,
+                                    tf32x3=dtype == "float32")
+    out = {"bound_ms": bound_ms, "bound_by": bound_by}
+    if dtype == "float32":
+        out["cuda_core_bound_ms"] = conv_bound(n, h, w, cin, cout, k, dtype, bias)[0]
+    return out
 
 
 def phase_device():
@@ -286,17 +314,39 @@ TC_KERNELS = {
 F32_K3_KERNEL, OLD_F32_K3_KERNEL = "flash_fwd_f32tc_kernel", "flash_fwd_kernel"
 
 
-#: K2's bf16 kernel, one instantiation per tile width BN; its dynamic shared
-#: memory follows the conv's shape (fused_layer.tc_plan)
+#: K2's tensor-core kernels, one instantiation per tile width BN: bf16, and
+#: f32 by 3xTF32; their dynamic shared memory follows the conv's shape
+#: (fused_layer.tc_plan). The CUDA-core K2 that f32 ran before must not be
+#: compiled in either dtype.
 K2_TC_KERNEL = "fused_conv2d_bias_act_tc_kernel"
+K2_F32_KERNEL = "fused_conv2d_bias_act_f32tc_kernel"
+OLD_K2_KERNEL = "fused_conv2d_bias_act_kernel"
 
 
-def _k2_tc_smem(bn):
+def _k2_tc_smem(bn, itemsize=2):
     """The most dynamic shared memory the BN instantiation takes at the
-    shapes this script runs in bf16."""
-    shapes = [*PHASE2_SHAPES, *CLASSIFIER_CONVS, *RESNET50_CONVS]
-    return max((p.smem_bytes for p in (fused_layer.tc_plan(*s[:5], s[5], s[5]) for s in shapes)
-                if p.bn == bn), default=None)
+    shapes this script runs in that dtype."""
+    shapes = ([*PHASE2_SHAPES, *CLASSIFIER_CONVS, *RESNET50_CONVS] if itemsize == 2
+              else [*PHASE2_SHAPES, *CLASSIFIER_TRAIN_CONVS, *RESNET50_CONVS])
+    plans = (fused_layer.tc_plan(*s[:5], s[5], s[5], itemsize) for s in shapes)
+    return max((p.smem_bytes for p in plans if p.bn == bn), default=None)
+
+
+def _k2_f32_plans():
+    """K2's f32 tile plan at each ResNet-50 and classifier_train conv shape:
+    tile, chunk, shared memory, blocks an SM and grid size."""
+    rows = []
+    for (n, h, w, cin, cout, k), count in {**RESNET50_CONVS, **CLASSIFIER_TRAIN_CONVS}.items():
+        p = fused_layer.tc_plan(n, h, w, cin, cout, k, k, 4)
+        tiles = (math.ceil(n * h * w / p.bm) if p.flat
+                 else math.ceil(n / p.ti) * math.ceil(h / p.th) * math.ceil(w / p.tw))
+        rows.append({"shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k], "count": count,
+                     "bn": p.bn, "tile": "flat" if p.flat else [p.ti, p.th, p.tw],
+                     "ck": p.ck, "tg": p.tg, "smem_bytes": p.smem_bytes,
+                     "blocks_per_sm": min(fused_layer.blocks_per_sm(p.smem_bytes),
+                                          fused_layer.F32_TC_BLOCKS[p.bn]),
+                     "blocks": tiles * math.ceil(cout / p.bn)})
+    return rows
 
 
 def _tc_kernel_stats(log, kernels=TC_KERNELS):
@@ -399,22 +449,39 @@ def phase_build():
                                      f"HMMA ({dict(hmma)}); CUDA-core kernels that must not "
                                      f"be compiled: {cuda_core}")
         if name == "fused_conv2d_bias_act":
-            tc = _tc_kernel_stats(log, {K2_TC_KERNEL: _k2_tc_smem}).get(K2_TC_KERNEL, {})
+            tc = _tc_kernel_stats(log, {K2_TC_KERNEL: _k2_tc_smem,
+                                        K2_F32_KERNEL: lambda bn: _k2_tc_smem(bn, 4)})
             hmma = _hmma_counts(path)
-            row["bf16_tensor_core_kernels"] = {str(bn): tc.get(bn)
-                                               for bn in fused_layer.TC_BN}
+            kinds = {"bf16": _hmma_counts(path, "BF16"), "tf32": _hmma_counts(path, "TF32")}
+
+            def count(counts, kern, bn):
+                return sum(n for f, n in counts.items() if f"{kern}ILi{bn}E" in f)
+            routes = ((K2_TC_KERNEL, fused_layer.TC_BN, "bf16"),
+                      (K2_F32_KERNEL, fused_layer.F32_TC_BN, "tf32"))
+            for kern, widths, kind in routes:
+                row[kern] = {str(bn): {**(tc.get(kern, {}).get(bn) or {}),
+                                       "hmma": count(hmma, kern, bn),
+                                       f"hmma_{kind}": count(kinds[kind], kern, bn)}
+                             for bn in widths}
             row["hmma"] = {"total": sum(hmma.values()),
+                           **{k: sum(c.values()) for k, c in kinds.items()},
                            "by_kernel": {f: n for f, n in hmma.items() if n}}
-            # bf16 runs on the tensor cores only: no CUDA-core kernel is
-            # instantiated for __nv_bfloat16, and every BN has HMMA
-            cuda_core_bf16 = [f for f in hmma if "_kernelI13__nv_bfloat16" in f]
-            missing = [bn for bn in fused_layer.TC_BN
-                       if (log and bn not in tc)
-                       or not any(f"{K2_TC_KERNEL}ILi{bn}E" in f and n for f, n in hmma.items())]
-            if missing or cuda_core_bf16:
-                raise AssertionError(f"K2 tensor-core kernels BN {missing} lack ptxas stats or "
-                                     f"HMMA ({dict(hmma)}); bf16 CUDA-core kernels "
-                                     f"{cuda_core_bf16}")
+            row["f32_plans"] = _k2_f32_plans()
+            # both dtypes run on the tensor cores only: no CUDA-core K2 is
+            # compiled; every bf16 BN has bf16 HMMA and every f32 BN TF32
+            # HMMA and no other; no f32 BN spills (log is empty only when
+            # the library was built before this run)
+            cuda_core = [f for f in hmma if f"{OLD_K2_KERNEL}I" in f]
+            missing = [(kern, bn) for kern, widths, kind in routes for bn in widths
+                       if (log and bn not in tc.get(kern, {}))
+                       or not count(kinds[kind], kern, bn)
+                       or count(kinds[kind], kern, bn) != count(hmma, kern, bn)]
+            spills = {bn: st for bn, st in tc.get(K2_F32_KERNEL, {}).items()
+                      if st.get("spill_store_bytes") or st.get("spill_load_bytes")}
+            if missing or cuda_core or spills:
+                raise AssertionError(f"K2 tensor-core kernels {missing} lack ptxas stats or "
+                                     f"their HMMA kind ({dict(hmma)}); CUDA-core K2 kernels "
+                                     f"{cuda_core}; f32 spills {spills}")
         emit(row)
 
 
@@ -467,69 +534,96 @@ def phase_kernel(card):
                             f"kernel vs plain {dtype} {(n, h, w, cin, cout, k)} "
                             f"bias={bias} act={act}: rel err {rel:.3e} > {tol:.0e}")
             worst[dtype] = max(worst[dtype], max(errs.values()))
-            bound_ms, bound_by = conv_bound(n, h, w, cin, cout, k, dtype, True)
             row = {"phase": "kernel", "shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k],
                    "dtype": dtype, "rel_err": errs, "tol": tol,
                    "ms": cuda_ms(lambda: fused_conv2d_bias_act(x, wt, b, "relu")),
                    "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, "relu")),
                    "library_ms": cuda_ms(_library_call(x, wt, b, "relu")),
-                   "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+                   **k2_bounds(n, h, w, cin, cout, k, dtype, True), "card": card}
             emit(row)
             rows[((n, h, w, cin, cout, k), dtype)] = row
             del x, wt, b
     torch.cuda.empty_cache()
     emit({"phase": "kernel_summary", "max_rel_err": worst,
           "tol": {"float32": F32_TOL, "bfloat16": BF16_TOL}, "card": card})
-    rows["forward_bf16"] = phase_kernel_forward_bf16(card)
+    rows["forward_bf16"] = phase_kernel_forward(card, "bfloat16")
+    rows["forward_f32"] = phase_kernel_forward(card, "float32")
     return rows
 
 
-def phase_kernel_forward_bf16(card):
-    """K2 in bf16 per model forward: each conv shape of image_classifier at
-    batch 4096 and of resnet_spec(50) at batch 64 checked against the plain
-    version (relu, with bias) and timed, then the kernel's, the plain
-    version's, ``F.conv2d``'s and the bound's times summed over one forward
-    by how often each shape runs. The kernel takes its packed weight, as
-    ``FusedConv2d`` passes it; ``*_device_ms`` are the same calls' device
-    time from the profiler."""
+#: the per-forward conv sets by K2 route: bf16 as augment_train runs
+#: image_classifier (batch 4096), and ResNet-50 at the serving batch; f32 as
+#: ResNet-50 serving and classifier_train (batch 32) run them
+FORWARD_CONVS = {"bfloat16": (("image_classifier", CLASSIFIER_CONVS),
+                              ("resnet_spec(50)", RESNET50_CONVS)),
+                 "float32": (("resnet_spec(50)", RESNET50_CONVS),
+                             ("image_classifier", CLASSIFIER_TRAIN_CONVS))}
+
+
+def phase_kernel_forward(card, dtype):
+    """K2 per model forward in ``dtype``: each conv shape of the models of
+    :data:`FORWARD_CONVS` checked against the plain version (relu, with
+    bias) and timed, then the kernel's, the plain version's, ``F.conv2d``'s
+    and the bound's times summed over one forward by how often each shape
+    runs. The kernel takes its packed weight, as ``FusedConv2d`` passes it;
+    ``*_device_ms`` are the same calls' device time from the profiler, and
+    ``library_kernels`` cuDNN's device kernels by name."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
     out = {}
-    for model, convs in (("image_classifier", CLASSIFIER_CONVS),
-                         ("resnet_spec(50)", RESNET50_CONVS)):
+    for model, convs in FORWARD_CONVS[dtype]:
         tot, max_abs, shapes = collections.Counter(), 0.0, []
         for (n, h, w, cin, cout, k), count in convs.items():
-            x, wt, b = _case_tensors(gen, n, h, w, cin, cout, k, torch.bfloat16)
+            x, wt, b = _case_tensors(gen, n, h, w, cin, cout, k, getattr(torch, dtype))
             wp = fused_layer.pack_weight(wt)
             got = fused_conv2d_bias_act(x, wt, b, "relu", w_packed=wp)
             ref = plain_conv2d_bias_act(x, wt, b, "relu")
             rel, err = _rel_err(got, ref)
-            if not rel <= BF16_TOL:
-                raise AssertionError(f"{model} bf16 conv {(n, h, w, cin, cout, k)}: rel err "
-                                     f"{rel:.3e} > {BF16_TOL:.0e}")
+            if not rel <= tol:
+                raise AssertionError(f"{model} {dtype} conv {(n, h, w, cin, cout, k)}: rel err "
+                                     f"{rel:.3e} > {tol:.0e}")
             max_abs = max(max_abs, err)
-            bound_ms, bound_by = conv_bound(n, h, w, cin, cout, k, "bfloat16", True)
+            bounds = k2_bounds(n, h, w, cin, cout, k, dtype, True)
             kern = lambda: fused_conv2d_bias_act(x, wt, b, "relu", w_packed=wp)  # noqa: E731
             lib = _library_call(x, wt, b, "relu")
             t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern),
                  "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, "relu")),
                  "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib),
-                 "bound_ms": bound_ms}
+                 **{key: v for key, v in bounds.items() if key != "bound_by"}}
             for key, v in t.items():
                 tot[key] += count * v
-            tot[bound_by] += count * bound_ms
+            tot[bounds["bound_by"]] += count * bounds["bound_ms"]
             shapes.append({"shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k], "count": count,
-                           "rel_err": rel, **t, "bound_by": bound_by})
+                           "rel_err": rel, **t, "bound_by": bounds["bound_by"],
+                           "library_kernels": _device_kernel_names(lib)})
             del x, wt, b, wp, got, ref
         torch.cuda.empty_cache()
         per = {key: tot[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                                         "library_device_ms", "bound_ms")}
+                                         "library_device_ms", "bound_ms", "cuda_core_bound_ms")
+               if key in tot}
         per["bound_by"] = "operations" if tot["operations"] >= tot["bytes"] else "bytes"
         out[model] = {**per, "max_abs_err": max_abs}
-        emit({"phase": "kernel_forward_bf16", "model": model,
-              "batch": next(iter(convs))[0], "convs": sum(convs.values()),
+        emit({"phase": f"kernel_forward_{'f32' if dtype == 'float32' else 'bf16'}",
+              "model": model, "batch": next(iter(convs))[0], "convs": sum(convs.values()),
               "per_forward": per, "ms_over_library": per["ms"] / per["library_ms"],
+              "library_kernels": sorted({kn for sh in shapes for kn in sh["library_kernels"]}),
               "shapes": shapes, "card": card})
     return out
+
+
+def phase_resnet50_predictor(card):
+    """The ResNet-50 predictor's forward at batch 64 in float32 (random
+    weights from the seed; steady state, as ``serve_predictor_benchmark``),
+    for ``--k2-forward``: its 46 convs run K2's f32 route."""
+    model = DeepcvModule(IMAGE_SHAPE, resnet_spec(50), device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED)).eval()
+    pred = Predictor(model, batch_size=SERVE_BATCH, preprocess=_preprocess,
+                     dtype=torch.float32, device=DEVICE)
+    bench = pred.benchmark(batch=SERVE_BATCH, n_iters=10)
+    emit({"phase": "resnet50_predictor_forward", "batch": SERVE_BATCH,
+          "latency_ms": bench["latency_ms"], "img_per_s": bench["img_per_s"], "card": card})
+    del model, pred
+    torch.cuda.empty_cache()
 
 
 def _preprocess(x):
@@ -539,7 +633,9 @@ def _preprocess(x):
 def _main_path_kernels(model, card):
     """The kernel's calls in one forward of ``model`` at the serving batch:
     each distinct (input shape, weight, bias, act) checked against the plain
-    version and timed; per-forward sums weighted by how often it occurs."""
+    version and timed (CUDA events, and the profiler's device time, which
+    host gaps do not reach); per-forward sums weighted by how often it
+    occurs."""
     seen = collections.OrderedDict()
 
     def hook(mod, args):
@@ -582,18 +678,18 @@ def _main_path_kernels(model, card):
             if not rel <= F32_TOL:
                 raise AssertionError(f"main-path conv {sig}: rel err {rel:.3e}")
             max_abs = max(max_abs, err)
-            ms = cuda_ms(lambda: fused_conv2d_bias_act(x, wt, b, act))
-            plain_ms = cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, act))
-            lib_ms = cuda_ms(_library_call(x, wt, b, act))
-            bound_ms, bound_by = conv_bound(n, h, w, cin, cout, k, "float32", has_b)
-            for key, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                           ("bound_ms", bound_ms)):
+            kern = lambda: fused_conv2d_bias_act(x, wt, b, act)  # noqa: E731
+            lib = _library_call(x, wt, b, act)
+            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern),
+                 "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, act)),
+                 "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib)}
+            bounds = k2_bounds(n, h, w, cin, cout, k, "float32", has_b)
+            for key, v in (*t.items(), ("bound_ms", bounds["bound_ms"]),
+                           ("cuda_core_bound_ms", bounds["cuda_core_bound_ms"])):
                 tot[key] += count * v
-            tot[bound_by] += count * bound_ms
+            tot[bounds["bound_by"]] += count * bounds["bound_ms"]
             rows.append({"shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k],
-                         "act": act, "count": count, "rel_err": rel, "ms": ms,
-                         "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by})
+                         "act": act, "count": count, "rel_err": rel, **t, **bounds})
     emit({"phase": "main_path_kernels", "dtype": "float32", "batch": SERVE_BATCH,
           "signatures": rows, "per_forward": dict(tot), "card": card})
     return tot, max_abs
@@ -752,7 +848,9 @@ def phase_serve(card):
             "ms": kern_tot["ms"], "plain_ms": kern_tot["plain_ms"],
             "bound_ms": kern_tot["bound_ms"],
             "bound_by": "operations" if kern_tot["operations"] >= kern_tot["bytes"] else "bytes",
+            "cuda_core_bound_ms": kern_tot["cuda_core_bound_ms"],
             "library_ms": kern_tot["library_ms"],
+            "device_ms": kern_tot["device_ms"], "library_device_ms": kern_tot["library_device_ms"],
             "per": f"one forward of resnet_spec(50) at batch {SERVE_BATCH}, float32",
             "card": card}
 
@@ -1443,20 +1541,30 @@ def k1_kernel_line(aug_rows, launches, card):
             "card": card}
 
 
-def k2_routes(line, forward_bf16, bf16_launches):
-    """K2's entry in the kernels line gains both routes: float32 on the CUDA
-    cores (serving ResNet-50 and ``classifier_train``: the entry's own
-    numbers, per ResNet-50 forward) and bfloat16 on the tensor cores
-    (``augment_train``: per image_classifier forward at batch 4096, and per
-    ResNet-50 forward at batch 64, the bf16 shape set no main path runs
-    yet)."""
+def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
+    """K2's entry in the kernels line gains both routes, both on the tensor
+    cores: float32 by 3xTF32 (serving ResNet-50 and ``classifier_train``:
+    the entry's own numbers, per ResNet-50 forward, its bound by 3xTF32 with
+    the CUDA-core one beside it, and per classifier_train forward at batch
+    32) and bfloat16 (``augment_train``: per image_classifier forward at
+    batch 4096, and per ResNet-50 forward at batch 64, the bf16 shape set no
+    main path runs yet)."""
     f32_launches = line["launches"] - bf16_launches
     line["launches_by_dtype"] = {"float32": f32_launches, "bfloat16": bf16_launches}
     line["routes"] = {
-        "float32": {"kernel": "fused_conv2d_bias_act_kernel<float> (CUDA cores)",
+        "float32": {"kernel": f"{K2_F32_KERNEL}<BN> (tensor cores, mma.sync, 3xTF32)",
                     "launches": f32_launches,
-                    **{k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                            "library_ms", "max_abs_err", "per")}},
+                    **{k: line[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "cuda_core_bound_ms", "library_ms",
+                                            "library_device_ms", "max_abs_err", "per")},
+                    "resnet50_forward": {**forward_f32["resnet_spec(50)"],
+                                         "per": f"one resnet_spec(50) forward's 46 stride-1 "
+                                                f"convs at batch {SERVE_BATCH}, float32, "
+                                                "random inputs (kernel_forward_f32)"},
+                    "classifier_train": {**forward_f32["image_classifier"],
+                                         "per": "one image_classifier forward at "
+                                                "classifier_train's batch 32, float32 "
+                                                "(5 launches)"}},
         "bfloat16": {"kernel": "fused_conv2d_bias_act_tc_kernel<BN> (tensor cores, mma.sync)",
                      "launches": bf16_launches,
                      **forward_bf16["image_classifier"],
@@ -1476,7 +1584,11 @@ def main() -> int:
         return 2
     if sys.argv[1:] == ["--k2-forward"]:
         torch.backends.cudnn.allow_tf32 = False
-        phase_kernel_forward_bf16(phase_device())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = phase_device()
+        phase_kernel_forward(card, "bfloat16")
+        phase_kernel_forward(card, "float32")
+        phase_resnet50_predictor(card)
         return 0
     if sys.argv[1:] == ["--k3-forward"]:
         torch.backends.cudnn.allow_tf32 = False
@@ -1505,7 +1617,7 @@ def main() -> int:
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"]}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
-    k2_routes(k2_line, k2_rows["forward_bf16"], augment_counts["K2"])
+    k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"], augment_counts["K2"])
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches, card)]})
     faulthandler.cancel_dump_traceback_later()

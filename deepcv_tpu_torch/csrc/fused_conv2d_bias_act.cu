@@ -18,7 +18,9 @@
 //     the bytes (0.090 ms);
 //   - ResNet-50's stride-1 convs (64-2048 channels): hundreds of FLOPs per
 //     byte, bound by the arithmetic rate (989 TFLOP/s for bf16 on the tensor
-//     cores, 67 TFLOP/s for float32 on the CUDA cores).
+//     cores; float32 by 3xTF32, three TF32 products per FLOP at 494.7
+//     TFLOP/s: 2.83 ms for one ResNet-50 forward's 46 convs at batch 64,
+//     against 6.34 ms on the CUDA cores at 67 TFLOP/s).
 //
 // bfloat16: fused_conv2d_bias_act_tc_kernel<BN>, an implicit GEMM on the
 // tensor cores (mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async, the
@@ -86,33 +88,84 @@
 //     SM) holds BN 64 and 128 with their 64 accumulators; unrolling the tap
 //     loop spilled them, and a cap of 80 spilled BN 16.
 //
-// float32: fused_conv2d_bias_act_kernel<float>, the first design, an
-// implicit GEMM on the CUDA cores (67 TFLOP/s at most):
-//   A (M x K) is never materialised: each block gathers its 64 x 16 slice of
-//   patches straight from NHWC x, and the 'same' halo comes from predicated
-//   zero loads. B (K x Cout) is the packed weight. Both slices are staged in
-//   shared memory as float32; each of the 256 threads keeps a 4 x 4 tile of
-//   the 64 x 64 output block in registers. The epilogue adds the bias,
-//   applies the activation and writes y once.
+// float32: fused_conv2d_bias_act_f32tc_kernel<BN>, the same implicit GEMM
+// on the tensor cores by 3xTF32 (mma.sync m16n8k8 tf32 -> f32):
+//   - Arithmetic, as flash_attention.cu's f32 K3: every f32 operand x is
+//     split into hi = rna(x) and lo = rna(x - hi) (rna: cvt.rna.tf32.f32's
+//     rounding, done in integer operations), and each product is lo*hi +
+//     hi*lo + hi*hi; lo*lo (about 2^-22 relative) is dropped. The three
+//     mmas of one k8 step sum from zero, and the step's result is added to
+//     the f32 accumulator by an FADD: the tensor cores round their own sums
+//     toward zero, and a chain of 3 x 576 mmas in one accumulator (K =
+//     4,608) drifted to 4e-5 of max|ref| on the card, twice the f32 bound.
+//     That holds f32 accuracy (2e-5 of max|ref| against the f32 plain
+//     version) where one TF32 product would not. This is the kernel's own
+//     arithmetic: torch.backends.cudnn.allow_tf32 and
+//     torch.backends.cuda.matmul.allow_tf32 do not reach it.
+//   - The bf16 route's tiling carries over: BN from Cout (8 to 64), the same
+//     warps and BM, spatial tiles with their halo staged once per channel
+//     chunk, flat tiles for 1x1, the two-stage weight ring, the next chunk's
+//     patch loaded during the current chunk's first tap group, the f32
+//     epilogue with predicated stores. Cin is padded to a multiple of 8 (one
+//     k8 step is one tap x 8 channels) and the chunk is 64, 32, 16 or 8
+//     channels.
+//   - Tiles are at most 64 channels wide (Cout above 64 is tiled over the
+//     grid, a tile's Cout blocks adjacent so they read its patch from L2):
+//     with A and B split into hi and lo and each k8 step's sum in its own
+//     registers, the bf16 route's BN 128 warp tile (32 pixels x 64 columns,
+//     8 warps, 2 blocks an SM) needs more than its 128 registers and
+//     spilled, and at 1 block an SM it was 6-8 % slower per ResNet-50
+//     forward than BN 64 tiles (scratch variants timed on an H100).
+//   - A stage is twice the bf16 bytes, so the plan (tc_plan with itemsize 4)
+//     takes the chunk that lets the most blocks share an SM (up to the
+//     blocks its registers allow: 4 at BN <= 16, 3 at 32 and 64) at no
+//     extra tiles, the widest of those: 16-64 channels at ResNet-50's
+//     widths, 3 blocks an SM.
+//   - There is no ldmatrix for 32-bit operands, so fragments are read from
+//     padded rows, with the k index of each k8 step permuted the same way in
+//     A and B (mma k c <- channel 2c, k c + 4 <- channel 2c + 1): a lane's
+//     two A values are adjacent channels of one patch pixel, one 8-byte load
+//     (row stride ck + 8 floats, or 8 at ck = 8); its two B values are
+//     weight rows 2c and 2c + 1 at column g, two 4-byte loads (row stride
+//     BN + 4 floats). Banks: half a warp's 8-byte A loads read 4 pixels'
+//     32-byte runs, conflict-free when the 4 pixels are consecutive in the
+//     patch (the row stride is 8 or 24 mod 32 words); at a spatial tile's
+//     row end the patch index jumps by kw, which can put two of the 4 on one
+//     bank group (a 2-way conflict for that load; none when TW is a multiple
+//     of 4, as in flat tiles). A warp's B loads fall in banks 8c + g:
+//     conflict-free at every BN.
+//   - A is split after each fragment load, B after each load, in registers:
+//     the split costs instructions, not shared memory (hi/lo planes would
+//     double the stages again and halve the blocks an SM holds).
+//   - The k8 steps are unrolled fully, but by two at BN 64, whose full
+//     unroll needed more than the 168 registers of 3 blocks an SM.
+//   What was learned bringing it up on an H100 (scratch variants of this
+//   source, one phase cut out or one choice changed, per ResNet-50 forward
+//   of 13.1-13.3 ms): without the loads of every stage after the first it
+//   took 9.8 ms, with one TF32 product instead of three 9.5, with neither
+//   5.6; rounding lo toward zero (no second rna) saved 1 %; chunks wide
+//   enough for 2 blocks an SM (14.0 ms), BN 32 tiles (15.1), and load rings
+//   3 or 4 steps deep (14.6-15.2, against 13.7-13.8 for the same code at
+//   2) were slower. So the kernel is neither issue- nor bandwidth-bound
+//   alone: the three mma phases and the loads each stall 12 warps an SM.
+//   - Loads by alignment, in f32 units: 16-byte cp.async (4 floats) where
+//     the channel count (Cout for the weight), the pointer and every stride
+//     keep 16 bytes, 8-byte cp.async where they keep 8, 4-byte cp.async
+//     otherwise (Cin 3 or 5, Cout 5 or 7), all with zero-fill. Lanes take
+//     consecutive 16-byte groups of a pixel's channels.
 //
 // Plain C interface, no PyTorch headers: the wrapper in
 // deepcv_tpu_torch/ops/kernels/fused_layer.py loads the library with ctypes
-// and passes device pointers, shapes, strides, the bf16 tile plan and the
+// and passes device pointers, shapes, strides, the tile plan and the
 // stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
-
-constexpr int BM = 64;        // output pixels per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 16;        // reduction slice per step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
-constexpr int TM = 4;
-constexpr int TN = 4;
 
 enum Act { kActNone = 0, kActRelu = 1, kActLeakyRelu = 2 };
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
@@ -123,155 +176,17 @@ struct ConvShape {
   long long syn, syh, syw;  // y strides in elements; the channel stride is 1
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-fused_conv2d_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ wp,
-                             const T* __restrict__ bias, T* __restrict__ y,
-                             ConvShape s, int act, float slope) {
-  // A is stored k-major so that the compute loop reads a row of pixels;
-  // the +4 pad spreads the k-strided stores over the banks.
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const long long hw = (long long)s.h * s.w;
-  const long long M = (long long)s.n * hw;
-  const int K = s.kh * s.kw * s.cin;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int ph = s.kh / 2;
-  const int pw = s.kw / 2;
-
-  // Gather role: column ka of the A slice, rows ma + 16 * i.
-  const int ka = tid % BK;
-  const int ma = tid / BK;
-  long long a_base[TM];
-  int a_oh[TM], a_ow[TM];
-  bool a_ok[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ma + 16 * i;
-    a_ok[i] = m < M;
-    const long long mm = a_ok[i] ? m : 0;
-    const long long img = mm / hw;
-    const int rem = (int)(mm - img * hw);
-    a_oh[i] = rem / s.w;
-    a_ow[i] = rem - a_oh[i] * s.w;
-    a_base[i] = img * s.sxn;
-  }
-  // Weight role: row kb + 4 * i of the B slice, column nb.
-  const int nb = tid % BN;
-  const int kb = tid / BN;
-
-  // Compute role: rows ty + 16 * i, columns tx + 16 * j of the output block.
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const int k = k0 + ka;
-    int c = 0, r = 0, q = 0;
-    if (k < K) {
-      c = k % s.cin;
-      const int rq = k / s.cin;
-      r = rq / s.kw;
-      q = rq - r * s.kw;
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float v = 0.f;
-      if (k < K && a_ok[i]) {
-        const int ih = a_oh[i] + r - ph;
-        const int iw = a_ow[i] + q - pw;
-        if (ih >= 0 && ih < s.h && iw >= 0 && iw < s.w)
-          v = to_f32(x[a_base[i] + ih * s.sxh + iw * s.sxw + c]);
-      }
-      As[ka][ma + 16 * i] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < BK / 4; ++i) {
-      const int kk = kb + 4 * i;
-      const int kg = k0 + kk;
-      const int co = n0 + nb;
-      Bs[kk][nb] = (kg < K && co < s.cout) ? to_f32(wp[(long long)kg * s.cout + co]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-    const long long img = m / hw;
-    const int rem = (int)(m - img * hw);
-    const int oh = rem / s.w;
-    const int ow = rem - oh * s.w;
-    T* yrow = y + img * s.syn + oh * s.syh + ow * s.syw;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = n0 + tx + 16 * j;
-      if (co >= s.cout) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += to_f32(bias[co]);
-      if (act == kActRelu) {
-        v = v < 0.f ? 0.f : v;
-      } else if (act == kActLeakyRelu) {
-        v = v < 0.f ? v * slope : v;
-      }
-      yrow[co] = from_f32<T>(v);
-    }
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* x, const void* wp, const void* bias, void* y,
-                   const ConvShape& s, int act, float slope, cudaStream_t stream) {
-  const long long M = (long long)s.n * s.h * s.w;
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((s.cout + BN - 1) / BN));
-  fused_conv2d_bias_act_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wp), static_cast<const T*>(bias),
-      static_cast<T*>(y), s, act, slope);
-  return cudaGetLastError();
-}
-
-// ------------------------------------------------- bf16, tensor cores ---- //
+// ------------------------------------------ tensor cores, both dtypes ---- //
 constexpr int TC_CK_MAX = 64;  // input channels per chunk at most
 constexpr int TC_SMEM_MAX = 227 * 1024;
 
 using bf16 = __nv_bfloat16;
 
-// warps: WM along the pixels (MF m16 tiles each), WN along Cout (NF n8 tiles)
-template <int BN>
+// warps: WM along the pixels (MF m16 tiles each), WN along Cout (NF n8 tiles);
+// T is the element type (bf16: m16n8k16, float: m16n8k8 by 3xTF32)
+template <int BN, typename T = bf16>
 struct Tc {
+  static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int WN = BN == 128 ? 2 : 1;
   static constexpr int WM = 4;
   // narrow tiles take more pixels per warp: B is loaded once per 4 m16 tiles
@@ -279,17 +194,25 @@ struct Tc {
   static constexpr int NF = BN / (WN * 8);
   static constexpr int BM = WM * MF * 16;  // output pixels per block: 256 or 128
   static constexpr int THREADS = 32 * WM * WN;
-  static constexpr int LDB = BN == 8 ? 8 : BN + 8;  // weight row stride (elements)
-  // blocks per SM the registers must leave room for (caps of 80 at BN 8,
-  // else 128; a cap of 80 spills at BN 16)
-  static constexpr int MIN_BLOCKS = BN == 8 ? 6 : BN == 128 ? 2 : 4;
+  // weight row stride (elements): bf16 rows padded by 16 bytes for ldmatrix
+  // (none at BN 8); f32 rows by 4 floats, so that B's 4-byte loads of rows
+  // 2c and 2c + 1 fall in banks 8c + g
+  static constexpr int LDB = F32 ? BN + 4 : BN == 8 ? 8 : BN + 8;
+  // channels of one k step, the unit Cin is padded to
+  static constexpr int KSTEP = F32 ? 8 : 16;
+  // blocks per SM the registers must leave room for. bf16: caps of 80 at
+  // BN 8, else 128 (a cap of 80 spills at BN 16). f32: 4 at BN <= 16, 3 at
+  // 32 and 64 (caps of 128 and 168), which its plan fills with shared
+  // memory (fused_layer.F32_TC_BLOCKS)
+  static constexpr int MIN_BLOCKS = F32 ? (BN <= 16 ? 4 : 3) : (BN == 8 ? 6 : BN == 128 ? 2 : 4);
 };
 
+template <typename T>
 struct TcArgs {
-  const bf16* x;
-  const bf16* wp;
-  const bf16* bias;
-  bf16* y;
+  const T* x;
+  const T* wp;
+  const T* bias;
+  T* y;
   int n, h, w, cin, cout, kh, kw;
   long long sxn, sxh, sxw, syn, syh, syw;
   int flat;                 // 1x1: a tile of BM consecutive pixels, across images
@@ -297,10 +220,12 @@ struct TcArgs {
   int pph, ppw;             // the patch's rows and columns per image
   int tiles_h, tiles_w;     // spatial tiles per image along H and W
   int nblk;                 // blocks along Cout
-  int ck, cp, nchunks;      // channels per chunk, Cin padded to 16, chunks
+  int ck, cp, nchunks;      // channels per chunk, Cin padded to one k step, chunks
+  int lda;                  // patch row stride (elements)
   int tg, ngroups;          // taps per weight stage, stages per chunk
   int patch_elems, wstage_elems;
-  int xvec, wvec;           // loads of x, of the weight: 2 cp.async 16 B, 1 cp.async 8 B, 0 scalar
+  int xvec, wvec;           // loads of x, of the weight: 2 cp.async 16 B, 1 cp.async 8 B,
+                            // 0 bf16: scalar, f32: cp.async 4 B
   int act;
   float slope;
 };
@@ -318,6 +243,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool in) {
   const int n = in ? 8 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(n));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const int n = in ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(n));
 }
 
@@ -430,7 +361,8 @@ struct TileOrigin {
 // x's offset of pixel (channel 0), or -1 outside the image ('same' padding)
 // or past the batch; wk walks (image, row, column) of the image (flat) or
 // of the patch
-__device__ __forceinline__ long long patch_pixel(const TcArgs& a, const TileOrigin& o,
+template <typename T>
+__device__ __forceinline__ long long patch_pixel(const TcArgs<T>& a, const TileOrigin& o,
                                                  const Walk& wk) {
   const int img = a.flat ? wk.hi : o.img0 + wk.hi;
   const int ih = a.flat ? wk.mid : o.oh0 - a.kh / 2 + wk.mid;
@@ -443,10 +375,10 @@ __device__ __forceinline__ long long patch_pixel(const TcArgs& a, const TileOrig
 // zero outside the image, past the batch and from Cin on; a thread takes two
 // pixels at a time, so that the scalar loads of both are in flight together
 template <int THREADS>
-__device__ __forceinline__ void load_patch(const TcArgs& a, const TileOrigin& o, bf16* dst,
+__device__ __forceinline__ void load_patch(const TcArgs<bf16>& a, const TileOrigin& o, bf16* dst,
                                            int c0, int live, int tid) {
   const int groups = live / 8;
-  const int lda = a.ck + 8;
+  const int lda = a.lda;
   const int np = a.ti * a.pph * a.ppw;
   Walk wk = a.flat ? Walk(o.m0 + tid, THREADS, a.h, a.w) : Walk(tid, THREADS, a.pph, a.ppw);
   for (int p = tid; p < np; p += 2 * THREADS) {
@@ -477,7 +409,7 @@ __device__ __forceinline__ void load_patch(const TcArgs& a, const TileOrigin& o,
 // the weight rows of taps [tap0, tap0 + ntaps) x channels [c0, c0 + live),
 // columns [n0, n0 + BN), into dst: row tt * ck + cc, zero from Cin and Cout on
 template <int BN, int THREADS>
-__device__ __forceinline__ void load_weight(const TcArgs& a, bf16* dst, int c0, int live,
+__device__ __forceinline__ void load_weight(const TcArgs<bf16>& a, bf16* dst, int c0, int live,
                                             int tap0, int ntaps, int n0, int tid) {
   constexpr int GROUPS = BN / 8;
   const int jobs = ntaps * live * GROUPS;
@@ -496,7 +428,7 @@ __device__ __forceinline__ void load_weight(const TcArgs& a, bf16* dst, int c0, 
 // and columns 2c, 2c + 1 with c = l % 4 ([0..1] row g, [2..3] row g + 8).
 template <int BN>
 __global__ void __launch_bounds__(Tc<BN>::THREADS, Tc<BN>::MIN_BLOCKS)
-fused_conv2d_bias_act_tc_kernel(const TcArgs a) {
+fused_conv2d_bias_act_tc_kernel(const TcArgs<bf16> a) {
   using C = Tc<BN>;
   constexpr int MF = C::MF, NF = C::NF, LDB = C::LDB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -521,7 +453,7 @@ fused_conv2d_bias_act_tc_kernel(const TcArgs a) {
     o.oh0 = (r % a.tiles_h) * a.th;
     o.img0 = (r / a.tiles_h) * a.ti;
   }
-  const int lda = a.ck + 8;
+  const int lda = a.lda;
 
   // shared-memory byte offsets of this lane's ldmatrix rows: A at tap (0, 0)
   // and channel 0 for each m16 tile (the patch pixel under the tile's row;
@@ -673,14 +605,311 @@ fused_conv2d_bias_act_tc_kernel(const TcArgs a) {
   }
 }
 
+// ------------------------------------------ f32, tensor cores, 3xTF32 ---- //
+
+// x rounded to tf32 (10 mantissa bits) to nearest, ties away from zero: the
+// rounding of cvt.rna.tf32.f32, by adding half a tf32 ulp to the magnitude
+// bits and clearing the 13 low ones. rna_tf32, split_tf32 and mma_tf32 are
+// copies of their twins in flash_attention.cu (each library is one source
+// file, whose bytes alone name its build); mma_3xtf32_step differs from its
+// mma_3xtf32 in starting from zero.
+__device__ __forceinline__ uint32_t rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + (|x| 2^-22 or less): hi and lo rounded to tf32 to nearest,
+// ties away from zero; x - hi is exact in f32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rna_tf32(x);
+  lo = rna_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b for one m16n8k8 tile: a 16x8 tf32 (row), b 8x8 tf32 (col), d f32
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a b of one k8 step at f32 accuracy (3xTF32), from zero: the small
+// products first, then hi * hi. The tensor cores round their f32 sums toward
+// zero, so a K of thousands accumulated in the mma's own accumulator drifts
+// (4e-5 of max|ref| at K = 4,608); the caller adds each step's d to its
+// accumulator with an f32 add, which rounds to nearest.
+__device__ __forceinline__ void mma_3xtf32_step(float (&d)[4], const uint32_t (&ah)[4],
+                                                const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                                const uint32_t (&bl)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(al[0]), "r"(al[1]), "r"(al[2]), "r"(al[3]), "r"(bh[0]), "r"(bh[1]), "f"(0.f));
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// 4 floats from src[0..lim) (zeros from lim on) into dst by cp.async, as wide
+// as the operand's alignment allows (vec: 2 one of 16 B, 1 two of 8 B, 0 four
+// of 4 B; lim is 0 or at least 4 for vec 2, even for vec 1)
+__device__ __forceinline__ void copy4f(float* dst, const float* src, int lim, int vec) {
+  if (vec == 2) {
+    cp_async16(dst, src, lim > 0);
+  } else if (vec == 1) {
+    cp_async8(dst, src, lim > 0);
+    cp_async8(dst + 2, src + 2, lim > 2);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cp_async4(dst + e, src + e, lim > e);
+  }
+}
+
+// channels [c0, c0 + live) of every patch pixel into dst (row stride lda),
+// zero outside the image, past the batch and from Cin on. Thread t takes the
+// 4-channel group t % G of pixels t / G, t / G + THREADS / G, ... (G = ck / 4
+// groups a pixel, a power of two), so neighbouring lanes read neighbouring
+// 16 bytes of a pixel's channels; groups from live on (the last chunk's
+// unused columns) are neither loaded nor read.
+template <int THREADS>
+__device__ __forceinline__ void load_patch_f32(const TcArgs<float>& a, const TileOrigin& o,
+                                               float* dst, int c0, int live, int tid) {
+  const int G = a.ck / 4;
+  const int gq = tid & (G - 1);
+  if (gq * 4 >= live) return;
+  const int c = c0 + gq * 4;
+  const int step = THREADS / G;
+  const int np = a.ti * a.pph * a.ppw;
+  int p = tid / G;
+  Walk wk = a.flat ? Walk(o.m0 + p, step, a.h, a.w) : Walk(p, step, a.pph, a.ppw);
+  for (float* d = dst + p * a.lda + gq * 4; p < np; p += step, d += step * a.lda, wk.next()) {
+    const long long off = patch_pixel(a, o, wk);
+    const int lim = off >= 0 ? a.cin - c : 0;
+    copy4f(d, a.x + (lim > 0 ? off + c : 0), lim, a.xvec);
+  }
+}
+
+// the weight rows of taps [tap0, tap0 + ntaps) x channels [c0, c0 + live),
+// columns [n0, n0 + BN), into dst: row tt * ck + cc, zero from Cin and Cout on
+template <int BN, int THREADS>
+__device__ __forceinline__ void load_weight_f32(const TcArgs<float>& a, float* dst, int c0,
+                                                int live, int tap0, int ntaps, int n0, int tid) {
+  constexpr int GROUPS = BN / 4;
+  const int jobs = ntaps * live * GROUPS;
+  Walk wk(tid, THREADS, live, GROUPS);  // (tap, channel, column group)
+  for (int j = tid; j < jobs; j += THREADS, wk.next()) {
+    const int c = c0 + wk.mid;
+    const int col = n0 + wk.lo * 4;
+    const long long src = ((long long)(tap0 + wk.hi) * a.cin + c) * a.cout + col;
+    float* d = dst + (wk.hi * a.ck + wk.mid) * Tc<BN, float>::LDB + wk.lo * 4;
+    const int lim = c < a.cin ? a.cout - col : 0;
+    copy4f(d, a.wp + (lim > 0 ? src : 0), lim, a.wvec);
+  }
+}
+
+// In an m16n8k8 tf32 mma, lane l (g = l / 4, c = l % 4) holds A at (row g |
+// g + 8, k c | c + 4) as a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8,
+// c + 4); B at (k c | c + 4, n g); the accumulator at rows g, g + 8 and
+// columns 2c, 2c + 1 ([0..1] row g, [2..3] row g + 8). The k index of each k8
+// step is permuted in both operands (k c <- channel 2c, k c + 4 <- channel
+// 2c + 1): a0, a2 are channels 2c, 2c + 1 of the pixel under row g (one
+// 8-byte load), a1, a3 those of row g + 8; b0, b1 weight rows 2c, 2c + 1 at
+// column g.
 template <int BN>
-cudaError_t launch_tc_bn(TcArgs& a, int flat, int ti, int th, int tw, int ck, int tg,
-                         cudaStream_t st) {
-  using C = Tc<BN>;
-  const int cp = (a.cin + 15) / 16 * 16;
+__global__ void __launch_bounds__(Tc<BN, float>::THREADS, Tc<BN, float>::MIN_BLOCKS)
+fused_conv2d_bias_act_f32tc_kernel(const TcArgs<float> a) {
+  using C = Tc<BN, float>;
+  constexpr int MF = C::MF, NF = C::NF, LDB = C::LDB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ps = reinterpret_cast<float*>(smem_raw);                // patch stages
+  float* ws = ps + (a.nchunks > 1 ? 2 : 1) * a.patch_elems;      // weight stages
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp % C::WM, wn = warp / C::WM;
+  const int g = lane / 4, c4 = lane % 4;
+
+  // block -> (tile, Cout block), as the bf16 kernel
+  const int tile = (int)blockIdx.x / a.nblk;
+  const int n0 = ((int)blockIdx.x - tile * a.nblk) * BN;
+  TileOrigin o{0, 0, 0, 0};
+  if (a.flat) {
+    o.m0 = tile * C::BM;
+  } else {
+    const int r = tile / a.tiles_w;
+    o.ow0 = (tile - r * a.tiles_w) * a.tw;
+    o.oh0 = (r % a.tiles_h) * a.th;
+    o.img0 = (r / a.tiles_h) * a.ti;
+  }
+  const int lda = a.lda;
+
+  // this lane's A offsets (floats) at tap (0, 0), channel 2c of a chunk: the
+  // patch pixel under tile row wm * MF * 16 + g + 8k, k = 0 .. 2 MF - 1 (m16
+  // tile k / 2, its upper half for odd k; pixel 0 for rows past the tile,
+  // whose results are never stored); B's at channel 2c, column g
+  int a_off[2 * MF];
+  {
+    Walk wk(wm * MF * 16 + g, 8, a.th, a.tw);  // (image, row, column)
+#pragma unroll
+    for (int k = 0; k < 2 * MF; ++k, wk.next()) {
+      const int pb = wk.hi < a.ti ? (wk.hi * a.pph + wk.mid) * a.ppw + wk.lo : 0;
+      a_off[k] = pb * lda + 2 * c4;
+    }
+  }
+  const int b_off = 2 * c4 * LDB + wn * NF * 8 + g;
+  // a warp whose pixels all lie past the tile does no arithmetic (it still
+  // loads and meets every barrier)
+  const bool live = wm * MF * 16 < a.ti * a.th * a.tw;
+
+  float acc[MF][NF][4];
+#pragma unroll
+  for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < NF; ++nf) acc[mf][nf][0] = acc[mf][nf][1] = acc[mf][nf][2] = acc[mf][nf][3] = 0.f;
+
   const int taps = a.kh * a.kw;
-  if ((ck != 16 && ck != 32 && ck != 64) || ck > cp || tg < 1 || tg > taps || ti < 1 ||
-      th < 1 || tw < 1 || ti * th * tw > C::BM || (flat && (a.kh != 1 || a.kw != 1)))
+  const int steps = a.nchunks * a.ngroups;
+  auto chunk_live = [&](int ci) { return min(a.ck, a.cp - ci * a.ck); };
+  auto stage_weight = [&](int s) {
+    const int ci = s / a.ngroups;
+    const int tap0 = (s - ci * a.ngroups) * a.tg;
+    load_weight_f32<BN, C::THREADS>(a, ws + (s & 1) * a.wstage_elems, ci * a.ck,
+                                    chunk_live(ci), tap0, min(a.tg, taps - tap0), n0, tid);
+  };
+
+  load_patch_f32<C::THREADS>(a, o, ps, 0, chunk_live(0), tid);
+  stage_weight(0);
+  cp_async_commit();
+
+  for (int s = 0; s < steps; ++s) {
+    const int ci = s / a.ngroups;
+    const int gi = s - ci * a.ngroups;
+    // every warp is done with the buffers the next loads overwrite (step
+    // s - 1's weight stage, chunk ci - 1's patch)
+    __syncthreads();
+    if (s + 1 < steps) stage_weight(s + 1);
+    if (gi == 0 && ci + 1 < a.nchunks)
+      load_patch_f32<C::THREADS>(a, o, ps + ((ci + 1) & 1) * a.patch_elems, (ci + 1) * a.ck,
+                                 chunk_live(ci + 1), tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the loads just issued has landed
+    __syncthreads();
+    if (!live) continue;
+
+    const float* pt = ps + (ci & 1) * a.patch_elems;
+    const float* wt = ws + (s & 1) * a.wstage_elems + b_off;
+    const int tap0 = gi * a.tg;
+    const int ntaps = min(a.tg, taps - tap0);
+    const int ksteps = chunk_live(ci) / 8;
+    int r = tap0 / a.kw, q = tap0 - r * a.kw;
+    for (int tt = 0; tt < ntaps; ++tt) {
+      const float* at = pt + (r * a.ppw + q) * lda;
+      const float* bt = wt + tt * a.ck * LDB;
+      const auto k8_step = [&](int kk) {
+        // A: channels 2c, 2c + 1 of this k8 step under rows g and g + 8 of
+        // each m16 tile, split once for all of the warp's n8 tiles
+        uint32_t ah[MF][4], al[MF][4];
+#pragma unroll
+        for (int mf = 0; mf < MF; ++mf) {
+          const float2 x0 = *reinterpret_cast<const float2*>(at + a_off[2 * mf] + kk * 8);
+          const float2 x1 = *reinterpret_cast<const float2*>(at + a_off[2 * mf + 1] + kk * 8);
+          split_tf32(x0.x, ah[mf][0], al[mf][0]);
+          split_tf32(x1.x, ah[mf][1], al[mf][1]);
+          split_tf32(x0.y, ah[mf][2], al[mf][2]);
+          split_tf32(x1.y, ah[mf][3], al[mf][3]);
+        }
+        // B: weight rows 2c, 2c + 1 of this k8 step at column g of each n8
+        // tile, split after each load and used by the warp's m16 tiles
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf) {
+          const float* b = bt + kk * 8 * LDB + nf * 8;
+          uint32_t bh[2], bl[2];
+          split_tf32(b[0], bh[0], bl[0]);
+          split_tf32(b[LDB], bh[1], bl[1]);
+#pragma unroll
+          for (int mf = 0; mf < MF; ++mf) {
+            float d[4];
+            mma_3xtf32_step(d, ah[mf], al[mf], bh, bl);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mf][nf][i] += d[i];
+          }
+        }
+      };
+      // the k8 steps fully unrolled, but at BN 64 by two: unrolled fully it
+      // needs more than the 168 registers of 3 blocks an SM and spills
+      if constexpr (BN == 64) {
+#pragma unroll 2
+        for (int kk = 0; kk < ksteps; ++kk) k8_step(kk);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < TC_CK_MAX / 8; ++kk) {
+          if (kk >= ksteps) break;
+          k8_step(kk);
+        }
+      }
+      if (++q == a.kw) {
+        q = 0;
+        ++r;
+      }
+    }
+  }
+
+  // epilogue: bias, activation, f32 stores (two columns at once where
+  // aligned); pixels past the tile or the image and columns past Cout are
+  // not stored
+  if (!live) return;
+  float bias[NF][2];
+#pragma unroll
+  for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = n0 + (wn * NF + nf) * 8 + 2 * c4 + e;
+      bias[nf][e] = a.bias != nullptr && co < a.cout ? a.bias[co] : 0.f;
+    }
+  Walk wk = a.flat ? Walk(o.m0 + wm * MF * 16 + g, 8, a.h, a.w)
+                   : Walk(wm * MF * 16 + g, 8, a.th, a.tw);
+#pragma unroll
+  for (int k = 0; k < 2 * MF; ++k, wk.next()) {
+    const int img = a.flat ? wk.hi : o.img0 + wk.hi;
+    const int oh = a.flat ? wk.mid : o.oh0 + wk.mid;
+    const int ow = a.flat ? wk.lo : o.ow0 + wk.lo;
+    if ((!a.flat && wk.hi >= a.ti) || img >= a.n || oh >= a.h || ow >= a.w) continue;
+    float* yrow = a.y + img * a.syn + oh * a.syh + ow * a.syw;
+#pragma unroll
+    for (int nf = 0; nf < NF; ++nf) {
+      const int co = n0 + (wn * NF + nf) * 8 + 2 * c4;
+      if (co >= a.cout) continue;
+      float v[2] = {acc[k / 2][nf][2 * (k % 2)] + bias[nf][0],
+                    acc[k / 2][nf][2 * (k % 2) + 1] + bias[nf][1]};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (a.act == kActRelu) {
+          v[e] = v[e] < 0.f ? 0.f : v[e];
+        } else if (a.act == kActLeakyRelu) {
+          v[e] = v[e] < 0.f ? v[e] * a.slope : v[e];
+        }
+      }
+      if (co + 1 < a.cout && (reinterpret_cast<uintptr_t>(yrow + co) & 7) == 0) {
+        *reinterpret_cast<float2*>(yrow + co) = make_float2(v[0], v[1]);
+      } else {
+        yrow[co] = v[0];
+        if (co + 1 < a.cout) yrow[co + 1] = v[1];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ launchers ---- //
+
+template <int BN, typename T>
+cudaError_t launch_tc_bn(TcArgs<T>& a, int flat, int ti, int th, int tw, int ck, int tg,
+                         cudaStream_t st) {
+  using C = Tc<BN, T>;
+  const int cp = (a.cin + C::KSTEP - 1) / C::KSTEP * C::KSTEP;
+  const int taps = a.kh * a.kw;
+  if ((ck != 16 && ck != 32 && ck != 64 && !(C::F32 && ck == 8)) || ck > cp || tg < 1 ||
+      tg > taps || ti < 1 || th < 1 || tw < 1 || ti * th * tw > C::BM ||
+      (flat && (a.kh != 1 || a.kw != 1)))
     return cudaErrorInvalidValue;
   long long tiles;
   if (flat) {
@@ -703,19 +932,27 @@ cudaError_t launch_tc_bn(TcArgs& a, int flat, int ti, int th, int tw, int ck, in
   a.ck = ck;
   a.cp = cp;
   a.nchunks = (cp + ck - 1) / ck;
+  // patch rows padded by 8 elements, so that the rows of one ldmatrix (bf16)
+  // or of half a warp's 8-byte loads (f32) fall in distinct banks; an f32
+  // chunk of 8 channels needs no padding (32-byte rows)
+  a.lda = C::F32 && ck == 8 ? 8 : ck + 8;
   a.tg = tg;
   a.ngroups = (taps + tg - 1) / tg;
-  const long long patch = (long long)a.ti * a.pph * a.ppw * (ck + 8);
+  const long long patch = (long long)a.ti * a.pph * a.ppw * a.lda;
   const long long wstage = (long long)tg * ck * C::LDB;
-  const long long smem = 2 * ((a.nchunks > 1 ? 2 : 1) * patch +
-                              (a.nchunks * a.ngroups > 1 ? 2 : 1) * wstage);
+  const long long smem = (long long)sizeof(T) * ((a.nchunks > 1 ? 2 : 1) * patch +
+                                                 (a.nchunks * a.ngroups > 1 ? 2 : 1) * wstage);
   const long long blocks = tiles * a.nblk;
   if (smem > TC_SMEM_MAX || blocks > 0x7fffffffLL ||
       (long long)a.n * a.h * a.w > 0x7fffffffLL - C::BM)
     return cudaErrorInvalidValue;
   a.patch_elems = (int)patch;
   a.wstage_elems = (int)wstage;
-  auto kernel = fused_conv2d_bias_act_tc_kernel<BN>;
+  void (*kernel)(TcArgs<T>);
+  if constexpr (C::F32)
+    kernel = fused_conv2d_bias_act_f32tc_kernel<BN>;
+  else
+    kernel = fused_conv2d_bias_act_tc_kernel<BN>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -725,27 +962,33 @@ cudaError_t launch_tc_bn(TcArgs& a, int flat, int ti, int th, int tw, int ck, in
   return cudaGetLastError();
 }
 
-// The bf16 route: checks the tile plan (bn, flat, ti, th, tw, ck, tg) that
-// the wrapper's tc_plan chose, derives the launch from it and launches.
+// Both routes: checks the tile plan (bn, flat, ti, th, tw, ck, tg) that the
+// wrapper's tc_plan chose, derives the launch from it and launches; T is
+// bf16 (m16n8k16) or float (m16n8k8 by 3xTF32).
+template <typename T>
 cudaError_t launch_tc(const void* x, const void* wp, const void* bias, void* y,
                       const ConvShape& s, int act, float slope, int bn, int flat, int ti,
                       int th, int tw, int ck, int tg, cudaStream_t st) {
-  // bn is the smallest tile width at or above Cout, 128 above that
+  // bn is the smallest tile width at or above Cout, the widest (bf16 128,
+  // f32 64) above that
+  constexpr int BN_MAX = std::is_same<T, float>::value ? 64 : 128;
   if (bn != 8 && bn != 16 && bn != 32 && bn != 64 && bn != 128) return cudaErrorInvalidValue;
-  if ((bn < 128 && bn < s.cout) || (bn > 8 && bn / 2 >= s.cout)) return cudaErrorInvalidValue;
-  TcArgs a{};
-  a.x = static_cast<const bf16*>(x);
-  a.wp = static_cast<const bf16*>(wp);
-  a.bias = static_cast<const bf16*>(bias);
-  a.y = static_cast<bf16*>(y);
+  if (bn > BN_MAX || (bn < BN_MAX && bn < s.cout) || (bn > 8 && bn / 2 >= s.cout))
+    return cudaErrorInvalidValue;
+  TcArgs<T> a{};
+  a.x = static_cast<const T*>(x);
+  a.wp = static_cast<const T*>(wp);
+  a.bias = static_cast<const T*>(bias);
+  a.y = static_cast<T*>(y);
   a.n = s.n; a.h = s.h; a.w = s.w; a.cin = s.cin; a.cout = s.cout; a.kh = s.kh; a.kw = s.kw;
   a.sxn = s.sxn; a.sxh = s.sxh; a.sxw = s.sxw; a.syn = s.syn; a.syh = s.syh; a.syw = s.syw;
   a.act = act;
   a.slope = slope;
-  // the widest load (2: 16 B, 1: 8 B, 0: 2 B) that the channel count, the
-  // pointer and every pixel stride keep aligned
+  // the widest load (2: 16 B, 1: 8 B, 0: one element) that the channel
+  // count, the pointer and every pixel stride keep aligned
   const auto vec = [](int ch, const void* p, long long s0, long long s1, long long s2) {
-    const uintptr_t bits = reinterpret_cast<uintptr_t>(p) | (uintptr_t)(2 * (ch | s0 | s1 | s2));
+    const uintptr_t bits =
+        reinterpret_cast<uintptr_t>(p) | (uintptr_t)(sizeof(T) * (ch | s0 | s1 | s2));
     return (bits & 15) == 0 ? 2 : (bits & 7) == 0 ? 1 : 0;
   };
   a.xvec = vec(s.cin, x, s.sxn, s.sxh, s.sxw);
@@ -755,16 +998,19 @@ cudaError_t launch_tc(const void* x, const void* wp, const void* bias, void* y,
     case 16: return launch_tc_bn<16>(a, flat, ti, th, tw, ck, tg, st);
     case 32: return launch_tc_bn<32>(a, flat, ti, th, tw, ck, tg, st);
     case 64: return launch_tc_bn<64>(a, flat, ti, th, tw, ck, tg, st);
-    default: return launch_tc_bn<128>(a, flat, ti, th, tw, ck, tg, st);
+    default:
+      if constexpr (BN_MAX == 128) return launch_tc_bn<128>(a, flat, ti, th, tw, ck, tg, st);
+      return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success). Launches nothing for
-// an empty output. `bias` may be null. float32 takes the CUDA-core kernel
-// and ignores the tile plan; bfloat16 takes the tensor-core kernel with the
-// tile plan (bn, flat, ti, th, tw, ck, tg) of the wrapper's tc_plan.
+// an empty output. `bias` may be null. Both dtypes take a tensor-core kernel
+// with the tile plan (bn, flat, ti, th, tw, ck, tg) of the wrapper's tc_plan:
+// float32 fused_conv2d_bias_act_f32tc_kernel (3xTF32), bfloat16
+// fused_conv2d_bias_act_tc_kernel.
 extern "C" int fused_conv2d_bias_act_launch(
     const void* x, const void* w_packed, const void* bias, void* y,
     int n, int h, int w, int cin, int cout, int kh, int kw,
@@ -776,15 +1022,15 @@ extern "C" int fused_conv2d_bias_act_launch(
       kh % 2 == 0 || kw % 2 == 0 || act < kActNone || act > kActLeakyRelu)
     return (int)cudaErrorInvalidValue;
   if ((long long)n * h * w == 0 || cout == 0) return 0;
-  if (((long long)n * h * w + BM - 1) / BM > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const ConvShape s{n, h, w, cin, cout, kh, kw, sxn, sxh, sxw, syn, syh, syw};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return (int)launch<float>(x, w_packed, bias, y, s, act, slope, st);
+      return (int)launch_tc<float>(x, w_packed, bias, y, s, act, slope, bn, flat, ti, th, tw,
+                                   ck, tg, st);
     case kBFloat16:
-      return (int)launch_tc(x, w_packed, bias, y, s, act, slope, bn, flat, ti, th, tw, ck,
-                            tg, st);
+      return (int)launch_tc<bf16>(x, w_packed, bias, y, s, act, slope, bn, flat, ti, th, tw,
+                                  ck, tg, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

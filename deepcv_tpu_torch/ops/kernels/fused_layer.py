@@ -11,8 +11,12 @@ Layout: ``x`` is NCHW-logical in ``torch.channels_last`` memory (NHWC bytes),
 (kh*kw*Cin, Cout), the order of ``w.reshape`` in the TPU kernel's
 ``_forward_pallas``. The output has ``x``'s dtype and memory format.
 
-On the card, float32 runs the CUDA-core kernel and bfloat16 the tensor-core
-kernel, whose output tile :func:`tc_plan` fits to the conv's shape.
+On the card both dtypes run a tensor-core kernel whose output tile
+:func:`tc_plan` fits to the conv's shape: bfloat16 by mma.sync m16n8k16,
+float32 by 3xTF32 (every operand split into TF32 hi and lo, three m16n8k8
+products summed in f32), which keeps f32 accuracy whatever
+``torch.backends.cudnn.allow_tf32`` and ``torch.backends.cuda.matmul.allow_tf32``
+say.
 
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises);
 a CPU tensor takes :func:`plain_conv2d_bias_act`; a meta tensor (shape
@@ -42,26 +46,34 @@ _KERNEL = "fused_conv2d_bias_act"
 
 Act = Union[None, str, Callable[[torch.Tensor], torch.Tensor]]
 
-#: the bf16 kernel's output tile widths along Cout, and output pixels per
-#: block by tile width (4 warps of 4 m16 tiles for the narrow ones, else of
-#: 2); input channels per chunk; bytes of a weight stage it aims for; the
-#: shared memory a block may use (csrc header note)
+#: the tensor-core kernels' output tile widths along Cout, and output pixels
+#: per block by tile width (4 warps of 4 m16 tiles for the narrow ones, else
+#: of 2); input channels per chunk by element size (bf16 down to one k16
+#: step, f32 down to one k8 step); bytes of a weight stage they aim for; the
+#: shared memory a block may use, and an SM holds with the 1 KB it reserves
+#: per block (csrc header note)
 TC_BN = (8, 16, 32, 64, 128)
+#: the f32 kernel's tile widths: at most 64 (csrc header note)
+F32_TC_BN = (8, 16, 32, 64)
 TC_BM = {8: 256, 16: 256, 32: 128, 64: 128, 128: 128}
-TC_CHUNKS = (64, 32, 16)
+TC_CHUNKS = {2: (64, 32, 16), 4: (64, 32, 16, 8)}
 TC_WSTAGE_BYTES = 24 * 1024
 TC_SMEM_MAX = 227 * 1024
+SM_SMEM_BYTES = 228 * 1024
+#: blocks per SM the f32 kernel's registers leave room for, by BN (its
+#: __launch_bounds__), which its plan aims to fill with shared memory
+F32_TC_BLOCKS = {8: 4, 16: 4, 32: 3, 64: 3}
 
 
 class TcPlan(NamedTuple):
-    """The bf16 tensor-core kernel's tiling of one conv shape; the first
-    seven fields are what the launcher takes."""
+    """A tensor-core kernel's tiling of one conv shape; the first seven
+    fields are what the launcher takes."""
     bn: int          # output channels per block
     flat: bool       # 1x1: bm consecutive pixels per block, across images
     ti: int          # spatial: images x rows x columns of output per block
     th: int
     tw: int
-    ck: int          # input channels per chunk (Cin padded to 16 in chunks)
+    ck: int          # input channels per chunk (Cin padded to one k step)
     tg: int          # taps per weight stage
     bm: int          # output pixels a block holds (TC_BM[bn])
     smem_bytes: int  # dynamic shared memory per block
@@ -71,21 +83,35 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-@functools.lru_cache(maxsize=512)
-def tc_plan(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int) -> TcPlan:
-    """The tile of the bf16 kernel for an (N, H, W, Cin) -> Cout conv with a
-    kh x kw kernel: BN is the smallest of :data:`TC_BN` at or above Cout; a
-    1x1 conv takes flat tiles of BM pixels; a map of at most BM pixels
-    takes whole images, as many as fit; otherwise the TH x TW rectangle of
-    at most BM pixels with the least tiles x (BM x taps + patch pixels):
-    the tile pixels the products pay for, plus the halo the loads pay for.
-    The channel chunk (64, 32 or 16) shrinks where
-    the patch and weight stages would not fit in shared memory. Raises
-    ValueError when nothing fits."""
-    bn = next((b for b in TC_BN if b >= cout), TC_BN[-1])
+def blocks_per_sm(smem_bytes: int) -> int:
+    """Blocks of ``smem_bytes`` dynamic shared memory one SM holds."""
+    return SM_SMEM_BYTES // (smem_bytes + 1024)
+
+
+@functools.lru_cache(maxsize=1024)
+def tc_plan(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int,
+            itemsize: int = 2) -> TcPlan:
+    """The tile of the tensor-core kernel for an (N, H, W, Cin) -> Cout conv
+    with a kh x kw kernel, in bf16 (``itemsize`` 2) or f32 (4): BN is the
+    smallest of :data:`TC_BN` (f32: :data:`F32_TC_BN`) at or above Cout, the
+    widest above that; a 1x1 conv takes flat tiles
+    of BM pixels; a map of at most BM pixels takes whole images, as many as
+    fit; otherwise the TH x TW rectangle of at most BM pixels with the least
+    tiles x (BM x taps + patch pixels): the tile pixels the products pay
+    for, plus the halo the loads pay for. Cin is padded to one k step (16
+    channels in bf16, 8 in f32). bf16 takes the widest channel chunk (64,
+    32, 16) whose patch and weight stages fit in shared memory; f32, whose
+    stages are twice the bytes, the chunk (64 down to 8) that lets the most
+    blocks share an SM (up to :data:`F32_TC_BLOCKS`) at the least cost, the
+    widest of those. Raises ValueError when nothing fits."""
+    widths = TC_BN if itemsize == 2 else F32_TC_BN
+    bn = next((b for b in widths if b >= cout), widths[-1])
     bm = TC_BM[bn]
-    ldb = 8 if bn == 8 else bn + 8
-    cp = _cdiv(cin, 16) * 16
+    if itemsize == 2:
+        ldb, kstep = (8 if bn == 8 else bn + 8), 16
+    else:
+        ldb, kstep = bn + 4, 8
+    cp = _cdiv(cin, kstep) * kstep
     taps = kh * kw
     if kh == kw == 1:
         cands = [(True, 1, 1, bm)]
@@ -93,15 +119,18 @@ def tc_plan(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int) -> Tc
         cands = [(False, min(n, bm // (h * w)), h, w)]
     else:
         cands = [(False, 1, min(h, bm // tw), tw) for tw in range(1, min(w, bm) + 1)]
-    for ck in (c for c in TC_CHUNKS if c <= cp):
+    plans = []
+    for ck in (c for c in TC_CHUNKS[itemsize] if c <= cp):
+        # patch rows padded by 8 elements (none for f32 at ck 8: see csrc)
+        lda = ck if (itemsize == 4 and ck == 8) else ck + 8
         nchunks = _cdiv(cp, ck)
-        tap_bytes = 2 * ck * ldb
+        tap_bytes = itemsize * ck * ldb
         tg = max(1, min(taps, TC_WSTAGE_BYTES // tap_bytes))
         wbytes = (2 if nchunks * _cdiv(taps, tg) > 1 else 1) * tg * tap_bytes
         best = None
         for flat, ti, th, tw in cands:
             pph, ppw = (1, bm) if flat else (th + kh - 1, tw + kw - 1)
-            smem = (2 if nchunks > 1 else 1) * 2 * ti * pph * ppw * (ck + 8) + wbytes
+            smem = (2 if nchunks > 1 else 1) * itemsize * ti * pph * ppw * lda + wbytes
             if smem > TC_SMEM_MAX:
                 continue
             tiles = (_cdiv(n * h * w, bm) if flat
@@ -110,9 +139,15 @@ def tc_plan(n: int, h: int, w: int, cin: int, cout: int, kh: int, kw: int) -> Tc
             if best is None or cost < best[0]:
                 best = (cost, TcPlan(bn, flat, ti, th, tw, ck, tg, bm, smem))
         if best is not None:
-            return best[1]
-    raise ValueError(f"no bf16 tile fits shared memory for a {kh}x{kw} conv at "
-                     f"({n}, {h}, {w}, {cin}) -> {cout}")
+            if itemsize == 2:
+                return best[1]
+            plans.append(best)
+    if plans:
+        cap = F32_TC_BLOCKS[bn]
+        return min(plans, key=lambda cp_: (-min(blocks_per_sm(cp_[1].smem_bytes), cap),
+                                           cp_[0], -cp_[1].ck))[1]
+    raise ValueError(f"no {'bf16' if itemsize == 2 else 'f32'} tile fits shared memory "
+                     f"for a {kh}x{kw} conv at ({n}, {h}, {w}, {cin}) -> {cout}")
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -195,9 +230,7 @@ def _run_kernel(x: torch.Tensor, w: torch.Tensor, w_packed: torch.Tensor,
                     memory_format=torch.channels_last)
     if y.numel() == 0:
         return y
-    # float32 takes no tile plan
-    plan = (tc_plan(n, h, wd, cin, cout, kh, kw)[:7] if x.dtype == torch.bfloat16
-            else (0,) * 7)
+    plan = tc_plan(n, h, wd, cin, cout, kh, kw, x.element_size())[:7]
     fn = _launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -253,7 +286,7 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
     and the callable is applied afterwards). ``w_packed`` is
     :func:`pack_weight` of ``w``, passed by callers that keep it; it is
     packed here otherwise. On a CUDA tensor this launches the kernel
-    (bfloat16: the tensor-core kernel; float32: the CUDA-core one) and adds
+    (bfloat16: the bf16 tensor-core kernel; float32: the 3xTF32 one) and adds
     one to ``fused_conv2d_bias_act.launches`` and to
     ``fused_conv2d_bias_act.launches_by_dtype[dtype name]``; a failed launch
     raises.

@@ -45,11 +45,14 @@ def _rel(got, ref):
 #: (N, H, W, Cin, Cout, k): ragged channel counts and kernels, then
 #: image_classifier's four convs at batch 8 (Cin 3 and 4 with Cout 4 at 5x5,
 #: 4 -> 16 and 16 -> 16 at 3x3), ResNet-50's 7x7 map, and a map that leaves a
-#: partial bf16 tile on both axes (37x23 in 10x12 tiles)
+#: partial bf16 tile on both axes (37x23 in 10x12 tiles); then each width of
+#: the f32 loads (Cin 5 and Cout 7: 4-byte, Cin 6: 8-byte, Cin 8: 16-byte
+#: with Cout 5: 4-byte)
 K2_SHAPES = [(2, 9, 11, 3, 5, 1), (2, 9, 11, 16, 70, 3), (1, 17, 13, 33, 64, 5),
              (3, 6, 6, 65, 129, 7), (1, 1, 1, 512, 2048, 1),
              (8, 32, 32, 3, 4, 5), (8, 32, 32, 4, 4, 5), (8, 16, 16, 4, 16, 3),
-             (8, 16, 16, 16, 16, 3), (4, 7, 7, 512, 512, 3), (2, 37, 23, 8, 32, 3)]
+             (8, 16, 16, 16, 16, 3), (4, 7, 7, 512, 512, 3), (2, 37, 23, 8, 32, 3),
+             (2, 9, 11, 5, 7, 3), (2, 9, 11, 6, 5, 3), (2, 9, 11, 8, 5, 5)]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)])
@@ -69,10 +72,50 @@ def test_kernel_matches_plain(cuda, dtype, tol, shape, act, bias):
     assert _rel(got, ref) <= tol
 
 
+#: K2's f32 route against its plain version at the f32 bound (relative to
+#: max|ref|, chip_smoke.py's): each load width of x and the weight (Cin 3,
+#: 5, 6, 8; Cout 5, 7), a 1x1, and reductions of K = 4,608 (3x3 over 512
+#: channels) in one and in several Cout blocks
+K2_F32_TOL = 2e-5
+K2_F32_SHAPES = [(2, 9, 11, 3, 5, 3), (2, 9, 11, 5, 7, 3), (2, 9, 11, 6, 5, 3),
+                 (2, 9, 11, 6, 7, 1), (2, 9, 11, 8, 7, 5), (1, 7, 7, 512, 64, 3),
+                 (4, 7, 7, 512, 512, 3), (2, 14, 14, 512, 96, 3)]
+
+
+@pytest.mark.parametrize("shape", K2_F32_SHAPES)
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_k2_f32_holds_the_f32_bound(cuda, shape, act):
+    x, wt, b = _inputs(cuda, *shape, torch.float32)
+    got = fused_conv2d_bias_act(x, wt, b, act)
+    ref = plain_conv2d_bias_act(x, wt, b, act)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= K2_F32_TOL
+
+
+def test_k2_f32_ignores_allow_tf32(cuda):
+    """3xTF32 is the kernel's own arithmetic: with both TF32 switches on
+    (cuDNN's and cuBLAS's), the kernel gives the same bits as with them off
+    and stays within the f32 bound of a float64 reference, at K = 4,608."""
+    x, wt, b = _inputs(cuda, 2, 7, 7, 512, 64, 3, torch.float32, seed=4)
+    ref = torch.relu(F.conv2d(x.double(), wt.double(), b.double(), padding=1))
+    y_off = fused_conv2d_bias_act(x, wt, b, "relu")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y_on = fused_conv2d_bias_act(x, wt, b, "relu")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    assert torch.equal(y_on, y_off)
+    assert _rel(y_on, ref) <= K2_F32_TOL
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_counts_launches_by_dtype(cuda, dtype):
-    """bfloat16 launches the tensor-core kernel, float32 the CUDA-core one;
-    each launch adds one to ``launches`` and to its dtype's count."""
+    """Each dtype launches its tensor-core kernel (float32 by 3xTF32); each
+    launch adds one to ``launches`` and to its dtype's count."""
     x, wt, b = _inputs(cuda, 8, 32, 32, 4, 4, 5, dtype)
     name = str(dtype).removeprefix("torch.")
     total, by_dtype = fused_conv2d_bias_act.launches, dict(fused_conv2d_bias_act.launches_by_dtype)
