@@ -10,15 +10,15 @@ Phases, each printing one JSON line:
    compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
    and ``ptxas``'s registers, shared memory and spills; for the K2 and flash
    libraries also their tensor-core kernels (K2 in bf16 and in f32 by
-   3xTF32, per tile width BN; K3 in bf16 and in f32 by 3xTF32, K4 and K5 in
-   bf16, each per head dim, 80 included: registers, spills, shared memory)
-   and the ``HMMA`` instructions in the library's SASS (``cuobjdump
-   -sass``), which must be in every instantiation of them (TF32 ones in
-   every f32 K2 and K3, bf16 ones in every bf16 K2); no CUDA-core K2 in
-   either dtype, no bf16 CUDA-core kernel and no CUDA-core f32 K3 may be
-   compiled, and no f32 K2 may spill. K2's f32 tile plan per ResNet-50 and
-   ``classifier_train`` conv shape: tile, chunk, shared memory and blocks
-   an SM.
+   3xTF32, per tile width BN; K3, K4 and K5 in bf16 and in f32 by 3xTF32,
+   each per head dim, 80 included: registers, spills, shared memory) and
+   the ``HMMA`` instructions in the library's SASS (``cuobjdump -sass``),
+   which must be in every instantiation of them (TF32 ones in every f32
+   K2, K3, K4 and K5, bf16 ones in every bf16 K2); no CUDA-core kernel may
+   be compiled (no K2 in either dtype, no flash kernel), no f32 K2 may
+   spill, and neither f32 K4 nor f32 K5 may spill at head dims 64 and 80.
+   K2's f32 tile plan per ResNet-50 and ``classifier_train`` conv shape:
+   tile, chunk, shared memory and blocks an SM.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
    conv shapes at batch 64 (plus one ragged case), with and without bias,
    relu and none, float32 and bfloat16, and at image_classifier's conv
@@ -34,8 +34,8 @@ Phases, each printing one JSON line:
 3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
    attention shapes (batch 64 and the training batch 256, 12 heads, T 197,
    Dh 64), ViT-H/14's (16 heads of Dh 80), a ragged T and T = 1024, float32
-   and bfloat16: error relative to max|ref|, times, bounds (K3 on f32 also
-   the CUDA-core one beside its 3xTF32 one), and
+   and bfloat16: error relative to max|ref|, times, bounds (on f32 also
+   the CUDA-core one beside the 3xTF32 one), and
    ``F.scaled_dot_product_attention`` forward (with the names of its device
    kernels, from ``torch.profiler``), forward + backward and their
    difference, the backward alone (the one call that computes K4's and K5's
@@ -58,6 +58,13 @@ Phases, each printing one JSON line:
    epoch, validation off, under ``torch.profiler`` (``vit_train_profile``):
    device time per step by kernel group, the ten largest kernels, and the
    device's idle share of the unprofiled step.
+6b. vit_train_f32 — the same ``run --pipeline=train_vit`` in float32
+   (``vit_model.dtype:float32``, ``train_resnet50.dtype:float32``), batch
+   256, one epoch of 31 steps and its validation: finite losses, K4 and K5
+   12 launches a step, K3 12 a step and per validation forward, every one
+   on float32 inputs (3xTF32 on the tensor cores); step ms, img/s, peak
+   memory. Then 8 more steps, validation off, under ``torch.profiler``
+   (``vit_train_f32_profile``), as ``vit_train_profile``.
 7. augment_kernel — K1 against its plain version (the port's eager chain)
    at 4096x32x32x3 and 256x224x224x3 with random factors, a ragged shape,
    and neutral factors (pure ``to_tensor`` + ``normalize``), noise off,
@@ -98,6 +105,13 @@ K2 against this one on the same card.
 does the same for K3's float32 route (``k3_forward_f32``): 12 launches at
 ViT-B/16's serving shape against SDPA's f32 forward, and the ViT-B/16
 predictor's forward at batch 64 in float32.
+
+    python3 chip_smoke.py --k45-f32
+
+does the same for K4's and K5's float32 routes (``k45_f32``): 12 launches
+each at ViT-B/16's serving shape against SDPA's f32 backward, and
+``train_vit`` in float32 at batch 256 for two epochs of 8 steps,
+validation off (the last epoch's step time).
 """
 from __future__ import annotations
 
@@ -192,11 +206,17 @@ KERNEL_LIBRARIES = ("fused_augment", "fused_conv2d_bias_act", "flash_attention")
 VIT_BLOCKS, VIT_HEADS, VIT_T, VIT_DH = 12, 12, 197, 64
 TRAIN_BATCH = 256          # train_resnet50's batch_size, which train_vit uses
 TRAIN_EPOCHS = 2           # cut from train_resnet50's 10
+#: train_vit in float32: the model's and the training hp's dtype
+F32_TRAIN_PARAMS = ("vit_model.dtype:float32", "train_resnet50.dtype:float32")
+#: a train_vit run cut to 8 steps at batch 256: the split gives the
+#: 8,192-image synthetic set 2,048 to train on; validation off
+SHORT_TRAIN_PARAMS = ("imagenet224_preprocessing.split_dataset.validset_ratio:0.75",
+                      "train_resnet50.validate_every_epochs:1000")
 #: (label, N, H, T, Dh, dtypes): the serve and train shapes of the main
 #: paths, ViT-H/14's attention (16 heads of 80: F3) at a small batch, a
 #: ragged T and T = 1024
 FLASH_CASES = [("vit_serve", SERVE_BATCH, VIT_HEADS, VIT_T, VIT_DH, ("float32", "bfloat16")),
-               ("vit_train", TRAIN_BATCH, VIT_HEADS, VIT_T, VIT_DH, ("bfloat16",)),
+               ("vit_train", TRAIN_BATCH, VIT_HEADS, VIT_T, VIT_DH, ("float32", "bfloat16")),
                ("h_14", 8, 16, VIT_T, 80, ("float32", "bfloat16")),
                ("ragged", 8, VIT_HEADS, 77, VIT_DH, ("float32", "bfloat16")),
                ("t1024", 4, VIT_HEADS, 1024, VIT_DH, ("float32", "bfloat16"))]
@@ -298,20 +318,30 @@ def phase_device():
 
 
 #: dynamic shared memory of the flash tensor-core kernels (TcLayout,
-#: BwdLayout and F32TcLayout, csrc/flash_attention.cu). bf16, rows of Dh + 8:
-#: K3 holds 64 q rows and two stages of 64-key K and V tiles; K4 64 q and dO
-#: rows and the same stages; K5 64 K and V rows, two stages of 64-row Q and
-#: dO tiles and of their lse and delta (f32). f32 K3: 64 q rows and two
-#: stages of 32-key K tiles in rows of Dh + 8 floats, two of V in Dh + 4
+#: BwdLayout, F32TcLayout and F32BwdLayout, csrc/flash_attention.cu). bf16,
+#: rows of Dh + 8: K3 holds 64 q rows and two stages of 64-key K and V
+#: tiles; K4 64 q and dO rows and the same stages; K5 64 K and V rows, two
+#: stages of 64-row Q and dO tiles and of their lse and delta (f32). f32 K3:
+#: 64 q rows and two stages of 32-key K tiles in rows of Dh + 8 floats, two
+#: of V in Dh + 4. f32 K4: 64 q and dO rows and two stages of 32-key K and V
+#: tiles, all rows of Dh + 8 floats; f32 K5 the mirror plus two stages of
+#: the 32 rows' lse and delta
 TC_KERNELS = {
     "flash_fwd_tc_kernel": lambda dh: (64 + 4 * 64) * (dh + 8) * 2,
     "flash_bwd_dq_tc_kernel": lambda dh: (2 * 64 + 4 * 64) * (dh + 8) * 2,
     "flash_bwd_dkv_tc_kernel": lambda dh: (2 * 64 + 4 * 64) * (dh + 8) * 2 + 2 * 2 * 64 * 4,
     "flash_fwd_f32tc_kernel": lambda dh: ((64 + 2 * 32) * (dh + 8) + 2 * 32 * (dh + 4)) * 4,
+    "flash_bwd_dq_f32tc_kernel": lambda dh: (2 * 64 + 4 * 32) * (dh + 8) * 4,
+    "flash_bwd_dkv_f32tc_kernel": lambda dh: (2 * 64 + 4 * 32) * (dh + 8) * 4 + 2 * 2 * 32 * 4,
 }
-#: the f32 K3 on the tensor cores (its HMMA must be TF32 ones) and the
-#: CUDA-core f32 K3 it replaced, which must not be compiled
-F32_K3_KERNEL, OLD_F32_K3_KERNEL = "flash_fwd_f32tc_kernel", "flash_fwd_kernel"
+#: the f32 flash kernels, all on the tensor cores by 3xTF32 (their HMMA must
+#: be TF32 ones), and the CUDA-core flash kernels they replaced, which must
+#: not be compiled
+F32_FLASH_KERNELS = ("flash_fwd_f32tc_kernel", "flash_bwd_dq_f32tc_kernel",
+                     "flash_bwd_dkv_f32tc_kernel")
+OLD_FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+#: head dims at which an f32 backward kernel must not spill (ViT-B/16, ViT-H/14)
+F32_BWD_NO_SPILL_DIMS = (64, 80)
 
 
 #: K2's tensor-core kernels, one instantiation per tile width BN: bf16, and
@@ -433,21 +463,23 @@ def phase_build():
                 for kern in TC_KERNELS}
             row["hmma"] = {"total": sum(hmma.values()), "tf32": sum(tf32.values()),
                            "by_kernel": {f: n for f, n in hmma.items() if n}}
-            # every bf16 kernel is a tensor-core one: no CUDA-core kernel is
-            # instantiated for __nv_bfloat16 (mangled "I13__nv_bfloat16"),
-            # and neither is the CUDA-core f32 K3
-            cuda_core = [f for f in hmma if "_kernelI13__nv_bfloat16" in f
-                         or f"{OLD_F32_K3_KERNEL}I" in f]
+            # every flash kernel is a tensor-core one: no CUDA-core kernel
+            # is compiled in either dtype (K3, K4, K5 in f32 by 3xTF32)
+            cuda_core = [f for f in hmma if any(f"{old}I" in f for old in OLD_FLASH_KERNELS)]
             # log is empty only when the library was built before this run;
-            # each instantiation has HMMA, TF32 ones in the f32 K3
+            # each instantiation has HMMA, TF32 ones in the f32 kernels
             missing = [(kern, dh) for kern in TC_KERNELS for dh in FLASH_HEAD_DIMS
                        if (log and dh not in tc.get(kern, {}))
                        or not count(hmma, kern, dh)
-                       or (kern == F32_K3_KERNEL) != bool(count(tf32, kern, dh))]
-            if missing or cuda_core:
+                       or (kern in F32_FLASH_KERNELS) != bool(count(tf32, kern, dh))]
+            spills = {(kern, dh): st for kern in F32_FLASH_KERNELS[1:]
+                      for dh, st in tc.get(kern, {}).items()
+                      if dh in F32_BWD_NO_SPILL_DIMS
+                      and (st.get("spill_store_bytes") or st.get("spill_load_bytes"))}
+            if missing or cuda_core or spills:
                 raise AssertionError(f"tensor-core kernels {missing} lack ptxas stats or (TF32) "
                                      f"HMMA ({dict(hmma)}); CUDA-core kernels that must not "
-                                     f"be compiled: {cuda_core}")
+                                     f"be compiled: {cuda_core}; f32 backward spills {spills}")
         if name == "fused_conv2d_bias_act":
             tc = _tc_kernel_stats(log, {K2_TC_KERNEL: _k2_tc_smem,
                                         K2_F32_KERNEL: lambda bn: _k2_tc_smem(bn, 4)})
@@ -867,8 +899,8 @@ FLASH_FLOPS = {"fwd": 4, "dq": 5, "dkv": 7}
 def flash_bound(kind, b, t, dh, dtype, tf32x3=False):
     """Least time on an H100 SXM: FLOPs at the type's peak, or each input
     read once and each output written once at 3.35 TB/s. ``tf32x3``: the
-    operations of K3's f32 route, three TF32 products per f32 FLOP at the
-    TF32 tensor-core peak. Returns (ms, bound_by)."""
+    operations of the f32 routes of K3, K4 and K5, three TF32 products per
+    f32 FLOP at the TF32 tensor-core peak. Returns (ms, bound_by)."""
     item = 4 if dtype == "float32" else 2
     rows = b * t * dh
     mats_in, mats_out, stats = {"fwd": (3, 1, 1), "dq": (4, 1, 2), "dkv": (4, 2, 2)}[kind]
@@ -957,11 +989,11 @@ def phase_flash_kernels(card):
                    "library_bwd_ms": lib_fwd_bwd - lib_fwd,
                    "card": card}
             for kind, (ms, plain_ms) in times.items():
-                f32_fwd = kind == "fwd" and dtype == "float32"
-                bound_ms, bound_by = flash_bound(kind, n * h, t, dh, dtype, tf32x3=f32_fwd)
+                f32 = dtype == "float32"
+                bound_ms, bound_by = flash_bound(kind, n * h, t, dh, dtype, tf32x3=f32)
                 row[kind] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by}
-                if f32_fwd:   # the same work's bound on the CUDA cores
+                if f32:   # the same work's bound on the CUDA cores
                     row[kind]["cuda_core_bound_ms"] = flash_bound(kind, n * h, t, dh, dtype)[0]
             emit(row)
             rows[(label, dtype)] = row
@@ -1045,11 +1077,13 @@ def _run_train_vit(label, epochs, *extra):
     return store, argv, wall, counts, by_dtype
 
 
-def phase_vit_train(card):
+def phase_vit_train(card, label="vit_train", dtype="bfloat16", epochs=TRAIN_EPOCHS, extra=()):
     """train_vit through the port's ``run``, in this process, so the kernels'
-    counts read here are the run's."""
+    counts read here are the run's. ``dtype`` is the route every flash launch
+    must take: bfloat16 under the conf's autocast, float32 with
+    :data:`F32_TRAIN_PARAMS` in ``extra``."""
     torch.cuda.reset_peak_memory_stats()
-    store, argv, wall, counts, by_dtype = _run_train_vit("vit_train", TRAIN_EPOCHS)
+    store, argv, wall, counts, by_dtype = _run_train_vit(label, epochs, *extra)
     k3, k4, k5 = counts["K3"], counts["K4"], counts["K5"]
     peak = torch.cuda.max_memory_allocated()
     h = store["train_results"]["history"]
@@ -1060,19 +1094,20 @@ def phase_vit_train(card):
     steps = h["steps"]
     losses = [e["main_loss"] for e in h["train"]]
     if steps == 0 or not np.isfinite(losses).all():
-        raise AssertionError(f"train_vit: {steps} steps, losses {losses[:4]}...")
+        raise AssertionError(f"{label}: {steps} steps, losses {losses[:4]}...")
     if (k4, k5) != (VIT_BLOCKS * steps, VIT_BLOCKS * steps) or \
             k3 != VIT_BLOCKS * (steps + val_forwards):
-        raise AssertionError(f"train_vit launches K3 {k3}, K4 {k4}, K5 {k5} for {steps} "
+        raise AssertionError(f"{label} launches K3 {k3}, K4 {k4}, K5 {k5} for {steps} "
                              f"steps and {val_forwards} validation forwards")
-    # bf16 autocast: every launch takes the bf16 route, on the tensor cores
-    if any(d != {"float32": 0, "bfloat16": n}
+    # every launch takes the dtype's route, on the tensor cores
+    if any(d != {**dict.fromkeys(d, 0), dtype: n}
            for d, n in zip(by_dtype.values(), (k3, k4, k5))):
-        raise AssertionError(f"train_vit launches by dtype {by_dtype}")
+        raise AssertionError(f"{label} launches by dtype {by_dtype}, expected all {dtype}")
     tput = h["throughput_img_s"]
     step_ms = batch / tput[-1] * 1e3
-    emit({"phase": "vit_train", "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
-          "cut": {"epochs": f"10 -> {TRAIN_EPOCHS}", "checkpoints": "off (save_every_iters 0)"},
+    emit({"phase": label, "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+          "dtype": dtype,
+          "cut": {"epochs": f"10 -> {epochs}", "checkpoints": "off (save_every_iters 0)"},
           "batch": batch, "steps": steps, "train_images": len(store["datasets"]["trainset"]),
           "valid_images": n_valid, "first_loss": losses[0], "last_loss": losses[-1],
           "valid": h["valid"][-1], "throughput_img_s": tput,
@@ -1088,85 +1123,141 @@ def phase_vit_train(card):
     return {"K3": k3, "K4": k4, "K5": k5}, step_ms
 
 
-def phase_vit_train_profile(card, step_ms):
-    """Where a train_vit step's device time goes: one more epoch, validation
-    off, under torch.profiler (its host overhead makes that epoch's wall
-    time no measure; the kernels' device times are), against the unprofiled
-    step time of ``vit_train``."""
+def phase_vit_train_profile(card, step_ms, label="vit_train_profile",
+                            extra=("train_resnet50.validate_every_epochs:1000",)):
+    """Where a train_vit step's device time goes: one more epoch (``extra``
+    may cut it), validation off, under torch.profiler (its host overhead
+    makes that epoch's wall time no measure; the kernels' device times are),
+    against the unprofiled step time ``step_ms``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        store, _, _, counts, _ = _run_train_vit(
-            "vit_train_profile", 1, "train_resnet50.validate_every_epochs:1000")
+        store, _, _, counts, _ = _run_train_vit(label, 1, *extra)
         torch.cuda.synchronize()
     h = store["train_results"]["history"]
     steps = h["steps"]
     if h["valid"] or counts != dict.fromkeys(("K3", "K4", "K5"), VIT_BLOCKS * steps):
-        raise AssertionError(f"vit_train_profile: {counts} launches for {steps} steps, "
+        raise AssertionError(f"{label}: {counts} launches for {steps} steps, "
                              f"validation {h['valid']}")
     groups, top = _profile_groups(prof, VIT_PROFILE_GROUPS)
     upload = groups.pop("upload", 0.0)     # the dataset and weights, once per run
     busy = sum(groups.values()) / steps
-    emit({"phase": "vit_train_profile", "steps": steps,
+    emit({"phase": label, "steps": steps,
           "device_ms_per_step": {g: ms / steps for g, ms in groups.most_common()},
           "upload_ms_per_run": upload,
           "device_busy_ms_per_step": busy, "step_ms_unprofiled": step_ms,
           "device_idle_share": 1.0 - busy / step_ms,
+          "flash_share_of_step": {g: groups[g] / steps / step_ms for g in ("K3", "K4", "K5")},
           "top_kernels_ms_per_step": [[name[:160], ms / steps, cnt] for name, ms, cnt in top],
           "launches": counts, "card": card})
     del store, prof
     torch.cuda.empty_cache()
 
 
-def flash_kernel_lines(rows, serve_launches, train_launches, card):
+def phase_k45_f32(card):
+    """K4's and K5's float32 routes at ViT-B/16's serving shape (12 launches
+    each, batch 64), checked against the plain versions and timed beside
+    SDPA's f32 backward (CUDA events and profiler device time); then
+    train_vit in float32 at batch 256, two epochs of 8 steps, validation
+    off: the last epoch's step time."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    shape = (SERVE_BATCH, VIT_HEADS, VIT_T, VIT_DH)
+    q, k, v, do = _flash_case(gen, *shape, "float32")
+    o, lse = plain_flash_fwd(q, k, v)
+    delta = (do * o).sum(-1)
+    got = (flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           *flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    refs = (plain_flash_bwd_dq(q, k, v, do, lse, delta),
+            *plain_flash_bwd_dkv(q, k, v, do, lse, delta))
+    errs = {name: _rel_err(g, r)[0] for name, g, r in zip(("dq", "dk", "dv"), got, refs)}
+    if not max(errs.values()) <= F32_TOL:
+        raise AssertionError(f"K4/K5 f32 at the serving shape: rel err {errs}")
+    del got, refs
+    per = {}
+    for kind, fn in (("dq", lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta)),
+                     ("dkv", lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta))):
+        b = SERVE_BATCH * VIT_HEADS
+        per[kind] = {"ms": VIT_BLOCKS * cuda_ms(fn), "device_ms": VIT_BLOCKS * device_ms(fn),
+                     "bound_ms": VIT_BLOCKS * flash_bound(kind, b, VIT_T, VIT_DH, "float32",
+                                                          tf32x3=True)[0],
+                     "cuda_core_bound_ms": VIT_BLOCKS * flash_bound(kind, b, VIT_T, VIT_DH,
+                                                                    "float32")[0]}
+    lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    lib_fwd_bwd = _library_fwd_bwd(q, k, v, do)
+    library = {"ms": VIT_BLOCKS * (cuda_ms(lib_fwd_bwd) - cuda_ms(lib_fwd)),
+               "device_ms": VIT_BLOCKS * (device_ms(lib_fwd_bwd) - device_ms(lib_fwd))}
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    store, _, _, counts, by_dtype = _run_train_vit(
+        "k45_f32_train", 2, *F32_TRAIN_PARAMS, *SHORT_TRAIN_PARAMS)
+    h = store["train_results"]["history"]
+    steps = h["steps"]
+    losses = [e["main_loss"] for e in h["train"]]
+    if not np.isfinite(losses).all() or h["valid"] or any(
+            d != {"float32": VIT_BLOCKS * steps, "bfloat16": 0} for d in by_dtype.values()):
+        raise AssertionError(f"k45_f32 train: losses {losses[:4]}, launches {by_dtype}")
+    emit({"phase": "k45_f32", "shape_n_h_t_dh": list(shape), "launches_per_step": VIT_BLOCKS,
+          "rel_err": errs, "per_step": per,
+          "k4_k5_ms": per["dq"]["ms"] + per["dkv"]["ms"],
+          "k4_k5_device_ms": per["dq"]["device_ms"] + per["dkv"]["device_ms"],
+          "library_bwd": library,
+          "train_vit_f32": {"batch": TRAIN_BATCH, "steps": steps,
+                            "throughput_img_s": h["throughput_img_s"],
+                            "step_ms": TRAIN_BATCH / h["throughput_img_s"][-1] * 1e3},
+          "card": card})
+    del store
+    torch.cuda.empty_cache()
+
+
+def flash_kernel_lines(rows, serve_launches, train_launches, f32_train_launches, card):
     """K3 per ViT-B/16 forward at the serving batch (f32), K4 and K5 per
     train step (bf16, batch 256): 12 launches each. Each entry's ``routes``
-    give both dtypes' kernels; K4's and K5's f32 route runs on no main path
-    and is timed at the serving shape. K3's f32 bound is that of its 3xTF32
-    products, with the CUDA-core one beside it."""
+    give both dtypes' kernels: K3's f32 route per serving forward, K4's and
+    K5's per ``vit_train_f32`` step (batch 256), all three bounded by their
+    3xTF32 products with the CUDA-core bound beside it."""
     serve, train_row = rows[("vit_serve", "float32")], rows[("vit_train", "bfloat16")]
+    f32_train = rows[("vit_train", "float32")]
+    train_per = (f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
+                 f"N,H,T,Dh {train_row['shape_n_h_t_dh']})")
+    f32_train_per = (f"one train_vit float32 step at batch {TRAIN_BATCH} (12 launches at "
+                     f"N,H,T,Dh {f32_train['shape_n_h_t_dh']})")
+    outs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
     lines = []
     for name, kind, row, src, launches, per in (
             ("flash_attention_fwd", "fwd", serve, "deepcv_tpu/ops/attention.py:73",
-             {"vit_serve": serve_launches, "vit_train": train_launches["K3"]},
+             {"vit_serve": serve_launches, "vit_train": train_launches["K3"],
+              "vit_train_f32": f32_train_launches["K3"]},
              f"one forward of vit_spec('b_16') at batch {SERVE_BATCH}, float32 "
              f"(12 launches of flash_fwd_f32tc_kernel at N,H,T,Dh "
              f"{serve['shape_n_h_t_dh']})"),
             ("flash_attention_bwd_dq", "dq", train_row, "deepcv_tpu/ops/attention.py:185",
-             {"vit_train": train_launches["K4"]},
-             f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
-             f"N,H,T,Dh {train_row['shape_n_h_t_dh']})"),
+             {"vit_train": train_launches["K4"], "vit_train_f32": f32_train_launches["K4"]},
+             train_per),
             ("flash_attention_bwd_dkv", "dkv", train_row, "deepcv_tpu/ops/attention.py:222",
-             {"vit_train": train_launches["K5"]},
-             f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
-             f"N,H,T,Dh {train_row['shape_n_h_t_dh']})")):
-        errs = row["max_abs_err"]
-        max_abs = max(errs[x] for x in ({"fwd": ("o", "lse"), "dq": ("dq",),
-                                         "dkv": ("dk", "dv")}[kind]))
+             {"vit_train": train_launches["K5"], "vit_train_f32": f32_train_launches["K5"]},
+             train_per)):
         lines.append({
             "name": name, "route": "cuda", "source": "deepcv_tpu_torch/csrc/flash_attention.cu",
             "replaces": src, "launches": sum(launches.values()),
-            "launches_by_path": launches, "max_abs_err": max_abs,
+            "launches_by_path": launches,
+            "max_abs_err": max(row["max_abs_err"][x] for x in outs[kind]),
             **_per_unit(row, kind), "per": per, "card": card})
-    # both routes of each: float32 (K3: 3xTF32 on the tensor cores, per
-    # serving forward, the entry's own numbers; K4, K5: the CUDA cores) and
-    # bfloat16 on the tensor cores per train step (K4, K5: the entries' own
-    # numbers)
-    train_per = (f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
-                 f"N,H,T,Dh {train_row['shape_n_h_t_dh']})")
-    outs = {"fwd": ("o", "lse"), "dq": ("dq",), "dkv": ("dk", "dv")}
-    for line, kind, kern, f32_kern, k, f32_launches, f32_per in (
-            (lines[0], "fwd", "flash_fwd", "flash_fwd_f32tc_kernel (tensor cores, mma.sync, "
-             "3xTF32)", "K3", serve_launches, lines[0]["per"]),
-            (lines[1], "dq", "flash_bwd_dq", "flash_bwd_dq_kernel (CUDA cores)", "K4", 0, None),
-            (lines[2], "dkv", "flash_bwd_dkv", "flash_bwd_dkv_kernel (CUDA cores)", "K5", 0,
-             None)):
+    # both routes of each: float32 by 3xTF32 on the tensor cores (K3 per
+    # serving forward, the entry's own numbers; K4, K5 per vit_train_f32
+    # step) and bfloat16 on the tensor cores per train step (K4, K5: the
+    # entries' own numbers)
+    for line, kind, kern, k, f32_row, f32_launches, f32_per in (
+            (lines[0], "fwd", "flash_fwd", "K3", serve,
+             serve_launches + f32_train_launches["K3"],
+             lines[0]["per"] + f"; also {f32_train_launches['K3']} launches in vit_train_f32"),
+            (lines[1], "dq", "flash_bwd_dq", "K4", f32_train, f32_train_launches["K4"],
+             f32_train_per),
+            (lines[2], "dkv", "flash_bwd_dkv", "K5", f32_train, f32_train_launches["K5"],
+             f32_train_per)):
         line["routes"] = {
-            "float32": {"kernel": f32_kern, "launches": f32_launches,
-                        **_per_unit(serve, kind),
-                        "max_abs_err": max(serve["max_abs_err"][x] for x in outs[kind]),
-                        "per": f32_per or (f"12 launches at N,H,T,Dh "
-                                           f"{serve['shape_n_h_t_dh']}, float32 (no main "
-                                           "path runs it)")},
+            "float32": {"kernel": f"{kern}_f32tc_kernel (tensor cores, mma.sync, 3xTF32)",
+                        "launches": f32_launches, **_per_unit(f32_row, kind),
+                        "max_abs_err": max(f32_row["max_abs_err"][x] for x in outs[kind]),
+                        "per": f32_per},
             "bfloat16": {"kernel": f"{kern}_tc_kernel (tensor cores, mma.sync)",
                          "launches": train_launches[k],
                          **_per_unit(train_row, kind),
@@ -1595,6 +1686,11 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         phase_k3_forward_f32(phase_device())
         return 0
+    if sys.argv[1:] == ["--k45-f32"]:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        phase_k45_f32(phase_device())
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -1610,6 +1706,10 @@ def main() -> int:
     serve_launches = phase_vit_serve(card)
     train_launches, vit_step_ms = phase_vit_train(card)
     phase_vit_train_profile(card, vit_step_ms)
+    f32_train_launches, f32_step_ms = phase_vit_train(card, "vit_train_f32", "float32", 1,
+                                                      F32_TRAIN_PARAMS)
+    phase_vit_train_profile(card, f32_step_ms, "vit_train_f32_profile",
+                            (*F32_TRAIN_PARAMS, *SHORT_TRAIN_PARAMS))
     aug_rows = phase_augment_kernel(card)
     classifier_counts = phase_classifier_train(card)
     augment_counts, _ = phase_augment_train(card, aug_rows, k2_rows)
@@ -1619,7 +1719,8 @@ def main() -> int:
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"], augment_counts["K2"])
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
-                      *flash_kernel_lines(flash_rows, serve_launches, train_launches, card)]})
+                      *flash_kernel_lines(flash_rows, serve_launches, train_launches,
+                                          f32_train_launches, card)]})
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,15 @@
 // Flash attention for NVIDIA Hopper (sm_90a): the forward (K3) and the two
 // backward kernels (K4: dQ, K5: dK and dV), with no mask and no dropout.
+// Every kernel runs on the tensor cores: bf16 by mma.sync m16n8k16, f32 by
+// 3xTF32 on mma.sync m16n8k8.
 //
 // Replaces the TPU kernels of deepcv_tpu/ops/attention.py:
 //   K3 flash_fwd_f32tc_kernel (f32),
-//      flash_fwd_tc_kernel (bf16)     <- _flash_kernel (called by _flash_fwd_impl)
-//   K4 flash_bwd_dq_kernel (f32),
-//      flash_bwd_dq_tc_kernel (bf16)  <- _flash_bwd_dq_kernel (called by _flash_bwd_impl)
-//   K5 flash_bwd_dkv_kernel (f32),
-//      flash_bwd_dkv_tc_kernel (bf16) <- _flash_bwd_dkv_kernel (called by _flash_bwd_impl)
+//      flash_fwd_tc_kernel (bf16)         <- _flash_kernel (called by _flash_fwd_impl)
+//   K4 flash_bwd_dq_f32tc_kernel (f32),
+//      flash_bwd_dq_tc_kernel (bf16)      <- _flash_bwd_dq_kernel (called by _flash_bwd_impl)
+//   K5 flash_bwd_dkv_f32tc_kernel (f32),
+//      flash_bwd_dkv_tc_kernel (bf16)     <- _flash_bwd_dkv_kernel (called by _flash_bwd_impl)
 // q, k, v, o, dO, dQ, dK, dV are (B, T, Dh) row-major with B = batch * heads;
 // lse and delta are (B, T) float32. The scale is 1/sqrt(Dh). Every kernel is
 // instantiated for each head dim in HEAD_DIMS (16, 32, 64, 80, 128; 80 is
@@ -24,11 +26,11 @@
 // What bounds them on an H100 SXM: each reads q, k, v (and dO, lse, delta)
 // once and writes its outputs once, 4 (K3), 5 (K4) and 7 (K5) * B * T^2 * Dh
 // FLOPs (the TPU kernels' cost estimates). ViT-B/16 (T = 197, Dh = 64) does
-// ~100 FLOPs per byte: in float32 on the CUDA cores (67 TFLOP/s) the bound
-// is the arithmetic rate; in bf16 (989 TFLOP/s on the tensor cores) it is
-// the bytes, about 295 FLOPs per byte being the card's balance point.
+// ~100 FLOPs per byte: in bf16 (989 TFLOP/s) the bound is the bytes, about
+// 295 FLOPs per byte being the card's balance point; in f32 by 3xTF32
+// (three products per FLOP at 494.7 TFLOP/s) the two bounds meet.
 //
-// K3 on bfloat16 inputs: flash_fwd_tc_kernel, on the tensor cores.
+// K3 on bfloat16 inputs: flash_fwd_tc_kernel.
 //   Bound at ViT's training shape (B = 256 * 12, T = 197, Dh = 64): 310 MB
 //   read and written, 0.093 ms at 3.35 TB/s, against 30.5 GFLOP, 0.031 ms at
 //   989 TFLOP/s: bytes. So the design reads each operand once from device
@@ -51,7 +53,9 @@
 //     scores (folded with log2(e) into exp2f's argument; q * scale is never
 //     rounded to bf16); only P is rounded to bf16 before P V, l sums the f32
 //     p; keys past T inside a computed n8 fragment get the finite score
-//     -1e30, and fragments wholly past T are not computed;
+//     -1e30 (an all-padding tile must not give exp(-inf - -inf) = NaN, as
+//     attention.py:95-100 explains), and fragments wholly past T are not
+//     computed;
 //   - every head dim in HEAD_DIMS is an instantiation (80: five k16 steps
 //     and five 16-column ldmatrix.x4 groups; its 88-element, 176-byte row
 //     stride puts an ldmatrix's 8 rows in distinct 16-byte bank groups, as
@@ -63,8 +67,7 @@
 //   allow here; wgmma, TMA and warp specialisation are for a later design,
 //   if this one ends far from its bound.
 //
-// K3 on float32 inputs: flash_fwd_f32tc_kernel, on the tensor cores by
-// 3xTF32.
+// K3 on float32 inputs: flash_fwd_f32tc_kernel, by 3xTF32.
 //   Arithmetic: mma.sync m16n8k8 tf32 -> f32. Every f32 operand x is split
 //   into hi = rna(x) and lo = rna(x - hi), rna being cvt.rna.tf32.f32's
 //   rounding done in integer operations (x - hi is exact; handing the mma
@@ -109,7 +112,7 @@
 //   wgmma's tf32 form (m64nNk8) is the way past them.
 //
 // K4 and K5 on bfloat16 inputs: flash_bwd_dq_tc_kernel and
-// flash_bwd_dkv_tc_kernel, on the tensor cores with K3's plumbing.
+// flash_bwd_dkv_tc_kernel, with K3's plumbing.
 //   Bound at ViT's training shape: bytes, 392 MB (K4) and 470 MB (K5) read
 //   and written, 0.117 and 0.140 ms at 3.35 TB/s, against 38 and 53 GFLOP,
 //   0.039 and 0.054 ms at 989 TFLOP/s. So again every operand is read once
@@ -146,22 +149,58 @@
 //     (55 KB at Dh = 64, 66 KB at 80, 104 KB at 128), K5 the mirror plus two stages of
 //     lse and delta (1 KB more): dynamic, as K3's.
 //
-// K4 and K5 on float32 inputs: the first design, on the CUDA cores:
-//   - a block owns 64 rows (q rows for K4, key rows for K5); each row is
-//     shared by TPR threads, a power of two so that they are aligned lanes
-//     of one warp (Dh / 16, and 4 at Dh = 80), each holding DPT = Dh / TPR
-//     of the row's dims (16, or 20 at Dh = 80) in registers as float4 chunks
-//     interleaved across the threads (chunk c = i * TPR + g), so the
-//     shared-memory reads of a warp hit distinct banks; dot products are
-//     summed across the row's threads with xor shuffles inside the group;
-//   - the streamed operand (k and v, or q, dO, lse and delta) is staged in
-//     shared memory one tile of about 4096 / Dh rows at a time;
-//   - T needs no padding in memory: tile loads past T read zeros, rows past
-//     T are computed but never stored, and chunks of keys that lie wholly
-//     past T are skipped; K4 and K5 set p = 0 for keys (K4) and q rows (K5)
-//     past T. (The finite score -1e30 that K3 gives padded keys keeps an
-//     all-padding tile from making exp(-inf - -inf) = NaN, as
-//     attention.py:95-100 explains.)
+// K4 and K5 on float32 inputs: flash_bwd_dq_f32tc_kernel and
+// flash_bwd_dkv_f32tc_kernel, by K3 f32's 3xTF32 in K4 and K5 bf16's
+// structure.
+//   Bound at ViT-B/16's serving shape (B = 64 * 12, T = 197, Dh = 64), per
+//   launch: K4 moves 195 MB, 0.058 ms at 3.35 TB/s, against 3 * 9.5 GFLOP
+//   of TF32 products, 0.058 ms at 494.7 TFLOP/s; K5 234 MB, 0.070 ms,
+//   against 3 * 13.4 GFLOP, 0.081 ms: operations, just. (On the CUDA cores
+//   the same f32 work would be bound at 0.142 and 0.199 ms by 67 TFLOP/s.)
+//   So, as in K3 f32, every operand is read once and the products stay on
+//   the tensor cores:
+//   - a block of 4 warps owns 64 rows (K4: q rows, K5: key rows), a warp 16;
+//     the rows' lse * log2(e) and delta (K4) stay in registers; the streamed
+//     operands (K4: K, V; K5: Q, dO and the tile's lse and delta) come in
+//     32-row tiles by cp.async, two stages, zero-fill past T; the same 1-D
+//     grid over (head, row block), a head's blocks adjacent;
+//   - each 32-row tile is walked 16 rows at a time: S and dP (K5: S^T, dP^T)
+//     of 16 x 16, then P = exp2(S * scale * log2(e) - lse * log2(e)) in one
+//     FMA, dS = P (dP - delta), P = 0 by a select for keys (K4) or q rows
+//     (K5) past T; then the second products one k8 step per n8 fragment:
+//     dQ += dS K, and dV += P^T dO, dK += dS^T Q, whose A fragments are the
+//     S and dP accumulators with K3 f32's permutation (a0 = c0, a1 = c2,
+//     a2 = c1, a3 = c3) and whose B fragments are read from rows 2t and
+//     2t + 1 of the tile at head dim g to match;
+//   - the first products read A (K4: Q, dO; K5: K, V) and B (the tile's
+//     rows) by 8-byte loads with the head dim permuted as K3 f32's Q K^T;
+//   - the one hard part of the layout: the streamed tile is read both ways,
+//     8-byte loads of rows g and 4-byte loads of rows 2t and 2t + 1. A row
+//     stride of Dh + 8 floats suits the first and puts rows 0 and 4 on the
+//     same banks for the second; Dh + 4 the reverse. So every tile has
+//     stride Dh + 8 and stores rows 4-7 of each 8 with their 8-column groups
+//     swapped in pairs (column d at d ^ 8), set as cp.async writes the rows:
+//     both reads are then free of bank conflicts at every head dim, and
+//     each lane's swizzle is one of two constants;
+//   - registers: K5 holds dK and dV, Dh floats a lane (64 at Dh = 64). The
+//     resident operand's A fragments (K4: Q, dO; K5: K, V) are therefore
+//     read from shared memory and split at every 16-row step, as K3 f32
+//     reads Q, and not held across the loop; 16 rows of S and dP live at a
+//     time. The register cap follows the blocks an SM that shared memory
+//     allows (72 KB at Dh = 64: 3, 168 registers; 88 KB at 80: 2);
+//   - numerics: in every product (S and dP over the head dim; dQ, dK and
+//     dV over T rows, 197 at ViT-B/16 and 1,024 in chip_smoke.py) each k8
+//     step's three products sum from zero and an FADD adds them to the f32
+//     accumulator (K2 f32's lesson at K = 4,608): the tensor cores' own sums
+//     round toward zero. Chaining the products in the accumulator, as K3
+//     f32 does, was 11 % faster but 4e-6 from the plain version at ViT's
+//     shape (1.4e-5 at T = 1,024) against 1.2e-6 (2.4e-6), and its scores
+//     drift: with scores of standard deviation 64 (and the caller's lse),
+//     dV was 1.5e-4 from a float64 reference, the plain version 2e-5. dQ * scale,
+//     dK * scale and dV are written once.
+//   mma.sync and not wgmma, as in K3 f32: three TF32 mmas per product, and
+//   here two products per score, not the bytes, hold them from the bound.
+//
 // The TPU kernels' 8-lane lse layout (a Mosaic tiling constraint) is not
 // carried over: lse and delta are plain (B, T) float32.
 //
@@ -178,126 +217,11 @@
 
 namespace {
 
-constexpr int ROWS = 64;          // rows a block owns
-constexpr int TILE_ELEMS = 4096;  // f32 elements of one staged tile (16 KB)
+constexpr int ROWS = 64;  // rows a block owns
 constexpr float kMaskScore = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
-
-// The CUDA-core kernels (K4, K5 on f32) share a row among TPR threads: the
-// largest power of two up to Dh / 16 that divides the row's Dh / 4 float4
-// chunks, so a row's threads are aligned lanes of one warp and group_sum's
-// xor shuffles stay among them (Dh / 16 threads of 16 dims each, and at
-// Dh = 80 four threads of 20 dims: five float4 chunks each).
-constexpr int threads_per_row(int dh) {
-  int p = 1;
-  while (2 * p <= dh / 16 && (dh / 4) % (2 * p) == 0) p *= 2;
-  return p;
-}
-
-template <int DH>
-struct RowSplit {
-  static constexpr int TPR = threads_per_row(DH);  // threads per row
-  static constexpr int DPT = DH / TPR;             // head dims per thread
-  static constexpr int NT = ROWS * TPR;            // threads per block
-  static_assert(DH % (4 * TPR) == 0 && 32 % TPR == 0, "a row splits into float4 chunks");
-};
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float4 smem4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// sum over the TPR consecutive lanes that share one row
-template <int TPR>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// this thread's DPT dims of row `r` of a (rows, DH) matrix, f32; zeros when
-// the row is not live
-template <typename T, int DH>
-__device__ __forceinline__ void load_row(float (&dst)[RowSplit<DH>::DPT], const T* __restrict__ src,
-                                         long long r, bool live, int g, float mul) {
-  constexpr int TPR = RowSplit<DH>::TPR;
-#pragma unroll
-  for (int i = 0; i < RowSplit<DH>::DPT / 4; ++i) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (live) x = load4(src + r * DH + (i * TPR + g) * 4);
-    dst[4 * i + 0] = x.x * mul;
-    dst[4 * i + 1] = x.y * mul;
-    dst[4 * i + 2] = x.z * mul;
-    dst[4 * i + 3] = x.w * mul;
-  }
-}
-
-template <typename T, int DH>
-__device__ __forceinline__ void store_row(T* __restrict__ dst, const float (&src)[RowSplit<DH>::DPT],
-                                          long long r, int g, float mul) {
-  constexpr int TPR = RowSplit<DH>::TPR;
-#pragma unroll
-  for (int i = 0; i < RowSplit<DH>::DPT / 4; ++i) {
-    store4(dst + r * DH + (i * TPR + g) * 4,
-           make_float4(src[4 * i] * mul, src[4 * i + 1] * mul, src[4 * i + 2] * mul,
-                       src[4 * i + 3] * mul));
-  }
-}
-
-// partial dot product of this thread's DPT dims with row `j` of a staged tile
-template <int DH>
-__device__ __forceinline__ float dot_tile(const float (&a)[RowSplit<DH>::DPT],
-                                          const float* __restrict__ tile, int j, int g) {
-  constexpr int TPR = RowSplit<DH>::TPR;
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < RowSplit<DH>::DPT / 4; ++i) {
-    const float4 b = smem4(tile + j * DH + (i * TPR + g) * 4);
-    s = fmaf(a[4 * i], b.x, s);
-    s = fmaf(a[4 * i + 1], b.y, s);
-    s = fmaf(a[4 * i + 2], b.z, s);
-    s = fmaf(a[4 * i + 3], b.w, s);
-  }
-  return s;
-}
-
-// acc += w * row `j` of a staged tile (this thread's DPT dims)
-template <int DH>
-__device__ __forceinline__ void axpy_tile(float (&acc)[RowSplit<DH>::DPT], float w,
-                                          const float* __restrict__ tile, int j, int g) {
-  constexpr int TPR = RowSplit<DH>::TPR;
-#pragma unroll
-  for (int i = 0; i < RowSplit<DH>::DPT / 4; ++i) {
-    const float4 b = smem4(tile + j * DH + (i * TPR + g) * 4);
-    acc[4 * i] = fmaf(w, b.x, acc[4 * i]);
-    acc[4 * i + 1] = fmaf(w, b.y, acc[4 * i + 1]);
-    acc[4 * i + 2] = fmaf(w, b.z, acc[4 * i + 2]);
-    acc[4 * i + 3] = fmaf(w, b.w, acc[4 * i + 3]);
-  }
-}
-
-// rows [r0, r0 + nrows) of a (t_len, DH) matrix into shared memory as f32;
-// rows at or past t_len read as zeros
-template <typename T, int DH, int NT>
-__device__ __forceinline__ void stage_tile(float* __restrict__ dst, const T* __restrict__ src,
-                                           int r0, int nrows, int t_len, int tid) {
-  constexpr int C4 = DH / 4;
-  for (int c = tid; c < nrows * C4; c += NT) {
-    const int r = c / C4, k4 = c - r * C4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < t_len) x = load4(src + (long long)(r0 + r) * DH + k4 * 4);
-    store4(dst + r * DH + k4 * 4, x);
-  }
-}
 
 // ------------------------------------------------- K3, bf16, tensor cores //
 constexpr int TC_WARPS = 4;
@@ -554,7 +478,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 }
 
 // ------------------------------------------------ K3, f32, tensor cores //
-constexpr int F32_BK = 32;  // keys per tile
+constexpr int F32_BK = 32;  // rows of a streamed f32 tile (K3, K4: keys; K5: q rows)
 
 // shared-memory layout of flash_fwd_f32tc_kernel: the block's Q rows, then
 // two stages of K tiles and two of V tiles, f32; Q and K rows padded by 8
@@ -823,15 +747,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
 }
 
-// lse (thread < 64) and delta (thread >= 64) of rows [r0, r0 + 64) into one
-// stage of K5's statistics, by cp.async; rows at or past t_len read as 0
+// lse (thread < NR) and delta (NR <= thread < 2 NR) of rows [r0, r0 + NR)
+// into one stage of K5's statistics, by cp.async; rows at or past t_len
+// read as 0
+template <int NR>
 __device__ __forceinline__ void cp_stats(float* dst, const float* __restrict__ lse,
                                          const float* __restrict__ delta, int r0, int t_len,
                                          int tid) {
-  static_assert(TC_THREADS == 2 * TC_BK, "one statistic per thread");
-  const int r = tid % TC_BK;
+  static_assert(2 * NR <= TC_THREADS, "one statistic per thread");
+  if (tid >= 2 * NR) return;
+  const int r = tid % NR;
   const bool in = r0 + r < t_len;
-  cp_async4(dst + tid, (tid < TC_BK ? lse : delta) + (in ? r0 + r : 0), in);
+  cp_async4(dst + tid, (tid < NR ? lse : delta) + (in ? r0 + r : 0), in);
 }
 
 // K4 on bf16. Lane l holds, in an m16n8 accumulator, rows g = l / 4 and
@@ -1002,7 +929,7 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   cp_async_commit();
   cp_rows<DH, TC_BK>(qs, q + base, 0, t_len, tid);
   cp_rows<DH, TC_BK>(dos, dout + base, 0, t_len, tid);
-  cp_stats(stats, lse_bh, delta_bh, 0, t_len, tid);
+  cp_stats<TC_BK>(stats, lse_bh, delta_bh, 0, t_len, tid);
   cp_async_commit();
 
   const int mi = lane / 8, mr = lane % 8;
@@ -1019,7 +946,7 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
       const int nxt = (t + 1) & 1;
       cp_rows<DH, TC_BK>(qs + nxt * L::TILE, q + base, (t + 1) * TC_BK, t_len, tid);
       cp_rows<DH, TC_BK>(dos + nxt * L::TILE, dout + base, (t + 1) * TC_BK, t_len, tid);
-      cp_stats(stats + nxt * L::STATS, lse_bh, delta_bh, (t + 1) * TC_BK, t_len, tid);
+      cp_stats<TC_BK>(stats + nxt * L::STATS, lse_bh, delta_bh, (t + 1) * TC_BK, t_len, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -1116,114 +1043,397 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16
   }
 }
 
-// ---------------------------------------------------------------- K4 ---- //
-template <typename T, int DH>
-__global__ void __launch_bounds__(RowSplit<DH>::NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int t_len,
-                    float scale) {
-  constexpr int TPR = RowSplit<DH>::TPR, DPT = RowSplit<DH>::DPT, NT = RowSplit<DH>::NT;
-  constexpr int CH = 8;
-  constexpr int BK = TILE_ELEMS / DH / CH * CH;  // keys per staged tile
-  __shared__ __align__(16) float ks[BK * DH];
-  __shared__ __align__(16) float vs[BK * DH];
+// ------------------------------------------- K4 and K5, f32, tensor cores //
 
-  const int tid = threadIdx.x, g = tid % TPR;
-  const long long bh = blockIdx.x;
-  const int qi = blockIdx.y * ROWS + tid / TPR;
-  const bool live = qi < t_len;
-  const long long base = bh * t_len * DH;
+// shared-memory layout of the two f32 backward kernels: the 64 rows a block
+// owns of two operands (K4: Q, dO; K5: K, V), then two stages of 32-row tiles
+// of the two it streams (K4: K, V; K5: Q, dO), rows of DH + 8 floats; K5 adds
+// two stages of the tile's lse and delta. Column d of row r lies at column
+// d ^ f32_swz(r) of its row (see cp_rows_f32_swz)
+template <int DH>
+struct F32BwdLayout {
+  static_assert(DH % 16 == 0, "the swizzle pairs 8-column groups");
+  static constexpr int LD = DH + 8;
+  static constexpr int OWN = ROWS * LD;
+  static constexpr int TILE = F32_BK * LD;
+  static constexpr int DQ_BYTES = (2 * OWN + 4 * TILE) * (int)sizeof(float);
+  static constexpr int STATS = 2 * F32_BK;  // lse then delta, one stage
+  static constexpr int DKV_BYTES = DQ_BYTES + 2 * STATS * (int)sizeof(float);
+  // blocks per SM that shared memory allows (72 KB at Dh = 64, 88 KB at 80,
+  // 136 KB at 128), which the registers must leave room for
+  static constexpr int MIN_BLOCKS = DH <= 32 ? 4 : DH <= 64 ? 3 : DH <= 80 ? 2 : 1;
+};
 
-  float qr[DPT], dor[DPT], acc[DPT];
-  load_row<T, DH>(qr, q + base, qi, live, g, 1.f);
-  load_row<T, DH>(dor, dout + base, qi, live, g, 1.f);
-#pragma unroll
-  for (int d = 0; d < DPT; ++d) acc[d] = 0.f;
-  const float lse_i = live ? lse[bh * t_len + qi] : 0.f;
-  const float delta_i = live ? delta[bh * t_len + qi] : 0.f;
+// 0 or 8: the backward's f32 tiles store rows 4-7 of every 8 with their
+// 8-column groups swapped in pairs (d ^ 8), so that both fragment reads are
+// free of bank conflicts: 8-byte reads of columns 2c, 2c + 1 from rows g
+// (half a warp: rows 8 apart mod 32 banks) and 4-byte reads of column g from
+// rows 2c and 2c + 1 (a warp: row stride DH + 8 alone puts rows 0 and 4 on
+// the same banks)
+__device__ __forceinline__ int f32_swz(int r) { return (r & 4) << 1; }
 
-  for (int k0 = 0; k0 < t_len; k0 += BK) {
-    __syncthreads();
-    stage_tile<T, DH, NT>(ks, k + base, k0, BK, t_len, tid);
-    stage_tile<T, DH, NT>(vs, v + base, k0, BK, t_len, tid);
-    __syncthreads();
-    for (int j0 = 0; j0 < BK && k0 + j0 < t_len; j0 += CH) {
-      float s[CH], dp[CH];
+// rows [r0, r0 + NROWS) of a (t_len, DH) f32 matrix into a swizzled tile of
+// row stride DH + 8, by cp.async; rows at or past t_len are zero-filled
+template <int DH, int NROWS>
+__device__ __forceinline__ void cp_rows_f32_swz(float* dst, const float* __restrict__ src, int r0,
+                                                int t_len, int tid) {
+  constexpr int CPR = DH / 4;  // 16-byte chunks per row
+  constexpr int LD = DH + 8;
+  static_assert((NROWS * CPR) % TC_THREADS == 0, "chunks must split evenly");
 #pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        s[j] = dot_tile<DH>(qr, ks, j0 + j, g);
-        dp[j] = dot_tile<DH>(dor, vs, j0 + j, g);
-      }
-#pragma unroll
-      for (int j = 0; j < CH; ++j) {
-        const float sj = group_sum<TPR>(s[j]);
-        const float dpj = group_sum<TPR>(dp[j]);
-        const float p = k0 + j0 + j < t_len ? expf(sj * scale - lse_i) : 0.f;
-        axpy_tile<DH>(acc, p * (dpj - delta_i), ks, j0 + j, g);
-      }
-    }
+  for (int i = 0; i < NROWS * CPR / TC_THREADS; ++i) {
+    const int c = tid + i * TC_THREADS;
+    const int r = c / CPR, ch = c % CPR;
+    const bool in = r0 + r < t_len;
+    cp_async16(dst + r * LD + ((ch * 4) ^ f32_swz(r)),
+               src + (long long)(in ? r0 + r : 0) * DH + ch * 4, in);
   }
-  if (live) store_row<T, DH>(dq + base, acc, qi, g, scale);
 }
 
-// ---------------------------------------------------------------- K5 ---- //
-template <typename T, int DH>
-__global__ void __launch_bounds__(RowSplit<DH>::NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int t_len, float scale) {
-  constexpr int TPR = RowSplit<DH>::TPR, DPT = RowSplit<DH>::DPT, NT = RowSplit<DH>::NT;
-  constexpr int CH = 8;
-  constexpr int BQ = TILE_ELEMS / DH / CH * CH;  // q rows per staged tile
-  __shared__ __align__(16) float qs[BQ * DH];
-  __shared__ __align__(16) float dos[BQ * DH];
-  __shared__ float lses[BQ];
-  __shared__ float dels[BQ];
+// In a swizzled row read at lane offset s (f32_swz of the row), 8-column
+// group n starts at n * 8 + s when n is even and n * 8 - s when it is odd
+template <int N>
+__device__ __forceinline__ int swz_col(int s) {
+  return N * 8 + ((N & 1) ? -s : s);
+}
 
-  const int tid = threadIdx.x, g = tid % TPR;
-  const long long bh = blockIdx.x;
-  const int kj = blockIdx.y * ROWS + tid / TPR;
-  const bool live = kj < t_len;
-  const long long base = bh * t_len * DH;
+// A fragment of rows g and g + 8 at the k8 step KK (columns 2c, 2c + 1,
+// the head-dim permutation of K3 f32's Q K^T), split into TF32 hi and lo;
+// p points at row g, column 2c of the swizzled tile, s is f32_swz(g)
+template <int KK, int LD>
+__device__ __forceinline__ void a_frag_f32(uint32_t (&ah)[4], uint32_t (&al)[4], const float* p,
+                                           int s) {
+  const float2 x0 = *reinterpret_cast<const float2*>(p + swz_col<KK>(s));
+  const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * LD + swz_col<KK>(s));
+  split_tf32(x0.x, ah[0], al[0]);
+  split_tf32(x1.x, ah[1], al[1]);
+  split_tf32(x0.y, ah[2], al[2]);
+  split_tf32(x1.y, ah[3], al[3]);
+}
 
-  float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
-  load_row<T, DH>(kr, k + base, kj, live, g, 1.f);
-  load_row<T, DH>(vr, v + base, kj, live, g, 1.f);
+// B fragment of row g at the k8 step KK (columns 2c, 2c + 1), split
+template <int KK>
+__device__ __forceinline__ void b_frag_rows(uint32_t (&bh)[2], uint32_t (&bl)[2], const float* p,
+                                            int s) {
+  const float2 y = *reinterpret_cast<const float2*>(p + swz_col<KK>(s));
+  split_tf32(y.x, bh[0], bl[0]);
+  split_tf32(y.y, bh[1], bl[1]);
+}
+
+// B fragment of rows 2c and 2c + 1 (the row index permuted as the A
+// fragment taken from an accumulator is) at column g of the n8 group N,
+// split; p points at row 2c, column g, s is f32_swz(2c)
+template <int N, int LD>
+__device__ __forceinline__ void b_frag_cols(uint32_t (&bh)[2], uint32_t (&bl)[2], const float* p,
+                                            int s) {
+  split_tf32(p[swz_col<N>(s)], bh[0], bl[0]);
+  split_tf32(p[LD + swz_col<N>(s)], bh[1], bl[1]);
+}
+
+// an m16n8 accumulator as the A fragment of the next product, split: a0 =
+// c0, a1 = c2, a2 = c1, a3 = c3 (mma k t <- column 2t, k t + 4 <- 2t + 1)
+__device__ __forceinline__ void acc_as_a(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                         const float (&x)[4]) {
+  split_tf32(x[0], ah[0], al[0]);
+  split_tf32(x[2], ah[1], al[1]);
+  split_tf32(x[1], ah[2], al[2]);
+  split_tf32(x[3], ah[3], al[3]);
+}
+
+// d += a b at f32 accuracy: the three products of the k8 step summed from
+// zero, then added to d by an FADD (round to nearest; the tensor cores' own
+// sums round toward zero, which drifts over the steps of a sum)
+__device__ __forceinline__ void mma_3xtf32_add(float (&d)[4], const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                               const uint32_t (&bl)[2]) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32(t, ah, al, bh, bl);
+  d[0] += t[0];
+  d[1] += t[1];
+  d[2] += t[2];
+  d[3] += t[3];
+}
+
+// the scores S (K5: S^T) and dP (K5: dP^T) of a block's 16 rows against a
+// tile's 32: s[j] += A1 B1_j^T and dp[j] += A2 B2_j^T over the head dim, for
+// the tile's n8 fragments j that hold a row before T (nlive of them live).
+// Each A fragment is read and split once per k8 step for all four; a1, a2
+// point at the A operands' row g, column 2c; b1, b2 at the tile's row g;
+// sa, sb are the lanes' swizzle offsets of those rows
+template <int DH, int KK = 0>
+__device__ __forceinline__ void scores_f32(float (&s)[F32_BK / 8][4], float (&dp)[F32_BK / 8][4],
+                                           const float* a1, const float* a2, const float* b1,
+                                           const float* b2, int sa, int sb, int nlive) {
+  if constexpr (KK < DH / 8) {
+    constexpr int LD = DH + 8;
+    uint32_t ah[4], al[4], bh[2], bl[2];
+    a_frag_f32<KK, LD>(ah, al, a1, sa);
 #pragma unroll
-  for (int d = 0; d < DPT; ++d) dka[d] = dva[d] = 0.f;
-
-  for (int q0 = 0; q0 < t_len; q0 += BQ) {
-    __syncthreads();
-    stage_tile<T, DH, NT>(qs, q + base, q0, BQ, t_len, tid);
-    stage_tile<T, DH, NT>(dos, dout + base, q0, BQ, t_len, tid);
-    for (int c = tid; c < BQ; c += NT) {
-      const bool in = q0 + c < t_len;
-      lses[c] = in ? lse[bh * t_len + q0 + c] : 0.f;
-      dels[c] = in ? delta[bh * t_len + q0 + c] : 0.f;
+    for (int j = 0; j < F32_BK / 8; ++j) {
+      if (j * 8 >= nlive) break;
+      b_frag_rows<KK>(bh, bl, b1 + j * 8 * LD, sb);
+      mma_3xtf32_add(s[j], ah, al, bh, bl);
     }
-    __syncthreads();
-    for (int i0 = 0; i0 < BQ && q0 + i0 < t_len; i0 += CH) {
-      float s[CH], dp[CH];
+    a_frag_f32<KK, LD>(ah, al, a2, sa);
 #pragma unroll
-      for (int i = 0; i < CH; ++i) {
-        s[i] = dot_tile<DH>(kr, qs, i0 + i, g);
-        dp[i] = dot_tile<DH>(vr, dos, i0 + i, g);
-      }
-#pragma unroll
-      for (int i = 0; i < CH; ++i) {
-        const float si = group_sum<TPR>(s[i]);
-        const float dpi = group_sum<TPR>(dp[i]);
-        const float p = q0 + i0 + i < t_len ? expf(si * scale - lses[i0 + i]) : 0.f;
-        axpy_tile<DH>(dva, p, dos, i0 + i, g);
-        axpy_tile<DH>(dka, p * (dpi - dels[i0 + i]), qs, i0 + i, g);
-      }
+    for (int j = 0; j < F32_BK / 8; ++j) {
+      if (j * 8 >= nlive) break;
+      b_frag_rows<KK>(bh, bl, b2 + j * 8 * LD, sb);
+      mma_3xtf32_add(dp[j], ah, al, bh, bl);
     }
+    scores_f32<DH, KK + 1>(s, dp, a1, a2, b1, b2, sa, sb, nlive);
   }
-  if (live) {
-    store_row<T, DH>(dk + base, dka, kj, g, scale);
-    store_row<T, DH>(dv + base, dva, kj, g, 1.f);
+}
+
+// acc[n] += X B_n over one k8 step of 8 rows, for every n8 head-dim group
+// n: xh, xl the split A fragment, p the B operand's row 2c, column g
+template <int DH, int N = 0>
+__device__ __forceinline__ void accumulate_f32(float (&acc)[DH / 8][4], const uint32_t (&xh)[4],
+                                               const uint32_t (&xl)[4], const float* p, int s) {
+  if constexpr (N < DH / 8) {
+    uint32_t bh[2], bl[2];
+    b_frag_cols<N, DH + 8>(bh, bl, p, s);
+    mma_3xtf32_add(acc[N], xh, xl, bh, bl);
+    accumulate_f32<DH, N + 1>(acc, xh, xl, p, s);
+  }
+}
+
+// K4 on f32. Lane l (g = l / 4, c = l % 4) holds, in an m16n8 accumulator,
+// rows g and g + 8 and columns 2c, 2c + 1, as in flash_fwd_f32tc_kernel.
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS, F32BwdLayout<DH>::MIN_BLOCKS)
+flash_bwd_dq_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          float* __restrict__ dq, int t_len, int n_qblocks, float scale) {
+  using L = F32BwdLayout<DH>;
+  constexpr int LD = L::LD;
+  constexpr int NK = F32_BK / 8;  // n8 key fragments of a tile (k8 steps of dS K)
+  constexpr int ND = DH / 8;      // n8 head-dim fragments of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* dos = qs + L::OWN;
+  float* ks = dos + L::OWN;
+  float* vs = ks + 2 * L::TILE;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long bh = blockIdx.x / n_qblocks;
+  const int q0 = (int)(blockIdx.x % n_qblocks) * ROWS;
+  const long long base = bh * t_len * DH;
+  const int n_tiles = (t_len + F32_BK - 1) / F32_BK;
+  const bool live = q0 + warp * 16 < t_len;
+  const float sl2 = scale * kLog2e;
+
+  cp_rows_f32_swz<DH, ROWS>(qs, q + base, q0, t_len, tid);
+  cp_rows_f32_swz<DH, ROWS>(dos, dout + base, q0, t_len, tid);
+  cp_rows_f32_swz<DH, F32_BK>(ks, k + base, 0, t_len, tid);
+  cp_rows_f32_swz<DH, F32_BK>(vs, v + base, 0, t_len, tid);
+  cp_async_commit();
+
+  // this lane's rows: lse * log2(e) and delta (0 past T)
+  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const float lb0 = r0 < t_len ? lse[bh * t_len + r0] * kLog2e : 0.f;
+  const float lb1 = r1 < t_len ? lse[bh * t_len + r1] * kLog2e : 0.f;
+  const float d0 = r0 < t_len ? delta[bh * t_len + r0] : 0.f;
+  const float d1 = r1 < t_len ? delta[bh * t_len + r1] : 0.f;
+
+  // the swizzle offsets of rows g and 2c (mod 8); Q's and dO's A fragments
+  // (rows g, g + 8 of the warp's 16) are read from shared memory and split
+  // at every step: no register holds them across the loop
+  const int sg = f32_swz(g), sc = f32_swz(2 * c);
+  const float* qw = qs + (warp * 16 + g) * LD + 2 * c;
+  const float* dw = dos + (warp * 16 + g) * LD + 2 * c;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      const int nxt = (t + 1) & 1;
+      cp_rows_f32_swz<DH, F32_BK>(ks + nxt * L::TILE, k + base, (t + 1) * F32_BK, t_len, tid);
+      cp_rows_f32_swz<DH, F32_BK>(vs + nxt * L::TILE, v + base, (t + 1) * F32_BK, t_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      const float* kt = ks + (t & 1) * L::TILE;
+      const float* vt = vs + (t & 1) * L::TILE;
+      const int nlive = t_len - t * F32_BK;  // keys of this tile before T (>= 1)
+
+      // S = Q K^T and dP = dO V^T over the tile's key fragments
+      float s[NK][4] = {}, dp[NK][4] = {};
+      scores_f32<DH>(s, dp, qw, dw, kt + g * LD + 2 * c, vt + g * LD + 2 * c, sg, sg, nlive);
+      // dS = P (dP - delta) in f32, P = exp2(S scale log2(e) - lse log2(e)),
+      // 0 for keys past T (by a select: exp2 of the padding may be inf)
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const int key = j * 8 + 2 * c;
+        const float p0 = key < nlive ? exp2f(fmaf(s[j][0], sl2, -lb0)) : 0.f;
+        const float p1 = key + 1 < nlive ? exp2f(fmaf(s[j][1], sl2, -lb0)) : 0.f;
+        const float p2 = key < nlive ? exp2f(fmaf(s[j][2], sl2, -lb1)) : 0.f;
+        const float p3 = key + 1 < nlive ? exp2f(fmaf(s[j][3], sl2, -lb1)) : 0.f;
+        s[j][0] = p0 * (dp[j][0] - d0);
+        s[j][1] = p1 * (dp[j][1] - d0);
+        s[j][2] = p2 * (dp[j][2] - d1);
+        s[j][3] = p3 * (dp[j][3] - d1);
+      }
+      // dQ += dS K, one k8 step per key fragment: dS's A fragment from its
+      // accumulator, K's B fragment from keys 2c and 2c + 1 at dim g
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        if (j * 8 >= nlive) break;
+        uint32_t xh[4], xl[4];
+        acc_as_a(xh, xl, s[j]);
+        accumulate_f32<DH>(acc, xh, xl, kt + (j * 8 + 2 * c) * LD + g, sc);
+      }
+    }
+    __syncthreads();  // the stage read here is the one the next tile fills
+  }
+  if (!live) return;
+
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int d = n * 8 + 2 * c;
+    if (r0 < t_len)
+      *reinterpret_cast<float2*>(dq + base + (long long)r0 * DH + d) =
+          make_float2(acc[n][0] * scale, acc[n][1] * scale);
+    if (r1 < t_len)
+      *reinterpret_cast<float2*>(dq + base + (long long)r1 * DH + d) =
+          make_float2(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+// K5 on f32: the accumulators hold key rows g, g + 8 and q columns 2c, 2c + 1
+template <int DH>
+__global__ void __launch_bounds__(TC_THREADS, F32BwdLayout<DH>::MIN_BLOCKS)
+flash_bwd_dkv_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv, int t_len,
+                           int n_kblocks, float scale) {
+  using L = F32BwdLayout<DH>;
+  constexpr int LD = L::LD;
+  constexpr int NQ = F32_BK / 8;  // n8 q fragments of a tile (k8 steps of the second products)
+  constexpr int ND = DH / 8;      // n8 head-dim fragments of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ks = reinterpret_cast<float*>(smem_raw);
+  float* vs = ks + L::OWN;
+  float* qs = vs + L::OWN;
+  float* dos = qs + 2 * L::TILE;
+  float* stats = dos + 2 * L::TILE;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const long long bh = blockIdx.x / n_kblocks;
+  const int k0 = (int)(blockIdx.x % n_kblocks) * ROWS;
+  const long long base = bh * t_len * DH;
+  const float* lse_bh = lse + bh * t_len;
+  const float* delta_bh = delta + bh * t_len;
+  const int n_tiles = (t_len + F32_BK - 1) / F32_BK;
+  const bool live = k0 + warp * 16 < t_len;
+  const float sl2 = scale * kLog2e;
+
+  cp_rows_f32_swz<DH, ROWS>(ks, k + base, k0, t_len, tid);
+  cp_rows_f32_swz<DH, ROWS>(vs, v + base, k0, t_len, tid);
+  cp_rows_f32_swz<DH, F32_BK>(qs, q + base, 0, t_len, tid);
+  cp_rows_f32_swz<DH, F32_BK>(dos, dout + base, 0, t_len, tid);
+  cp_stats<F32_BK>(stats, lse_bh, delta_bh, 0, t_len, tid);
+  cp_async_commit();
+
+  // K's and V's A fragments (key rows g, g + 8 of the warp's 16) are read
+  // from shared memory and split at every step, as Q's and dO's in K4
+  const int sg = f32_swz(g), sc = f32_swz(2 * c);
+  const float* kw = ks + (warp * 16 + g) * LD + 2 * c;
+  const float* vw = vs + (warp * 16 + g) * LD + 2 * c;
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      const int nxt = (t + 1) & 1;
+      cp_rows_f32_swz<DH, F32_BK>(qs + nxt * L::TILE, q + base, (t + 1) * F32_BK, t_len, tid);
+      cp_rows_f32_swz<DH, F32_BK>(dos + nxt * L::TILE, dout + base, (t + 1) * F32_BK, t_len,
+                                  tid);
+      cp_stats<F32_BK>(stats + nxt * L::STATS, lse_bh, delta_bh, (t + 1) * F32_BK, t_len, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      const float* qt = qs + (t & 1) * L::TILE;
+      const float* dt = dos + (t & 1) * L::TILE;
+      const float* lt = stats + (t & 1) * L::STATS;
+      const float* et = lt + F32_BK;
+      const int nlive = t_len - t * F32_BK;  // q rows of this tile before T (>= 1)
+
+      // S^T = K Q^T and dP^T = V dO^T over the tile's q fragments
+      float s[NQ][4] = {}, dp[NQ][4] = {};
+      scores_f32<DH>(s, dp, kw, vw, qt + g * LD + 2 * c, dt + g * LD + 2 * c, sg, sg, nlive);
+      // P^T with each column's lse and dS^T = P^T (dP^T - delta) in f32;
+      // P = 0 for q rows past T
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        const int qi = j * 8 + 2 * c;
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + qi);
+        const float2 e2 = *reinterpret_cast<const float2*>(et + qi);
+        const float la = l2.x * kLog2e, lb = l2.y * kLog2e;
+        const float p0 = qi < nlive ? exp2f(fmaf(s[j][0], sl2, -la)) : 0.f;
+        const float p1 = qi + 1 < nlive ? exp2f(fmaf(s[j][1], sl2, -lb)) : 0.f;
+        const float p2 = qi < nlive ? exp2f(fmaf(s[j][2], sl2, -la)) : 0.f;
+        const float p3 = qi + 1 < nlive ? exp2f(fmaf(s[j][3], sl2, -lb)) : 0.f;
+        s[j][0] = p0;
+        s[j][1] = p1;
+        s[j][2] = p2;
+        s[j][3] = p3;
+        dp[j][0] = p0 * (dp[j][0] - e2.x);
+        dp[j][1] = p1 * (dp[j][1] - e2.y);
+        dp[j][2] = p2 * (dp[j][2] - e2.x);
+        dp[j][3] = p3 * (dp[j][3] - e2.y);
+      }
+      // dV += P^T dO and dK += dS^T Q, one k8 step per q fragment: the A
+      // fragments from the accumulators, dO's and Q's B fragments from q
+      // rows 2c and 2c + 1 at dim g
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        if (j * 8 >= nlive) break;
+        const int off = (j * 8 + 2 * c) * LD + g;
+        uint32_t xh[4], xl[4];
+        acc_as_a(xh, xl, s[j]);
+        accumulate_f32<DH>(dva, xh, xl, dt + off, sc);
+        acc_as_a(xh, xl, dp[j]);
+        accumulate_f32<DH>(dka, xh, xl, qt + off, sc);
+      }
+    }
+    __syncthreads();  // the stage read here is the one the next tile fills
+  }
+  if (!live) return;
+
+  const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int d = n * 8 + 2 * c;
+    if (r0 < t_len) {
+      *reinterpret_cast<float2*>(dk + base + (long long)r0 * DH + d) =
+          make_float2(dka[n][0] * scale, dka[n][1] * scale);
+      *reinterpret_cast<float2*>(dv + base + (long long)r0 * DH + d) =
+          make_float2(dva[n][0], dva[n][1]);
+    }
+    if (r1 < t_len) {
+      *reinterpret_cast<float2*>(dk + base + (long long)r1 * DH + d) =
+          make_float2(dka[n][2] * scale, dka[n][3] * scale);
+      *reinterpret_cast<float2*>(dv + base + (long long)r1 * DH + d) =
+          make_float2(dva[n][2], dva[n][3]);
+    }
   }
 }
 
@@ -1251,9 +1461,8 @@ cudaError_t launch_tc(Kernel kernel, int smem, const Args& a, cudaStream_t st, P
   return cudaGetLastError();
 }
 
-// K3 takes a tensor-core kernel in both types (bf16: flash_fwd_tc_kernel;
-// f32: flash_fwd_f32tc_kernel, 3xTF32); K4 and K5 take the tensor-core
-// kernels for bfloat16 and the CUDA-core ones for float32
+// every kernel is a tensor-core one: bf16 by mma.sync m16n8k16, f32 by
+// 3xTF32 on mma.sync m16n8k8
 template <typename T, int DH>
 cudaError_t launch(int which, const Args& a, cudaStream_t st) {
   const T* q = static_cast<const T*>(a.q);
@@ -1275,20 +1484,11 @@ cudaError_t launch(int which, const Args& a, cudaStream_t st) {
     if (which == 0)
       return launch_tc(flash_fwd_f32tc_kernel<DH>, F32TcLayout<DH>::BYTES, a, st, q, k, v,
                        static_cast<T*>(a.o), static_cast<float*>(a.lse_out));
-    // the CUDA-core kernels' grid is (head, row block): at most 65535 blocks of rows
-    const int n_blocks = (a.t_len + ROWS - 1) / ROWS;
-    if (n_blocks > 65535) return cudaErrorInvalidValue;
-    const dim3 grid((unsigned)a.bh, (unsigned)n_blocks);
-    const dim3 block(RowSplit<DH>::NT);
-    if (which == 1) {
-      flash_bwd_dq_kernel<T, DH><<<grid, block, 0, st>>>(q, k, v, dout, lse, delta,
-                                                         static_cast<T*>(a.dq), a.t_len, a.scale);
-    } else {
-      flash_bwd_dkv_kernel<T, DH><<<grid, block, 0, st>>>(q, k, v, dout, lse, delta,
-                                                          static_cast<T*>(a.dk),
-                                                          static_cast<T*>(a.dv), a.t_len, a.scale);
-    }
-    return cudaGetLastError();
+    if (which == 1)
+      return launch_tc(flash_bwd_dq_f32tc_kernel<DH>, F32BwdLayout<DH>::DQ_BYTES, a, st, q, k,
+                       v, dout, lse, delta, static_cast<T*>(a.dq));
+    return launch_tc(flash_bwd_dkv_f32tc_kernel<DH>, F32BwdLayout<DH>::DKV_BYTES, a, st, q, k,
+                     v, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv));
   }
 }
 

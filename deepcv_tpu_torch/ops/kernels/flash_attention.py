@@ -15,12 +15,11 @@ Layout: q, k, v, o, dO (N, H, T, Dh) in float32 or bfloat16; lse and delta
 
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises);
 a CPU or meta tensor takes the plain version, which computes the same
-function in float32 with the (T, T) scores materialised. On the card, K3 runs
-on the tensor cores in both dtypes: for bfloat16 in bf16 products, for
-float32 by 3xTF32 (each operand split into two TF32 parts, three products
-accumulated in f32), which keeps float32 accuracy and does not depend on
-``torch.backends.cuda.matmul.allow_tf32``. K4 and K5 have a tensor-core
-kernel for bfloat16 and a CUDA-core one for float32.
+function in float32 with the (T, T) scores materialised. On the card, K3, K4
+and K5 run on the tensor cores in both dtypes: for bfloat16 in bf16
+products, for float32 by 3xTF32 (each operand split into two TF32 parts,
+three products accumulated in f32), which keeps float32 accuracy and does
+not depend on ``torch.backends.cuda.matmul.allow_tf32``.
 """
 from __future__ import annotations
 
@@ -164,8 +163,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:
     """K4: dQ of :func:`plain_flash_bwd_dq`. On a CUDA tensor this launches
-    the kernel (bfloat16: the tensor-core kernel; float32: the CUDA-core one)
-    and counts it in ``flash_attention_bwd_dq.launches`` and
+    the kernel (bfloat16: ``flash_bwd_dq_tc_kernel``; float32:
+    ``flash_bwd_dq_f32tc_kernel``, 3xTF32; both on the tensor cores) and
+    counts it in ``flash_attention_bwd_dq.launches`` and
     ``.launches_by_dtype``."""
     _check((q, k, v, dout), (lse, delta))
     if not _dispatch(q.device, "flash_attention_bwd_dq"):
@@ -180,8 +180,9 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta) -> torch.Tensor:
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: ``(dK, dV)`` of :func:`plain_flash_bwd_dkv`. On a CUDA tensor
-    this launches the kernel (bfloat16: the tensor-core kernel; float32: the
-    CUDA-core one) and counts it in ``flash_attention_bwd_dkv.launches`` and
+    this launches the kernel (bfloat16: ``flash_bwd_dkv_tc_kernel``; float32:
+    ``flash_bwd_dkv_f32tc_kernel``, 3xTF32; both on the tensor cores) and
+    counts it in ``flash_attention_bwd_dkv.launches`` and
     ``.launches_by_dtype``."""
     _check((q, k, v, dout), (lse, delta))
     if not _dispatch(q.device, "flash_attention_bwd_dkv"):

@@ -4,8 +4,8 @@ tests/test_attention.py runs them), the port's ``flash_attention``
 autograd.Function against ``jax.grad`` of the JAX one, the wrappers'
 dispatch and checks, the attention modules against their JAX counterparts
 the CUDA source's interface, and emulations of the bf16 tensor-core
-kernels' arithmetic (the forward, K3, in bf16 and in 3xTF32 for f32, and
-the backward, K4 and K5), and F3: every head dim of the zoo's ViTs has a
+kernels' arithmetic (the forward, K3, and the backward, K4 and K5, each in
+bf16 and in 3xTF32 for f32), and F3: every head dim of the zoo's ViTs has a
 kernel. The CUDA kernels themselves run only on a card
 (tests/test_torch_port_gpu.py)."""
 import math
@@ -522,6 +522,181 @@ def test_tensor_core_bwd_arithmetic_matches_pallas_interpret():
     delta = (do.float() * torch.from_numpy(np.asarray(o_j, np.float32))).sum(-1)
     for got, ref in zip(_emulate_tc_bwd(q, k, v, do, lse, delta), grads_j):
         assert _bwd_err(got.float(), np.asarray(ref, np.float32)) <= FLASH_BF16_TOL
+
+
+# --------------------------------------------------------------------------- #
+# K4 and K5 on f32: the tensor-core kernels' 3xTF32 arithmetic, emulated
+# --------------------------------------------------------------------------- #
+
+#: flash_bwd_dq_f32tc_kernel's and flash_bwd_dkv_f32tc_kernel's fragment
+#: choices for their second products (dQ += dS K, dV += Pᵀ dO, dK += dSᵀ Q):
+#: the A operand is the S or dP accumulator with K3 f32's permutation
+#: (``_P_FROM``) and the B operand lane reads rows 2c and 2c + 1 of the
+#: streamed tile at head dim g, as K3 f32 reads V (``_V_FROM``). The first
+#: products (S = Q Kᵀ, dP = dO Vᵀ; K5: Sᵀ = K Qᵀ, dPᵀ = V dOᵀ) read both
+#: operands as K3 f32's Q Kᵀ does (``_Q_FROM``, ``_K_FROM``).
+_ROWS_FROM = _V_FROM
+
+
+def _scores_f32tc(a, b, products):
+    """A Bᵀ for (n, h, R, Dh) a (R a multiple of 16) and (n, h, C, Dh) b (C
+    a multiple of 8), fragment by fragment: a's 16x8 A fragments, b's 8x8
+    B fragments, each k8 step's three products summed from zero, the steps
+    over the head dim summed in f32."""
+    n, h, r, _ = a.shape
+    aa = _operand(_blocks(a, 16), _a_at, _Q_FROM, 16)   # (n, h, m, ks, 16, 8)
+    bb = _operand(_blocks(b, 8), _b_at, _K_FROM, 8)     # (n, h, j, ks, 8k, 8n)
+    acc = _mma_tf32(aa.unsqueeze(3), bb.unsqueeze(2), products).sum(-3)  # (n, h, m, j, 16, 8)
+    return acc.transpose(-3, -2).reshape(n, h, r, b.shape[2])
+
+
+def _long_sum_f32tc(x, y, products):
+    """Σ_i x[:, :, :, i] y[:, :, i] for (n, h, R, T) x and (n, h, T, Dh) y, as
+    the backward kernels sum over T: one k8 step of 8 rows of T at a time,
+    x's A fragments from its accumulator (``_P_FROM``), y's B fragments from
+    rows 2c and 2c + 1 (``_ROWS_FROM``); each step's three products summed
+    from zero, then added to the f32 accumulator in order of T."""
+    n, h, r, t = x.shape
+    dh = y.shape[-1]
+    xa = _operand(_blocks(x, 16), _a_at, _P_FROM, 16)        # (n, h, m, j, 16, 8)
+    yb = _operand(_blocks(y, 8), _b_at, _ROWS_FROM, 8)       # (n, h, j, nd, 8k, 8n)
+    acc = torch.zeros((n, h, r // 16, dh // 8, 16, 8))
+    for j in range(t // 8):
+        acc = acc + _mma_tf32(xa[:, :, :, j].unsqueeze(3), yb[:, :, j].unsqueeze(2), products)
+    return acc.transpose(-3, -2).reshape(n, h, r, dh)
+
+
+def _emulate_f32tc_bwd(q, k, v, do, lse, delta, products=3):
+    """What ``flash_bwd_dq_f32tc_kernel`` and ``flash_bwd_dkv_f32tc_kernel``
+    (csrc/flash_attention.cu) compute for f32 (N, H, T, Dh) inputs, in torch,
+    fragment by fragment: the blocks' rows padded to m16 tiles and the
+    streamed rows to 32-row tiles (zero rows); S = Q Kᵀ and dP = dO Vᵀ
+    (K5: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, its own products) by 3xTF32 over the
+    head dim; P = exp2(S · scale · log2(e) − lse · log2(e)), 0 past T, and
+    dS = P (dP − δ) in f32; then dQ += dS K, dV += Pᵀ dO and dK += dSᵀ Q
+    by 3xTF32 over T (``_long_sum_f32tc``). In every product each k8
+    step's three products sum from zero and are added to the f32 sum, as
+    the kernels add them; dQ · scale, dK · scale, dV.
+    ``products=1``: hi·hi alone, one TF32 mma per product."""
+    n, h, t, dh = q.shape
+    scale = np.float32(1.0 / math.sqrt(dh))
+    log2e = np.float32(1.4426950408889634)
+    sl2 = float(scale * log2e)
+    tb, tt = -(-t // 16) * 16, -(-t // 32) * 32     # a block's m16 rows; streamed tiles
+    pad = torch.nn.functional.pad
+    rows = lambda x, r: pad(x.float(), (0, 0, 0, r - t))  # noqa: E731
+    stat = lambda x, r: pad(x.float(), (0, r - t))        # noqa: E731
+    live = torch.arange(tt) < t
+    zero = torch.tensor(0.0)
+
+    # K4: a block's q rows against the streamed keys
+    s = _scores_f32tc(rows(q, tb), rows(k, tt), products)            # (n, h, tb, tt)
+    dp = _scores_f32tc(rows(do, tb), rows(v, tt), products)
+    lb = (stat(lse, tb) * float(log2e)).unsqueeze(-1)
+    p = torch.where(live, torch.exp2(s * sl2 - lb), zero)
+    ds = p * (dp - stat(delta, tb).unsqueeze(-1))
+    dq = _long_sum_f32tc(ds, rows(k, tt), products) * float(scale)
+
+    # K5: a block's key rows against the streamed q rows, lse and δ per column
+    st = _scores_f32tc(rows(k, tb), rows(q, tt), products)           # (n, h, tb, tt)
+    dpt = _scores_f32tc(rows(v, tb), rows(do, tt), products)
+    pt = torch.where(live, torch.exp2(st * sl2 - (stat(lse, tt) * float(log2e)).unsqueeze(-2)),
+                     zero)
+    dst = pt * (dpt - stat(delta, tt).unsqueeze(-2))
+    dk = _long_sum_f32tc(dst, rows(q, tt), products) * float(scale)
+    dv = _long_sum_f32tc(pt, rows(do, tt), products)
+    return dq[:, :, :t], dk[:, :, :t], dv[:, :, :t]
+
+
+def _f32_bwd_inputs(t, dh, seed):
+    """f32 q, k, v, dO and, from the plain forward, lse and δ = rowsum(dO ⊙ o),
+    as the autograd.Function hands them to K4 and K5."""
+    q, k, v, do = _t(*_qkv(t, dh=dh, n=1, h=2, seed=seed))
+    o, lse = plain_flash_fwd(q, k, v)
+    return q, k, v, do, lse, (do * o).sum(-1)
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("t", [1, 5, 16, 31, 32, 33, 64, 65, 130, 197])
+def test_f32_tensor_core_bwd_arithmetic_matches_plain(t, dh):
+    q, k, v, do, lse, delta = _f32_bwd_inputs(t, dh, seed=18)
+    got = _emulate_f32tc_bwd(q, k, v, do, lse, delta)
+    refs = (plain_flash_bwd_dq(q, k, v, do, lse, delta),
+            *plain_flash_bwd_dkv(q, k, v, do, lse, delta))
+    for g, ref in zip(got, refs):
+        assert g.dtype == ref.dtype == torch.float32 and g.shape == ref.shape
+        assert torch.isfinite(g).all()
+        assert _bwd_err(g, ref) <= FLASH_F32_TOL
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+def test_f32_tensor_core_bwd_arithmetic_matches_pallas_interpret(dh):
+    q, k, v, do = _qkv(197, dh=dh, n=1, h=2, seed=19)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    o_j, lse_j = jatt._flash_fwd_impl(jq, jk, jv, return_lse=True)
+    grads_j = jatt._flash_bwd_impl(jq, jk, jv, o_j, lse_j, jdo)
+    # the kernels' inputs from the same forward: JAX's o and lse
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    lse = torch.from_numpy(np.array(lse_j))
+    delta = (tdo * torch.from_numpy(np.array(o_j))).sum(-1)
+    for got, ref in zip(_emulate_f32tc_bwd(tq, tk, tv, tdo, lse, delta), grads_j):
+        assert _bwd_err(got, np.asarray(ref)) <= FLASH_F32_TOL
+
+
+def test_one_tf32_product_would_miss_the_f32_bound_in_the_backward():
+    """Why 3xTF32 in K4 and K5: the same arithmetic with one TF32 product per
+    mma (hi·hi only) misses the 2e-5 bound at ViT's shape in each of dQ,
+    dK and dV."""
+    q, k, v, do, lse, delta = _f32_bwd_inputs(197, 64, seed=20)
+    got = _emulate_f32tc_bwd(q, k, v, do, lse, delta, products=1)
+    refs = (plain_flash_bwd_dq(q, k, v, do, lse, delta),
+            *plain_flash_bwd_dkv(q, k, v, do, lse, delta))
+    for g, ref in zip(got, refs):
+        assert _bwd_err(g, ref) > FLASH_F32_TOL
+
+
+def _f32_swz(r):
+    """f32_swz of csrc/flash_attention.cu: rows 4-7 of every 8 store their
+    8-column groups swapped in pairs."""
+    return (r & 4) << 1
+
+
+def _banks_conflict_free(addrs, width):
+    """Whether one shared-memory request of 4-byte (``width`` 1) or 8-byte
+    (``width`` 2) loads, one float address per lane, needs one wavefront:
+    8-byte loads go by half warps, each lane's two banks distinct."""
+    group = 32 // width
+    for h0 in range(0, 32, group):
+        banks = [(a + i) % 32 for a in addrs[h0:h0 + group] for i in range(width)]
+        if len(set(banks)) != len(banks):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_f32_bwd_tiles_are_read_both_ways_without_bank_conflicts(dh):
+    """The f32 backward's streamed tiles (stride Dh + 8 floats, swizzled) are
+    read two ways: 8-byte loads of columns 2c, 2c + 1 from rows g (the first
+    products' fragments) and 4-byte loads of column g from rows 2c and
+    2c + 1 (the second products' B fragments). With the swizzle neither
+    conflicts, at every head dim and 8-column group; without it the second
+    read would (rows 0 and 4 share banks)."""
+    ld = dh + 8
+    g, c = np.arange(32) // 4, np.arange(32) % 4
+    for grp in range(dh // 8):
+        rows8 = [r * ld + ((grp * 8 + 2 * cc) ^ _f32_swz(r)) for r, cc in zip(g, c)]
+        assert _banks_conflict_free(rows8, 2)
+        for i in (0, 1):
+            r = 2 * c + i
+            cols = [rr * ld + ((grp * 8 + gg) ^ _f32_swz(rr)) for rr, gg in zip(r, g)]
+            assert _banks_conflict_free(cols, 1)
+            plain = [rr * ld + grp * 8 + gg for rr, gg in zip(r, g)]
+            assert not _banks_conflict_free(plain, 1)
+    # the swizzle keeps each row a permutation of its columns, pairs intact
+    for r in range(8):
+        cols = sorted((d ^ _f32_swz(r)) for d in range(dh))
+        assert cols == list(range(dh))
+        assert all((d ^ _f32_swz(r)) + 1 == ((d + 1) ^ _f32_swz(r)) for d in range(0, dh, 2))
 
 
 # --------------------------------------------------------------------------- #

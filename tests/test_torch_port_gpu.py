@@ -204,10 +204,11 @@ FLASH_SHAPES = [(2, 3, 1, 64), (2, 3, 17, 64), (4, 12, 197, 64), (1, 2, 1024, 64
 #: the 64-row blocks and 64-row tiles, and their n8 fragments, at every head dim
 FLASH_BF16_SHAPES = [(1, 2, t, dh) for dh in HEAD_DIMS
                      for t in (1, 5, 16, 63, 64, 65, 128, 197, 1000)]
-#: f32 (K3 on the tensor cores by 3xTF32): T around the 16-row warp tiles,
-#: the 32-key tiles, the 64-row blocks and the n8 key fragments, at every head dim
+#: f32 (K3, K4 and K5 on the tensor cores by 3xTF32): T around the 16-row
+#: warp tiles, the 32-row tiles, the 64-row blocks (63, 64, 65) and the n8
+#: fragments, at every head dim
 FLASH_F32_SHAPES = [(1, 2, t, dh) for dh in HEAD_DIMS
-                    for t in (1, 5, 16, 31, 32, 33, 65, 197)]
+                    for t in (1, 5, 16, 31, 32, 33, 63, 64, 65, 197)]
 FLASH_CASES = ([(torch.float32, FLASH_F32_TOL, s, False)
                 for s in FLASH_SHAPES + FLASH_F32_SHAPES]
                + [(torch.bfloat16, FLASH_BF16_TOL, s, False)
@@ -350,6 +351,73 @@ def test_flash_bwd_bf16_padded_tiles_give_no_nan(cuda, t, dh):
         assert _flash_err(g, ref, zero=1e-4) <= FLASH_BF16_TOL
 
 
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("t", [1, 33, 65, 129])
+def test_flash_bwd_f32_padded_tiles_give_no_nan(cuda, t, dh):
+    """K4 and K5 on f32 (3xTF32) where the last (at T = 1 the only) 32-row
+    tile holds one live row: the keys (K4) and q rows (K5) past T are zero
+    padding whose P must be 0, and scaled scores with a standard deviation
+    of 64 put exp(s - lse) far outside f32 for the padding unless it is
+    masked. As in the f32 forward's test, the large scores amplify the
+    rounding of both versions, so both are held against a float64
+    reference from the same lse and delta: the kernels to the f32 bound or
+    to twice the plain version's own error, whichever is larger. At T = 1,
+    dQ and dK are zero up to rounding (errors absolute below 1e-4)."""
+    import math
+
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, plain_flash_bwd_dkv,
+        plain_flash_bwd_dq, plain_flash_fwd)
+
+    q, k, v, do = _flash_inputs(cuda, 2, 3, t, dh, torch.float32, seed=2)
+    q, k = (x * 8.0 for x in (q, k))
+    o, lse = plain_flash_fwd(q, k, v)
+    delta = (do * o).sum(-1)
+    got = (flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           *flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    plain = (plain_flash_bwd_dq(q, k, v, do, lse, delta),
+             *plain_flash_bwd_dkv(q, k, v, do, lse, delta))
+    q64, k64, v64, do64 = (x.double() for x in (q, k, v, do))
+    p = torch.exp(torch.matmul(q64, k64.transpose(-1, -2)) / math.sqrt(dh)
+                  - lse.double().unsqueeze(-1))
+    ds = p * (torch.matmul(do64, v64.transpose(-1, -2)) - delta.double().unsqueeze(-1))
+    refs = (torch.matmul(ds, k64) / math.sqrt(dh),
+            torch.matmul(ds.transpose(-1, -2), q64) / math.sqrt(dh),
+            torch.matmul(p.transpose(-1, -2), do64))
+    torch.cuda.synchronize()
+    for g, pl, ref in zip(got, plain, refs):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert _flash_err(g, ref, zero=1e-4) <= max(FLASH_F32_TOL,
+                                                    2 * _flash_err(pl, ref, zero=1e-4))
+
+
+def test_flash_bwd_f32_ignores_allow_tf32(cuda):
+    """3xTF32 is K4's and K5's own arithmetic too: with cuBLAS's TF32 switch
+    on, both give the same bits as with it off and hold the f32 bound
+    against the plain versions computed with it off."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, plain_flash_bwd_dkv,
+        plain_flash_bwd_dq, plain_flash_fwd)
+
+    q, k, v, do = _flash_inputs(cuda, 2, 12, 197, 64, torch.float32, seed=4)
+    o, lse = plain_flash_fwd(q, k, v)
+    delta = (do * o).sum(-1)
+    refs = (plain_flash_bwd_dq(q, k, v, do, lse, delta),
+            *plain_flash_bwd_dkv(q, k, v, do, lse, delta))
+    off = (flash_attention_bwd_dq(q, k, v, do, lse, delta),
+           *flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        on = (flash_attention_bwd_dq(q, k, v, do, lse, delta),
+              *flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    for g_on, g_off, ref in zip(on, off, refs):
+        assert torch.equal(g_on, g_off)
+        assert _flash_err(g_on, ref) <= FLASH_F32_TOL
+
+
 def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     from deepcv_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
 
@@ -417,6 +485,52 @@ def test_vit_on_card_matches_cpu(cuda):
     got = pred(x)
     assert flash_attention_fwd.launches - before == 2 * pred.forwards == 4
     np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max())
+
+
+def test_vit_train_step_f32_on_card_matches_cpu(cuda):
+    """One SGD step of a two-block ViT-B/16 (flash) in float32 on the card and
+    on the CPU from the same weights: the loss within 1e-4 and every
+    gradient within the port's first-step bound (rtol 1e-3 of the largest
+    entry, tests/test_torch_parity.py). On the card the step launches K3,
+    K4 and K5 twice each (once per block), all on float32 inputs, so all on
+    the 3xTF32 kernels."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from deepcv_tpu_torch.spec import DeepcvModule
+    from deepcv_tpu_torch.spec.zoo import vit_spec
+    from deepcv_tpu_torch.train.losses import WeightedLosses, cross_entropy_loss
+    from deepcv_tpu_torch.train.training import TrainState, build_optimizer, train_step
+
+    hp = vit_spec("b_16", num_classes=10, attn_impl="flash")
+    hp["architecture"] = hp["architecture"][:3] + hp["architecture"][-3:]
+    cpu = DeepcvModule((64, 64, 3), hp, device="cpu")
+    gpu = DeepcvModule((64, 64, 3), hp)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((4, 64, 64, 3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, size=(4,)))
+    wrappers = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    before = [dict(w.launches_by_dtype) for w in wrappers]
+    results = []
+    for model in (gpu, cpu):
+        dev = next(model.parameters()).device
+        state = TrainState(model, build_optimizer("sgd", {"lr": 0.1, "momentum": 0.9},
+                                                  model.parameters()),
+                           0, torch.Generator(device=dev).manual_seed(0))
+        model.train()
+        out = train_step(state, WeightedLosses(cross_entropy_loss), {}, x.to(dev), y.to(dev),
+                         dtype=torch.float32)
+        results.append((out["main_loss"].item(),
+                        {n: p.grad.detach().cpu() for n, p in model.named_parameters()}))
+    torch.cuda.synchronize()
+    assert [{k: w.launches_by_dtype[k] - b[k] for k in b} for w, b in zip(wrappers, before)] \
+        == [{"float32": 2, "bfloat16": 0}] * 3
+    (loss_gpu, g_gpu), (loss_cpu, g_cpu) = results
+    assert abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    assert set(g_gpu) == set(g_cpu)
+    for name, ref in g_cpu.items():
+        np.testing.assert_allclose(g_gpu[name].numpy(), ref.numpy(), rtol=1e-3,
+                                   atol=1e-3 * ref.abs().max().item(), err_msg=name)
 
 
 def test_vit_h14_on_card_matches_cpu(cuda):

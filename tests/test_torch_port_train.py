@@ -284,13 +284,11 @@ def test_unported_zoo_builders_raise(zoo):
 # train_vit end to end through `run`, on the CPU
 # --------------------------------------------------------------------------- #
 
-@pytest.fixture(scope="module")
-def tiny_project(tmp_path_factory):
-    """A project whose conf is the repo's, with conf/local shrinking the
-    imagenet224 catalog entries to 17 + 8 images of 32x32 (16 to train, one
-    to validate) and ViT-B/16 to a two-block, 32-wide spec of the same
-    topology (attn_impl flash)."""
-    root = tmp_path_factory.mktemp("project")
+def _write_project(root, model_dtype):
+    """conf/base linked to the repo's; conf/local shrinking the imagenet224
+    catalog entries to 17 + 8 images of 32x32 (16 to train, one to validate)
+    and ViT-B/16 to a two-block, 32-wide spec of the same topology (attn_impl
+    flash) computing in ``model_dtype``."""
     (root / "conf").mkdir()
     os.symlink(os.path.join(REPO, "conf", "base"), root / "conf" / "base")
     local = root / "conf" / "local"
@@ -305,8 +303,23 @@ def tiny_project(tmp_path_factory):
     arch[-1]["fully_connected"]["out_features"] = None
     (local / "parameters.yml").write_text(yaml.safe_dump({
         "vit_model": {"zoo": "vit", "variant": "b_16", "attn_impl": "flash",
-                      "dtype": "float32", "architecture": arch}}))
+                      "dtype": model_dtype, "architecture": arch}}))
     return root
+
+
+@pytest.fixture(scope="module")
+def tiny_project(tmp_path_factory):
+    """A project whose conf is the repo's, shrunk by :func:`_write_project`,
+    the model in float32."""
+    return _write_project(tmp_path_factory.mktemp("project"), "float32")
+
+
+@pytest.fixture(scope="module")
+def bf16_project(tmp_path_factory):
+    """The same, with the repo conf's compute dtypes: bfloat16 for the model
+    (as ``vit_model`` in conf/base) and for training (``train_resnet50`` in
+    conf/base, not overridden)."""
+    return _write_project(tmp_path_factory.mktemp("project_bf16"), "bfloat16")
 
 
 def _run_args(root, out, *extra):
@@ -388,3 +401,65 @@ def test_cli_reports_config_errors_with_exit_code_2(tiny_project, tmp_path, caps
     assert "must be 'dotted.key:value'" in capsys.readouterr().err
     assert cli_main(["run", *args[:-1], args[-1] + ",vit_model.architecture:null"]) == 2
     assert "architecture" in capsys.readouterr().err
+
+
+#: chip_smoke.py's vit_train_f32 overrides: train_vit in float32
+F32_TRAIN_OVERRIDES = ("vit_model.dtype:float32", "train_resnet50.dtype:float32")
+
+
+@pytest.mark.parametrize("dtype,overrides", [("bfloat16", ()), ("float32", F32_TRAIN_OVERRIDES)])
+def test_train_vit_dtype_overrides_set_the_flash_kernels_dtype(bf16_project, tmp_path,
+                                                               monkeypatch, dtype, overrides):
+    """Over a conf that says bfloat16 (as conf/base does), the float32
+    overrides make train_vit compute in float32 with no autocast: the model's
+    compute dtype is None and every flash call (K3 per block per forward, K4
+    and K5 per block per step) takes float32 operands, the f32 routes;
+    without them every call takes bfloat16 ones. On the CPU the calls take
+    the plain versions and count no kernel launch."""
+    from deepcv_tpu_torch.ops import attention as tatt
+    from deepcv_tpu_torch.ops.kernels import flash_attention as kfa
+
+    seen = []
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        def spy(q, *args, _fn=getattr(tatt, name), _name=name):
+            if q.device.type != "meta":   # not the shape inference of the model's build
+                seen.append((_name, str(q.dtype).removeprefix("torch.")))
+            return _fn(q, *args)
+        monkeypatch.setattr(tatt, name, spy)
+    wrappers = (kfa.flash_attention_fwd, kfa.flash_attention_bwd_dq, kfa.flash_attention_bwd_dkv)
+    before = [(w.launches, dict(w.launches_by_dtype)) for w in wrappers]
+    params = ",".join([f"train_resnet50.output_path:{tmp_path}", "train_resnet50.batch_size:8",
+                       "train_resnet50.epochs:1", "train_resnet50.save_every_iters:0",
+                       "train_resnet50.run_dir:run", *overrides])
+    store = cli_run(["--pipeline=train_vit", "--project-path", str(bf16_project),
+                     "--device", "cpu", "--params", params])
+    h = store["train_results"]["history"]
+    assert h["steps"] == 2 and len(h["valid"]) == 1
+    assert np.isfinite([e["main_loss"] for e in h["train"]]).all()
+    assert store["train_results"]["model"].dtype == (None if dtype == "float32"
+                                                     else torch.bfloat16)
+    # two blocks: K3 per step and per validation forward, K4 and K5 per step
+    counts = {name: sum(1 for n, _ in seen if n == name) for name, _ in seen}
+    assert counts == {"flash_attention_fwd": 2 * 3, "flash_attention_bwd_dq": 2 * 2,
+                      "flash_attention_bwd_dkv": 2 * 2}
+    assert {d for _, d in seen} == {dtype}
+    assert [(w.launches, dict(w.launches_by_dtype)) for w in wrappers] == before
+
+
+def test_jax_package_reads_the_same_dtype_key_for_the_vit():
+    """The JAX package's create_model takes the ViT's compute dtype from the
+    same ``vit_model.dtype`` key: float32 with the override, bfloat16 as
+    conf/base has it (its training reads ``train_resnet50.dtype``, the key
+    the port's ``train()`` reads)."""
+    import types
+
+    from deepcv_tpu.pipelines.classification import create_model as jax_create_model
+
+    datasets = {"trainset": types.SimpleNamespace(image_shape=(32, 32, 3), num_classes=5)}
+    params = {"zoo": "vit", "variant": "b_16", "attn_impl": "flash"}
+    for dtype in ("float32", "bfloat16"):
+        jm = jax_create_model(datasets, {**params, "dtype": dtype})
+        tm = create_model(_tiny_datasets(), {**params, "dtype": dtype}, device="cpu")
+        assert jm.dtype == jnp.dtype(dtype)
+        assert tm.dtype == (None if dtype == "float32" else torch.bfloat16)
+
