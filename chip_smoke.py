@@ -17,6 +17,7 @@ Phases, each printing one JSON line:
    K2, K3, K4 and K5, bf16 ones in every bf16 K2); no CUDA-core kernel may
    be compiled (no K2 in either dtype, no flash kernel), no f32 K2 may
    spill, and neither f32 K4 nor f32 K5 may spill at head dims 64 and 80.
+   K1's float32 and bfloat16 kernels' registers; neither may spill.
    K2's f32 tile plan per ResNet-50 and ``classifier_train`` conv shape:
    tile, chunk, shared memory and blocks an SM.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
@@ -66,10 +67,14 @@ Phases, each printing one JSON line:
    memory. Then 8 more steps, validation off, under ``torch.profiler``
    (``vit_train_f32_profile``), as ``vit_train_profile``.
 7. augment_kernel — K1 against its plain version (the port's eager chain)
-   at 4096x32x32x3 and 256x224x224x3 with random factors, a ragged shape,
-   and neutral factors (pure ``to_tensor`` + ``normalize``), noise off,
-   within 1e-5; with noise on, the statistics of the noise on a mid-grey
-   image and its seeding; kernel and eager-chain times and the bound.
+   at 4096x32x32x3 (the warp plan) and 256x224x224x3 (the block plan)
+   with random factors, a ragged shape and one shape each side of the
+   plans' threshold, and neutral factors (pure ``to_tensor`` +
+   ``normalize``), noise off, within 1e-5 in float32; bfloat16 out must be
+   the float32 out rounded. With noise on, the statistics of the noise on
+   a mid-grey image and its seeding; kernel times by CUDA events and by
+   the profiler's device time of the kernel alone, eager-chain times and
+   the bound.
 8. classifier_train — ``run --pipeline=train_image_classifier`` in this
    process with the conf's hp (batch 32, float32, ``deterministic: true``)
    on CIFAR-10 (the synthetic stand-in), cut to 1 epoch, no checkpoints: a
@@ -112,6 +117,14 @@ does the same for K4's and K5's float32 routes (``k45_f32``): 12 launches
 each at ViT-B/16's serving shape against SDPA's f32 backward, and
 ``train_vit`` in float32 at batch 256 for two epochs of 8 steps,
 validation off (the last epoch's step time).
+
+    python3 chip_smoke.py --k1
+
+does the same for K1: the build of K1's and K2's libraries (K1's
+registers and spills), ``augment_kernel`` (every ``AUG_SHAPES`` row with
+its CUDA-event and device times, and the noise statistics), and
+``augment_train`` cut to 2 epochs plus one profiled epoch
+(``k1_augment_train``: the step time and K1's device time a step).
 """
 from __future__ import annotations
 
@@ -225,12 +238,16 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 CIFAR_MEAN = (0.491, 0.482, 0.447)
 CIFAR_STD = (0.247, 0.243, 0.261)
 #: K1 against its plain version, noise off: absolute, on values of up to
-#: ~4 after the normalize. Both round the grey level in the same integers and
-#: divide the same way, so what is left is the float32 rounding of the
-#: unquantized steps (a few ulps).
+#: ~4 after the normalize. Both round the grey level in the same integers, so
+#: what is left is the float32 rounding of the unquantized steps and the
+#: kernel's power (ex2(g * lg2(y)), relative error near 2^-22) and FMA
+#: normalize (by 1/std and -mean/std): a few ulps of values below 4.
 AUG_TOL = 1e-5
-#: K1's shapes: bench.py's augment+train batch, a 224x224 batch, a ragged one
-AUG_SHAPES = [(4096, 32, 32, 3), (256, 224, 224, 3), (5, 13, 29, 3)]
+#: K1's shapes: bench.py's augment+train batch (warp plan), a 224x224 batch
+#: (block plan), a ragged one, and one each side of the plans' threshold
+#: (1,024 pixels): 31x33 and 25x41, whose images start off 16 bytes
+AUG_SHAPES = [(4096, 32, 32, 3), (256, 224, 224, 3), (5, 13, 29, 3), (64, 31, 33, 3),
+              (64, 25, 41, 3)]
 #: K1's operations per element, counted from the chain (to_tensor, brightness
 #: and its clip, the 601 luma per pixel, contrast, saturation, clip and
 #: gamma as one power, normalize; pass 1 repeats to_tensor and brightness)
@@ -262,10 +279,12 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, name: str = "") -> float:
     """Device time of one call: every kernel's time under torch.profiler over
     ``iters`` calls, summed and divided (no host gaps, unlike ``cuda_ms`` at
-    the smallest shapes)."""
+    the smallest shapes). With ``name``, the mean time of one launch of the
+    kernels whose name holds it, over the launches the profiler recorded
+    (within a long run it has been seen to drop some of them)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -273,8 +292,15 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) or 0 for e in prof.key_averages())
-    return us / 1e3 / iters
+    events = [e for e in prof.key_averages()
+              if name in e.key and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+    us = sum(e.self_device_time_total for e in events)
+    if not name:
+        return us / 1e3 / iters
+    launches = sum(e.count for e in events)
+    if not launches:
+        raise AssertionError(f"the profiler recorded no launch of {name}")
+    return us / 1e3 / launches
 
 
 def conv_bound(n, h, w, cin, cout, k, dtype: str, bias: bool, tf32x3=False):
@@ -418,7 +444,33 @@ def _hmma_counts(path, kind=""):
     return counts
 
 
-def phase_build():
+#: K1's two instantiations, by the template argument in their mangled names
+K1_KERNEL = "fused_augment_normalize_kernel"
+K1_DTYPES = {"If": "float32", "I13__nv_bfloat16": "bfloat16"}
+
+
+def _k1_kernel_stats(log):
+    """Registers, stack frame and spills of K1's float32 and bfloat16
+    instantiations, from ptxas's -v log: {dtype: {...}}."""
+    stats, key = {}, None
+    pat = re.compile(K1_KERNEL + r"(If|I13__nv_bfloat16)E")
+    for ln in log.splitlines():
+        if "Compiling entry" in ln or "Function properties" in ln:
+            m = pat.search(ln)
+            key = K1_DTYPES[m.group(1)] if m else None
+        elif key is not None and "spill" in ln:
+            fr, st, ld = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                   r"(\d+) bytes spill loads", ln).groups()
+            stats.setdefault(key, {}).update(stack_frame_bytes=int(fr),
+                                             spill_store_bytes=int(st),
+                                             spill_load_bytes=int(ld))
+        elif key is not None and "registers" in ln:
+            stats.setdefault(key, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return stats
+
+
+def phase_build(libraries=KERNEL_LIBRARIES):
     """Every kernel library built at once (one nvcc each), then loaded."""
     t0 = time.perf_counter()
     results, errors = {}, []
@@ -429,7 +481,7 @@ def phase_build():
         except Exception as e:  # re-raised below, after every build ended
             errors.append(f"{name}: {e}")
 
-    threads = [threading.Thread(target=build, args=(n,)) for n in KERNEL_LIBRARIES]
+    threads = [threading.Thread(target=build, args=(n,)) for n in libraries]
     for t in threads:
         t.start()
     for t in threads:
@@ -437,7 +489,7 @@ def phase_build():
     if errors:
         raise RuntimeError("kernel build failed: " + "\n".join(errors))
     wall = time.perf_counter() - t0
-    for name in KERNEL_LIBRARIES:
+    for name in libraries:
         path, log, seconds = results[name]
         _build.load(name)
         entries, ptxas = None, []
@@ -449,6 +501,15 @@ def phase_build():
         row = {"phase": "build", "kernel": name, "nvcc_s": round(seconds, 3),
                "wall_s": round(wall, 3), "library": str(path.relative_to(REPO)),
                "ptxas": ptxas}
+        if name == "fused_augment":
+            # both instantiations, neither spilling (log is empty only when
+            # the library was built before this run)
+            row["kernel_stats"] = k1 = _k1_kernel_stats(log)
+            spills = {d: st for d, st in k1.items()
+                      if st.get("spill_store_bytes") or st.get("spill_load_bytes")}
+            if (log and set(k1) != set(K1_DTYPES.values())) or spills:
+                raise AssertionError(f"K1 ptxas stats {k1}: an instantiation is missing or "
+                                     f"spills ({spills})")
         if name == "flash_attention":
             tc = _tc_kernel_stats(log)
             hmma, tf32 = _hmma_counts(path), _hmma_counts(path, "TF32")
@@ -1306,8 +1367,9 @@ def _aug_factors(gen, n):
 
 
 def phase_augment_kernel(card):
-    """K1 against its plain version, noise off, then the noise statistics;
-    times per launch. Returns the rows by shape."""
+    """K1 against its plain version, noise off, in float32 and bfloat16 out,
+    then the noise statistics; times per launch, by CUDA events and by the
+    profiler's device time of the kernel alone. Returns the rows by shape."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     rows = {}
     for (n, h, w, c) in AUG_SHAPES:
@@ -1316,25 +1378,46 @@ def phase_augment_kernel(card):
         facs = _aug_factors(gen, n)
         ones = [torch.ones((n,), device=DEVICE)] * 4
         sigma = torch.full((n,), NOISE_SIGMA, device=DEVICE)
+        seed = torch.tensor([7], device=DEVICE)
         errs = {}
         got = fused_augment_normalize(u8, *facs, None, CIFAR_MEAN, CIFAR_STD)
         ref = plain_fused_augment_normalize(u8, *facs, None, CIFAR_MEAN, CIFAR_STD)
+        half = fused_augment_normalize(u8, *facs, None, CIFAR_MEAN, CIFAR_STD,
+                                       out_dtype=torch.bfloat16)
         errs["random"] = (got - ref).abs().max().item()
+        # bfloat16 out is the float32 result rounded once: at most half a
+        # bf16 ulp (2^-8 of the value) from it, so within AUG_TOL of the plain
+        # value once that half ulp is taken off
+        errs["random_bf16_beyond_half_ulp"] = max(
+            0.0, ((half.float() - ref).abs() - 2 ** -8 * ref.abs()).max().item())
+        bf16_is_f32_rounded = bool(torch.equal(half, got.to(torch.bfloat16)))
+        pure = normalize(to_tensor(u8), CIFAR_MEAN, CIFAR_STD)
         got = fused_augment_normalize(u8, *ones, None, CIFAR_MEAN, CIFAR_STD)
-        errs["neutral"] = (got - normalize(to_tensor(u8), CIFAR_MEAN, CIFAR_STD)).abs().max().item()
+        errs["neutral"] = (got - pure).abs().max().item()
+        half = fused_augment_normalize(u8, *ones, None, CIFAR_MEAN, CIFAR_STD,
+                                       out_dtype=torch.bfloat16)
+        errs["neutral_bf16_beyond_half_ulp"] = max(
+            0.0, ((half.float() - pure).abs() - 2 ** -8 * pure.abs()).max().item())
+        bf16_is_f32_rounded &= bool(torch.equal(half, got.to(torch.bfloat16)))
         torch.cuda.synchronize()
         for case, err in errs.items():
             if not err <= AUG_TOL:
                 raise AssertionError(f"K1 vs plain {case} {(n, h, w, c)}: max abs err "
                                      f"{err:.3e} > {AUG_TOL:.0e}")
-        del got, ref
+        if not bf16_is_f32_rounded:
+            raise AssertionError(f"K1 {(n, h, w, c)}: bfloat16 out is not the float32 out "
+                                 "rounded")
+        del got, ref, half, pure
         bound_ms, bound_by = augment_bound(n, h, w)
+        off = lambda: fused_augment_normalize(u8, *facs, None, CIFAR_MEAN,  # noqa: E731
+                                              CIFAR_STD)
+        on = lambda: fused_augment_normalize(u8, *facs, sigma, CIFAR_MEAN,  # noqa: E731
+                                             CIFAR_STD, seed=seed)
         row = {"phase": "augment_kernel", "shape_nhwc": [n, h, w, c],
-               "max_abs_err": errs, "tol": AUG_TOL,
-               "ms": cuda_ms(lambda: fused_augment_normalize(u8, *facs, None, CIFAR_MEAN,
-                                                             CIFAR_STD)),
-               "ms_noise": cuda_ms(lambda: fused_augment_normalize(
-                   u8, *facs, sigma, CIFAR_MEAN, CIFAR_STD, seed=7)),
+               "max_abs_err": errs, "tol": AUG_TOL, "bf16_is_f32_rounded": bf16_is_f32_rounded,
+               "ms": cuda_ms(off), "ms_noise": cuda_ms(on),
+               "device_ms": device_ms(off, name=K1_KERNEL),
+               "device_ms_noise": device_ms(on, name=K1_KERNEL),
                "plain_ms": cuda_ms(lambda: plain_fused_augment_normalize(
                    u8, *facs, None, CIFAR_MEAN, CIFAR_STD)),
                "plain_ms_noise": cuda_ms(lambda: plain_fused_augment_normalize(
@@ -1539,34 +1622,48 @@ def _profile_groups(prof, table=PROFILE_GROUPS):
     return groups, top
 
 
-def phase_augment_train(card, aug_rows, k2_rows):
-    params = [f"cifar10_preprocessing.augmentation_recipe:{BENCH_RECIPE}",
-              "cifar10_preprocessing.split_dataset.validset_ratio:0.05",
-              f"train_image_classifier.epochs:{AUGMENT_EPOCHS}",
-              f"train_image_classifier.batch_size:{AUGMENT_BATCH}",
-              "train_image_classifier.dtype:bfloat16",
-              "train_image_classifier.optimizer:adamw",
-              "train_image_classifier.optimizer_opts:{lr: 1.0e-3, betas: [0.9, 0.999], "
-              "weight_decay: 1.0e-2}",
-              "train_image_classifier.scheduler:null",
-              "train_image_classifier.deterministic:false",
-              "train_image_classifier.validate_every_epochs:1000",
-              "train_image_classifier.log_grad_norm:false",
-              "train_image_classifier.log_progress_every_iters:1000000",
-              "train_image_classifier.handle_preemption:false"]
-    store, argv, wall, counts, _ = _run_classifier("augment_train", params)
+def _augment_params(epochs):
+    """bench.py config 1's settings for ``augment_train``, as ``--params``."""
+    return [f"cifar10_preprocessing.augmentation_recipe:{BENCH_RECIPE}",
+            "cifar10_preprocessing.split_dataset.validset_ratio:0.05",
+            f"train_image_classifier.epochs:{epochs}",
+            f"train_image_classifier.batch_size:{AUGMENT_BATCH}",
+            "train_image_classifier.dtype:bfloat16",
+            "train_image_classifier.optimizer:adamw",
+            "train_image_classifier.optimizer_opts:{lr: 1.0e-3, betas: [0.9, 0.999], "
+            "weight_decay: 1.0e-2}",
+            "train_image_classifier.scheduler:null",
+            "train_image_classifier.deterministic:false",
+            "train_image_classifier.validate_every_epochs:1000",
+            "train_image_classifier.log_grad_norm:false",
+            "train_image_classifier.log_progress_every_iters:1000000",
+            "train_image_classifier.handle_preemption:false"]
+
+
+def _check_augment_run(label, store, counts):
+    """Finite losses, no validation, one K1 launch a step with every batch
+    on the K1 route, 5 bf16 K2 launches a step. Returns the history."""
     h = store["train_results"]["history"]
     steps = h["steps"]
     losses = [e["main_loss"] for e in h["train"]]
     if steps == 0 or h["valid"] or not np.isfinite(losses).all():
-        raise AssertionError(f"augment_train: {steps} steps, losses {losses}, "
+        raise AssertionError(f"{label}: {steps} steps, losses {losses}, "
                              f"validation {h['valid']}")
     bf16 = "bfloat16/bfloat16/bfloat16"
     if counts["K1"] != steps or counts["routes"] != {"K1": steps, "eager": 0} \
             or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * steps \
             or counts["K2_dtypes"] != {bf16: CLASSIFIER_CONVS_PER_FORWARD * steps} \
             or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": counts["K2"]}:
-        raise AssertionError(f"augment_train counts {counts} for {steps} steps")
+        raise AssertionError(f"{label} counts {counts} for {steps} steps")
+    return h
+
+
+def phase_augment_train(card, aug_rows, k2_rows):
+    params = _augment_params(AUGMENT_EPOCHS)
+    store, argv, wall, counts, _ = _run_classifier("augment_train", params)
+    h = _check_augment_run("augment_train", store, counts)
+    steps = h["steps"]
+    losses = [e["main_loss"] for e in h["train"]]
     tput = h["throughput_img_s"]
     steady = _steady(tput)
     step_ms = AUGMENT_BATCH / steady * 1e3
@@ -1586,7 +1683,8 @@ def phase_augment_train(card, aug_rows, k2_rows):
           "throughput_img_s": tput, "steady_img_s": steady, "step_ms": step_ms,
           "wall_s": wall, "launches": counts,
           "launches_per_step": {"K1": counts["K1"] / steps, "K2": counts["K2"] / steps},
-          "k1_ms_per_step": k1_row["ms_noise"], "k2_fwd_ms_per_step": k2_ms,
+          "k1_ms_per_step": k1_row["ms_noise"],
+          "k1_device_ms_per_step": k1_row["device_ms_noise"], "k2_fwd_ms_per_step": k2_ms,
           "k1_share_of_step": k1_row["ms_noise"] / step_ms,
           "k2_share_of_step": k2_ms / step_ms,
           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
@@ -1597,10 +1695,8 @@ def phase_augment_train(card, aug_rows, k2_rows):
     # (its host overhead makes that epoch's wall time no measure; the
     # kernels' device times are), against the unprofiled step time above
     from torch.profiler import ProfilerActivity, profile
-    prof_params = [p for p in params if not p.startswith("train_image_classifier.epochs:")]
-    prof_params.append("train_image_classifier.epochs:1")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        store, _, _, pcounts, _ = _run_classifier("augment_train_profile", prof_params)
+        store, _, _, pcounts, _ = _run_classifier("augment_train_profile", _augment_params(1))
         torch.cuda.synchronize()
     psteps = store["train_results"]["history"]["steps"]
     groups, top = _profile_groups(prof)
@@ -1618,6 +1714,30 @@ def phase_augment_train(card, aug_rows, k2_rows):
     return counts, {"steady_img_s": steady, "step_ms": step_ms}
 
 
+def phase_k1_train(card):
+    """``augment_train`` cut to 2 epochs (11 steps each), the last epoch's
+    step time, and K1's device time a step from one more epoch under
+    torch.profiler: the ``--k1`` mode's view of K1 on its path."""
+    from torch.profiler import ProfilerActivity, profile
+    store, argv, _, counts, _ = _run_classifier("k1_augment_train", _augment_params(2))
+    h = _check_augment_run("k1_augment_train", store, counts)
+    step_ms = AUGMENT_BATCH / h["throughput_img_s"][-1] * 1e3
+    del store
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        store, _, _, pcounts, _ = _run_classifier("k1_augment_train_profile",
+                                                  _augment_params(1))
+        torch.cuda.synchronize()
+    psteps = _check_augment_run("k1_augment_train_profile", store, pcounts)["steps"]
+    groups, _ = _profile_groups(prof)
+    emit({"phase": "k1_augment_train", "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+          "batch": AUGMENT_BATCH, "steps": h["steps"], "throughput_img_s": h["throughput_img_s"],
+          "step_ms": step_ms, "launches": counts,
+          "profiled_steps": psteps, "k1_device_ms_per_step": groups["K1"] / psteps,
+          "device_ms_per_step": sum(groups.values()) / psteps, "card": card})
+    del store, prof
+    torch.cuda.empty_cache()
+
+
 def k1_kernel_line(aug_rows, launches, card):
     row = aug_rows[(AUGMENT_BATCH, 32, 32, 3)]
     return {"name": "fused_augment_normalize", "route": "cuda",
@@ -1625,10 +1745,11 @@ def k1_kernel_line(aug_rows, launches, card):
             "replaces": "deepcv_tpu/ops/pallas/fused_augment.py:40",
             "launches": launches, "launches_by_path": {"augment_train": launches},
             "max_abs_err": row["max_abs_err"]["random"],
-            "ms": row["ms_noise"], "plain_ms": row["plain_ms_noise"],
+            "ms": row["ms_noise"], "device_ms": row["device_ms_noise"],
+            "device_ms_noise_off": row["device_ms"], "plain_ms": row["plain_ms_noise"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
             "per": f"one augment_train step: one launch at N,H,W,C {row['shape_nhwc']}, "
-                   "noise on, float32 out",
+                   "noise on, float32 out (device_ms: the kernel's device time, profiler)",
             "card": card}
 
 
@@ -1690,6 +1811,14 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         phase_k45_f32(phase_device())
+        return 0
+    if sys.argv[1:] == ["--k1"]:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = phase_device()
+        phase_build(("fused_augment", "fused_conv2d_bias_act"))
+        phase_augment_kernel(card)
+        phase_k1_train(card)
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)

@@ -3,7 +3,9 @@ photometric transforms, K1's plain version against the Pallas kernel in
 interpret mode, the recipe (its steps, gate, refusals and draws), and
 ``batch_transform``'s choice between the K1 route and the eager chain.
 Inputs come from a numpy seed; the JAX side runs as its own tests run it."""
+import ctypes
 import pickle
+import re
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +20,8 @@ from deepcv_tpu_torch.data import augmentation as A
 from deepcv_tpu_torch.data import preprocess as P
 from deepcv_tpu_torch.data import transforms as T
 from deepcv_tpu_torch.data.datasets import load_dataset
+from deepcv_tpu_torch.ops.kernels import _build
+from deepcv_tpu_torch.ops.kernels import fused_augment as K1
 from deepcv_tpu_torch.ops.kernels.fused_augment import (
     fused_augment_normalize, plain_fused_augment_normalize)
 from deepcv_tpu_torch.utils import get_by_identifier
@@ -186,6 +190,155 @@ def test_k1_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
         fused_augment_normalize(args["images"], args["brightness"], one, one, one, None,
                                 args["mean"], [0.25] * 3, seed=args["seed"],
                                 out_dtype=args["out_dtype"])
+
+
+# --------------------------------------------------------------------------- #
+# K1's CUDA kernel on the CPU: a model of its plans and work split, its
+# byte tables, its C interface (the kernel itself runs only on the card)
+# --------------------------------------------------------------------------- #
+
+K1_SRC = (_build.CSRC_DIR / "fused_augment.cu").read_text()
+
+
+def _k1_constants():
+    """The kernel's ``constexpr int`` constants, read from its source."""
+    c = {}
+    for name, expr in re.findall(r"constexpr int (k\w+) = ([^;]+);", K1_SRC):
+        c[name] = eval(expr.replace("/", "//"), {"__builtins__": {}}, dict(c))  # C ints
+    return c
+
+
+C = _k1_constants()
+WARP_MAX = C["kWarpPlanMaxPixels"]
+
+
+def _k1_plan(n, hw):
+    """The launcher's plan: (warp plan, blocks, dynamic shared memory)."""
+    if hw <= WARP_MAX:
+        slot = C["kTableBytes"] + C["kStageBytes"] + (3 * hw + 15) // 16 * 16
+        return True, -(-n // C["kWarps"]), C["kWarps"] * slot
+    return False, n, C["kBlockPlanSmem"]
+
+
+def _k1_work(n, hw, pix, warp_plan):
+    """The kernel's loops for lanes of ``pix`` pixels (4 for float32 out, 8
+    for bfloat16), under the plan given: the flat pixels pass 1 sums, the
+    flat output elements pass 2 stores (stage position -> element), and
+    (image, element, Philox counter, word) of every noise draw a lane keeps."""
+    ch, lanes = 32 * pix, np.arange(32)
+    blocks = -(-n // C["kWarps"]) if warp_plan else n
+    luma, stores, noise = [], [], []
+    for b in range(blocks):
+        for warp in range(C["kWarps"]):
+            if warp_plan:
+                img, first, stride = b * C["kWarps"] + warp, 0, 1
+                if img >= n:
+                    continue
+            else:
+                img, first, stride = b, warp, C["kWarps"]
+            for q0 in range(first * ch, hw, stride * ch):
+                p = q0 + lanes * pix
+                valid = 3 * np.minimum(pix, hw - p)
+                for k in range(pix):                      # pass 1
+                    luma.append(img * hw + (p + k)[3 * k < valid])
+                i = np.arange(3 * pix)                    # pass 2: lane's elements
+                e = 3 * p[:, None] + i                    # element in the image
+                keep = i < valid[:, None]
+                j = 3 * p[:, None] // 4 + i // 4          # j0 + i / 4
+                noise.append(np.stack([np.full(e[keep].shape, img), e[keep], j[keep],
+                                       (i % 4 * np.ones_like(e))[keep]], 1))
+                # lane L writes its element i to stage uint4 3L + i // pix,
+                # word i % pix: stage position (3L + i // pix) * pix + i % pix;
+                # the warp stores positions 0 .. nvalid - 1 to 3 * q0 + position
+                pos = (3 * lanes[:, None] + i // pix) * pix + i % pix
+                nvalid = 3 * min(ch, hw - q0)
+                assert np.array_equal(pos, e - 3 * q0)
+                stores.append(img * hw * 3 + 3 * q0 + np.arange(nvalid))
+    return np.concatenate(luma), np.concatenate(stores), np.concatenate(noise)
+
+
+#: 224x224, 13x29, 1x1, and the plans' threshold (32x32) and 1 pixel each side of it
+K1_HW = [224 * 224, 13 * 29, 1, WARP_MAX - 1, WARP_MAX, WARP_MAX + 1]
+
+
+@pytest.mark.parametrize("pix", [4, 8])
+@pytest.mark.parametrize("hw", K1_HW)
+def test_k1_work_split_writes_each_element_once_and_sums_each_pixel_once(hw, pix):
+    n = 2 if hw > 4 * WARP_MAX else 11          # 11: a partial block of warps
+    warp_plan, blocks, smem = _k1_plan(n, hw)
+    assert warp_plan == (hw <= 1024) and blocks == (-(-n // 8) if warp_plan else n)
+    assert smem <= 48 * 1024 and smem % 16 == 0  # no opt-in; cp.async lands on 16 bytes
+    luma, stores, _ = _k1_work(n, hw, pix, warp_plan)
+    assert np.array_equal(np.bincount(luma, minlength=n * hw), np.ones(n * hw))
+    assert np.array_equal(np.bincount(stores, minlength=n * hw * 3), np.ones(n * hw * 3))
+
+
+@pytest.mark.parametrize("hw", [32 * 32, 13 * 29, WARP_MAX + 1, 3 * 1000 + 7])
+def test_k1_noise_counter_is_keyed_by_element_under_both_plans(hw):
+    n = 10
+    draws = [_k1_work(n, hw, pix, plan)[2] for plan in (True, False) for pix in (4, 8)]
+    img, e, j, word = draws[0].T
+    assert np.array_equal(j, e // 4) and np.array_equal(word, e % 4)
+    assert len(np.unique(img * 3 * hw + e)) == len(e) == n * hw * 3
+    key = lambda d: d[np.lexsort((d[:, 1], d[:, 0]))]  # noqa: E731
+    for d in draws[1:]:
+        assert np.array_equal(key(d), key(draws[0]))
+
+
+def _edge_factors():
+    """Brightness factors that put some byte's A[u] * 255 within an ulp of a
+    rint tie (k + 0.5), each with its float32 neighbours, and plain ones."""
+    out = [1.0, 0.6, 1.4, 0.0, 2.5]
+    for k, u in ((127, 200), (64, 129), (200, 255), (3, 17), (254, 255), (100, 101)):
+        f = np.float32((k + 0.5) / u)
+        out += [f, np.nextafter(f, np.float32(0)), np.nextafter(f, np.float32(2))]
+    return [np.float32(f) for f in out]
+
+
+@pytest.mark.parametrize("fb", _edge_factors())
+def test_k1_byte_tables_are_bit_identical_to_the_per_element_chain(fb):
+    """The kernel's tables, emulated in numpy float32 with its operations
+    (an IEEE quotient, one rounding a product, rint half to even): A[u] and
+    Q[u] against the plain version's brightness and its rounding to uint8,
+    B[u] against its contrast blend, at every byte, bit for bit."""
+    u = np.arange(256, dtype=np.float32)
+    a = np.clip(fb * (u / np.float32(255)), 0, 1)
+    q = np.rint(a * np.float32(255)).astype(np.int32)
+    x = T.adjust_brightness(T.to_tensor(torch.arange(256, dtype=torch.uint8)
+                                        .reshape(1, 256, 1, 1).expand(1, 256, 1, 3)),
+                            torch.tensor([fb]))
+    assert np.array_equal(a.view(np.int32), x[0, :, 0, 0].numpy().view(np.int32))
+    assert np.array_equal(q, torch.round(x * 255.0).to(torch.int32)[0, :, 0, 0].numpy())
+    for level, fc in ((0, 0.7), (128, np.float32(1.1)), (255, np.float32(0.9)), (77, 1.0)):
+        grey = np.float32(level) / np.float32(255)
+        b = np.clip(grey + np.float32(fc) * (a - grey), 0, 1)
+        ref = T._blend(x, torch.tensor(grey).reshape(1, 1, 1, 1), torch.tensor([fc],
+                                                                            dtype=torch.float32))
+        assert np.array_equal(b.view(np.int32), ref[0, :, 0, 0].numpy().view(np.int32))
+
+
+def test_k1_edge_factors_reach_rint_ties():
+    """At least one byte of each constructed edge factor lands within 2 ulp
+    of a rint tie, so the table test above tests rounding where it bites."""
+    u = np.arange(256, dtype=np.float32)
+    for fb in _edge_factors()[5:]:
+        y = np.clip(fb * (u / np.float32(255)), 0, 1) * np.float32(255)
+        gap = np.abs(y - (np.floor(y) + np.float32(0.5)))
+        assert gap.min() <= 2 * np.spacing(np.float32(255))
+
+
+def test_k1_c_launcher_takes_the_wrappers_argtypes():
+    assert not re.search(r"#include\s*[<\"](torch|ATen|c10|pybind11)", K1_SRC)
+    assert "deepcv_tpu/ops/pallas/fused_augment.py::_kernel" in K1_SRC
+    m = re.search(r'extern "C" int fused_augment_normalize_launch\(([^)]*)\)', K1_SRC)
+    params = [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+    ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int": ctypes.c_int, "float": ctypes.c_float}
+    assert [ctype[p] for p in params] == list(K1._ARGTYPES)
+    # one kernel template, two instantiations; no cluster launch, no switch
+    assert K1_SRC.count("__global__") == 1
+    assert "cudaLaunchKernelEx" not in K1_SRC and "cluster" not in K1_SRC.lower()
+    assert "#if" not in K1_SRC and "getenv" not in K1_SRC
 
 
 # --------------------------------------------------------------------------- #

@@ -573,8 +573,15 @@ def _aug_inputs(dev, n, h, w, seed=0):
     return u8, facs
 
 
-@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 5, 7), (16, 32, 32), (2, 224, 224),
-                                   (4096, 32, 32)])
+#: (N, H, W): 1x1, a ragged size, 32x32 (the warp plan, with a partial
+#: block of 8 images at N = 9), 31x33 and 25x41 (1,023 and 1,025 pixels, each
+#: side of the plans' threshold, images off 16 bytes), 224x224 (the block
+#: plan) and the augment_train batch
+K1_SHAPES = [(1, 1, 1), (3, 5, 7), (16, 32, 32), (9, 32, 32), (8, 31, 33), (8, 25, 41),
+             (2, 224, 224), (4096, 32, 32)]
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES)
 def test_k1_matches_plain(cuda, shape):
     from deepcv_tpu_torch.ops.kernels.fused_augment import (
         fused_augment_normalize, plain_fused_augment_normalize)
@@ -589,8 +596,10 @@ def test_k1_matches_plain(cuda, shape):
     assert (got - ref).abs().max().item() <= AUG_TOL
     half = fused_augment_normalize(u8, *facs, None, MEAN, STD, out_dtype=torch.bfloat16)
     assert half.dtype == torch.bfloat16
-    # one bf16 rounding of values within AUG_TOL of each other
+    # one bf16 rounding of values within AUG_TOL of each other: the float32
+    # result rounded once
     assert (half.float() - ref).abs().max().item() <= 2 ** -8 * ref.abs().max().item() + AUG_TOL
+    assert torch.equal(half, got.to(torch.bfloat16))
 
 
 def test_k1_neutral_factors_are_pure_preprocess_on_card(cuda):
@@ -603,11 +612,11 @@ def test_k1_neutral_factors_are_pure_preprocess_on_card(cuda):
     assert (got - normalize(to_tensor(u8), MEAN, STD)).abs().max().item() <= AUG_TOL
 
 
-def test_k1_noise_statistics_and_seeding(cuda):
+@pytest.mark.parametrize("n,hw", [(512, 32), (16, 224)])  # the warp plan, the block plan
+def test_k1_noise_statistics_and_seeding(cuda, n, hw):
     from deepcv_tpu_torch.ops.kernels.fused_augment import fused_augment_normalize
 
-    n = 512
-    grey = torch.full((n, 32, 32, 3), 128, dtype=torch.uint8, device=cuda)
+    grey = torch.full((n, hw, hw, 3), 128, dtype=torch.uint8, device=cuda)
     ones = [torch.ones(n, device=cuda)] * 4
     sigma = torch.full((n,), 0.1, device=cuda)
     sigma[n // 2:] = 0.0
@@ -620,8 +629,30 @@ def test_k1_noise_statistics_and_seeding(cuda):
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert torch.equal(a[n // 2:], clean[n // 2:])
     d = (a - clean)[: n // 2].double()
-    # 786,432 draws: the mean's std is 1.1e-4, the std's relative error 8e-4
+    # 786,432 (1,204,224) draws: the mean's std is 1.1e-4 (9e-5), the std's
+    # relative error 8e-4 (6e-4)
     assert abs(d.mean().item()) < 6e-4 and abs(d.std().item() / 0.1 - 1) < 5e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_noise_is_keyed_by_element_not_by_plan(cuda, dtype):
+    """Element e of image i draws word e % 4 of Philox call (e // 4, 0, i, 0)
+    under either plan: the first 3,072 elements of a 32x32 image (the warp
+    plan) and of a 25x41 one (1,025 pixels, the block plan) get the same
+    noise from the same seed."""
+    from deepcv_tpu_torch.ops.kernels.fused_augment import fused_augment_normalize
+
+    n, zero, one = 8, (0.0,) * 3, (1.0,) * 3
+    ones = [torch.ones(n, device=cuda)] * 4
+    sigma = torch.full((n,), 0.1, device=cuda)
+    noise = {}
+    for h, w in ((32, 32), (25, 41)):
+        grey = torch.full((n, h, w, 3), 128, dtype=torch.uint8, device=cuda)
+        clean = fused_augment_normalize(grey, *ones, None, zero, one, out_dtype=dtype)
+        noisy = fused_augment_normalize(grey, *ones, sigma, zero, one, seed=5, out_dtype=dtype)
+        noise[h] = (noisy.float() - clean.float()).reshape(n, -1)[:, :32 * 32 * 3]
+    assert noise[32].abs().max().item() > 0.2
+    assert torch.equal(noise[32], noise[25])
 
 
 def test_k1_refuses_what_it_does_not_take_on_card(cuda):
