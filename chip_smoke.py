@@ -27,11 +27,15 @@ Phases, each printing one JSON line:
    time (median of CUDA-event timed launches), its bound on the card (f32:
    by 3xTF32, with the CUDA-core one beside it), and the same ``F.conv2d``
    call's time as a yardstick. Then per-forward sums: in bfloat16,
-   image_classifier's five convs at batch 4096 and all 46 of ResNet-50's
-   stride-1 convs at batch 64 (``kernel_forward_bf16``); in float32, the
+   image_classifier's five convs at batch 4096, all 46 of ResNet-50's
+   stride-1 convs at batch 64, and the wide classifiers' six 3x3 convs at
+   64-256 channels and batch 1024 with bias and leaky_relu
+   (``kernel_forward_bf16``); in float32, the
    same 46 (the serving forward) and image_classifier's five at
    ``classifier_train``'s batch 32 (``kernel_forward_f32``), each with
-   cuDNN's device kernels by name (``torch.profiler``).
+   cuDNN's device kernels by name (``torch.profiler``). Every device time
+   (``device_ms``) holds the profiler to the launches each call makes, and
+   profiles again or fails when it recorded fewer or more.
 3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
    attention shapes (batch 64 and the training batch 256, 12 heads, T 197,
    Dh 64), ViT-H/14's (16 heads of Dh 80), a ragged T and T = 1024, float32
@@ -66,7 +70,8 @@ Phases, each printing one JSON line:
    on float32 inputs (3xTF32 on the tensor cores); step ms, img/s, peak
    memory. Then 8 more steps, validation off, under ``torch.profiler``
    (``vit_train_f32_profile``), as ``vit_train_profile``.
-7. augment_kernel — K1 against its plain version (the port's eager chain)
+7. augment_kernel (run right after the build, ahead of the long profiles
+   of the train phases) — K1 against its plain version (the port's eager chain)
    at 4096x32x32x3 (the warp plan) and 256x224x224x3 (the block plan)
    with random factors, a ragged shape and one shape each side of the
    plans' threshold, and neutral factors (pure ``to_tensor`` +
@@ -90,6 +95,20 @@ Phases, each printing one JSON line:
    more epoch under ``torch.profiler``: device time per step by kernel
    group, the ten largest kernels, and the device's idle share of the
    unprofiled step.
+10. wide_train — ``run --pipeline=train_wide_classifier``, ``_gn`` and
+   ``_ws`` (batch norm, group norm, weight norm) in this process with the
+   conf's hp (batch 1024, bfloat16, AdamW lr 1e-3 wd 1e-2,
+   ``deterministic: true``) on CIFAR-10 (the line names which pixels), cut
+   to 2 epochs, no checkpoints: finite losses, 6 K2 launches per training
+   and validation forward, all on bfloat16 inputs; the median step of the
+   last epoch (CUDA events after each step), img/s, peak memory. Then one
+   more epoch of each, validation off, under ``torch.profiler``
+   (``wide_train_profile``): device time per step by group (K2's forward;
+   K2's backward, the plain version again in float32 with cuDNN's dgrad
+   and wgrad; batch or group norm and the weight-norm reparameterisation,
+   forward and backward, found by profiler ranges around them; pools, the
+   dense head, the loss, AdamW, copies), the ten largest kernels, and the
+   device's idle share of the unprofiled step.
 
 Then the kernels line and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
@@ -129,7 +148,9 @@ its CUDA-event and device times, and the noise statistics), and
 from __future__ import annotations
 
 import collections
+import contextlib
 import faulthandler
+import hashlib
 import http.client
 import io
 import json
@@ -143,6 +164,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from typing import Optional
+from unittest import mock
 
 import numpy as np
 import torch
@@ -208,6 +231,17 @@ RESNET50_CONVS = {
     (64, 7, 7, 512, 2048, 1): 3, (64, 7, 7, 2048, 512, 1): 2, (64, 7, 7, 512, 512, 3): 2}
 #: image_classifier's convs at classifier_train's batch 32 (the conf's hp)
 CLASSIFIER_TRAIN_CONVS = {(32, *shape[1:]): count for shape, count in CLASSIFIER_CONVS.items()}
+#: the wide classifiers' six stride-1 3x3 convs (leaky_relu, bias) at
+#: train_wide_classifier's batch 1024, each once per forward
+WIDE_BATCH = 1024
+WIDE_CONVS = {(WIDE_BATCH, 32, 32, 3, 64, 3): 1, (WIDE_BATCH, 32, 32, 64, 64, 3): 1,
+              (WIDE_BATCH, 16, 16, 64, 128, 3): 1, (WIDE_BATCH, 16, 16, 128, 128, 3): 1,
+              (WIDE_BATCH, 8, 8, 128, 256, 3): 1, (WIDE_BATCH, 8, 8, 256, 256, 3): 1}
+WIDE_CONVS_PER_FORWARD = sum(WIDE_CONVS.values())
+#: the three wide pipelines, all trained with the train_wide_classifier hp
+WIDE_PIPELINES = ("train_wide_classifier", "train_wide_classifier_gn",
+                  "train_wide_classifier_ws")
+WIDE_EPOCHS = 2            # cut from train_wide_classifier's 10
 DEVICE = "cuda"
 IMAGE_SHAPE = (224, 224, 3)
 SERVE_BATCH = 64
@@ -279,28 +313,52 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def device_ms(fn, iters: int = 20, name: str = "") -> float:
-    """Device time of one call: every kernel's time under torch.profiler over
-    ``iters`` calls, summed and divided (no host gaps, unlike ``cuda_ms`` at
-    the smallest shapes). With ``name``, the mean time of one launch of the
-    kernels whose name holds it, over the launches the profiler recorded
-    (within a long run it has been seen to drop some of them)."""
+def _profile_calls(fn, calls: int, margin_s: float = 0.05):
+    """torch.profiler (CUDA activity) over ``calls`` calls of ``fn``, with
+    ``margin_s`` of idle time at each end of the window: within a long run
+    the launches nearest a window's ends have gone missing from it (half of
+    20 short launches; all of a one-call window; a few of longer ones), as
+    if the device's clock had drifted from the host's, by which the profiler
+    cuts the window."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        time.sleep(margin_s)
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if name in e.key and (getattr(e, "self_device_time_total", 0) or 0) > 0]
-    us = sum(e.self_device_time_total for e in events)
-    if not name:
-        return us / 1e3 / iters
-    launches = sum(e.count for e in events)
-    if not launches:
-        raise AssertionError(f"the profiler recorded no launch of {name}")
-    return us / 1e3 / launches
+        time.sleep(margin_s)
+    return prof
+
+
+def device_ms(fn, launches: Optional[int], iters: int = 20, tries: int = 6) -> float:
+    """Device time of one call: every kernel's time under torch.profiler over
+    ``iters`` calls, summed and divided (no host gaps, unlike ``cuda_ms`` at
+    the smallest shapes). ``launches`` is how many kernels one call
+    launches: the profiler must have recorded ``iters`` times that many.
+    ``None`` is for a call whose kernels are not known beforehand (a
+    library's, or a wrapper's with copies around its kernel): then two
+    windows in a row must have recorded the same count, a multiple of
+    ``iters``. Otherwise the window is profiled again, up to ``tries``
+    times, and then this raises: a sum over a short count reads low
+    (:func:`_profile_calls` says where launches have gone missing)."""
+    fn()
+    torch.cuda.synchronize()
+    seen = None
+    for _ in range(tries):
+        events = [e for e in _profile_calls(fn, iters).key_averages()
+                  if (getattr(e, "self_device_time_total", 0) or 0) > 0]
+        recorded = sum(e.count for e in events)
+        want = iters * launches if launches is not None else seen
+        if recorded == want and recorded % iters == 0:
+            return sum(e.self_device_time_total for e in events) / 1e3 / iters
+        if launches is not None or seen is not None:
+            print(f"chip_smoke: the profiler recorded {recorded} launches for {iters} calls "
+                  f"(expected {want}); profiling again", file=sys.stderr, flush=True)
+        seen = recorded
+        time.sleep(0.2)
+    raise AssertionError(f"the profiler recorded {recorded} launches for {iters} calls, "
+                         f"expected {iters * launches if launches is not None else 'two equal counts'}, "
+                         f"in {tries} tries")
 
 
 def conv_bound(n, h, w, cin, cout, k, dtype: str, bias: bool, tf32x3=False):
@@ -598,6 +656,8 @@ def _library_call(x, w, b, act):
 
     def call():
         y = F.conv2d(x, w, b, padding=k // 2)
+        if act == "leaky_relu":
+            return F.leaky_relu(y, fused_layer.LEAKY_RELU_SLOPE)
         return torch.relu(y) if act == "relu" else y
     return call
 
@@ -644,19 +704,21 @@ def phase_kernel(card):
     return rows
 
 
-#: the per-forward conv sets by K2 route: bf16 as augment_train runs
-#: image_classifier (batch 4096), and ResNet-50 at the serving batch; f32 as
-#: ResNet-50 serving and classifier_train (batch 32) run them
-FORWARD_CONVS = {"bfloat16": (("image_classifier", CLASSIFIER_CONVS),
-                              ("resnet_spec(50)", RESNET50_CONVS)),
-                 "float32": (("resnet_spec(50)", RESNET50_CONVS),
-                             ("image_classifier", CLASSIFIER_TRAIN_CONVS))}
+#: the per-forward conv sets by K2 route, with their activation: bf16 as
+#: augment_train runs image_classifier (batch 4096), ResNet-50 at the serving
+#: batch, and the wide classifiers as wide_train runs them (batch 1024); f32
+#: as ResNet-50 serving and classifier_train (batch 32) run them
+FORWARD_CONVS = {"bfloat16": (("image_classifier", CLASSIFIER_CONVS, "relu"),
+                              ("resnet_spec(50)", RESNET50_CONVS, "relu"),
+                              ("wide_classifier", WIDE_CONVS, "leaky_relu")),
+                 "float32": (("resnet_spec(50)", RESNET50_CONVS, "relu"),
+                             ("image_classifier", CLASSIFIER_TRAIN_CONVS, "relu"))}
 
 
 def phase_kernel_forward(card, dtype):
     """K2 per model forward in ``dtype``: each conv shape of the models of
-    :data:`FORWARD_CONVS` checked against the plain version (relu, with
-    bias) and timed, then the kernel's, the plain version's, ``F.conv2d``'s
+    :data:`FORWARD_CONVS` checked against the plain version (with bias and
+    the model's activation) and timed, then the kernel's, the plain version's, ``F.conv2d``'s
     and the bound's times summed over one forward by how often each shape
     runs. The kernel takes its packed weight, as ``FusedConv2d`` passes it;
     ``*_device_ms`` are the same calls' device time from the profiler, and
@@ -664,31 +726,31 @@ def phase_kernel_forward(card, dtype):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     out = {}
-    for model, convs in FORWARD_CONVS[dtype]:
+    for model, convs, act in FORWARD_CONVS[dtype]:
         tot, max_abs, shapes = collections.Counter(), 0.0, []
         for (n, h, w, cin, cout, k), count in convs.items():
             x, wt, b = _case_tensors(gen, n, h, w, cin, cout, k, getattr(torch, dtype))
             wp = fused_layer.pack_weight(wt)
-            got = fused_conv2d_bias_act(x, wt, b, "relu", w_packed=wp)
-            ref = plain_conv2d_bias_act(x, wt, b, "relu")
+            got = fused_conv2d_bias_act(x, wt, b, act, w_packed=wp)
+            ref = plain_conv2d_bias_act(x, wt, b, act)
             rel, err = _rel_err(got, ref)
             if not rel <= tol:
                 raise AssertionError(f"{model} {dtype} conv {(n, h, w, cin, cout, k)}: rel err "
                                      f"{rel:.3e} > {tol:.0e}")
             max_abs = max(max_abs, err)
             bounds = k2_bounds(n, h, w, cin, cout, k, dtype, True)
-            kern = lambda: fused_conv2d_bias_act(x, wt, b, "relu", w_packed=wp)  # noqa: E731
-            lib = _library_call(x, wt, b, "relu")
-            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern),
-                 "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, "relu")),
-                 "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib),
+            kern = lambda: fused_conv2d_bias_act(x, wt, b, act, w_packed=wp)  # noqa: E731
+            lib = _library_call(x, wt, b, act)
+            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern, 1),
+                 "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, act)),
+                 "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib, None),
                  **{key: v for key, v in bounds.items() if key != "bound_by"}}
             for key, v in t.items():
                 tot[key] += count * v
             tot[bounds["bound_by"]] += count * bounds["bound_ms"]
             shapes.append({"shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k], "count": count,
                            "rel_err": rel, **t, "bound_by": bounds["bound_by"],
-                           "library_kernels": _device_kernel_names(lib)})
+                           "library_kernels": sorted(_device_kernels(lib))})
             del x, wt, b, wp, got, ref
         torch.cuda.empty_cache()
         per = {key: tot[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
@@ -697,7 +759,8 @@ def phase_kernel_forward(card, dtype):
         per["bound_by"] = "operations" if tot["operations"] >= tot["bytes"] else "bytes"
         out[model] = {**per, "max_abs_err": max_abs}
         emit({"phase": f"kernel_forward_{'f32' if dtype == 'float32' else 'bf16'}",
-              "model": model, "batch": next(iter(convs))[0], "convs": sum(convs.values()),
+              "model": model, "act": act, "batch": next(iter(convs))[0],
+              "convs": sum(convs.values()),
               "per_forward": per, "ms_over_library": per["ms"] / per["library_ms"],
               "library_kernels": sorted({kn for sh in shapes for kn in sh["library_kernels"]}),
               "shapes": shapes, "card": card})
@@ -773,9 +836,9 @@ def _main_path_kernels(model, card):
             max_abs = max(max_abs, err)
             kern = lambda: fused_conv2d_bias_act(x, wt, b, act)  # noqa: E731
             lib = _library_call(x, wt, b, act)
-            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern),
+            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern, None),
                  "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, act)),
-                 "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib)}
+                 "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib, None)}
             bounds = k2_bounds(n, h, w, cin, cout, k, "float32", has_b)
             for key, v in (*t.items(), ("bound_ms", bounds["bound_ms"]),
                            ("cuda_core_bound_ms", bounds["cuda_core_bound_ms"])):
@@ -979,16 +1042,14 @@ def _flash_case(gen, n, h, t, dh, dtype):
     return q, k, v, do
 
 
-def _device_kernel_names(fn):
-    """The device kernels one call of ``fn`` launches, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_kernels(fn) -> collections.Counter:
+    """The device kernels one call of ``fn`` launches, by name, with how
+    often each runs, from torch.profiler (names only: a one-call window can
+    lose a launch)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted({e.key for e in prof.key_averages()
-                   if (getattr(e, "self_device_time_total", 0) or 0) > 0})
+    return collections.Counter({e.key: e.count for e in _profile_calls(fn, 1).key_averages()
+                                if (getattr(e, "self_device_time_total", 0) or 0) > 0})
 
 
 def _library_fwd_bwd(q, k, v, do):
@@ -1043,8 +1104,8 @@ def phase_flash_kernels(card):
                    "shape_n_h_t_dh": [n, h, t, dh], "dtype": dtype,
                    "rel_err": errs, "max_abs_err": abs_errs, "tol": tol,
                    "library_fwd_ms": lib_fwd, "library_fwd_bwd_ms": lib_fwd_bwd,
-                   "library_fwd_kernels": _device_kernel_names(
-                       lambda: F.scaled_dot_product_attention(q, k, v)),
+                   "library_fwd_kernels": sorted(_device_kernels(
+                       lambda: F.scaled_dot_product_attention(q, k, v))),
                    # the backward alone: dQ, dK and dV in one call, K4's and
                    # K5's work together
                    "library_bwd_ms": lib_fwd_bwd - lib_fwd,
@@ -1080,8 +1141,9 @@ def phase_k3_forward_f32(card):
         raise AssertionError(f"K3 f32 at the serving shape: rel err {errs}")
     kern = lambda: flash_attention_fwd(q, k, v)  # noqa: E731
     lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-    per = {"ms": VIT_BLOCKS * cuda_ms(kern), "device_ms": VIT_BLOCKS * device_ms(kern),
-           "library_ms": VIT_BLOCKS * cuda_ms(lib), "library_device_ms": VIT_BLOCKS * device_ms(lib)}
+    per = {"ms": VIT_BLOCKS * cuda_ms(kern), "device_ms": VIT_BLOCKS * device_ms(kern, None),
+           "library_ms": VIT_BLOCKS * cuda_ms(lib),
+           "library_device_ms": VIT_BLOCKS * device_ms(lib, None)}
     del q, k, v, o, lse, o_ref, lse_ref
     model = DeepcvModule(IMAGE_SHAPE, vit_spec("b_16", attn_impl="flash"), device=DEVICE,
                          generator=torch.Generator().manual_seed(SEED)).eval()
@@ -1237,7 +1299,7 @@ def phase_k45_f32(card):
     for kind, fn in (("dq", lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta)),
                      ("dkv", lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta))):
         b = SERVE_BATCH * VIT_HEADS
-        per[kind] = {"ms": VIT_BLOCKS * cuda_ms(fn), "device_ms": VIT_BLOCKS * device_ms(fn),
+        per[kind] = {"ms": VIT_BLOCKS * cuda_ms(fn), "device_ms": VIT_BLOCKS * device_ms(fn, None),
                      "bound_ms": VIT_BLOCKS * flash_bound(kind, b, VIT_T, VIT_DH, "float32",
                                                           tf32x3=True)[0],
                      "cuda_core_bound_ms": VIT_BLOCKS * flash_bound(kind, b, VIT_T, VIT_DH,
@@ -1245,7 +1307,7 @@ def phase_k45_f32(card):
     lib_fwd = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
     lib_fwd_bwd = _library_fwd_bwd(q, k, v, do)
     library = {"ms": VIT_BLOCKS * (cuda_ms(lib_fwd_bwd) - cuda_ms(lib_fwd)),
-               "device_ms": VIT_BLOCKS * (device_ms(lib_fwd_bwd) - device_ms(lib_fwd))}
+               "device_ms": VIT_BLOCKS * (device_ms(lib_fwd_bwd, None) - device_ms(lib_fwd, None))}
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     store, _, _, counts, by_dtype = _run_train_vit(
@@ -1416,8 +1478,8 @@ def phase_augment_kernel(card):
         row = {"phase": "augment_kernel", "shape_nhwc": [n, h, w, c],
                "max_abs_err": errs, "tol": AUG_TOL, "bf16_is_f32_rounded": bf16_is_f32_rounded,
                "ms": cuda_ms(off), "ms_noise": cuda_ms(on),
-               "device_ms": device_ms(off, name=K1_KERNEL),
-               "device_ms_noise": device_ms(on, name=K1_KERNEL),
+               "device_ms": device_ms(off, 1),
+               "device_ms_noise": device_ms(on, 1),
                "plain_ms": cuda_ms(lambda: plain_fused_augment_normalize(
                    u8, *facs, None, CIFAR_MEAN, CIFAR_STD)),
                "plain_ms_noise": cuda_ms(lambda: plain_fused_augment_normalize(
@@ -1486,21 +1548,26 @@ class _K2Dtypes:
         port_nn.fused_conv2d_bias_act = self._real
 
 
-def _run_classifier(label, params):
-    """``run --pipeline=train_image_classifier`` in this process with the
-    counts set to 0 just before and read just after. Returns the store, the
-    wall time, the counts and the cuDNN flags seen at every step."""
+def _run_classifier(label, params, pipeline="train_image_classifier",
+                    hp_key="train_image_classifier"):
+    """``run --pipeline=<pipeline>`` (its training hp under ``hp_key``) in
+    this process with the counts set to 0 just before and read just after.
+    Returns the store, the argv, the wall time, the counts, the cuDNN flags
+    seen at every step, and a CUDA event recorded after every step."""
     out_dir = _build.BUILD_DIR / label
-    params = [*params, "train_image_classifier.save_every_iters:0",
-              f"train_image_classifier.output_path:{out_dir}"]
-    argv = ["--pipeline=train_image_classifier", "--project-path", str(REPO),
+    params = [*params, f"{hp_key}.save_every_iters:0", f"{hp_key}.output_path:{out_dir}"]
+    argv = [f"--pipeline={pipeline}", "--project-path", str(REPO),
             "--params", ",".join(params)]
     flags = collections.Counter()
+    step_ends = []
     real_step = training.train_step
 
     def step(*a, **kw):
         flags[(torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)] += 1
-        return real_step(*a, **kw)
+        out = real_step(*a, **kw)
+        step_ends.append(torch.cuda.Event(enable_timing=True))
+        step_ends[-1].record()
+        return out
 
     routes = PreprocessedDataset.batch_transform.routes
     torch.cuda.reset_peak_memory_stats()
@@ -1521,13 +1588,13 @@ def _run_classifier(label, params):
               "K2_by_dtype": dict(fused_conv2d_bias_act.launches_by_dtype),
               "routes": {k: routes[k] - routes_before[k] for k in routes},
               "K2_dtypes": {"/".join(k): v for k, v in k2_dtypes.seen.items()}}
-    return store, argv, wall, counts, flags
+    return store, argv, wall, counts, flags, step_ends
 
 
 def phase_classifier_train(card):
     cudnn = torch.backends.cudnn
     before = (cudnn.deterministic, cudnn.benchmark)
-    store, argv, wall, counts, flags = _run_classifier(
+    store, argv, wall, counts, flags, _ = _run_classifier(
         "classifier_train", ["train_image_classifier.epochs:1"])
     after = (cudnn.deterministic, cudnn.benchmark)
     h = store["train_results"]["history"]
@@ -1660,7 +1727,7 @@ def _check_augment_run(label, store, counts):
 
 def phase_augment_train(card, aug_rows, k2_rows):
     params = _augment_params(AUGMENT_EPOCHS)
-    store, argv, wall, counts, _ = _run_classifier("augment_train", params)
+    store, argv, wall, counts, _, _ = _run_classifier("augment_train", params)
     h = _check_augment_run("augment_train", store, counts)
     steps = h["steps"]
     losses = [e["main_loss"] for e in h["train"]]
@@ -1696,7 +1763,8 @@ def phase_augment_train(card, aug_rows, k2_rows):
     # kernels' device times are), against the unprofiled step time above
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        store, _, _, pcounts, _ = _run_classifier("augment_train_profile", _augment_params(1))
+        store, _, _, pcounts, _, _ = _run_classifier("augment_train_profile",
+                                                     _augment_params(1))
         torch.cuda.synchronize()
     psteps = store["train_results"]["history"]["steps"]
     groups, top = _profile_groups(prof)
@@ -1719,13 +1787,13 @@ def phase_k1_train(card):
     step time, and K1's device time a step from one more epoch under
     torch.profiler: the ``--k1`` mode's view of K1 on its path."""
     from torch.profiler import ProfilerActivity, profile
-    store, argv, _, counts, _ = _run_classifier("k1_augment_train", _augment_params(2))
+    store, argv, _, counts, _, _ = _run_classifier("k1_augment_train", _augment_params(2))
     h = _check_augment_run("k1_augment_train", store, counts)
     step_ms = AUGMENT_BATCH / h["throughput_img_s"][-1] * 1e3
     del store
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        store, _, _, pcounts, _ = _run_classifier("k1_augment_train_profile",
-                                                  _augment_params(1))
+        store, _, _, pcounts, _, _ = _run_classifier("k1_augment_train_profile",
+                                                     _augment_params(1))
         torch.cuda.synchronize()
     psteps = _check_augment_run("k1_augment_train_profile", store, pcounts)["steps"]
     groups, _ = _profile_groups(prof)
@@ -1735,6 +1803,208 @@ def phase_k1_train(card):
           "profiled_steps": psteps, "k1_device_ms_per_step": groups["K1"] / psteps,
           "device_ms_per_step": sum(groups.values()) / psteps, "card": card})
     del store, prof
+    torch.cuda.empty_cache()
+
+
+def _cifar_data() -> str:
+    """Where the CIFAR-10 pixels of a run on ``data/01_raw`` come from: the
+    synthetic stand-ins found there at the start (in a checkout, the tracked
+    files), or, where a copy of the repository left them out, the ones the
+    loader generates in their place."""
+    names = [REPO / "data" / "01_raw" / f"cifar10_{s}_synthetic.npz" for s in ("train", "test")]
+    if all(p.exists() for p in names):
+        return ("synthetic CIFAR-10 stand-in read from data/01_raw/cifar10_{train,test}"
+                "_synthetic.npz, present at the start of the run")
+    return ("synthetic CIFAR-10 stand-in generated in this run by deepcv_tpu_torch.data."
+            "datasets._synthetic_like (no data/01_raw/cifar10_*_synthetic.npz in this copy)")
+
+
+def phase_wide_train(card, data):
+    """The wide classifiers through the port's ``run``, in this process, at
+    the conf's full width and hp (train_wide_classifier: batch 1024,
+    bfloat16, AdamW lr 1e-3 wd 1e-2, its warm-up schedule, ``deterministic``)
+    cut to 2 epochs and no checkpoints, on CIFAR-10 (``data``): finite
+    losses, 6 K2 launches per forward (training and validation), all on
+    bfloat16 inputs; the median step of the last epoch (CUDA events
+    recorded after each step), img/s and peak memory. Returns the K2
+    launches and the step ms of each pipeline."""
+    bf16 = "bfloat16/bfloat16/bfloat16"
+    launches, step_ms = 0, {}
+    for pipeline in WIDE_PIPELINES:
+        torch.cuda.empty_cache()
+        store, argv, wall, counts, flags, ends = _run_classifier(
+            f"wide_train_{pipeline}", [f"train_wide_classifier.epochs:{WIDE_EPOCHS}"],
+            pipeline, "train_wide_classifier")
+        h = store["train_results"]["history"]
+        steps = h["steps"]
+        n_valid = len(store["datasets"]["validset"])
+        val_forwards = len(h["valid"]) * math.ceil(n_valid / min(32 * WIDE_BATCH, n_valid))
+        forwards = steps + val_forwards
+        losses = [e["main_loss"] for e in h["train"]]
+        if steps == 0 or len(h["valid"]) != WIDE_EPOCHS or not np.isfinite(losses).all() \
+                or not np.isfinite(h["valid"][-1]["valid_loss"]):
+            raise AssertionError(f"{pipeline}: {steps} steps, losses {losses}, "
+                                 f"validation {h['valid']}")
+        if counts["K2"] != WIDE_CONVS_PER_FORWARD * forwards or counts["K1"] != 0 \
+                or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": counts["K2"]} \
+                or counts["K2_dtypes"] != {bf16: counts["K2"]} \
+                or any(counts["routes"].values()) or len(ends) != steps:
+            raise AssertionError(f"{pipeline} counts {counts} for {steps} steps and "
+                                 f"{val_forwards} validation forwards")
+        per_epoch = steps // WIDE_EPOCHS
+        warm = [ends[i].elapsed_time(ends[i + 1]) for i in range(steps - per_epoch, steps - 1)]
+        step_ms[pipeline] = statistics.median(warm)
+        launches += counts["K2"]
+        model = store["model"]
+        emit({"phase": "wide_train", "pipeline": pipeline,
+              "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+              "cut": {"epochs": f"10 -> {WIDE_EPOCHS}", "checkpoints": "off"},
+              "batch": WIDE_BATCH, "dtype": "bfloat16", "steps": steps,
+              "data": f"{data}; train images sha256 " + hashlib.sha256(
+                  store["datasets"]["trainset"].dataset.images.tobytes()).hexdigest()[:16],
+              "train_images": len(store["datasets"]["trainset"]), "valid_images": n_valid,
+              "parameters": model.capacity(),
+              "loss": losses[-1], "valid": h["valid"][-1],
+              "step_ms": step_ms[pipeline], "step_ms_warm_range": [min(warm), max(warm)],
+              "img_per_s": WIDE_BATCH / step_ms[pipeline] * 1e3,
+              "throughput_img_s": h["throughput_img_s"], "wall_s": wall,
+              "launches": counts, "validation_forwards": val_forwards,
+              "launches_per_forward": {"K2": counts["K2"] / forwards},
+              "cudnn_deterministic_benchmark": {str(k): v for k, v in flags.items()},
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+        del store, model
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+#: the groups of a wide step's device time found by where a kernel was
+#: launched from: a ``wide::<group>`` profiler range (the forward of the
+#: norms and of the weight-norm function, by :func:`_annotated_modules`) or
+#: the backward of an op launched inside one (by autograd sequence number);
+#: K2's backward (``_FusedConvFn``'s: the plain version again in float32,
+#: cuDNN's dgrad and wgrad); the optimizer's step
+WIDE_RANGE = "wide::"
+WIDE_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
+                        ("adamw", "Optimizer.step#AdamW.step"))
+#: by kernel name, for the kernels launched from none of those
+WIDE_NAME_GROUPS = (("K2_forward", ("fused_conv2d_bias_act",)),
+                    ("pool", ("avg_pool",)),
+                    ("dense", ("gemm", "Gemm", "nvjet", "cutlass")),
+                    ("loss", ("softmax", "nll_loss", "cross_entropy")),
+                    *((g, f) for g, f in PROFILE_GROUPS
+                      if g in ("reduce", "upload", "copy", "elementwise")))
+
+
+@contextlib.contextmanager
+def _annotated_modules():
+    """The port's BatchNorm and GroupNorm forwards and its ``weight_norm``
+    function, each run inside a profiler range ``wide::<group>``."""
+    from torch.profiler import record_function
+
+    def ranged(fn, group):
+        def call(*a, **kw):
+            with record_function(WIDE_RANGE + group):
+                return fn(*a, **kw)
+        return call
+    with contextlib.ExitStack() as stack:
+        for owner, attr, group in ((port_nn.BatchNorm, "forward", "batch_norm"),
+                                   (port_nn.GroupNorm, "forward", "group_norm"),
+                                   (port_nn, "weight_norm", "weight_norm")):
+            stack.enter_context(mock.patch.object(owner, attr, ranged(getattr(owner, attr),
+                                                                      group)))
+        yield
+
+
+def _event_groups(events):
+    """{id(event): group} for the profiler's CPU events launched in a
+    ``wide::`` range, in the backward of an op launched there (the autograd
+    node with its sequence number), or below a :data:`WIDE_BACKWARD_GROUPS`
+    event; every event below a marked one takes its group."""
+    groups, seq = {}, {}
+
+    def mark(event, group):
+        stack = [event]
+        while stack:
+            e = stack.pop()
+            groups.setdefault(id(e), group)
+            stack.extend(e.cpu_children)
+
+    for e in events:
+        if e.name.startswith(WIDE_RANGE):
+            group = e.name[len(WIDE_RANGE):]
+            mark(e, group)
+            stack = [e]
+            while stack:
+                c = stack.pop()
+                if c.sequence_nr >= 0:
+                    seq[c.sequence_nr] = group
+                stack.extend(c.cpu_children)
+    for e in events:
+        if "Backward" in e.name and e.sequence_nr in seq:
+            mark(e, seq[e.sequence_nr])
+        for group, fragment in WIDE_BACKWARD_GROUPS:
+            if fragment in e.name:
+                mark(e, group)
+    return groups
+
+
+def _wide_profile_groups(prof):
+    """Device ms of a wide run's kernels by group (:func:`_event_groups`,
+    else :data:`WIDE_NAME_GROUPS`), the kernels by name (ms, launches), and
+    K2's forward launches the profiler recorded."""
+    events = prof.events()
+    marked = _event_groups(events)
+    groups, kernels = collections.Counter(), {}
+    for e in events:
+        for k in e.kernels:
+            group = marked.get(id(e)) or next(
+                (g for g, frags in WIDE_NAME_GROUPS if any(f in k.name for f in frags)),
+                "other")
+            groups[group] += k.duration / 1e3
+            ms, n = kernels.get(k.name, (0.0, 0))
+            kernels[k.name] = (ms + k.duration / 1e3, n + 1)
+    k2 = sum(n for name, (_, n) in kernels.items() if "fused_conv2d_bias_act" in name)
+    return groups, kernels, k2
+
+
+def phase_wide_train_profile(card, step_ms, tries=2):
+    """Where a wide step's device time goes: one more epoch of each wide
+    pipeline, validation off, under torch.profiler, with the norms and the
+    weight-norm function in ranges (:func:`_annotated_modules`): device ms a
+    step by group, the ten largest kernels and the device's idle share of
+    the unprofiled step. The profiler must have recorded every K2 launch
+    the wrapper counted, or the epoch is run again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    params = ["train_wide_classifier.epochs:1", "train_wide_classifier.validate_every_epochs:1000"]
+    for pipeline in WIDE_PIPELINES:
+        for _ in range(tries):
+            torch.cuda.empty_cache()
+            with _annotated_modules(), \
+                    profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                store, _, _, counts, _, _ = _run_classifier(
+                    f"wide_train_profile_{pipeline}", params, pipeline, "train_wide_classifier")
+                torch.cuda.synchronize()
+            groups, kernels, k2 = _wide_profile_groups(prof)
+            if k2 == counts["K2"]:
+                break
+        else:
+            raise AssertionError(f"{pipeline} profile: {k2} K2 launches recorded of "
+                                 f"{counts['K2']} in each of {tries} tries")
+        steps = store["train_results"]["history"]["steps"]
+        if counts["K2"] != WIDE_CONVS_PER_FORWARD * steps:
+            raise AssertionError(f"{pipeline} profile: counts {counts} for {steps} steps")
+        upload = groups.pop("upload", 0.0)     # the dataset and weights, once per run
+        busy = sum(groups.values()) / steps
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+        emit({"phase": "wide_train_profile", "pipeline": pipeline, "steps": steps,
+              "device_ms_per_step": {g: ms / steps for g, ms in groups.most_common()},
+              "upload_ms_per_run": upload, "device_busy_ms_per_step": busy,
+              "step_ms_unprofiled": step_ms[pipeline],
+              "device_idle_share": 1.0 - busy / step_ms[pipeline],
+              "k2_backward_share_of_step": groups["K2_backward"] / steps / step_ms[pipeline],
+              "top_kernels_ms_per_step": [[name[:90], ms / steps, n] for name, (ms, n) in top],
+              "k2_launches_recorded": k2, "launches": counts, "card": card})
+        del store, prof
     torch.cuda.empty_cache()
 
 
@@ -1759,8 +2029,9 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
     the entry's own numbers, per ResNet-50 forward, its bound by 3xTF32 with
     the CUDA-core one beside it, and per classifier_train forward at batch
     32) and bfloat16 (``augment_train``: per image_classifier forward at
-    batch 4096, and per ResNet-50 forward at batch 64, the bf16 shape set no
-    main path runs yet)."""
+    batch 4096; ``wide_train``: per wide classifier forward at batch 1024;
+    and per ResNet-50 forward at batch 64, the bf16 shape set no main path
+    runs yet)."""
     f32_launches = line["launches"] - bf16_launches
     line["launches_by_dtype"] = {"float32": f32_launches, "bfloat16": bf16_launches}
     line["routes"] = {
@@ -1782,6 +2053,11 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
                      **forward_bf16["image_classifier"],
                      "per": f"one image_classifier forward at batch {AUGMENT_BATCH}, "
                             "bfloat16 (5 launches)",
+                     "wide_classifier": {**forward_bf16["wide_classifier"],
+                                         "per": f"one wide classifier forward's "
+                                                f"{WIDE_CONVS_PER_FORWARD} convs at batch "
+                                                f"{WIDE_BATCH}, bfloat16, leaky_relu "
+                                                "(wide_train)"},
                      "resnet50": {**forward_bf16["resnet_spec(50)"],
                                   "per": f"one resnet_spec(50) forward's 46 stride-1 convs "
                                          f"at batch {SERVE_BATCH}, bfloat16 (no main path "
@@ -1828,7 +2104,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     card = phase_device()
+    data = _cifar_data()
     phase_build()
+    # K1's device times first: after the train phases' long profiles the
+    # profiler has kept only half of K1's launches in a window, every time
+    aug_rows = phase_augment_kernel(card)
     k2_rows = phase_kernel(card)
     flash_rows = phase_flash_kernels(card)
     k2_line = phase_serve(card)
@@ -1839,14 +2119,17 @@ def main() -> int:
                                                       F32_TRAIN_PARAMS)
     phase_vit_train_profile(card, f32_step_ms, "vit_train_f32_profile",
                             (*F32_TRAIN_PARAMS, *SHORT_TRAIN_PARAMS))
-    aug_rows = phase_augment_kernel(card)
     classifier_counts = phase_classifier_train(card)
     augment_counts, _ = phase_augment_train(card, aug_rows, k2_rows)
+    wide_launches, wide_step_ms = phase_wide_train(card, data)
+    phase_wide_train_profile(card, wide_step_ms)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
-                                   "augment_train": augment_counts["K2"]}
+                                   "augment_train": augment_counts["K2"],
+                                   "wide_train": wide_launches}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
-    k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"], augment_counts["K2"])
+    k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
+              augment_counts["K2"] + wide_launches)
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches,
                                           f32_train_launches, card)]})

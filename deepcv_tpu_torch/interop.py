@@ -10,6 +10,8 @@ for the same spec.
     dense kernels   (in, out)                -> (out, in)
     norm scale/bias                          -> weight/bias
     batch_stats mean/var                     -> running_mean/running_var
+    weight norm     op/layer_instance/{kernel,bias}, the one key
+                    'op/layer_instance/kernel/scale' -> op.weight, op.bias, op.scale
 
 A nested module's variables sit under its node, each of its own nodes a
 level below (``node_impls_<nested>/node_impls_<local>/...`` ->
@@ -23,8 +25,15 @@ transposed weight keeps ``in_proj_weight``'s row order), ``enc<i>/attn/out``,
 
 The JAX package zero-pads conv inputs to at least 8 channels on the TPU
 (``pad_channels_for_tpu``), so a 3-channel stem kernel there is
-(7, 7, 8, 64); the padded rows meet zeros and are dropped here. A key that
-does not map, or a parameter of the port left without a value, raises.
+(7, 7, 8, 64); the padded rows meet zeros and are dropped here. Under
+weight norm they are not inert there: flax's ``WeightNorm`` takes its norm
+over all 8 input rows, padded ones included. Where a weight-normed conv's
+dropped rows are not all zero, their share of the norm is folded into the
+scale, per output filter, ``scale * sqrt(|v_kept|^2 + eps) / sqrt(|v|^2 +
+eps)``, so the port's forward equals the JAX forward. Gradients do not: in
+the JAX package the padded rows take part in the norm and are trained,
+here they do not exist. They agree where the padded rows are zero. A key
+that does not map, or a parameter of the port left without a value, raises.
 """
 from __future__ import annotations
 
@@ -40,6 +49,9 @@ __all__ = ["jax_to_torch_state_dict", "load_jax_variables"]
 TPU_MIN_CHANNELS = 8
 
 _NORM_RE = re.compile(r"^norms_(\d+)$")
+#: an op's leaves under ``op``, after flax's ``WeightNorm`` (``layer_instance``)
+#: and ``FlattenThen`` (``inner``) are taken off the path
+_OP_LEAF = {("kernel",): "weight", ("bias",): "bias", ("kernel", "scale"): "scale"}
 _PARAM_LEAF = {"scale": "weight", "bias": "bias"}
 #: leaves of a ViT node's submodules, by JAX name
 _SUBMODULE_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
@@ -64,10 +76,14 @@ def _torch_key(collection: str, path: Tuple[str, ...]) -> str:
     if base == "module" or not rest:
         raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
     if collection == "params" and rest[0] == "op":
-        leaf = rest[-1]
-        if rest[1:-1] not in ((), ("inner",)) or leaf not in ("kernel", "bias"):
+        # WeightNorm names its scale by one key with slashes in it
+        body = tuple(p for r in rest[1:] for p in r.split("/"))
+        wrapped = body[:1] == ("layer_instance",)
+        body = body[1:] if wrapped else body
+        leaf = _OP_LEAF.get(body[1:] if body[:1] == ("inner",) else body)
+        if leaf is None or (leaf == "scale" and not wrapped):
             raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
-        return f"{base}.op.{'weight' if leaf == 'kernel' else 'bias'}"
+        return f"{base}.op.{leaf}"
     m = _NORM_RE.match(rest[0])
     table = _PARAM_LEAF if collection == "params" else _STAT_LEAF
     if m and len(rest) == 2 and rest[1] in table:
@@ -95,12 +111,25 @@ def _convert(key: str, a: np.ndarray, target: torch.Tensor) -> np.ndarray:
     return a
 
 
+def _fold_padded_rows(out: Dict[str, torch.Tensor], op: str, full: np.ndarray,
+                      eps: float) -> None:
+    """Fold the norm of a weight-normed kernel's cut rows into its scale, so
+    that ``weight_norm(v_kept, scale')`` equals the JAX ``WeightNorm`` of
+    the full kernel on the kept rows."""
+    full = full.astype(np.float64)
+    kept = full[:, :, :out[f"{op}.weight"].shape[1], :]
+    ratio = np.sqrt((kept ** 2).sum((0, 1, 2)) + eps) / np.sqrt((full ** 2).sum((0, 1, 2)) + eps)
+    scale = out[f"{op}.scale"]
+    out[f"{op}.scale"] = torch.tensor(scale.double().numpy() * ratio, dtype=scale.dtype)
+
+
 def jax_to_torch_state_dict(variables_np: Mapping[str, Any],
                             model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """``state_dict`` for ``model`` from the JAX variables of the same spec
     (``{'params': ..., 'batch_stats': ...}`` as numpy arrays)."""
     targets = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
+    padded: Dict[str, np.ndarray] = {}     # conv kernels whose padded rows were cut
     for collection, tree in variables_np.items():
         if collection not in ("params", "batch_stats"):
             raise KeyError(f"unmapped JAX collection '{collection}'")
@@ -111,6 +140,12 @@ def jax_to_torch_state_dict(variables_np: Mapping[str, Any],
                                f"'{key}', which the model does not have")
             t = targets[key]
             out[key] = torch.tensor(_convert(key, arr, t), dtype=t.dtype)
+            if arr.ndim == 4 and arr.shape[2] != t.shape[1]:
+                padded[key] = arr
+    for key, full in padded.items():
+        op = key.rsplit(".", 1)[0]
+        if f"{op}.scale" in out and np.any(full[:, :, out[key].shape[1]:, :]):
+            _fold_padded_rows(out, op, full, model.get_submodule(op).weight_norm_eps)
     missing = sorted(set(targets) - set(out))
     if missing:
         raise KeyError(f"no JAX variable for {missing[:8]}"

@@ -4,7 +4,8 @@
 Counterpart of ``deepcv_tpu/ops/nn.py`` (``get_activation``, ``get_gain``,
 ``xavier_normal_with_gain``, ``avg_pool_nd``, ``max_pool_nd``, ``BatchNorm``,
 ``make_token_norm``, ``normalization_techniques``, ``Layer``, ``DropPath``,
-``Flatten``). Feature maps inside a model are NCHW-logical in
+``Flatten``) and of flax's ``WeightNorm`` around an op (:func:`weight_norm`,
+:meth:`Conv2d.add_weight_norm`). Feature maps inside a model are NCHW-logical in
 ``torch.channels_last`` memory, so their channel dim is 1 (the JAX package's
 -1); token sequences (N, T, D) and rows (N, F) keep their features last, as
 in the JAX package (:func:`feature_dim`). ``Flatten`` keeps the JAX
@@ -32,7 +33,7 @@ __all__ = [
     "get_gain", "xavier_normal_with_gain", "xavier_uniform_with_gain",
     "avg_pool_nd", "max_pool_nd", "interpolate", "NormTechnique", "BatchNorm",
     "GroupNorm", "LayerNorm", "RMSNorm", "make_token_norm",
-    "normalization_techniques", "Conv2d", "FusedConv2d", "Dense", "Layer",
+    "normalization_techniques", "weight_norm", "Conv2d", "FusedConv2d", "Dense", "Layer",
     "Identity", "Flatten", "Dropout", "DropPath", "feature_dim",
     "gelu_exact", "gelu_tanh", "get_padding_from_kernel",
 ]
@@ -380,7 +381,45 @@ def normalization_techniques(norm_specs: Mapping[str, Optional[Mapping[str, Any]
 # Ops
 # --------------------------------------------------------------------------- #
 
-class Conv2d(nn.Module):
+def weight_norm(v: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """flax's ``WeightNorm`` of a weight ``v`` (out, ...): ``v *
+    rsqrt(sum(v**2 over every axis but the output one) + eps) * scale``, in
+    float32. Not ``torch.nn.utils.weight_norm``, whose gain starts at ``|v|``
+    and which has no eps."""
+    vf = v.float()
+    dims = tuple(range(1, v.dim()))
+    return vf * torch.rsqrt(vf.square().sum(dims, keepdim=True) + eps) \
+        * scale.float().reshape((-1,) + (1,) * (v.dim() - 1))
+
+
+class _WeightOp(nn.Module):
+    """An op with a ``weight`` (out, ...) that flax's ``WeightNorm`` can wrap
+    (:meth:`add_weight_norm`): then ``weight`` is the direction ``v`` and the
+    op computes with :func:`weight_norm` of it and ``scale``."""
+
+    def __init__(self):
+        super().__init__()
+        self.register_parameter("scale", None)
+        self.weight_norm_eps: Optional[float] = None
+
+    def add_weight_norm(self, eps: float) -> None:
+        """Reparameterise the weight as flax's ``WeightNorm`` with its
+        defaults (the kernel alone, per output feature, ``scale`` ones)."""
+        self.weight_norm_eps = float(eps)
+        self.scale = nn.Parameter(torch.empty(self.weight.shape[0], device=self.weight.device))
+
+    def _init_scale(self):
+        if self.scale is not None:
+            self.scale.fill_(1.0)
+
+    def effective_weight(self) -> torch.Tensor:
+        """The weight the op computes with."""
+        if self.scale is None:
+            return self.weight
+        return weight_norm(self.weight, self.scale, self.weight_norm_eps)
+
+
+class Conv2d(_WeightOp):
     """Any 2-d convolution (strided, dilated, grouped): plain ``F.conv2d``,
     as the JAX package leaves these to XLA. Weight (Cout, Cin/groups, kh, kw)."""
 
@@ -400,10 +439,11 @@ class Conv2d(nn.Module):
             xavier_normal_with_gain(self.gain)(self.weight, generator)
             if self.bias is not None:
                 self.bias.zero_()
+            self._init_scale()
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride,
+        return F.conv2d(x, self.effective_weight().to(x.dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
 
 
@@ -413,7 +453,8 @@ class FusedConv2d(Conv2d):
     plain version on the CPU. The counterpart of the JAX package's
     ``PallasConv``; every conv that qualifies is routed here, whatever its
     channel count. Under autocast it runs in autocast's dtype. The weight is
-    packed for the kernel once per weight version and dtype."""
+    packed for the kernel once per weight version and dtype; under weight
+    norm the kernel takes the normalised weight, packed at every forward."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  act: Optional[Callable] = None, use_bias: bool = True,
@@ -429,12 +470,18 @@ class FusedConv2d(Conv2d):
         self._packed = None
         self._packed_key = None
 
-    def _packed_weight(self, dtype: torch.dtype) -> torch.Tensor:
-        w = self.weight
-        key = (w.data_ptr(), w._version, w.device, dtype)
+    def _packed_weight(self, w: torch.Tensor) -> torch.Tensor:
+        """:func:`pack_weight` of ``w``, the weight this forward computes
+        with. Under weight norm ``w`` is a new tensor every forward (a new
+        tensor's version is 0 and may take the last one's address), so it is
+        packed every time; else once per version of ``weight`` and dtype."""
+        if self.scale is not None:
+            with torch.no_grad():
+                return pack_weight(w)
+        key = (self.weight.data_ptr(), self.weight._version, w.device, w.dtype)
         if self._packed_key != key:
             with torch.no_grad():
-                self._packed = pack_weight(w.to(dtype))
+                self._packed = pack_weight(w)
             self._packed_key = key
         return self._packed
 
@@ -446,13 +493,13 @@ class FusedConv2d(Conv2d):
         if dev in ("cpu", "cuda") and torch.is_autocast_enabled(dev):
             x = x.to(torch.get_autocast_dtype(dev))
         x = x.contiguous(memory_format=torch.channels_last)
-        w = self.weight.to(x.dtype)
+        w = self.effective_weight().to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        packed = self._packed_weight(x.dtype) if x.device.type == "cuda" else None
+        packed = self._packed_weight(w) if x.device.type == "cuda" else None
         return fused_conv2d_bias_act(x, w, b, self.act, w_packed=packed)
 
 
-class Dense(nn.Module):
+class Dense(_WeightOp):
     """Fully-connected op, weight (out, in), Xavier-uniform init, zero bias.
     A feature map or a token sequence is transformed per position along its
     feature dim (the JAX package's Dense on the last axis) unless
@@ -471,14 +518,16 @@ class Dense(nn.Module):
             xavier_uniform_with_gain(self.gain)(self.weight, generator)
             if self.bias is not None:
                 self.bias.zero_()
+            self._init_scale()
 
     def forward(self, x):
         if self.flatten_input:
             x = Flatten.hwc(x)
         b = None if self.bias is None else self.bias.to(x.dtype)
+        w = self.effective_weight().to(x.dtype)
         if feature_dim(x) == x.dim() - 1:
-            return F.linear(x, self.weight.to(x.dtype), b)
-        return F.linear(x.movedim(1, -1), self.weight.to(x.dtype), b).movedim(-1, 1)
+            return F.linear(x, w, b)
+        return F.linear(x.movedim(1, -1), w, b).movedim(-1, 1)
 
 
 class Identity(nn.Module):

@@ -1,6 +1,9 @@
 """Image-classification pipelines: ``train_image_classifier`` (CIFAR-10),
-``train_image_classifier_cifar100``, ``train_vit``, ``train_resnet50`` and
-the preprocess-only ``preprocess_cifar10``, ``preprocess_cifar100`` and
+``train_image_classifier_cifar100``, the wide classifiers on CIFAR-10
+(``train_wide_classifier`` with batch norm, ``_gn`` with group norm, ``_ws``
+with weight norm and no activation norm; all three trained with the
+``train_wide_classifier`` hp), ``train_vit``, ``train_resnet50`` and the
+preprocess-only ``preprocess_cifar10``, ``preprocess_cifar100`` and
 ``preprocess_mnist``.
 
 Counterpart of ``deepcv_tpu/pipelines/classification.py``
@@ -145,6 +148,10 @@ def get_pipelines() -> Dict[str, Pipeline]:
         "train_image_classifier_cifar100": train_pipeline(
             "train_image_classifier_cifar100", "image_classifier_model",
             "train_image_classifier", ds="cifar100", pp_key="cifar100_preprocessing"),
+        **{f"train_wide_classifier{suffix}": train_pipeline(
+            f"train_wide_classifier{suffix}", f"wide_classifier{suffix}_model",
+            "train_wide_classifier", ds="cifar10", pp_key="cifar10_preprocessing")
+           for suffix in ("", "_gn", "_ws")},
         "train_resnet50": train_pipeline(
             "train_resnet50", "resnet50_model", "train_resnet50",
             ds="imagenet224", pp_key="imagenet224_preprocessing"),

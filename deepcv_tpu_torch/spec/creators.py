@@ -17,6 +17,12 @@ Every plain stride-1 'same' odd-kernel 2-d conv becomes a
 :class:`~deepcv_tpu_torch.ops.nn.FusedConv2d` — the CUDA kernel on a card —
 whatever its channel count: the JAX package's >=32-channel gate and its
 ``DEEPCV_TPU_PALLAS`` opt-in were TPU matters and are not carried over.
+
+The hp ``weight_norm`` (``{eps: ...}``, ``CreatorContext.weight_norm``)
+wraps the op of every layer-unit creator (``conv2d``, ``fully_connected``)
+in flax's ``WeightNorm``, as the JAX package's ``_as_layer`` does; a conv
+so wrapped still runs the kernel, on the normalised weight. An op that
+cannot take it raises, naming its submodule.
 """
 from __future__ import annotations
 
@@ -88,6 +94,7 @@ class CreatorContext:
     """Build-time context handed to creators."""
     hp: Mapping[str, Any]                      # global model hyperparameters
     submodule_names: Tuple[str, ...] = ()      # names defined so far
+    weight_norm: Optional[Mapping[str, Any]] = None   # hp 'weight_norm'
 
 
 @dataclasses.dataclass
@@ -168,10 +175,19 @@ def _norm_specs_from_params(params: Mapping[str, Any]) -> Dict[str, Any]:
             if params.get(t) not in (None, False) and t in params}
 
 
-def _as_layer(op: nn.Module, params: Mapping[str, Any], in_ch: int, out_ch: int,
-              act_in_op: bool = False) -> dnn.Layer:
+def _as_layer(op: nn.Module, params: Mapping[str, Any], ctx: CreatorContext, name: str,
+              in_ch: int, out_ch: int, act_in_op: bool = False) -> dnn.Layer:
     """Wrap an op into the ``layer()`` unit with act/norms/dropout; norms see
-    ``in_ch`` channels before the op (pre-activation) or ``out_ch`` after."""
+    ``in_ch`` channels before the op (pre-activation) or ``out_ch`` after.
+    With ``ctx.weight_norm`` the op's weight is reparameterised first (eps
+    1e-12 unless given, flax's default)."""
+    if ctx.weight_norm:
+        add = getattr(op, "add_weight_norm", None)
+        if add is None:
+            from deepcv_tpu_torch.spec.graph import SpecError
+            raise SpecError(f"Submodule '{name}': hp 'weight_norm' cannot wrap its op "
+                            f"{type(op).__name__}")
+        add(float(ctx.weight_norm.get("eps", 1e-12)))
     preact = bool(params.get("preactivation", False))
     return dnn.Layer(
         op=op, act_fn=dnn.get_activation(params.get("act_fn")),
@@ -242,10 +258,10 @@ def _conv2d(params: Mapping[str, Any], ctx: CreatorContext, name: str,
         preact = bool(params.get("preactivation", False))
         act = None if preact else dnn.get_activation(params.get("act_fn"))
         op = dnn.FusedConv2d(in_ch, out_ch, ks, act=act, use_bias=use_bias, gain=gain)
-        return _as_layer(op, params, in_ch, out_ch, act_in_op=not preact)
+        return _as_layer(op, params, ctx, name, in_ch, out_ch, act_in_op=not preact)
     op = dnn.Conv2d(in_ch, out_ch, ks, stride=strides, padding=pads,
                     dilation=dilation, groups=groups, use_bias=use_bias, gain=gain)
-    return _as_layer(op, params, in_ch, out_ch)
+    return _as_layer(op, params, ctx, name, in_ch, out_ch)
 
 
 @submodule_creator("fully_connected", aliases=("linear",), global_keys=GLOBAL_LAYER_KEYS,
@@ -265,7 +281,7 @@ def _fully_connected(params: Mapping[str, Any], ctx: CreatorContext, name: str,
     op = dnn.Dense(in_features, int(out_features),
                    use_bias=bool(params.get("use_bias", params.get("bias", True))),
                    gain=dnn.get_gain(params.get("act_fn")), flatten_input=flatten)
-    return _as_layer(op, params, int(in_shape[fdim]), int(out_features))
+    return _as_layer(op, params, ctx, name, int(in_shape[fdim]), int(out_features))
 
 
 def _feature_dim(shape: Shape) -> int:

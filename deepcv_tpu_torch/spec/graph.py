@@ -110,9 +110,11 @@ def define_nn_architecture(architecture: Sequence[Any], hp: Mapping[str, Any],
             if name in names_seen:
                 raise SpecError(f"Duplicate submodule name '{name}'")
             if nested:
-                # the sub-architecture sees only its own hp (its act_fn, its norms)
+                # the sub-architecture sees its own hp (its act_fn, its norms)
+                # and the model's weight_norm, as in the JAX package
                 sub = SpecModule(*define_nn_architecture(
-                    sub_hp["architecture"], sub_hp, CreatorContext(hp=sub_hp),
+                    sub_hp["architecture"], sub_hp,
+                    CreatorContext(hp=sub_hp, weight_norm=ctx.weight_norm),
                     tuple(x.shape))[:3])
                 names_seen[name] = idx
                 metas.append(NodeMeta(name=name, kind="module", creator="nested"))

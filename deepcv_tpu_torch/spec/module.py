@@ -11,6 +11,11 @@ tokens or (N, F) rows; inside, feature maps are NCHW-logical in
 ``torch.channels_last`` memory, which is the same NHWC bytes, so the
 permutes at the edges copy nothing.
 
+``weight_norm`` (``{eps: ...}``) wraps the op of every conv and dense layer
+in flax's ``WeightNorm`` (``spec/creators.py``); ``spectral_norm`` is not
+ported yet and raises, also beside ``weight_norm`` (the JAX package takes
+it first).
+
 ``dtype`` is the compute dtype, as the JAX package's ``DeepcvModule(dtype=)``:
 with ``bfloat16`` the forward runs under ``torch.autocast`` (matmuls in
 bf16, norms and softmax statistics in float32) while parameters stay
@@ -68,12 +73,16 @@ class DeepcvModule(nn.Module):
         #: channel-last input shape WITHOUT batch dim, e.g. (224, 224, 3)
         self.input_shape = tuple(int(s) for s in input_shape)
         self._hp, _ = to_hyperparameters(hp, self.HP_DEFAULTS, raise_if_missing=True)
-        for key in ("weight_norm", "spectral_norm"):
-            if self._hp.get(key):
-                raise SpecError(f"hp '{key}' is not ported yet")
+        if self._hp.get("spectral_norm"):
+            raise SpecError("hp 'spectral_norm' is not ported yet")
+        wn = self._hp.get("weight_norm")
+        if wn and not isinstance(wn, Mapping):
+            raise SpecError(f"hp 'weight_norm' must be a mapping such as {{eps: 1.0e-6}}, "
+                            f"got {wn!r}")
         nchw = (1, self.input_shape[-1], *self.input_shape[:-1])
         metas, impls, refd, shapes = define_nn_architecture(
-            self._hp["architecture"], self._hp, CreatorContext(hp=self._hp), nchw)
+            self._hp["architecture"], self._hp,
+            CreatorContext(hp=self._hp, weight_norm=wn or None), nchw)
         self.module = SpecModule(metas, impls, refd)
         #: per-node output shapes at batch 1, channel-last like the JAX package's
         self.node_shapes = {k: _channel_last(s) for k, s in shapes.items()}

@@ -711,3 +711,102 @@ def test_f1_bf16_backbone_launches_k2_in_bf16(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert fused_conv2d_bias_act.launches == before + 2
     assert seen == [(torch.bfloat16,) * 3] * 2
+
+
+# --------------------------------------------------------------------------- #
+# The wide classifiers and weight norm
+# --------------------------------------------------------------------------- #
+
+WIDE_MODELS = ("wide_classifier_model", "wide_classifier_gn_model", "wide_classifier_ws_model")
+
+
+def _wide_hp(key):
+    import os
+
+    from deepcv_tpu_torch.config import load_yaml
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hp = dict(load_yaml(os.path.join(repo, "conf/base/parameters.yml"))[key])
+    hp["architecture"][-1]["fully_connected"]["out_features"] = 10
+    return hp
+
+
+@pytest.mark.parametrize("act_fn", ["leaky_relu", "silu"])
+@pytest.mark.parametrize("key", WIDE_MODELS)
+def test_wide_model_on_card_matches_cpu(cuda, key, act_fn):
+    """The conf's model at full width, batch 4, float32 (K2 by 3xTF32 on the
+    card, its plain version on the CPU): a training forward and backward and
+    an eval forward, 6 K2 launches each. Gradients are held with silu in
+    place of leaky_relu only: a pre-activation within rounding of zero
+    takes the other slope on the other device and moves a gradient by more
+    than the bound."""
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    hp = dict(_wide_hp(key), act_fn=act_fn)
+    cpu = DeepcvModule((32, 32, 3), hp, device="cpu")
+    gpu = DeepcvModule((32, 32, 3), hp)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(4, 32, 32, 3)).astype(np.float32))
+    before = fused_conv2d_bias_act.launches
+    outs = []
+    for model, xx in ((cpu, x), (gpu, x.to(cuda))):
+        model.train()
+        y = model(xx)
+        (y.square().mean()).backward()
+        model.eval()
+        with torch.no_grad():
+            outs.append((y.detach().cpu(), model(xx).cpu(),
+                         {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    torch.cuda.synchronize()
+    assert fused_conv2d_bias_act.launches - before == 2 * 6
+    (y_c, e_c, g_c), (y_g, e_g, g_g) = outs
+    assert _rel(y_g, y_c) <= F32_TOL and _rel(e_g, e_c) <= F32_TOL
+    assert set(g_g) == set(g_c) and all(torch.isfinite(g).all() for g in g_g.values())
+    if act_fn == "silu":
+        for k in g_c:
+            assert _rel(g_g[k], g_c[k]) <= 1e-3, k
+
+
+def test_weight_norm_fused_conv_repacks_after_scale_or_load(cuda):
+    """A weight-normed FusedConv2d packs the normalised weight for K2: its
+    output follows an in-place edit of ``scale`` alone, of ``weight`` alone,
+    and a ``load_state_dict``, each time equal to the CPU path."""
+    from deepcv_tpu_torch.ops.nn import FusedConv2d
+
+    conv = FusedConv2d(16, 32, (3, 3), act="leaky_relu")
+    conv.add_weight_norm(1e-6)
+    conv.init_parameters(torch.Generator().manual_seed(0))
+    ref = FusedConv2d(16, 32, (3, 3), act="leaky_relu")
+    ref.add_weight_norm(1e-6)
+    conv.to(cuda)
+    x = torch.randn(2, 16, 9, 9, generator=torch.Generator().manual_seed(1))
+    xg = x.to(cuda).contiguous(memory_format=torch.channels_last)
+
+    def check():
+        ref.load_state_dict({k: v.cpu() for k, v in conv.state_dict().items()})
+        with torch.no_grad():
+            got, want = conv(xg).cpu(), ref(x)
+        assert _rel(got, want) <= F32_TOL
+        return got
+
+    outs = [check()]
+    with torch.no_grad():
+        conv.scale[3] *= 4.0
+    outs.append(check())
+    with torch.no_grad():
+        conv.weight[5].neg_()
+    outs.append(check())
+    state = {k: v.clone() for k, v in conv.state_dict().items()}
+    state["scale"] = torch.linspace(0.5, 2.0, 32, device=cuda)
+    conv.load_state_dict(state)
+    outs.append(check())
+    for a, b in zip(outs, outs[1:]):
+        assert (a - b).abs().max() > 1e-3
+
+
+def test_k2_bf16_at_a_wide_shape_matches_plain(cuda):
+    """K2's bf16 route at one of the wide classifiers' convs at batch 1024:
+    16x16, 128 -> 128 channels, bias and leaky_relu."""
+    x, wt, b = _inputs(cuda, 1024, 16, 16, 128, 128, 3, torch.bfloat16)
+    got = fused_conv2d_bias_act(x, wt, b, "leaky_relu")
+    ref = plain_conv2d_bias_act(x, wt, b, "leaky_relu")
+    assert got.dtype == torch.bfloat16 and _rel(got, ref) <= BF16_TOL

@@ -127,7 +127,9 @@ print(json.dumps({"pipes": pipes, "bad": bad}))
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"pipes": ["preprocess_cifar10", "preprocess_cifar100", "preprocess_mnist",
                              "train_image_classifier", "train_image_classifier_cifar100",
-                             "train_resnet50", "train_vit"], "bad": []}
+                             "train_resnet50", "train_vit", "train_wide_classifier",
+                             "train_wide_classifier_gn", "train_wide_classifier_ws"],
+                   "bad": []}
 
 
 def test_run_without_device_raises_with_no_card(no_card):
