@@ -22,18 +22,26 @@ Phases, each printing one JSON line:
    tile, chunk, shared memory and blocks an SM.
 2. kernel — K2 against its plain PyTorch version at ResNet-50's stride-1
    conv shapes at batch 64 (plus one ragged case), with and without bias,
-   relu and none, float32 and bfloat16, and at image_classifier's conv
-   shapes at batch 4096 in bfloat16; error relative to max|ref|, kernel
+   every epilogue activation (none, relu, leaky_relu, relu6, hard_swish,
+   silu; relu6 and hard_swish on x scaled by 4, and the check fails unless
+   their plain outputs reach both corners: 0 and 6, pre-activations past
+   -3 and 3), float32 and bfloat16, and at image_classifier's conv shapes at
+   batch 4096 in bfloat16; error relative to max|ref|, kernel
    time (median of CUDA-event timed launches), its bound on the card (f32:
    by 3xTF32, with the CUDA-core one beside it), and the same ``F.conv2d``
    call's time as a yardstick. Then per-forward sums: in bfloat16,
    image_classifier's five convs at batch 4096, all 46 of ResNet-50's
    stride-1 convs at batch 64, and the wide classifiers' six 3x3 convs at
-   64-256 channels and batch 1024 with bias and leaky_relu
-   (``kernel_forward_bf16``); in float32, the
+   64-256 channels and batch 1024 with bias and leaky_relu, and the K2
+   convs of a MobileNetV2 forward (34: 1x1s, relu6 on 17), of a
+   MobileNetV3-Large forward (30: hard_swish on 10, relu on 5) and of a
+   DenseNet-121 forward (119) at batch 256 without bias, read from the
+   models (``kernel_forward_bf16``, per shape, with the same corner
+   checks); in float32, the
    same 46 (the serving forward) and image_classifier's five at
-   ``classifier_train``'s batch 32 (``kernel_forward_f32``), each with
-   cuDNN's device kernels by name (``torch.profiler``). Every device time
+   ``classifier_train``'s batch 32 (``kernel_forward_f32``), each per
+   forward by CUDA events around its convs in order, with cuDNN's device
+   kernels by name (``torch.profiler``). Every device time
    (``device_ms``) holds the profiler to the launches each call makes, and
    profiles again or fails when it recorded fewer or more.
 3. flash_kernels — K3, K4 and K5 against their plain versions at ViT-B/16's
@@ -109,8 +117,26 @@ Phases, each printing one JSON line:
    forward and backward, found by profiler ranges around them; pools, the
    dense head, the loss, AdamW, copies), the ten largest kernels, and the
    device's idle share of the unprofiled step.
+11. zoo_train — ``run --pipeline=train_mobilenet_v2`` (2 epochs),
+   ``train_mobilenet_v3``, ``train_densenet`` and ``train_convnext`` (1
+   epoch each) in this process at full width with the conf's models
+   (MobileNetV2 1.0, MobileNetV3-Large, DenseNet-121, ConvNeXt-Tiny) and
+   ``train_resnet50``'s hp (SGD lr 0.1, batch 256, bf16) on the synthetic
+   ``imagenet224`` set, no checkpoints: finite losses; K2 launches per
+   training and validation forward of 34, 30, 119 and 0, by epilogue
+   activation (relu6 17 and none 17; hard_swish 10, relu 5 and none 15;
+   none 119), every one bf16 in x and w; the median step of the last
+   epoch (CUDA events after each step), img/s, peak memory, parameters,
+   the data's digest and the cuts. Then one more epoch of
+   ``train_mobilenet_v2``, cut to 8 steps, validation off, under
+   ``torch.profiler`` (``zoo_train_profile``): device time a step by group
+   (K2's forward, K2's backward, the depthwise and stem convs and
+   BatchNorm, each forward and backward, found by profiler ranges and
+   autograd sequence numbers, SGD, elementwise, the rest), the ten largest
+   kernels and the device's idle share of the unprofiled step.
 
-Then the kernels line and, last, the contract line
+Then the wall seconds of every phase (``walls``), the kernels line and,
+last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the script
 exits non-zero without the last line. With no CUDA device, or without the
 repository beside it, it exits non-zero at once. A hang dumps the stacks and
@@ -150,6 +176,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import faulthandler
+import functools
 import hashlib
 import http.client
 import io
@@ -188,7 +215,8 @@ from deepcv_tpu_torch.ops.nn import FusedConv2d
 from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bundle
 from deepcv_tpu_torch.server import InferenceServer
 from deepcv_tpu_torch.spec import DeepcvModule
-from deepcv_tpu_torch.spec.zoo import resnet_spec, vit_spec
+from deepcv_tpu_torch.spec.zoo import (densenet_spec, mobilenet_v2_spec, mobilenet_v3_spec,
+                                       resnet_spec, vit_spec)
 from deepcv_tpu_torch.train import training
 
 REPO = Path(__file__).resolve().parent
@@ -242,6 +270,19 @@ WIDE_CONVS_PER_FORWARD = sum(WIDE_CONVS.values())
 WIDE_PIPELINES = ("train_wide_classifier", "train_wide_classifier_gn",
                   "train_wide_classifier_ws")
 WIDE_EPOCHS = 2            # cut from train_wide_classifier's 10
+#: the CNN zoo's pipelines as zoo_train runs them, with train_resnet50's hp
+#: (SGD lr 0.1, batch 256, bf16) on the synthetic imagenet224 set: the
+#: epochs each is cut to (from 10) and K2's launches per forward by epilogue
+#: activation ("none": no activation in the epilogue; DenseNet's relu runs
+#: before each conv, ConvNeXt has no conv K2 takes)
+ZOO_PIPELINES = {"train_mobilenet_v2": (2, {"relu6": 17, "none": 17}),
+                 "train_mobilenet_v3": (1, {"hard_swish": 10, "relu": 5, "none": 15}),
+                 "train_densenet": (1, {"none": 119}),
+                 "train_convnext": (1, {})}
+#: the zoo models whose K2 convs kernel_forward_bf16 times, at batch 256
+ZOO_FORWARDS = (("mobilenet_v2", mobilenet_v2_spec),
+                ("mobilenet_v3", functools.partial(mobilenet_v3_spec, variant="large")),
+                ("densenet_121", densenet_spec))
 DEVICE = "cuda"
 IMAGE_SHAPE = (224, 224, 3)
 SERVE_BATCH = 64
@@ -255,8 +296,9 @@ TRAIN_BATCH = 256          # train_resnet50's batch_size, which train_vit uses
 TRAIN_EPOCHS = 2           # cut from train_resnet50's 10
 #: train_vit in float32: the model's and the training hp's dtype
 F32_TRAIN_PARAMS = ("vit_model.dtype:float32", "train_resnet50.dtype:float32")
-#: a train_vit run cut to 8 steps at batch 256: the split gives the
-#: 8,192-image synthetic set 2,048 to train on; validation off
+#: a train_vit or train_mobilenet_v2 run cut to 8 steps at batch 256: the
+#: split gives the 8,192-image synthetic set 2,048 to train on; validation
+#: off
 SHORT_TRAIN_PARAMS = ("imagenet224_preprocessing.split_dataset.validset_ratio:0.75",
                       "train_resnet50.validate_every_epochs:1000")
 #: (label, N, H, T, Dh, dtypes): the serve and train shapes of the main
@@ -428,8 +470,9 @@ OLD_FLASH_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_k
 F32_BWD_NO_SPILL_DIMS = (64, 80)
 
 
-#: K2's tensor-core kernels, one instantiation per tile width BN: bf16, and
-#: f32 by 3xTF32; their dynamic shared memory follows the conv's shape
+#: K2's tensor-core kernels, one instantiation per tile width BN and
+#: epilogue family EXT_ACT (relu6, hard_swish, silu; or none, relu,
+#: leaky_relu): bf16, and f32 by 3xTF32; their dynamic shared memory follows the conv's shape
 #: (fused_layer.tc_plan). The CUDA-core K2 that f32 ran before must not be
 #: compiled in either dtype.
 K2_TC_KERNEL = "fused_conv2d_bias_act_tc_kernel"
@@ -465,13 +508,15 @@ def _k2_f32_plans():
 
 def _tc_kernel_stats(log, kernels=TC_KERNELS):
     """Registers and spills of each tensor-core kernel per template argument
-    (head dim, or BN), from ptxas's -v log: {kernel: {arg: {...}}}; the
-    dynamic shared memory from ``kernels[name](arg)``."""
+    (head dim, or BN and EXT_ACT as ``(bn, ext_act)``), from ptxas's -v log:
+    {kernel: {arg: {...}}}; the dynamic shared memory from
+    ``kernels[name](head dim or bn)``."""
     stats, key = {}, None
     for ln in log.splitlines():
         if "Compiling entry" in ln or "Function properties" in ln:
-            m = re.search("(" + "|".join(kernels) + r")ILi(\d+)E", ln)
-            key = (m.group(1), int(m.group(2))) if m else None
+            m = re.search("(" + "|".join(kernels) + r")ILi(\d+)E(?:Lb([01])E)?", ln)
+            key = None if m is None else (m.group(1), int(m.group(2)) if m.group(3) is None
+                                          else (int(m.group(2)), m.group(3) == "1"))
         elif key is not None and "spill" in ln:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
             stats.setdefault(key[0], {}).setdefault(key[1], {}).update(
@@ -481,7 +526,8 @@ def _tc_kernel_stats(log, kernels=TC_KERNELS):
             stats.setdefault(key[0], {}).setdefault(key[1], {}).update(
                 registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
                 static_smem_bytes=int(smem.group(1)) if smem else 0,
-                dynamic_smem_bytes=kernels[key[0]](key[1]))
+                dynamic_smem_bytes=kernels[key[0]](
+                    key[1][0] if isinstance(key[1], tuple) else key[1]))
     return stats
 
 
@@ -605,29 +651,34 @@ def phase_build(libraries=KERNEL_LIBRARIES):
             hmma = _hmma_counts(path)
             kinds = {"bf16": _hmma_counts(path, "BF16"), "tf32": _hmma_counts(path, "TF32")}
 
-            def count(counts, kern, bn):
-                return sum(n for f, n in counts.items() if f"{kern}ILi{bn}E" in f)
+            # each BN twice: EXT_ACT false (none, relu, leaky_relu) and true
+            # (relu6, hard_swish, silu), keyed "64" and "64+ext_act"
+            variants = ((False, ""), (True, "+ext_act"))
+
+            def count(counts, kern, bn, ext):
+                return sum(n for f, n in counts.items() if f"{kern}ILi{bn}ELb{int(ext)}E" in f)
             routes = ((K2_TC_KERNEL, fused_layer.TC_BN, "bf16"),
                       (K2_F32_KERNEL, fused_layer.F32_TC_BN, "tf32"))
             for kern, widths, kind in routes:
-                row[kern] = {str(bn): {**(tc.get(kern, {}).get(bn) or {}),
-                                       "hmma": count(hmma, kern, bn),
-                                       f"hmma_{kind}": count(kinds[kind], kern, bn)}
-                             for bn in widths}
+                row[kern] = {f"{bn}{tag}": {**(tc.get(kern, {}).get((bn, ext)) or {}),
+                                            "hmma": count(hmma, kern, bn, ext),
+                                            f"hmma_{kind}": count(kinds[kind], kern, bn, ext)}
+                             for bn in widths for ext, tag in variants}
             row["hmma"] = {"total": sum(hmma.values()),
                            **{k: sum(c.values()) for k, c in kinds.items()},
                            "by_kernel": {f: n for f, n in hmma.items() if n}}
             row["f32_plans"] = _k2_f32_plans()
             # both dtypes run on the tensor cores only: no CUDA-core K2 is
-            # compiled; every bf16 BN has bf16 HMMA and every f32 BN TF32
-            # HMMA and no other; no f32 BN spills (log is empty only when
-            # the library was built before this run)
+            # compiled; every bf16 instantiation has bf16 HMMA and every f32
+            # one TF32 HMMA and no other; no f32 one spills (log is empty
+            # only when the library was built before this run)
             cuda_core = [f for f in hmma if f"{OLD_K2_KERNEL}I" in f]
-            missing = [(kern, bn) for kern, widths, kind in routes for bn in widths
-                       if (log and bn not in tc.get(kern, {}))
-                       or not count(kinds[kind], kern, bn)
-                       or count(kinds[kind], kern, bn) != count(hmma, kern, bn)]
-            spills = {bn: st for bn, st in tc.get(K2_F32_KERNEL, {}).items()
+            missing = [(kern, bn, ext) for kern, widths, kind in routes for bn in widths
+                       for ext, _ in variants
+                       if (log and (bn, ext) not in tc.get(kern, {}))
+                       or not count(kinds[kind], kern, bn, ext)
+                       or count(kinds[kind], kern, bn, ext) != count(hmma, kern, bn, ext)]
+            spills = {arg: st for arg, st in tc.get(K2_F32_KERNEL, {}).items()
                       if st.get("spill_store_bytes") or st.get("spill_load_bytes")}
             if missing or cuda_core or spills:
                 raise AssertionError(f"K2 tensor-core kernels {missing} lack ptxas stats or "
@@ -645,6 +696,37 @@ def _case_tensors(gen, n, h, w, cin, cout, k, dtype):
     return x, wt, b
 
 
+#: the epilogue activations with corners outside a unit-scale output (relu6
+#: at 0 and 6, hard_swish at -3 and 3): their checks scale x by
+#: CORNER_SCALE, so that conv outputs (std about 1 from _case_tensors) reach
+#: both corners, and :func:`_reach_corners` asserts that they did
+CORNER_ACTS = ("relu6", "hard_swish")
+CORNER_SCALE = 4.0
+
+
+def _corner_input(x, act):
+    """``x`` as the check of ``act`` takes it: scaled for CORNER_ACTS."""
+    if act not in CORNER_ACTS:
+        return x
+    return (x * CORNER_SCALE).contiguous(memory_format=torch.channels_last)
+
+
+def _reach_corners(x, wt, b, act, ref, what):
+    """Raises unless the plain output ``ref`` of a CORNER_ACTS activation
+    took both its corners: relu6 both 0 and 6, hard_swish pre-activations
+    both below -3 and above 3 (so a kernel without a clamp disagrees)."""
+    if act == "relu6":
+        reached = bool((ref >= 6).any()) and bool((ref == 0).any())
+    elif act == "hard_swish":
+        pre = plain_conv2d_bias_act(x, wt, b, None)
+        reached = bool((pre > 3).any()) and bool((pre < -3).any())
+        del pre
+    else:
+        return
+    if not reached:
+        raise AssertionError(f"{what}: the check of {act} does not reach both its corners")
+
+
 def _rel_err(got, ref):
     g, r = got.float(), ref.float()
     err = (g - r).abs().max().item()
@@ -652,13 +734,13 @@ def _rel_err(got, ref):
 
 
 def _library_call(x, w, b, act):
+    """``F.conv2d`` (with its bias) and the activation as its own kernel."""
     k = w.shape[-1]
+    fn = port_nn.ACTIVATION_FNS[act] if act else None
 
     def call():
         y = F.conv2d(x, w, b, padding=k // 2)
-        if act == "leaky_relu":
-            return F.leaky_relu(y, fused_layer.LEAKY_RELU_SLOPE)
-        return torch.relu(y) if act == "relu" else y
+        return fn(y) if fn is not None else y
     return call
 
 
@@ -675,11 +757,14 @@ def phase_kernel(card):
                                      getattr(torch, dtype))
             errs = {}
             for bias in (False, True):
-                for act in (None, "relu"):
+                for act in fused_layer.EPILOGUE_ACTS:
                     bb = b if bias else None
-                    got = fused_conv2d_bias_act(x, wt, bb, act)
-                    ref = plain_conv2d_bias_act(x, wt, bb, act)
+                    xa = _corner_input(x, act)
+                    got = fused_conv2d_bias_act(xa, wt, bb, act)
+                    ref = plain_conv2d_bias_act(xa, wt, bb, act)
                     torch.cuda.synchronize()
+                    _reach_corners(xa, wt, bb, act, ref,
+                                   f"kernel {dtype} {(n, h, w, cin, cout, k)} bias={bias}")
                     rel, _ = _rel_err(got, ref)
                     errs[f"{'bias' if bias else 'nobias'}_{act or 'none'}"] = rel
                     if not rel <= tol:
@@ -704,67 +789,126 @@ def phase_kernel(card):
     return rows
 
 
-#: the per-forward conv sets by K2 route, with their activation: bf16 as
-#: augment_train runs image_classifier (batch 4096), ResNet-50 at the serving
-#: batch, and the wide classifiers as wide_train runs them (batch 1024); f32
-#: as ResNet-50 serving and classifier_train (batch 32) run them
-FORWARD_CONVS = {"bfloat16": (("image_classifier", CLASSIFIER_CONVS, "relu"),
-                              ("resnet_spec(50)", RESNET50_CONVS, "relu"),
-                              ("wide_classifier", WIDE_CONVS, "leaky_relu")),
-                 "float32": (("resnet_spec(50)", RESNET50_CONVS, "relu"),
-                             ("image_classifier", CLASSIFIER_TRAIN_CONVS, "relu"))}
+def _with_act(convs, act, bias=True):
+    """A shape table as (N, H, W, Cin, Cout, k, act, bias) -> count."""
+    return {(*shape, act, bias): count for shape, count in convs.items()}
+
+
+def model_convs(hp, batch):
+    """K2's convs in one forward of the model of ``hp`` at 224x224 and
+    ``batch``, as (N, H, W, Cin, Cout, k, act, bias) -> count: read from the
+    model's own FusedConv2d calls in a forward on the meta device."""
+    seen = collections.Counter()
+
+    def hook(mod, args):
+        n, cin, h, w = args[0].shape
+        cout, _, k, _ = mod.weight.shape
+        seen[(n, h, w, cin, cout, k, mod.act, mod.bias is not None)] += 1
+
+    model = DeepcvModule(IMAGE_SHAPE, hp, device="meta")
+    for m in model.modules():
+        if isinstance(m, FusedConv2d):
+            m.register_forward_pre_hook(hook)
+    with torch.no_grad():
+        model.eval()(torch.empty((batch, *IMAGE_SHAPE), device="meta"))
+    return dict(seen)
+
+
+def forward_convs(dtype):
+    """The per-forward conv sets of K2's route ``dtype``: bf16 as
+    augment_train runs image_classifier (batch 4096), ResNet-50 at the
+    serving batch, the wide classifiers as wide_train runs them (batch
+    1024), MobileNetV2, MobileNetV3-Large and DenseNet-121 at the conf's
+    batch 256 (their own activations, no bias); f32 as ResNet-50 serving
+    and classifier_train (batch 32) run them."""
+    if dtype == "float32":
+        return (("resnet_spec(50)", _with_act(RESNET50_CONVS, "relu")),
+                ("image_classifier", _with_act(CLASSIFIER_TRAIN_CONVS, "relu")))
+    return (("image_classifier", _with_act(CLASSIFIER_CONVS, "relu")),
+            ("resnet_spec(50)", _with_act(RESNET50_CONVS, "relu")),
+            ("wide_classifier", _with_act(WIDE_CONVS, "leaky_relu")),
+            *((name, model_convs(spec(), TRAIN_BATCH)) for name, spec in ZOO_FORWARDS))
 
 
 def phase_kernel_forward(card, dtype):
-    """K2 per model forward in ``dtype``: each conv shape of the models of
-    :data:`FORWARD_CONVS` checked against the plain version (with bias and
-    the model's activation) and timed, then the kernel's, the plain version's, ``F.conv2d``'s
-    and the bound's times summed over one forward by how often each shape
-    runs. The kernel takes its packed weight, as ``FusedConv2d`` passes it;
-    ``*_device_ms`` are the same calls' device time from the profiler, and
-    ``library_kernels`` cuDNN's device kernels by name."""
+    """K2 per model forward in ``dtype``: each conv of the models of
+    :func:`forward_convs` checked against the plain
+    version (with the model's bias and activation; x scaled for
+    CORNER_ACTS) and timed by CUDA events, then the kernel's, the plain
+    version's, ``F.conv2d``'s (with its activation as a kernel of its own)
+    and the bound's times summed over one forward by how often each conv
+    runs. The kernel takes its packed weight, as ``FusedConv2d`` passes it.
+    ``forward_ms`` and ``forward_library_ms``, each set's per-forward
+    times, time a whole forward's calls in order by CUDA events (no
+    profiler window: one of five MobileNetV2 forwards lost 8 of its 170
+    launches every time); ``library_kernels`` are cuDNN's and cuBLAS's
+    device kernels by name."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     out = {}
-    for model, convs, act in FORWARD_CONVS[dtype]:
+    for model, convs in forward_convs(dtype):
         tot, max_abs, shapes = collections.Counter(), 0.0, []
-        for (n, h, w, cin, cout, k), count in convs.items():
+        kern_calls, lib_calls = [], []
+        for (n, h, w, cin, cout, k, act, bias), count in convs.items():
             x, wt, b = _case_tensors(gen, n, h, w, cin, cout, k, getattr(torch, dtype))
+            x, b = _corner_input(x, act), b if bias else None
             wp = fused_layer.pack_weight(wt)
             got = fused_conv2d_bias_act(x, wt, b, act, w_packed=wp)
             ref = plain_conv2d_bias_act(x, wt, b, act)
+            _reach_corners(x, wt, b, act, ref, f"{model} {dtype} conv {(n, h, w, cin, cout, k)}")
             rel, err = _rel_err(got, ref)
             if not rel <= tol:
-                raise AssertionError(f"{model} {dtype} conv {(n, h, w, cin, cout, k)}: rel err "
-                                     f"{rel:.3e} > {tol:.0e}")
+                raise AssertionError(f"{model} {dtype} conv {(n, h, w, cin, cout, k, act)}: "
+                                     f"rel err {rel:.3e} > {tol:.0e}")
             max_abs = max(max_abs, err)
-            bounds = k2_bounds(n, h, w, cin, cout, k, dtype, True)
-            kern = lambda: fused_conv2d_bias_act(x, wt, b, act, w_packed=wp)  # noqa: E731
+            del got, ref
+            bounds = k2_bounds(n, h, w, cin, cout, k, dtype, bias)
+            kern = functools.partial(fused_conv2d_bias_act, x, wt, b, act, w_packed=wp)
             lib = _library_call(x, wt, b, act)
-            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern, 1),
+            kern_calls += [kern] * count
+            lib_calls += [lib] * count
+            t = {"ms": cuda_ms(kern),
                  "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, act)),
-                 "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib, None),
+                 "library_ms": cuda_ms(lib),
                  **{key: v for key, v in bounds.items() if key != "bound_by"}}
             for key, v in t.items():
                 tot[key] += count * v
             tot[bounds["bound_by"]] += count * bounds["bound_ms"]
-            shapes.append({"shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k], "count": count,
-                           "rel_err": rel, **t, "bound_by": bounds["bound_by"],
-                           "library_kernels": sorted(_device_kernels(lib))})
-            del x, wt, b, wp, got, ref
+            shapes.append({"shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k], "act": act,
+                           "bias": bias, "count": count, "rel_err": rel, **t,
+                           "bound_by": bounds["bound_by"]})
+        # a whole forward's calls in order, back to back: the host enqueues
+        # ahead of the card, so CUDA events around it read device time
+        forward = {"forward_ms": cuda_ms(_in_order(kern_calls)),
+                   "forward_library_ms": cuda_ms(_in_order(lib_calls))}
+        library_kernels = sorted(_device_kernels(_in_order(lib_calls)))
+        del kern_calls, lib_calls
         torch.cuda.empty_cache()
-        per = {key: tot[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
-                                         "library_device_ms", "bound_ms", "cuda_core_bound_ms")
+        per = {key: tot[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                         "cuda_core_bound_ms")
                if key in tot}
+        per.update(forward)
         per["bound_by"] = "operations" if tot["operations"] >= tot["bytes"] else "bytes"
+        ratios = {"ms_over_library": per["ms"] / per["library_ms"],
+                  "forward_ms_over_library": per["forward_ms"] / per["forward_library_ms"]}
+        acts = collections.Counter()
+        for (*_, act, _bias), count in convs.items():
+            acts[act or "none"] += count
         out[model] = {**per, "max_abs_err": max_abs}
         emit({"phase": f"kernel_forward_{'f32' if dtype == 'float32' else 'bf16'}",
-              "model": model, "act": act, "batch": next(iter(convs))[0],
-              "convs": sum(convs.values()),
-              "per_forward": per, "ms_over_library": per["ms"] / per["library_ms"],
-              "library_kernels": sorted({kn for sh in shapes for kn in sh["library_kernels"]}),
-              "shapes": shapes, "card": card})
+              "model": model, "launches_by_act": dict(acts), "batch": next(iter(convs))[0],
+              "convs": sum(convs.values()), "distinct_convs": len(convs),
+              "per_forward": per, **ratios,
+              "library_kernels": library_kernels, "shapes": shapes, "card": card})
     return out
+
+
+def _in_order(calls):
+    """One call that makes ``calls`` in order (a forward's convs)."""
+    def run():
+        for fn in calls:
+            fn()
+    return run
 
 
 def phase_resnet50_predictor(card):
@@ -1575,6 +1719,8 @@ def _run_classifier(label, params, pipeline="train_image_classifier",
     fused_conv2d_bias_act.launches = 0
     fused_conv2d_bias_act.launches_by_dtype = dict.fromkeys(
         fused_conv2d_bias_act.launches_by_dtype, 0)
+    fused_conv2d_bias_act.launches_by_act = dict.fromkeys(
+        fused_conv2d_bias_act.launches_by_act, 0)
     routes_before = dict(routes)
     training.train_step = step
     try:
@@ -1586,6 +1732,7 @@ def _run_classifier(label, params, pipeline="train_image_classifier",
         training.train_step = real_step
     counts = {"K1": fused_augment_normalize.launches, "K2": fused_conv2d_bias_act.launches,
               "K2_by_dtype": dict(fused_conv2d_bias_act.launches_by_dtype),
+              "K2_by_act": {k: v for k, v in fused_conv2d_bias_act.launches_by_act.items() if v},
               "routes": {k: routes[k] - routes_before[k] for k in routes},
               "K2_dtypes": {"/".join(k): v for k, v in k2_dtypes.seen.items()}}
     return store, argv, wall, counts, flags, step_ends
@@ -1877,49 +2024,58 @@ def phase_wide_train(card, data):
     return launches, step_ms
 
 
-#: the groups of a wide step's device time found by where a kernel was
-#: launched from: a ``wide::<group>`` profiler range (the forward of the
-#: norms and of the weight-norm function, by :func:`_annotated_modules`) or
-#: the backward of an op launched inside one (by autograd sequence number);
-#: K2's backward (``_FusedConvFn``'s: the plain version again in float32,
-#: cuDNN's dgrad and wgrad); the optimizer's step
-WIDE_RANGE = "wide::"
+#: the groups of a profiled step's device time found by where a kernel was
+#: launched from: a ``range::<group>`` profiler range (the forward of the
+#: modules and functions :func:`_annotated_modules` puts in one) or the
+#: backward of an op launched inside one (by autograd sequence number);
+#: then, by the name of an event above the kernel, K2's backward
+#: (``_FusedConvFn``'s: the plain version again in float32, cuDNN's dgrad
+#: and wgrad) and the optimizer's step. The wide steps put the norms and the
+#: weight-norm function in ranges, the zoo steps BatchNorm and every conv
+#: that K2 does not take (depthwise, strided, the stems)
+PROFILE_RANGE = "range::"
+WIDE_RANGES = ((port_nn.BatchNorm, "forward", "batch_norm"),
+               (port_nn.GroupNorm, "forward", "group_norm"),
+               (port_nn, "weight_norm", "weight_norm"))
 WIDE_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
                         ("adamw", "Optimizer.step#AdamW.step"))
+ZOO_RANGES = ((port_nn.BatchNorm, "forward", "batch_norm"),
+              (port_nn.Conv2d, "forward", "depthwise_and_stem_convs"))
+ZOO_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
+                       ("sgd", "Optimizer.step#SGD.step"))
 #: by kernel name, for the kernels launched from none of those
-WIDE_NAME_GROUPS = (("K2_forward", ("fused_conv2d_bias_act",)),
-                    ("pool", ("avg_pool",)),
-                    ("dense", ("gemm", "Gemm", "nvjet", "cutlass")),
-                    ("loss", ("softmax", "nll_loss", "cross_entropy")),
-                    *((g, f) for g, f in PROFILE_GROUPS
-                      if g in ("reduce", "upload", "copy", "elementwise")))
+NAME_GROUPS = (("K2_forward", ("fused_conv2d_bias_act",)),
+               ("pool", ("avg_pool",)),
+               ("dense", ("gemm", "Gemm", "nvjet", "cutlass")),
+               ("loss", ("softmax", "nll_loss", "cross_entropy")),
+               *((g, f) for g, f in PROFILE_GROUPS
+                 if g in ("reduce", "upload", "copy", "elementwise")))
 
 
 @contextlib.contextmanager
-def _annotated_modules():
-    """The port's BatchNorm and GroupNorm forwards and its ``weight_norm``
-    function, each run inside a profiler range ``wide::<group>``."""
+def _annotated_modules(ranges):
+    """Each (owner, attribute, group) of ``ranges`` (a module's forward or a
+    function of ``port_nn``) run inside a profiler range ``range::<group>``."""
     from torch.profiler import record_function
 
     def ranged(fn, group):
         def call(*a, **kw):
-            with record_function(WIDE_RANGE + group):
+            with record_function(PROFILE_RANGE + group):
                 return fn(*a, **kw)
         return call
     with contextlib.ExitStack() as stack:
-        for owner, attr, group in ((port_nn.BatchNorm, "forward", "batch_norm"),
-                                   (port_nn.GroupNorm, "forward", "group_norm"),
-                                   (port_nn, "weight_norm", "weight_norm")):
+        for owner, attr, group in ranges:
             stack.enter_context(mock.patch.object(owner, attr, ranged(getattr(owner, attr),
                                                                       group)))
         yield
 
 
-def _event_groups(events):
+def _event_groups(events, backward_groups):
     """{id(event): group} for the profiler's CPU events launched in a
-    ``wide::`` range, in the backward of an op launched there (the autograd
-    node with its sequence number), or below a :data:`WIDE_BACKWARD_GROUPS`
-    event; every event below a marked one takes its group."""
+    ``range::`` range, in the backward of an op launched there (the autograd
+    node with its sequence number), or below an event that
+    ``backward_groups`` names; every event below a marked one takes its
+    group."""
     groups, seq = {}, {}
 
     def mark(event, group):
@@ -1930,8 +2086,8 @@ def _event_groups(events):
             stack.extend(e.cpu_children)
 
     for e in events:
-        if e.name.startswith(WIDE_RANGE):
-            group = e.name[len(WIDE_RANGE):]
+        if e.name.startswith(PROFILE_RANGE):
+            group = e.name[len(PROFILE_RANGE):]
             mark(e, group)
             stack = [e]
             while stack:
@@ -1942,23 +2098,37 @@ def _event_groups(events):
     for e in events:
         if "Backward" in e.name and e.sequence_nr in seq:
             mark(e, seq[e.sequence_nr])
-        for group, fragment in WIDE_BACKWARD_GROUPS:
+        for group, fragment in backward_groups:
             if fragment in e.name:
                 mark(e, group)
     return groups
 
 
-def _wide_profile_groups(prof):
-    """Device ms of a wide run's kernels by group (:func:`_event_groups`,
-    else :data:`WIDE_NAME_GROUPS`), the kernels by name (ms, launches), and
-    K2's forward launches the profiler recorded."""
+def _own_kernels(event):
+    """The kernels of a profiler event less those an enclosing event lists
+    too: the profiler attaches a kernel to the op that launched it and
+    again to a CUDA runtime event inside that launch (``Command Buffer
+    Full`` when the launch queue is full, ``Lazy Function Loading``)."""
+    if not event.kernels:
+        return []
+    above, parent = [], event.cpu_parent
+    while parent is not None:
+        above.extend(parent.kernels)
+        parent = parent.cpu_parent
+    return [k for k in event.kernels if k not in above]
+
+
+def _range_profile_groups(prof, backward_groups):
+    """Device ms of a profiled run's kernels by group (:func:`_event_groups`,
+    else :data:`NAME_GROUPS`), the kernels by name (ms, launches), and K2's
+    forward launches the profiler recorded."""
     events = prof.events()
-    marked = _event_groups(events)
+    marked = _event_groups(events, backward_groups)
     groups, kernels = collections.Counter(), {}
     for e in events:
-        for k in e.kernels:
+        for k in _own_kernels(e):
             group = marked.get(id(e)) or next(
-                (g for g, frags in WIDE_NAME_GROUPS if any(f in k.name for f in frags)),
+                (g for g, frags in NAME_GROUPS if any(f in k.name for f in frags)),
                 "other")
             groups[group] += k.duration / 1e3
             ms, n = kernels.get(k.name, (0.0, 0))
@@ -1979,12 +2149,12 @@ def phase_wide_train_profile(card, step_ms, tries=2):
     for pipeline in WIDE_PIPELINES:
         for _ in range(tries):
             torch.cuda.empty_cache()
-            with _annotated_modules(), \
+            with _annotated_modules(WIDE_RANGES), \
                     profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 store, _, _, counts, _, _ = _run_classifier(
                     f"wide_train_profile_{pipeline}", params, pipeline, "train_wide_classifier")
                 torch.cuda.synchronize()
-            groups, kernels, k2 = _wide_profile_groups(prof)
+            groups, kernels, k2 = _range_profile_groups(prof, WIDE_BACKWARD_GROUPS)
             if k2 == counts["K2"]:
                 break
         else:
@@ -2005,6 +2175,129 @@ def phase_wide_train_profile(card, step_ms, tries=2):
               "top_kernels_ms_per_step": [[name[:90], ms / steps, n] for name, (ms, n) in top],
               "k2_launches_recorded": k2, "launches": counts, "card": card})
         del store, prof
+    torch.cuda.empty_cache()
+
+
+def _images_digest(store):
+    """Where the run's images came from and a digest of the training pixels."""
+    ds = store["datasets"]["trainset"].dataset
+    return (f"{ds.provenance}; train images sha256 "
+            + hashlib.sha256(ds.images.tobytes()).hexdigest()[:16])
+
+
+def _last_epoch_steps(ends, steps, epochs):
+    """The step times (ms) of the last epoch from a CUDA event recorded after
+    every step: the intervals between its steps' ends."""
+    per_epoch = steps // epochs
+    return [ends[i].elapsed_time(ends[i + 1]) for i in range(steps - per_epoch, steps - 1)]
+
+
+def phase_zoo_train(card):
+    """The rest of the CNN zoo through the port's ``run``, in this process,
+    at full width with ``train_resnet50``'s hp (SGD lr 0.1, batch 256,
+    bfloat16; DenseNet-121's peak is 32 GiB, so the batch is not cut) on the
+    synthetic imagenet224 set,
+    cut to :data:`ZOO_PIPELINES`' epochs, no checkpoints: finite losses, K2
+    launches per forward (training and validation) by epilogue activation,
+    every one bf16 in x and w (the zoo's convs have no bias); the median
+    step of the last epoch (CUDA events after each step), img/s, peak
+    memory, parameters. Returns K2's launches and the step ms by pipeline."""
+    launches, step_ms = {}, {}
+    for pipeline, (epochs, per_act) in ZOO_PIPELINES.items():
+        torch.cuda.empty_cache()
+        store, argv, wall, counts, _, ends = _run_classifier(
+            f"zoo_train_{pipeline}", [f"train_resnet50.epochs:{epochs}"], pipeline,
+            "train_resnet50")
+        batch = int(store["context"].params("train_resnet50.batch_size"))
+        h = store["train_results"]["history"]
+        steps = h["steps"]
+        n_valid = len(store["datasets"]["validset"])
+        val_forwards = len(h["valid"]) * math.ceil(n_valid / min(32 * batch, n_valid))
+        forwards = steps + val_forwards
+        losses = [e["main_loss"] for e in h["train"]]
+        if steps == 0 or len(h["valid"]) != epochs or not np.isfinite(losses).all() \
+                or not np.isfinite(list(h["valid"][-1].values())).all():
+            raise AssertionError(f"{pipeline}: {steps} steps, losses {losses}, "
+                                 f"validation {h['valid']}")
+        k2 = counts["K2"]
+        if k2 != sum(per_act.values()) * forwards \
+                or counts["K2_by_act"] != {a: n * forwards for a, n in per_act.items()} \
+                or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": k2} \
+                or counts["K2_dtypes"] != ({"bfloat16/bfloat16": k2} if k2 else {}) \
+                or counts["K1"] != 0 or any(counts["routes"].values()) or len(ends) != steps:
+            raise AssertionError(f"{pipeline} counts {counts} for {steps} steps and "
+                                 f"{val_forwards} validation forwards")
+        warm = _last_epoch_steps(ends, steps, epochs)
+        step_ms[pipeline] = statistics.median(warm)
+        launches[pipeline] = k2
+        model = store["model"]
+        emit({"phase": "zoo_train", "pipeline": pipeline,
+              "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+              "cut": {"epochs": f"10 -> {epochs}", "checkpoints": "off (save_every_iters 0)"},
+              "batch": batch, "dtype": "bfloat16", "steps": steps,
+              "data": _images_digest(store),
+              "train_images": len(store["datasets"]["trainset"]), "valid_images": n_valid,
+              "parameters": model.capacity(), "loss": losses[-1], "valid": h["valid"][-1],
+              "step_ms": step_ms[pipeline], "step_ms_warm_range": [min(warm), max(warm)],
+              "img_per_s": batch / step_ms[pipeline] * 1e3,
+              "throughput_img_s": h["throughput_img_s"], "wall_s": wall,
+              "launches": counts, "validation_forwards": val_forwards,
+              "launches_per_forward": {"K2": k2 / forwards,
+                                       "K2_by_act": {a: n / forwards
+                                                     for a, n in counts["K2_by_act"].items()}},
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+        del store, model
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def phase_zoo_train_profile(card, step_ms, k2_forward, tries=2):
+    """Where a ``train_mobilenet_v2`` step's device time goes: one more
+    epoch cut to 8 steps (:data:`SHORT_TRAIN_PARAMS`; sorting the events
+    of a full epoch takes a minute), validation off, under torch.profiler,
+    with BatchNorm and the
+    convs K2 does not take in ranges (:data:`ZOO_RANGES`): device ms a step
+    by group (K2's forward; K2's backward; the depthwise and stem convs,
+    forward and backward; BatchNorm, forward and backward; SGD; pools, the
+    dense head, the loss, copies, elementwise), the ten largest kernels, the
+    device's idle share of the unprofiled step and K2's forward share of
+    it (``k2_forward``: its per-forward ms from ``kernel_forward_bf16``,
+    ``forward_ms``).
+    The profiler must have recorded every K2 launch the wrapper counted, or
+    the epoch is run again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    pipeline = "train_mobilenet_v2"
+    params = ["train_resnet50.epochs:1", *SHORT_TRAIN_PARAMS]
+    per_forward = sum(ZOO_PIPELINES[pipeline][1].values())
+    for _ in range(tries):
+        torch.cuda.empty_cache()
+        with _annotated_modules(ZOO_RANGES), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            store, _, wall, counts, _, _ = _run_classifier(
+                f"zoo_train_profile_{pipeline}", params, pipeline, "train_resnet50")
+            torch.cuda.synchronize()
+        groups, kernels, k2 = _range_profile_groups(prof, ZOO_BACKWARD_GROUPS)
+        if k2 == counts["K2"]:
+            break
+    else:
+        raise AssertionError(f"{pipeline} profile: {k2} K2 launches recorded of "
+                             f"{counts['K2']} in each of {tries} tries")
+    steps = store["train_results"]["history"]["steps"]
+    if counts["K2"] != per_forward * steps:
+        raise AssertionError(f"{pipeline} profile: counts {counts} for {steps} steps")
+    upload = groups.pop("upload", 0.0)     # the dataset and weights, once per run
+    busy = sum(groups.values()) / steps
+    ms = step_ms[pipeline]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "zoo_train_profile", "pipeline": pipeline, "steps": steps,
+          "device_ms_per_step": {g: v / steps for g, v in groups.most_common()},
+          "upload_ms_per_run": upload, "device_busy_ms_per_step": busy,
+          "step_ms_unprofiled": ms, "device_idle_share": 1.0 - busy / ms,
+          "share_of_step": {g: v / steps / ms for g, v in groups.most_common()},
+          "k2_forward_share_of_step_by_kernel_forward": k2_forward["forward_ms"] / ms,
+          "top_kernels_ms_per_step": [[name[:90], v / steps, n] for name, (v, n) in top],
+          "k2_launches_recorded": k2, "launches": counts, "wall_s": wall, "card": card})
+    del store, prof
     torch.cuda.empty_cache()
 
 
@@ -2030,12 +2323,15 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
     the CUDA-core one beside it, and per classifier_train forward at batch
     32) and bfloat16 (``augment_train``: per image_classifier forward at
     batch 4096; ``wide_train``: per wide classifier forward at batch 1024;
+    ``zoo_train``: per MobileNetV2, MobileNetV3-Large and DenseNet-121
+    forward at batch 256;
     and per ResNet-50 forward at batch 64, the bf16 shape set no main path
     runs yet)."""
     f32_launches = line["launches"] - bf16_launches
     line["launches_by_dtype"] = {"float32": f32_launches, "bfloat16": bf16_launches}
     line["routes"] = {
-        "float32": {"kernel": f"{K2_F32_KERNEL}<BN> (tensor cores, mma.sync, 3xTF32)",
+        "float32": {"kernel": f"{K2_F32_KERNEL}<BN, EXT_ACT> (tensor cores, mma.sync, "
+                              "3xTF32)",
                     "launches": f32_launches,
                     **{k: line[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                             "bound_by", "cuda_core_bound_ms", "library_ms",
@@ -2048,7 +2344,7 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
                                          "per": "one image_classifier forward at "
                                                 "classifier_train's batch 32, float32 "
                                                 "(5 launches)"}},
-        "bfloat16": {"kernel": "fused_conv2d_bias_act_tc_kernel<BN> (tensor cores, mma.sync)",
+        "bfloat16": {"kernel": f"{K2_TC_KERNEL}<BN, EXT_ACT> (tensor cores, mma.sync)",
                      "launches": bf16_launches,
                      **forward_bf16["image_classifier"],
                      "per": f"one image_classifier forward at batch {AUGMENT_BATCH}, "
@@ -2061,7 +2357,33 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
                      "resnet50": {**forward_bf16["resnet_spec(50)"],
                                   "per": f"one resnet_spec(50) forward's 46 stride-1 convs "
                                          f"at batch {SERVE_BATCH}, bfloat16 (no main path "
-                                         "runs it)"}}}
+                                         "runs it)"},
+                     "mobilenet_v2": {**forward_bf16["mobilenet_v2"],
+                                      "per": f"one MobileNetV2 forward's 34 1x1 convs at "
+                                             f"batch {TRAIN_BATCH}, bfloat16, relu6 on 17, no "
+                                             "bias (zoo_train)"},
+                     "mobilenet_v3": {**forward_bf16["mobilenet_v3"],
+                                      "per": f"one MobileNetV3-Large forward's 30 1x1 convs "
+                                             f"at batch {TRAIN_BATCH}, bfloat16, hard_swish "
+                                             "on 10, relu on 5 (zoo_train)"},
+                     "densenet_121": {**forward_bf16["densenet_121"],
+                                      "per": f"one DenseNet-121 forward's 119 convs at batch "
+                                             f"{TRAIN_BATCH}, bfloat16, no activation, no "
+                                             "bias (zoo_train's model)"}}}
+
+
+class _Walls:
+    """Wall seconds of each phase of a run, by the phase's name."""
+
+    def __init__(self):
+        self.seconds = {}
+
+    def __call__(self, name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - t0
 
 
 def main() -> int:
@@ -2103,33 +2425,39 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    card = phase_device()
+    walls = _Walls()
+    card = walls("device", phase_device)
     data = _cifar_data()
-    phase_build()
+    walls("build", phase_build)
     # K1's device times first: after the train phases' long profiles the
     # profiler has kept only half of K1's launches in a window, every time
-    aug_rows = phase_augment_kernel(card)
-    k2_rows = phase_kernel(card)
-    flash_rows = phase_flash_kernels(card)
-    k2_line = phase_serve(card)
-    serve_launches = phase_vit_serve(card)
-    train_launches, vit_step_ms = phase_vit_train(card)
-    phase_vit_train_profile(card, vit_step_ms)
-    f32_train_launches, f32_step_ms = phase_vit_train(card, "vit_train_f32", "float32", 1,
-                                                      F32_TRAIN_PARAMS)
-    phase_vit_train_profile(card, f32_step_ms, "vit_train_f32_profile",
-                            (*F32_TRAIN_PARAMS, *SHORT_TRAIN_PARAMS))
-    classifier_counts = phase_classifier_train(card)
-    augment_counts, _ = phase_augment_train(card, aug_rows, k2_rows)
-    wide_launches, wide_step_ms = phase_wide_train(card, data)
-    phase_wide_train_profile(card, wide_step_ms)
+    aug_rows = walls("augment_kernel", phase_augment_kernel, card)
+    k2_rows = walls("kernel", phase_kernel, card)
+    flash_rows = walls("flash_kernels", phase_flash_kernels, card)
+    k2_line = walls("serve", phase_serve, card)
+    serve_launches = walls("vit_serve", phase_vit_serve, card)
+    train_launches, vit_step_ms = walls("vit_train", phase_vit_train, card)
+    walls("vit_train_profile", phase_vit_train_profile, card, vit_step_ms)
+    f32_train_launches, f32_step_ms = walls("vit_train_f32", phase_vit_train, card,
+                                            "vit_train_f32", "float32", 1, F32_TRAIN_PARAMS)
+    walls("vit_train_f32_profile", phase_vit_train_profile, card, f32_step_ms,
+          "vit_train_f32_profile", (*F32_TRAIN_PARAMS, *SHORT_TRAIN_PARAMS))
+    classifier_counts = walls("classifier_train", phase_classifier_train, card)
+    augment_counts, _ = walls("augment_train", phase_augment_train, card, aug_rows, k2_rows)
+    wide_launches, wide_step_ms = walls("wide_train", phase_wide_train, card, data)
+    walls("wide_train_profile", phase_wide_train_profile, card, wide_step_ms)
+    zoo_launches, zoo_step_ms = walls("zoo_train", phase_zoo_train, card)
+    walls("zoo_train_profile", phase_zoo_train_profile, card, zoo_step_ms,
+          k2_rows["forward_bf16"]["mobilenet_v2"])
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
-                                   "wide_train": wide_launches}
+                                   "wide_train": wide_launches,
+                                   **{f"zoo_train:{p}": n for p, n in zoo_launches.items()}}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
-              augment_counts["K2"] + wide_launches)
+              augment_counts["K2"] + wide_launches + sum(zoo_launches.values()))
+    emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches,
                                           f32_train_launches, card)]})

@@ -22,7 +22,7 @@
 //     TFLOP/s: 2.83 ms for one ResNet-50 forward's 46 convs at batch 64,
 //     against 6.34 ms on the CUDA cores at 67 TFLOP/s).
 //
-// bfloat16: fused_conv2d_bias_act_tc_kernel<BN>, an implicit GEMM on the
+// bfloat16: fused_conv2d_bias_act_tc_kernel<BN, EXT_ACT>, an implicit GEMM on the
 // tensor cores (mma.sync m16n8k16 bf16 -> f32, ldmatrix, cp.async, the
 // plumbing of flash_attention.cu's tensor-core kernels):
 //   M = output pixels, N = Cout, K = kh*kw*Cin.
@@ -88,7 +88,7 @@
 //     SM) holds BN 64 and 128 with their 64 accumulators; unrolling the tap
 //     loop spilled them, and a cap of 80 spilled BN 16.
 //
-// float32: fused_conv2d_bias_act_f32tc_kernel<BN>, the same implicit GEMM
+// float32: fused_conv2d_bias_act_f32tc_kernel<BN, EXT_ACT>, the same implicit GEMM
 // on the tensor cores by 3xTF32 (mma.sync m16n8k8 tf32 -> f32):
 //   - Arithmetic, as flash_attention.cu's f32 K3: every f32 operand x is
 //     split into hi = rna(x) and lo = rna(x - hi) (rna: cvt.rna.tf32.f32's
@@ -167,7 +167,14 @@
 
 namespace {
 
-enum Act { kActNone = 0, kActRelu = 1, kActLeakyRelu = 2 };
+enum Act {
+  kActNone = 0,
+  kActRelu = 1,
+  kActLeakyRelu = 2,
+  kActRelu6 = 3,
+  kActHardSwish = 4,
+  kActSilu = 5
+};
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
 
 struct ConvShape {
@@ -229,6 +236,25 @@ struct TcArgs {
   int act;
   float slope;
 };
+
+// the epilogue's activation, in f32 before the one rounding to the output
+// type. EXT_ACT false: none, relu, leaky_relu; true: the JAX package's relu6
+// min(max(v, 0), 6), hard_swish v relu6(v + 3) / 6 and silu v sigmoid(v),
+// each rounded as torch's CPU kernels round it. Each kernel is instantiated
+// for both, so that the first three compile without the others' divisions
+// and exp (which cost them ~10 % of their time when they shared one switch).
+template <bool EXT_ACT>
+__device__ __forceinline__ float epilogue_act(float v, int act, float slope) {
+  if constexpr (!EXT_ACT) {
+    if (act == kActRelu) return v < 0.f ? 0.f : v;
+    if (act == kActLeakyRelu) return v < 0.f ? v * slope : v;
+    return v;
+  } else {
+    if (act == kActRelu6) return fminf(fmaxf(v, 0.f), 6.f);
+    if (act == kActHardSwish) return v * fminf(fmaxf(v + 3.f, 0.f), 6.f) / 6.f;
+    return v / (1.f + expf(-v));
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -426,7 +452,7 @@ __device__ __forceinline__ void load_weight(const TcArgs<bf16>& a, bf16* dst, in
 
 // Lane l of a warp holds, in an m16n8 accumulator, rows g = l / 4 and g + 8
 // and columns 2c, 2c + 1 with c = l % 4 ([0..1] row g, [2..3] row g + 8).
-template <int BN>
+template <int BN, bool EXT_ACT>
 __global__ void __launch_bounds__(Tc<BN>::THREADS, Tc<BN>::MIN_BLOCKS)
 fused_conv2d_bias_act_tc_kernel(const TcArgs<bf16> a) {
   using C = Tc<BN>;
@@ -588,13 +614,7 @@ fused_conv2d_bias_act_tc_kernel(const TcArgs<bf16> a) {
       float v[2] = {acc[k / 2][nf][2 * (k % 2)] + bias[nf][0],
                     acc[k / 2][nf][2 * (k % 2) + 1] + bias[nf][1]};
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (a.act == kActRelu) {
-          v[e] = v[e] < 0.f ? 0.f : v[e];
-        } else if (a.act == kActLeakyRelu) {
-          v[e] = v[e] < 0.f ? v[e] * a.slope : v[e];
-        }
-      }
+      for (int e = 0; e < 2; ++e) v[e] = epilogue_act<EXT_ACT>(v[e], a.act, a.slope);
       if (co + 1 < a.cout && (reinterpret_cast<uintptr_t>(yrow + co) & 3) == 0) {
         *reinterpret_cast<__nv_bfloat162*>(yrow + co) = __floats2bfloat162_rn(v[0], v[1]);
       } else {
@@ -716,7 +736,7 @@ __device__ __forceinline__ void load_weight_f32(const TcArgs<float>& a, float* d
 // 2c + 1): a0, a2 are channels 2c, 2c + 1 of the pixel under row g (one
 // 8-byte load), a1, a3 those of row g + 8; b0, b1 weight rows 2c, 2c + 1 at
 // column g.
-template <int BN>
+template <int BN, bool EXT_ACT>
 __global__ void __launch_bounds__(Tc<BN, float>::THREADS, Tc<BN, float>::MIN_BLOCKS)
 fused_conv2d_bias_act_f32tc_kernel(const TcArgs<float> a) {
   using C = Tc<BN, float>;
@@ -882,13 +902,7 @@ fused_conv2d_bias_act_f32tc_kernel(const TcArgs<float> a) {
       float v[2] = {acc[k / 2][nf][2 * (k % 2)] + bias[nf][0],
                     acc[k / 2][nf][2 * (k % 2) + 1] + bias[nf][1]};
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (a.act == kActRelu) {
-          v[e] = v[e] < 0.f ? 0.f : v[e];
-        } else if (a.act == kActLeakyRelu) {
-          v[e] = v[e] < 0.f ? v[e] * a.slope : v[e];
-        }
-      }
+      for (int e = 0; e < 2; ++e) v[e] = epilogue_act<EXT_ACT>(v[e], a.act, a.slope);
       if (co + 1 < a.cout && (reinterpret_cast<uintptr_t>(yrow + co) & 7) == 0) {
         *reinterpret_cast<float2*>(yrow + co) = make_float2(v[0], v[1]);
       } else {
@@ -948,11 +962,14 @@ cudaError_t launch_tc_bn(TcArgs<T>& a, int flat, int ti, int th, int tw, int ck,
     return cudaErrorInvalidValue;
   a.patch_elems = (int)patch;
   a.wstage_elems = (int)wstage;
+  const bool ext = a.act >= kActRelu6;
   void (*kernel)(TcArgs<T>);
   if constexpr (C::F32)
-    kernel = fused_conv2d_bias_act_f32tc_kernel<BN>;
+    kernel = ext ? fused_conv2d_bias_act_f32tc_kernel<BN, true>
+                 : fused_conv2d_bias_act_f32tc_kernel<BN, false>;
   else
-    kernel = fused_conv2d_bias_act_tc_kernel<BN>;
+    kernel = ext ? fused_conv2d_bias_act_tc_kernel<BN, true>
+                 : fused_conv2d_bias_act_tc_kernel<BN, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1019,7 +1036,7 @@ extern "C" int fused_conv2d_bias_act_launch(
     int dtype, int act, float slope,
     int bn, int flat, int ti, int th, int tw, int ck, int tg, void* stream) {
   if (n < 0 || h < 0 || w < 0 || cin < 1 || cout < 0 || kh < 1 || kw < 1 ||
-      kh % 2 == 0 || kw % 2 == 0 || act < kActNone || act > kActLeakyRelu)
+      kh % 2 == 0 || kw % 2 == 0 || act < kActNone || act > kActSilu)
     return (int)cudaErrorInvalidValue;
   if ((long long)n * h * w == 0 || cout == 0) return 0;
   const ConvShape s{n, h, w, cin, cout, kh, kw, sxn, sxh, sxw, syn, syh, syw};

@@ -21,7 +21,12 @@ under its submodules' names, which the port keeps: ``embed/proj``,
 ``embed/cls_token``, ``embed/pos_embedding``, ``enc<i>/ln_1``,
 ``enc<i>/attn/qkv`` (its kernel's columns are ``[q | k | v]``, so the
 transposed weight keeps ``in_proj_weight``'s row order), ``enc<i>/attn/out``,
-``enc<i>/ln_2``, ``enc<i>/mlp/fc1`` and ``enc<i>/mlp/fc2``.
+``enc<i>/ln_2``, ``enc<i>/mlp/fc1`` and ``enc<i>/mlp/fc2``. The zoo's cells
+keep theirs too: a squeeze-excitation node's ``reduce`` and ``expand``; a
+ConvNeXt stem's ``proj`` and ``ln``, a downsampling's ``ln`` and ``conv``,
+a block's ``dwconv`` (a depthwise kernel (kh, kw, 1, C) becomes (C, 1, kh,
+kw) as any conv kernel), ``ln``, ``fc1``, ``fc2`` and its own
+``layer_scale``.
 
 The JAX package zero-pads conv inputs to at least 8 channels on the TPU
 (``pad_channels_for_tpu``), so a 3-channel stem kernel there is
@@ -55,8 +60,8 @@ _OP_LEAF = {("kernel",): "weight", ("bias",): "bias", ("kernel", "scale"): "scal
 _PARAM_LEAF = {"scale": "weight", "bias": "bias"}
 #: leaves of a ViT node's submodules, by JAX name
 _SUBMODULE_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
-#: parameters a ViT node holds directly
-_NODE_PARAMS = ("cls_token", "pos_embedding")
+#: parameters a ViT or ConvNeXt node holds directly
+_NODE_PARAMS = ("cls_token", "pos_embedding", "layer_scale")
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -36,7 +36,8 @@ __all__ = ["EPILOGUE_ACTS", "LEAKY_RELU_SLOPE", "TcPlan", "tc_plan", "pack_weigh
            "plain_conv2d_bias_act", "fused_conv2d_bias_act"]
 
 #: activations the kernel applies in its epilogue, by launcher code
-EPILOGUE_ACTS = {None: 0, "relu": 1, "leaky_relu": 2}
+EPILOGUE_ACTS = {None: 0, "relu": 1, "leaky_relu": 2, "relu6": 3, "hard_swish": 4,
+                 "silu": 5}
 #: the slope of deepcv_tpu's registered leaky_relu (ops/nn.py ACTIVATION_FNS)
 LEAKY_RELU_SLOPE = 0.01
 
@@ -157,14 +158,17 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return w.permute(2, 3, 1, 0).reshape(kh * kw * cin, cout).contiguous()
 
 
+#: the epilogue's activations in plain PyTorch: the JAX package's
+#: definitions (relu6 ``min(max(x, 0), 6)``, hard_swish ``x * relu6(x + 3) /
+#: 6``, silu ``x * sigmoid(x)``)
+_PLAIN_ACTS = {"relu": torch.relu, "leaky_relu": lambda y: F.leaky_relu(y, LEAKY_RELU_SLOPE),
+               "relu6": F.relu6, "hard_swish": F.hardswish, "silu": F.silu}
+
+
 def _apply_act(y: torch.Tensor, act: Act) -> torch.Tensor:
     if act is None:
         return y
-    if act == "relu":
-        return torch.relu(y)
-    if act == "leaky_relu":
-        return F.leaky_relu(y, LEAKY_RELU_SLOPE)
-    return act(y)
+    return _PLAIN_ACTS[act](y) if isinstance(act, str) else act(y)
 
 
 def plain_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
@@ -246,6 +250,7 @@ def _run_kernel(x: torch.Tensor, w: torch.Tensor, w_packed: torch.Tensor,
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)})")
     fused_conv2d_bias_act.launches += 1
     fused_conv2d_bias_act.launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
+    fused_conv2d_bias_act.launches_by_act[_ACT_NAMES[act_code] or "none"] += 1
     return y
 
 
@@ -281,15 +286,18 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
                           ) -> torch.Tensor:
     """``act(conv2d(x, w, padding='same') + b)`` for an odd kernel at stride 1.
 
-    ``act`` is None, ``"relu"`` or ``"leaky_relu"`` (applied in the kernel's
-    epilogue) or any other callable (the kernel runs without an activation
-    and the callable is applied afterwards). ``w_packed`` is
-    :func:`pack_weight` of ``w``, passed by callers that keep it; it is
-    packed here otherwise. On a CUDA tensor this launches the kernel
-    (bfloat16: the bf16 tensor-core kernel; float32: the 3xTF32 one) and adds
-    one to ``fused_conv2d_bias_act.launches`` and to
-    ``fused_conv2d_bias_act.launches_by_dtype[dtype name]``; a failed launch
-    raises.
+    ``act`` is None, a name of :data:`EPILOGUE_ACTS` (``"relu"``,
+    ``"leaky_relu"``, ``"relu6"``, ``"hard_swish"``, ``"silu"``: applied in
+    the kernel's epilogue, in float32 before the rounding to ``x``'s dtype)
+    or any other callable (the kernel runs without an activation and the
+    callable is applied afterwards). ``w_packed`` is :func:`pack_weight` of
+    ``w``, passed by callers that keep it; it is packed here otherwise. On a
+    CUDA tensor this launches the kernel (bfloat16: the bf16 tensor-core
+    kernel; float32: the 3xTF32 one) and adds one to
+    ``fused_conv2d_bias_act.launches``, to
+    ``fused_conv2d_bias_act.launches_by_dtype[dtype name]`` and to
+    ``fused_conv2d_bias_act.launches_by_act[activation name or "none"]``; a
+    failed launch raises.
     """
     _check(x, w, b, w_packed)
     fused = act if isinstance(act, str) or act is None else None
@@ -307,7 +315,9 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
     raise RuntimeError(f"no {_KERNEL} for device {x.device}")
 
 
-#: launches of the CUDA kernel in this process, in all and by input dtype
-#: (the wrapper adds one to both per successful launch and nowhere else)
+#: launches of the CUDA kernel in this process, in all, by input dtype and
+#: by epilogue activation (the wrapper adds one to each per successful launch
+#: and nowhere else)
 fused_conv2d_bias_act.launches = 0
 fused_conv2d_bias_act.launches_by_dtype = {"float32": 0, "bfloat16": 0}
+fused_conv2d_bias_act.launches_by_act = {name or "none": 0 for name in EPILOGUE_ACTS}

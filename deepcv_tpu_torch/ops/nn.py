@@ -4,8 +4,10 @@
 Counterpart of ``deepcv_tpu/ops/nn.py`` (``get_activation``, ``get_gain``,
 ``xavier_normal_with_gain``, ``avg_pool_nd``, ``max_pool_nd``, ``BatchNorm``,
 ``make_token_norm``, ``normalization_techniques``, ``Layer``, ``DropPath``,
-``Flatten``) and of flax's ``WeightNorm`` around an op (:func:`weight_norm`,
-:meth:`Conv2d.add_weight_norm`). Feature maps inside a model are NCHW-logical in
+``Flatten``, ``SqueezeExcitation``, ``ConvNeXtStem``, ``ConvNeXtDownsample``,
+``ConvNeXtBlock``) and of flax's ``WeightNorm`` around an op
+(:func:`weight_norm`, :meth:`Conv2d.add_weight_norm`). Feature maps inside
+a model are NCHW-logical in
 ``torch.channels_last`` memory, so their channel dim is 1 (the JAX package's
 -1); token sequences (N, T, D) and rows (N, F) keep their features last, as
 in the JAX package (:func:`feature_dim`). ``Flatten`` keeps the JAX
@@ -25,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
-    LEAKY_RELU_SLOPE, fused_conv2d_bias_act, pack_weight)
+    EPILOGUE_ACTS, LEAKY_RELU_SLOPE, fused_conv2d_bias_act, pack_weight)
 from deepcv_tpu_torch.utils import get_by_identifier, register
 
 __all__ = [
@@ -35,7 +37,8 @@ __all__ = [
     "GroupNorm", "LayerNorm", "RMSNorm", "make_token_norm",
     "normalization_techniques", "weight_norm", "Conv2d", "FusedConv2d", "Dense", "Layer",
     "Identity", "Flatten", "Dropout", "DropPath", "feature_dim",
-    "gelu_exact", "gelu_tanh", "get_padding_from_kernel",
+    "gelu_exact", "gelu_tanh", "get_padding_from_kernel", "SqueezeExcitation",
+    "ConvNeXtStem", "ConvNeXtDownsample", "ConvNeXtBlock",
 ]
 
 
@@ -463,10 +466,10 @@ class FusedConv2d(Conv2d):
         super().__init__(in_channels, out_channels, kernel_size, padding=pad,
                          use_bias=use_bias, gain=gain)
         name = activation_name(act)
-        # the kernel's epilogue takes these by name; any other activation
-        # runs after the kernel
+        # the kernel's epilogue takes EPILOGUE_ACTS by name; any other
+        # activation runs after the kernel
         self.act = None if name in ("identity", "linear") else (
-            name if name in ("relu", "leaky_relu") else act)
+            name if name and name in EPILOGUE_ACTS else act)
         self._packed = None
         self._packed_key = None
 
@@ -612,3 +615,128 @@ class Layer(nn.Module):
         for m in self.norms:
             x = m(x)
         return x
+
+
+# --------------------------------------------------------------------------- #
+# Cells of the CNN zoo: squeeze-excitation and ConvNeXt
+# --------------------------------------------------------------------------- #
+
+class LecunDense(Dense):
+    """A Dense initialised as flax's ``Dense`` default: LeCun-normal kernel
+    (a normal truncated at 2 std, scaled so that the std after the
+    truncation is sqrt(1 / fan_in)), zero bias."""
+
+    def init_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            std = math.sqrt(1.0 / self.weight.shape[1]) / 0.87962566103423978
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+            self._init_scale()
+
+
+class UniformConv2d(Conv2d):
+    """A Conv2d initialised Xavier-uniform (the JAX package's ConvNeXt convs,
+    ``kernel_init=xavier_uniform_with_gain(1.0)``), zero bias."""
+
+    def init_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            xavier_uniform_with_gain(self.gain)(self.weight, generator)
+            if self.bias is not None:
+                self.bias.zero_()
+            self._init_scale()
+
+
+class SqueezeExcitation(nn.Module):
+    """Squeeze-and-Excitation cell (arXiv:1709.01507): the mean over every
+    spatial position (H and W of an NCHW-logical map), Dense ``reduce`` to
+    ``hidden_channels`` (``channels // reduction_ratio`` when 0), ``act_fn``
+    (relu when None), Dense ``expand`` back to ``channels``, ``gate_fn``
+    (sigmoid when None), and the input scaled per channel by the gate. The
+    Denses start as flax's default."""
+
+    def __init__(self, channels: int, reduction_ratio: int = 4,
+                 act_fn: Optional[Callable] = None, hidden_channels: int = 0,
+                 gate_fn: Optional[Callable] = None):
+        super().__init__()
+        hidden = int(hidden_channels) or max(1, int(channels) // int(reduction_ratio))
+        self.reduce = LecunDense(int(channels), hidden)
+        self.expand = LecunDense(hidden, int(channels))
+        self.act_fn = act_fn or torch.relu
+        self.gate_fn = gate_fn or torch.sigmoid
+
+    def forward(self, x):
+        fdim = feature_dim(x)
+        squeezed = x.mean([d for d in range(1, x.dim()) if d != fdim])    # (N, C)
+        scale = self.gate_fn(self.expand(self.act_fn(self.reduce(squeezed))))
+        shape = [x.shape[0]] + [1] * (x.dim() - 1)
+        shape[fdim] = x.shape[fdim]
+        return x * scale.to(x.dtype).reshape(shape)
+
+
+class ConvNeXtStem(nn.Module):
+    """ConvNeXt patchify stem (Liu et al., arXiv:2201.03545): the 4x4
+    stride-4 conv as a reshape of each patch, flattened in (row, column,
+    channel) order, and one Dense ``proj``, then a LayerNorm ``ln`` (eps
+    1e-6) over the channels. NCHW-logical map in and out."""
+
+    def __init__(self, in_channels: int, dim: int, patch: int = 4, ln_eps: float = 1e-6):
+        super().__init__()
+        self.patch = int(patch)
+        self.proj = Dense(self.patch * self.patch * int(in_channels), int(dim))
+        self.ln = LayerNorm(int(dim), eps=ln_eps)
+
+    def forward(self, x):
+        n, c, hgt, wid = x.shape
+        p = self.patch
+        if hgt % p or wid % p:
+            raise ValueError(f"input {hgt}x{wid} not divisible by patch {p}")
+        gh, gw = hgt // p, wid // p
+        x = x.movedim(1, -1).reshape(n, gh, p, gw, p, c).transpose(2, 3)
+        x = self.proj(x.reshape(n, gh * gw, p * p * c))       # tokens (N, T, D)
+        return self.ln(x.reshape(n, gh, gw, -1).movedim(-1, 1))
+
+
+class ConvNeXtDownsample(nn.Module):
+    """ConvNeXt between-stage downsampling: LayerNorm ``ln`` over the
+    channels, then the 2x2 stride-2 conv ``conv`` (``F.conv2d``)."""
+
+    def __init__(self, in_channels: int, dim: int, ln_eps: float = 1e-6):
+        super().__init__()
+        self.ln = LayerNorm(int(in_channels), eps=ln_eps)
+        self.conv = UniformConv2d(int(in_channels), int(dim), (2, 2), stride=(2, 2))
+
+    def forward(self, x):
+        return self.conv(self.ln(x))
+
+
+class ConvNeXtBlock(nn.Module):
+    """ConvNeXt block: depthwise 7x7 conv ``dwconv`` (``F.conv2d``) ->
+    ``ln`` (LayerNorm, or ``rms_norm``) over the channels -> Dense ``fc1``
+    to 4C -> exact GELU -> Dense ``fc2`` to C -> per-channel
+    ``layer_scale`` (init ``layer_scale_init``) -> drop path -> residual
+    add. The norm and the MLP work on the channels-last bytes, so no
+    permute copies."""
+
+    def __init__(self, channels: int, drop_path_prob: float = 0.0,
+                 layer_scale_init: float = 1e-6, ln_eps: float = 1e-6,
+                 norm: str = "layer_norm"):
+        super().__init__()
+        c = int(channels)
+        self.dwconv = UniformConv2d(c, c, (7, 7), padding=(3, 3), groups=c)
+        self.ln = make_token_norm(norm, ln_eps, c)
+        self.fc1 = Dense(c, 4 * c)
+        self.fc2 = Dense(4 * c, c)
+        self.layer_scale = nn.Parameter(torch.empty(c))
+        self.layer_scale_init = float(layer_scale_init)
+        self.drop_path = DropPath(drop_path_prob)
+
+    def init_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.layer_scale.fill_(self.layer_scale_init)
+
+    def forward(self, x):
+        y = self.fc2(gelu_exact(self.fc1(self.ln(self.dwconv(x)))))
+        y = y * _channel_view(self.layer_scale.to(y.dtype), y.dim())
+        return x + self.drop_path(y)

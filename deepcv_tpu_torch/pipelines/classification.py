@@ -2,16 +2,18 @@
 ``train_image_classifier_cifar100``, the wide classifiers on CIFAR-10
 (``train_wide_classifier`` with batch norm, ``_gn`` with group norm, ``_ws``
 with weight norm and no activation norm; all three trained with the
-``train_wide_classifier`` hp), ``train_vit``, ``train_resnet50`` and the
-preprocess-only ``preprocess_cifar10``, ``preprocess_cifar100`` and
-``preprocess_mnist``.
+``train_wide_classifier`` hp), the ImageNet-224 zoo pipelines trained with
+the ``train_resnet50`` hp (``train_resnet50``, ``train_vit``,
+``train_mobilenet_v2``, ``train_mobilenet_v3``, ``train_convnext``,
+``train_densenet``) and the preprocess-only ``preprocess_cifar10``,
+``preprocess_cifar100`` and ``preprocess_mnist``.
 
 Counterpart of ``deepcv_tpu/pipelines/classification.py``
 (``create_model``, ``train``, ``get_pipelines``): preprocess -> create the
 model from its conf (the input shape and the head's width from the
-dataset) -> train. ``create_model`` carries the ``vit`` and ``resnet`` zoo
-builders and plain architecture specs, nested modules included; other zoo
-builders are not ported yet and raise.
+dataset) -> train. ``create_model`` carries every zoo builder but ``swin``
+(not ported yet: it raises) and plain architecture specs, nested modules
+included; ``train_swin`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -26,12 +28,14 @@ from deepcv_tpu_torch.train.losses import cross_entropy_loss
 from deepcv_tpu_torch.train.metrics import accuracy
 from deepcv_tpu_torch.train.training import train as train_fn
 
-__all__ = ["get_pipelines", "create_model", "train", "UNPORTED_ZOO"]
+__all__ = ["get_pipelines", "create_model", "train", "PORTED_ZOO", "UNPORTED_ZOO"]
 
 _logger = logging.getLogger(__name__)
 
-UNPORTED_ZOO = ("mobilenet_v2", "mobilenet_v3", "efficientnet_b0", "densenet",
-                "convnext", "swin")
+#: the JAX package's zoo builders, ported and not
+PORTED_ZOO = ("resnet", "vit", "mobilenet_v2", "mobilenet_v3", "efficientnet_b0",
+              "densenet", "convnext")
+UNPORTED_ZOO = ("swin",)
 
 
 def _reject(zoo, hp, *keys):
@@ -42,41 +46,70 @@ def _reject(zoo, hp, *keys):
 
 def create_model(datasets: Mapping[str, Any], model_params: Mapping[str, Any],
                  device=None) -> DeepcvModule:
-    """The classifier from its conf: a zoo builder (``zoo: vit`` or ``zoo:
-    resnet``, other keys its arguments) or a plain spec; the last
-    ``fully_connected`` gets the dataset's class count. ``dtype`` is the
-    model's compute dtype."""
+    """The classifier from its conf: a zoo builder (``zoo: <name>``, other
+    keys its arguments; each builder refuses the keys of the others, as the
+    JAX package's) or a plain spec; the last ``fully_connected`` gets the
+    dataset's class count. ``dtype`` is the model's compute dtype."""
     trainset = datasets["trainset"]
     input_shape = trainset.image_shape
     num_classes = trainset.num_classes
     hp = copy.deepcopy(dict(model_params))
     zoo = hp.pop("zoo", None)
     if zoo:
-        from deepcv_tpu_torch.spec.zoo import resnet_spec, vit_spec
+        from deepcv_tpu_torch.spec import zoo as builders
         pool = max(1, input_shape[0] // 32)
-        if str(zoo) == "vit":
+        classes = num_classes or 1000
+        if str(zoo) == "mobilenet_v2":
+            _reject(zoo, hp, "depth", "variant", "window", "groups", "width_per_group")
+            built = builders.mobilenet_v2_spec(
+                num_classes=classes, width_mult=float(hp.pop("width_mult", 1.0)),
+                norm=hp.pop("norm", "batch_norm"), pool_kernel=pool)
+        elif str(zoo) == "efficientnet_b0":
+            _reject(zoo, hp, "depth", "width_mult", "variant", "window", "groups",
+                    "width_per_group")
+            built = builders.efficientnet_b0_spec(
+                num_classes=classes, norm=hp.pop("norm", "batch_norm"), pool_kernel=pool)
+        elif str(zoo) == "mobilenet_v3":
+            _reject(zoo, hp, "depth", "window", "groups", "width_per_group")
+            built = builders.mobilenet_v3_spec(
+                variant=str(hp.pop("variant", "large")), num_classes=classes,
+                width_mult=float(hp.pop("width_mult", 1.0)),
+                norm=hp.pop("norm", "batch_norm"), pool_kernel=pool)
+        elif str(zoo) == "densenet":
+            _reject(zoo, hp, "width_mult", "variant", "window", "groups", "width_per_group")
+            built = builders.densenet_spec(depth=int(hp.pop("depth", 121)),
+                                           num_classes=classes,
+                                           norm=hp.pop("norm", "batch_norm"),
+                                           pool_kernel=pool)
+        elif str(zoo) == "convnext":
             _reject(zoo, hp, "depth", "width_mult", "norm", "window", "groups",
                     "width_per_group")
-            built = vit_spec(variant=str(hp.pop("variant", "b_16")),
-                             num_classes=num_classes or 1000,
-                             dropout=float(hp.pop("dropout", 0.0)),
-                             attn_dropout=float(hp.pop("attn_dropout", 0.0)),
-                             stochastic_depth=float(hp.pop("stochastic_depth", 0.0)),
-                             attn_impl=str(hp.pop("attn_impl", "xla")))
+            built = builders.convnext_spec(
+                variant=str(hp.pop("variant", "tiny")), num_classes=classes,
+                stochastic_depth=float(hp.pop("stochastic_depth", 0.1)), pool_kernel=pool)
+        elif str(zoo) == "vit":
+            _reject(zoo, hp, "depth", "width_mult", "norm", "window", "groups",
+                    "width_per_group")
+            built = builders.vit_spec(variant=str(hp.pop("variant", "b_16")),
+                                      num_classes=classes,
+                                      dropout=float(hp.pop("dropout", 0.0)),
+                                      attn_dropout=float(hp.pop("attn_dropout", 0.0)),
+                                      stochastic_depth=float(hp.pop("stochastic_depth", 0.0)),
+                                      attn_impl=str(hp.pop("attn_impl", "xla")))
         elif str(zoo) == "resnet":
             _reject(zoo, hp, "width_mult", "variant", "window")
-            built = resnet_spec(depth=int(hp.pop("depth", 50)),
-                                num_classes=num_classes or 1000,
-                                norm=hp.pop("norm", "batch_norm"),
-                                groups=int(hp.pop("groups", 1)),
-                                width_per_group=int(hp.pop("width_per_group", 64)),
-                                pool_kernel=pool)
+            built = builders.resnet_spec(depth=int(hp.pop("depth", 50)),
+                                         num_classes=classes,
+                                         norm=hp.pop("norm", "batch_norm"),
+                                         groups=int(hp.pop("groups", 1)),
+                                         width_per_group=int(hp.pop("width_per_group", 64)),
+                                         pool_kernel=pool)
         elif str(zoo) in UNPORTED_ZOO:
             raise NotImplementedError(f"zoo builder '{zoo}' is not ported yet "
-                                      "(ported: vit, resnet)")
+                                      f"(ported: {', '.join(PORTED_ZOO)})")
         else:
-            raise ValueError(f"Unknown zoo builder '{zoo}' (known: resnet, vit, "
-                             f"{', '.join(UNPORTED_ZOO)})")
+            raise ValueError(f"Unknown zoo builder '{zoo}' (known: "
+                             f"{', '.join(PORTED_ZOO + UNPORTED_ZOO)})")
         built.update(hp)
         hp = built
     arch = hp.get("architecture", [])
@@ -155,7 +188,8 @@ def get_pipelines() -> Dict[str, Pipeline]:
         "train_resnet50": train_pipeline(
             "train_resnet50", "resnet50_model", "train_resnet50",
             ds="imagenet224", pp_key="imagenet224_preprocessing"),
-        "train_vit": train_pipeline(
-            "train_vit", "vit_model", "train_resnet50",
-            ds="imagenet224", pp_key="imagenet224_preprocessing"),
+        **{f"train_{family}": train_pipeline(
+            f"train_{family}", f"{family}_model", "train_resnet50",
+            ds="imagenet224", pp_key="imagenet224_preprocessing")
+           for family in ("vit", "mobilenet_v2", "mobilenet_v3", "convnext", "densenet")},
     }

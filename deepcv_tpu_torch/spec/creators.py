@@ -4,8 +4,10 @@ Counterpart of ``deepcv_tpu/spec/creators.py`` (``CreatorContext``,
 ``_as_layer``, ``_conv_common``, the conv creator with its kernel hook,
 ``fully_connected``, ``average_pooling``, ``max_pooling``, ``flatten``,
 ``activation``, ``residual_link``, ``dense_link``,
-``_new_branch_from_tensor``, and the ViT nodes ``patch_embed``,
-``transformer_block``, ``take_token`` and ``norm``).
+``_new_branch_from_tensor``, the ViT nodes ``patch_embed``,
+``transformer_block``, ``take_token`` and ``norm``, the squeeze-excitation
+cell ``squeeze_cell`` and the ConvNeXt nodes ``convnext_stem``,
+``convnext_downsample`` and ``convnext_block``).
 
 A creator maps one spec entry to an ``nn.Module`` or a
 :class:`ForwardCallback` (a parameter-free node over the current tensor and
@@ -451,3 +453,59 @@ def _norm_node(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Mo
         raise ValueError(f"Submodule '{name}' (norm): no normalization technique "
                          f"given; expected one of {list(dnn.NormTechnique.ALL)}")
     return dnn.Layer(op=dnn.Identity(), norms=norms)
+
+
+
+# --------------------------------------------------------------------------- #
+# Cells of the CNN zoo
+# --------------------------------------------------------------------------- #
+
+@submodule_creator("squeeze_cell", aliases=("squeeze_excitation", "se_cell"),
+                   global_keys=("act_fn",),
+                   allowed=("reduction_ratio", "hidden_channels", "gate_fn"))
+def _squeeze_cell(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """Squeeze-excitation cell over the feature dim. ``act_fn`` (global)
+    is its inner activation; ``hidden_channels`` pins the squeeze width
+    (MobileNetV3's multiple-of-8 rounding); ``gate_fn`` swaps the sigmoid
+    gate (MobileNetV3: 'hard_sigmoid')."""
+    return dnn.SqueezeExcitation(
+        int(in_shape[_feature_dim(in_shape)]),
+        reduction_ratio=int(params.get("reduction_ratio", 4)),
+        act_fn=dnn.get_activation(params.get("act_fn")),
+        hidden_channels=int(params.get("hidden_channels", 0)),
+        gate_fn=dnn.get_activation(params.get("gate_fn")))
+
+
+def _feature_map_channels(in_shape: Shape, name: str, creator: str) -> int:
+    if len(in_shape) != 4:
+        raise ValueError(f"Submodule '{name}' ({creator}): input must be an image "
+                         f"feature map, got shape {list(in_shape)}")
+    return int(in_shape[1])
+
+
+@submodule_creator("convnext_stem", allowed=("dim", "patch", "ln_eps"), required=("dim",))
+def _convnext_stem(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """ConvNeXt patchify stem (reshape + Dense + LayerNorm)."""
+    return dnn.ConvNeXtStem(_feature_map_channels(in_shape, name, "convnext_stem"),
+                            int(params["dim"]), patch=int(params.get("patch", 4)),
+                            ln_eps=float(params.get("ln_eps", 1e-6)))
+
+
+@submodule_creator("convnext_downsample", allowed=("dim", "ln_eps"), required=("dim",))
+def _convnext_downsample(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """ConvNeXt between-stage LayerNorm + 2x2 stride-2 conv."""
+    return dnn.ConvNeXtDownsample(_feature_map_channels(in_shape, name, "convnext_downsample"),
+                                  int(params["dim"]), ln_eps=float(params.get("ln_eps", 1e-6)))
+
+
+@submodule_creator("convnext_block",
+                   allowed=("drop_path_prob", "layer_scale_init", "ln_eps", "norm"))
+def _convnext_block(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """ConvNeXt block: dw7x7 -> LayerNorm (or rms_norm) -> 4C MLP (exact
+    GELU) -> layer scale -> drop path -> residual."""
+    return dnn.ConvNeXtBlock(
+        _feature_map_channels(in_shape, name, "convnext_block"),
+        drop_path_prob=float(params.get("drop_path_prob") or 0.0),
+        layer_scale_init=float(params.get("layer_scale_init", 1e-6)),
+        ln_eps=float(params.get("ln_eps", 1e-6)),
+        norm=str(params.get("norm", "layer_norm")))

@@ -1,18 +1,28 @@
 """Programmatic model-zoo specs on top of the YAML spec language.
 
 Counterpart of ``deepcv_tpu/spec/zoo.py`` (``resnet_spec``,
-``RESNET_LAYERS``, ``vit_spec``, ``VIT_SETTINGS``), copied so that the port
-imports nothing of the JAX package: these functions emit plain architecture
-lists, the same dicts a user could write in YAML. The layer unit applies op
--> act -> norm, so a bottleneck is conv -> relu -> bn; parameter counts are
-torchvision's (resnet_spec(50) has 25,557,032, vit_spec('b_16') at 224x224
-has 86,567,656).
+``RESNET_LAYERS``, ``vit_spec``, ``VIT_SETTINGS``, ``_make_divisible``,
+``mobilenet_v2_spec``, ``efficientnet_b0_spec``, ``mobilenet_v3_spec``,
+``convnext_spec``, ``densenet_spec`` and their settings tables), copied so
+that the port imports nothing of the JAX package: these functions emit
+plain architecture lists, the same dicts a user could write in YAML and the
+same dicts the JAX builders return for the same arguments. The layer unit
+applies op -> act -> norm, so a bottleneck is conv -> relu -> bn; parameter
+counts are torchvision's (resnet_spec(50) has 25,557,032, vit_spec('b_16')
+at 224x224 has 86,567,656, mobilenet_v2_spec() 3,504,872,
+mobilenet_v3_spec() 5,483,032 and ('small') 2,542,856,
+efficientnet_b0_spec() 5,288,548, densenet_spec(121 / 169 / 201)
+7,978,856 / 14,149,480 / 20,013,928, convnext_spec('tiny') 28,589,128).
+The swin builder is not ported yet.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
-__all__ = ["resnet_spec", "RESNET_LAYERS", "vit_spec", "VIT_SETTINGS"]
+__all__ = ["resnet_spec", "RESNET_LAYERS", "vit_spec", "VIT_SETTINGS",
+           "mobilenet_v2_spec", "MOBILENET_V2_SETTINGS", "efficientnet_b0_spec",
+           "EFFICIENTNET_B0_SETTINGS", "mobilenet_v3_spec", "MOBILENET_V3_SETTINGS",
+           "convnext_spec", "CONVNEXT_SETTINGS", "densenet_spec", "DENSENET_SETTINGS"]
 
 #: blocks per stage for the standard depths
 RESNET_LAYERS = {
@@ -193,3 +203,381 @@ def vit_spec(variant: str = "b_16", num_classes: int = 1000,
     # the global act_fn is unused by the transformer nodes but required by
     # the engine; dropout rides per node
     return {"act_fn": "gelu", "architecture": arch, "dropout_prob": 0.0}
+
+
+#: MobileNetV2 inverted-residual settings (arXiv:1801.04381 table 2):
+#: (expansion t, out channels c, repeats n, first stride s)
+MOBILENET_V2_SETTINGS = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
+                         (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2),
+                         (6, 320, 1, 1))
+
+
+def _make_divisible(v: float, divisor: int = 8) -> int:
+    """torchvision's channel rounding (all widths multiples of 8, never
+    rounding below 90% of the target)."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def mobilenet_v2_spec(num_classes: int = 1000, width_mult: float = 1.0,
+                      norm: str = "batch_norm", pool_kernel: int = 7,
+                      dropout: float = 0.2) -> Dict[str, Any]:
+    """MobileNetV2 (Sandler et al., arXiv:1801.04381). Blocks: [1x1 expand
+    t*c_in + relu6] -> 3x3 depthwise (``groups`` = channels) stride s +
+    relu6 -> 1x1 linear projection (no act), with an identity residual iff
+    stride 1 and c_in == c_out; stem 3x3 s2, head 1x1 to 1280, global pool,
+    dropout, classifier. Channel widths use torchvision's multiple-of-8
+    rounding, so width_mult=1.0 has torchvision mobilenet_v2's 3,504,872
+    parameters. The 1x1 convs (expand, project, head) take K2, the relu6
+    in its epilogue; the depthwise and strided convs ``F.conv2d``.
+    ``pool_kernel`` = input_size // 32."""
+    bias = not bool(norm)
+    c_in = _make_divisible(32 * width_mult)
+    arch: List[Any] = [_conv("stem", c_in, 3, stride=2, bias=bias)]
+    in_name = "stem"
+
+    for s, (t, c, n, stride0) in enumerate(MOBILENET_V2_SETTINGS):
+        c_out = _make_divisible(c * width_mult)
+        for b in range(n):
+            stride = stride0 if b == 0 else 1
+            blk = f"ir{s}b{b}"
+            prev = in_name
+            c_exp = c_in * t
+            if t != 1:
+                arch.append(_conv(f"{blk}_exp", c_exp, 1, bias=bias))
+            arch.append(_conv(f"{blk}_dw", c_exp, 3, stride=stride,
+                              groups=c_exp, bias=bias))
+            # linear bottleneck: no activation after the projection
+            arch.append(_conv(f"{blk}_proj", c_out, 1, act=False, bias=bias))
+            if stride == 1 and c_in == c_out:
+                arch.append({"residual_link": [f"{blk}_sum", {"_from": prev}]})
+                in_name = f"{blk}_sum"
+            else:
+                in_name = f"{blk}_proj"
+            c_in = c_out
+
+    arch.append(_conv("head", _make_divisible(1280 * max(1.0, width_mult)),
+                      1, bias=bias))
+    arch.append({"average_pooling": {"kernel_size": [pool_kernel, pool_kernel],
+                                     "stride": [pool_kernel, pool_kernel]}})
+    arch.append({"flatten": {}})
+    arch.append({"fully_connected": {"out_features": num_classes,
+                                     "act_fn": None, "batch_norm": None,
+                                     "group_norm": None,
+                                     "dropout_prob": dropout}})
+
+    hp: Dict[str, Any] = {"act_fn": "relu6", "architecture": arch,
+                          "dropout_prob": 0.0}
+    if norm:
+        hp[norm] = _norm_hp(norm, num_groups=8)
+    return hp
+
+
+#: EfficientNet-B0 MBConv settings (Tan & Le, arXiv:1905.11946 table 1):
+#: (expansion t, out channels c, repeats n, first stride s, kernel k)
+EFFICIENTNET_B0_SETTINGS = ((1, 16, 1, 1, 3), (6, 24, 2, 2, 3),
+                            (6, 40, 2, 2, 5), (6, 80, 3, 2, 3),
+                            (6, 112, 3, 1, 5), (6, 192, 4, 2, 5),
+                            (6, 320, 1, 1, 3))
+
+
+def efficientnet_b0_spec(num_classes: int = 1000, norm: str = "batch_norm",
+                         pool_kernel: int = 7,
+                         dropout: float = 0.2) -> Dict[str, Any]:
+    """EfficientNet-B0 (Tan & Le, arXiv:1905.11946): MBConv = the
+    MobileNetV2 inverted residual + a squeeze-excitation cell between the
+    depthwise conv and the linear projection (SE hidden width = block input
+    channels // 4, silu inside), silu activations, 3x3/5x5 depthwise
+    kernels per stage; torchvision efficientnet_b0's 5,288,548 parameters.
+    width_mult is fixed at B0's 1.0; stochastic depth is not emitted.
+    ``pool_kernel`` = input_size // 32."""
+    bias = not bool(norm)
+    c_in = _make_divisible(32)
+    arch: List[Any] = [_conv("stem", c_in, 3, stride=2, bias=bias)]
+    in_name = "stem"
+
+    for s, (t, c, n, stride0, k) in enumerate(EFFICIENTNET_B0_SETTINGS):
+        c_out = _make_divisible(c)
+        for b in range(n):
+            stride = stride0 if b == 0 else 1
+            blk = f"mb{s}b{b}"
+            prev = in_name
+            c_exp = c_in * t
+            if t != 1:
+                arch.append(_conv(f"{blk}_exp", c_exp, 1, bias=bias))
+            arch.append(_conv(f"{blk}_dw", c_exp, k, stride=stride,
+                              groups=c_exp, bias=bias))
+            # SE hidden = block input channels // 4 = c_exp // (4*t)
+            arch.append({"squeeze_cell": [f"{blk}_se",
+                                          {"reduction_ratio": 4 * t}]})
+            arch.append(_conv(f"{blk}_proj", c_out, 1, act=False, bias=bias))
+            if stride == 1 and c_in == c_out:
+                arch.append({"residual_link": [f"{blk}_sum", {"_from": prev}]})
+                in_name = f"{blk}_sum"
+            else:
+                in_name = f"{blk}_proj"
+            c_in = c_out
+
+    arch.append(_conv("head", _make_divisible(1280), 1, bias=bias))
+    arch.append({"average_pooling": {"kernel_size": [pool_kernel, pool_kernel],
+                                     "stride": [pool_kernel, pool_kernel]}})
+    arch.append({"flatten": {}})
+    arch.append({"fully_connected": {"out_features": num_classes,
+                                     "act_fn": None, "batch_norm": None,
+                                     "group_norm": None,
+                                     "dropout_prob": dropout}})
+
+    hp: Dict[str, Any] = {"act_fn": "silu", "architecture": arch,
+                          "dropout_prob": 0.0}
+    if norm:
+        hp[norm] = _norm_hp(norm, num_groups=8)
+    return hp
+
+
+#: MobileNetV3 per-block settings (Howard et al., arXiv:1905.02244 tables
+#: 1-2, torchvision _mobilenet_v3_conf ordering): each row is
+#: (kernel k, expanded channels, out channels, use_se, act name, stride).
+#: The classifier hidden width (1280 large / 1024 small) follows the rows.
+MOBILENET_V3_SETTINGS = {
+    "large": (((3, 16, 16, False, "relu", 1),
+               (3, 64, 24, False, "relu", 2),
+               (3, 72, 24, False, "relu", 1),
+               (5, 72, 40, True, "relu", 2),
+               (5, 120, 40, True, "relu", 1),
+               (5, 120, 40, True, "relu", 1),
+               (3, 240, 80, False, "hard_swish", 2),
+               (3, 200, 80, False, "hard_swish", 1),
+               (3, 184, 80, False, "hard_swish", 1),
+               (3, 184, 80, False, "hard_swish", 1),
+               (3, 480, 112, True, "hard_swish", 1),
+               (3, 672, 112, True, "hard_swish", 1),
+               (5, 672, 160, True, "hard_swish", 2),
+               (5, 960, 160, True, "hard_swish", 1),
+               (5, 960, 160, True, "hard_swish", 1)), 1280),
+    "small": (((3, 16, 16, True, "relu", 2),
+               (3, 72, 24, False, "relu", 2),
+               (3, 88, 24, False, "relu", 1),
+               (5, 96, 40, True, "hard_swish", 2),
+               (5, 240, 40, True, "hard_swish", 1),
+               (5, 240, 40, True, "hard_swish", 1),
+               (5, 120, 48, True, "hard_swish", 1),
+               (5, 144, 48, True, "hard_swish", 1),
+               (5, 288, 96, True, "hard_swish", 2),
+               (5, 576, 96, True, "hard_swish", 1),
+               (5, 576, 96, True, "hard_swish", 1)), 1024),
+}
+
+
+def mobilenet_v3_spec(variant: str = "large", num_classes: int = 1000,
+                      width_mult: float = 1.0, norm: str = "batch_norm",
+                      pool_kernel: int = 7,
+                      dropout: float = 0.2) -> Dict[str, Any]:
+    """MobileNetV3 (Howard et al., arXiv:1905.02244). Over MobileNetV2's
+    inverted residual: hard_swish activations on the later stages (relu on
+    the early rows, set per conv), 5x5 depthwise kernels, and SE cells
+    between the depthwise conv and the linear projection with squeeze width
+    ``_make_divisible(c_exp // 4)`` (pinned by ``hidden_channels``), relu
+    inside and a hard-sigmoid gate. Head: 1x1 conv to 6x the last block
+    width (+ norm + hard_swish), global pool, then a norm-free classifier
+    pair FC(-> 1280 large / 1024 small) + hard_swish + dropout + FC(->
+    classes). At width_mult=1.0 torchvision's mobilenet_v3_large 5,483,032
+    / mobilenet_v3_small 2,542,856 parameters. ``pool_kernel`` =
+    input_size // 32."""
+    if variant not in MOBILENET_V3_SETTINGS:
+        raise ValueError(f"variant must be one of "
+                         f"{sorted(MOBILENET_V3_SETTINGS)}, got {variant!r}")
+    settings, last_channel = MOBILENET_V3_SETTINGS[variant]
+
+    def adj(v):                    # torchvision adjust_channels
+        return _make_divisible(v * width_mult)
+
+    bias = not bool(norm)
+    c_in = adj(16)
+    arch: List[Any] = [_conv("stem", c_in, 3, stride=2, bias=bias)]
+    in_name = "stem"
+
+    for i, (k, exp, c, use_se, act, stride) in enumerate(settings):
+        c_exp, c_out = adj(exp), adj(c)
+        blk = f"ir{i}"
+        prev = in_name
+        for nm, spec in (
+                [(f"{blk}_exp", _conv(f"{blk}_exp", c_exp, 1, bias=bias))]
+                if c_exp != c_in else []) + [
+                (f"{blk}_dw", _conv(f"{blk}_dw", c_exp, k, stride=stride,
+                                    groups=c_exp, bias=bias))]:
+            if act != "hard_swish":      # global act is hard_swish
+                spec["conv2d"][1]["act_fn"] = act
+            arch.append(spec)
+        if use_se:
+            arch.append({"squeeze_cell": [
+                f"{blk}_se", {"hidden_channels": _make_divisible(c_exp // 4),
+                              "act_fn": "relu", "gate_fn": "hard_sigmoid"}]})
+        arch.append(_conv(f"{blk}_proj", c_out, 1, act=False, bias=bias))
+        if stride == 1 and c_in == c_out:
+            arch.append({"residual_link": [f"{blk}_sum", {"_from": prev}]})
+            in_name = f"{blk}_sum"
+        else:
+            in_name = f"{blk}_proj"
+        c_in = c_out
+
+    arch.append(_conv("head", 6 * c_in, 1, bias=bias))
+    arch.append({"average_pooling": {"kernel_size": [pool_kernel, pool_kernel],
+                                     "stride": [pool_kernel, pool_kernel]}})
+    arch.append({"flatten": {}})
+    arch.append({"fully_connected": [
+        "pre_classifier", {"out_features": adj(last_channel),
+                           "batch_norm": None, "group_norm": None}]})
+    arch.append({"fully_connected": {"out_features": num_classes,
+                                     "act_fn": None, "batch_norm": None,
+                                     "group_norm": None,
+                                     "dropout_prob": dropout}})
+
+    hp: Dict[str, Any] = {"act_fn": "hard_swish", "architecture": arch,
+                          "dropout_prob": 0.0}
+    if norm:
+        hp[norm] = _norm_hp(norm, num_groups=8)
+    return hp
+
+
+#: ConvNeXt variants (Liu et al., arXiv:2201.03545; torchvision naming):
+#: (blocks per stage, dims per stage)
+CONVNEXT_SETTINGS = {
+    "tiny": ((3, 3, 9, 3), (96, 192, 384, 768)),
+    "small": ((3, 3, 27, 3), (96, 192, 384, 768)),
+    "base": ((3, 3, 27, 3), (128, 256, 512, 1024)),
+    "large": ((3, 3, 27, 3), (192, 384, 768, 1536)),
+}
+
+
+def convnext_spec(variant: str = "tiny", num_classes: int = 1000,
+                  stochastic_depth: float = 0.1,
+                  pool_kernel: int = 7,
+                  norm: str = "layer_norm") -> Dict[str, Any]:
+    """ConvNeXt (Liu et al., arXiv:2201.03545): patchify stem (reshape +
+    Dense + LayerNorm), per stage a downsampling (LayerNorm + 2x2 stride-2
+    conv) and blocks of depthwise 7x7 + LayerNorm + inverted 4x MLP (exact
+    GELU) + layer scale + drop path; torchvision's parameter counts.
+    ``stochastic_depth`` ramps linearly over all blocks (0.1 is
+    torchvision's convnext_tiny default); ``norm='rms_norm'`` swaps the
+    blocks' norms. Head: global average pool -> flatten -> LayerNorm(1e-6)
+    -> Linear. No conv of it takes K2. ``pool_kernel`` = input_size //
+    32."""
+    if variant not in CONVNEXT_SETTINGS:
+        raise ValueError(f"variant must be one of "
+                         f"{sorted(CONVNEXT_SETTINGS)}, got {variant!r}")
+    blocks, dims = CONVNEXT_SETTINGS[variant]
+    total = sum(blocks)
+    arch: List[Any] = [
+        {"convnext_stem": ["stem", {"dim": dims[0], "patch": 4}]},
+    ]
+    bi = 0
+    for s, (n_blocks, dim) in enumerate(zip(blocks, dims)):
+        if s > 0:
+            arch.append({"convnext_downsample": [f"down{s}", {"dim": dim}]})
+        for b in range(n_blocks):
+            dp = stochastic_depth * bi / max(1, total - 1)
+            node: Dict[str, Any] = {"drop_path_prob": round(dp, 6)}
+            if norm != "layer_norm":
+                node["norm"] = norm
+            arch.append({"convnext_block": [f"s{s}b{b}", node]})
+            bi += 1
+    arch.append({"average_pooling": {"kernel_size": [pool_kernel, pool_kernel],
+                                     "stride": [pool_kernel, pool_kernel]}})
+    arch.append({"flatten": {}})
+    arch.append({"norm": ["head_ln", {"layer_norm": {"eps": 1e-6}}]})
+    arch.append({"fully_connected": {"out_features": num_classes,
+                                     "act_fn": None, "batch_norm": None,
+                                     "group_norm": None}})
+    return {"act_fn": "gelu_exact", "architecture": arch,
+            "dropout_prob": 0.0}
+
+
+#: DenseNet variants (Huang et al., arXiv:1608.06993; torchvision naming):
+#: (growth rate k, layers per dense block)
+DENSENET_SETTINGS = {
+    121: (32, (6, 12, 24, 16)),
+    169: (32, (6, 12, 32, 32)),
+    201: (32, (6, 12, 48, 32)),
+}
+
+
+def densenet_spec(depth: int = 121, num_classes: int = 1000,
+                  norm: str = "batch_norm",
+                  pool_kernel: int = 7) -> Dict[str, Any]:
+    """DenseNet (Huang et al., arXiv:1608.06993): every dense-block layer's
+    input is the concat of the block input and all earlier layer outputs,
+    in torch's channel order; layers are BN-ReLU-Conv (``preactivation:
+    true``), a 1x1 bottleneck to 4k then a 3x3 to k = growth; transitions
+    halve the channels (BN-ReLU-1x1) and average-pool; a final BN-ReLU
+    before the classifier. torchvision's counts: densenet121 7,978,856 /
+    densenet169 14,149,480 / densenet201 20,013,928. Every conv but the
+    7x7 stride-2 stem takes K2, with no activation in its epilogue (the
+    relu runs before the conv). ``pool_kernel`` = input_size // 32."""
+    if depth not in DENSENET_SETTINGS:
+        raise ValueError(f"depth must be one of {sorted(DENSENET_SETTINGS)}, "
+                         f"got {depth}")
+    k, blocks = DENSENET_SETTINGS[depth]
+    c = 2 * k
+
+    norm = norm or "batch_norm"     # preactivation needs some norm
+    norm_spec = _norm_hp(norm)
+
+    def pre_conv(name, out_ch, ksize):
+        return {"conv2d": [name, {"kernel_size": [ksize, ksize],
+                                  "out_channels": out_ch,
+                                  "padding": ksize // 2,
+                                  "use_bias": False,
+                                  "preactivation": True}]}
+
+    # stem in torch's order: conv0 -> norm0 -> relu0 -> pool0 (standalone
+    # norm and activation nodes; a layer unit would emit conv -> relu -> BN)
+    arch: List[Any] = [
+        {"conv2d": ["stem", {"kernel_size": [7, 7], "out_channels": c,
+                             "stride": 2, "padding": 3, "use_bias": False,
+                             "act_fn": None, "batch_norm": None}]},
+        {"norm": ["stem_bn", {norm: dict(norm_spec)}]},
+        {"activation": ["stem_relu", {}]},
+        {"max_pooling": ["stem_pool", {"kernel_size": [3, 3],
+                                       "stride": [2, 2], "padding": 1}]},
+    ]
+    in_name = "stem_pool"
+    for s, n_layers in enumerate(blocks):
+        feats = [in_name]            # the dense block's growing feature set
+        for l in range(n_layers):
+            blk = f"d{s}l{l}"
+            if len(feats) > 1:
+                # restart the stream from the concat of the block input and
+                # every earlier output, in torch's channel order
+                arch.append({"_new_branch_from_tensor":
+                             [f"{blk}_cat", {"_from": list(feats),
+                                             "reduction": "concat"}]})
+            arch.append(pre_conv(f"{blk}_b", 4 * k, 1))
+            arch.append(pre_conv(f"{blk}_c", k, 3))
+            feats.append(f"{blk}_c")
+        c = c + n_layers * k
+        # final concat of the block feeds the transition / head
+        arch.append({"_new_branch_from_tensor":
+                     [f"t{s}_in", {"_from": list(feats),
+                                   "reduction": "concat"}]})
+        if s < len(blocks) - 1:
+            c = c // 2
+            arch.append(pre_conv(f"t{s}_conv", c, 1))
+            arch.append({"average_pooling": [f"t{s}_pool",
+                                             {"kernel_size": [2, 2],
+                                              "stride": [2, 2]}]})
+            in_name = f"t{s}_pool"
+    # final BN-ReLU (torch: features.norm5 + relu), pool, classifier
+    arch.append({"norm": ["final_bn", {norm: dict(norm_spec)}]})
+    arch.append({"activation": ["final_relu", {}]})
+    arch.append({"average_pooling": {"kernel_size": [pool_kernel, pool_kernel],
+                                     "stride": [pool_kernel, pool_kernel]}})
+    arch.append({"flatten": {}})
+    arch.append({"fully_connected": {"out_features": num_classes,
+                                     "act_fn": None, "batch_norm": None,
+                                     "group_norm": None}})
+    hp: Dict[str, Any] = {"act_fn": "relu", "architecture": arch,
+                          "dropout_prob": 0.0}
+    hp[norm] = dict(norm_spec)
+    return hp

@@ -810,3 +810,81 @@ def test_k2_bf16_at_a_wide_shape_matches_plain(cuda):
     got = fused_conv2d_bias_act(x, wt, b, "leaky_relu")
     ref = plain_conv2d_bias_act(x, wt, b, "leaky_relu")
     assert got.dtype == torch.bfloat16 and _rel(got, ref) <= BF16_TOL
+
+
+# --------------------------------------------------------------------------- #
+# The CNN zoo: K2's epilogue activations and the models on the card
+# --------------------------------------------------------------------------- #
+
+#: one bf16 ulp of the largest value: both round one f32 result to bf16
+BF16_ULP = 2.0 ** -7
+#: K2's shapes in the zoo (N, H, W, Cin, Cout, k) at batch 2: MobileNetV2's
+#: 1x1 expands, projections and head (Cin 16 and Cout 24, 40-ish, 160 and
+#: 320 against the tile widths), and DenseNet's 3x3 128 -> 32
+ZOO_K2_SHAPES = [(2, 112, 112, 16, 96, 1), (2, 112, 112, 32, 16, 1), (2, 56, 56, 144, 24, 1),
+                 (2, 28, 28, 32, 192, 1), (2, 14, 14, 384, 64, 1), (2, 14, 14, 576, 96, 1),
+                 (2, 7, 7, 960, 160, 1), (2, 7, 7, 960, 320, 1), (2, 7, 7, 320, 1280, 1),
+                 (2, 56, 56, 128, 32, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", ZOO_K2_SHAPES)
+@pytest.mark.parametrize("act", ["relu6", "hard_swish", "silu"])
+def test_k2_epilogue_zoo_act_matches_plain(cuda, dtype, shape, act):
+    """Each epilogue code the zoo adds, in both routes, against the plain
+    version: f32 within K2's f32 bound, bf16 within one bf16 ulp of the
+    largest value; inputs scaled so that relu6 and hard_swish meet both
+    corners. Each launch counts once under its activation."""
+    x, wt, b = _inputs(cuda, *shape, dtype)
+    x = (4.0 * x.float()).to(dtype).contiguous(memory_format=torch.channels_last)
+    before = dict(fused_conv2d_bias_act.launches_by_act)
+    got = fused_conv2d_bias_act(x, wt, b, act)
+    ref = plain_conv2d_bias_act(x, wt, b, act)
+    torch.cuda.synchronize()
+    assert fused_conv2d_bias_act.launches_by_act == {**before, act: before[act] + 1}
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert _rel(got, ref) <= (K2_F32_TOL if dtype == torch.float32 else BF16_ULP)
+    if act != "silu":
+        assert (ref.float() >= 6.0).any() or act == "hard_swish"
+        assert (ref == 0).any()
+
+
+#: zoo family -> (builder, arguments, K2 launches per forward by activation)
+ZOO_MODELS = {
+    "mobilenet_v2": ("mobilenet_v2_spec", {}, {"relu6": 17, "none": 17}),
+    "mobilenet_v3": ("mobilenet_v3_spec", {"variant": "large"},
+                     {"hard_swish": 10, "relu": 5, "none": 15}),
+    "efficientnet_b0": ("efficientnet_b0_spec", {}, {"silu": 16, "none": 16}),
+    "densenet": ("densenet_spec", {"depth": 121}, {"none": 119}),
+    "convnext": ("convnext_spec", {"variant": "tiny"}, {}),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", sorted(ZOO_MODELS))
+def test_zoo_model_on_card_matches_cpu(cuda, family, dtype):
+    """Each family at full width, 224x224, batch 2, eval, weights from one
+    seed: the card's forward against the CPU path's, within 1e-3 of the
+    largest logit in float32 and 1e-2 under bf16 autocast (bf16 on both);
+    K2 launches per forward by activation, all in the forward's dtype."""
+    from deepcv_tpu_torch.spec import DeepcvModule, zoo
+
+    name, kw, per_act = ZOO_MODELS[family]
+    hp = getattr(zoo, name)(num_classes=10, **kw)
+    cpu = DeepcvModule((224, 224, 3), hp, device="cpu", dtype=dtype).eval()
+    gpu = DeepcvModule((224, 224, 3), hp, dtype=dtype).eval()
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 224, 224, 3))
+                         .astype(np.float32))
+    by_act = dict(fused_conv2d_bias_act.launches_by_act)
+    by_dtype = dict(fused_conv2d_bias_act.launches_by_dtype)
+    with torch.no_grad():
+        got = gpu(x.to(cuda)).float().cpu()
+        ref = cpu(x).float()
+    torch.cuda.synchronize()
+    launched = {k: v - by_act[k] for k, v in fused_conv2d_bias_act.launches_by_act.items()
+                if v != by_act[k]}
+    assert launched == per_act
+    n = sum(per_act.values())
+    assert fused_conv2d_bias_act.launches_by_dtype == {**by_dtype, dtype: by_dtype[dtype] + n}
+    assert got.shape == ref.shape == (2, 10) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= (1e-3 if dtype == "float32" else 1e-2)

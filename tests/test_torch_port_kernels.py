@@ -40,15 +40,23 @@ def _to_port(x, wt, b):
     return xt, wtt, torch.from_numpy(b)
 
 
+#: the epilogue's activations by name, as the JAX package defines them
+#: (deepcv_tpu/ops/nn.py ACTIVATION_FNS)
+JAX_ACTS = {None: None, "relu": jax.nn.relu, "relu6": jax.nn.relu6,
+            "hard_swish": jax.nn.hard_swish, "silu": jax.nn.silu}
+
+
 @pytest.mark.parametrize("k", [1, 3, 5])
-@pytest.mark.parametrize("act", [None, "relu"])
+@pytest.mark.parametrize("act", sorted(JAX_ACTS, key=str))
 @pytest.mark.parametrize("bias", [False, True])
 def test_plain_version_matches_pallas_interpret(k, act, bias):
     x, wt, b = _case(k)
+    if act in ("relu6", "hard_swish"):
+        x = 4.0 * x            # reach both of relu6's corners, and hard_swish's
     if not bias:
         b = np.zeros_like(b)   # the Pallas kernel always adds a bias
     y_jax = np.asarray(jax_fused(jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b),
-                                 jax.nn.relu if act else None, 2, True))
+                                 JAX_ACTS[act], 2, True))
     xt, wtt, bt = _to_port(x, wt, b)
     assert xt.is_contiguous(memory_format=torch.channels_last)
     y = fused_conv2d_bias_act(xt, wtt, bt if bias else None, act)
