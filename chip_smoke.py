@@ -78,6 +78,25 @@ Phases, each printing one JSON line:
    on float32 inputs (3xTF32 on the tensor cores); step ms, img/s, peak
    memory. Then 8 more steps, validation off, under ``torch.profiler``
    (``vit_train_f32_profile``), as ``vit_train_profile``.
+6c. vmoe_train — the same ``run --pipeline=train_vit`` with bench.py config
+   13's routing as ``--params`` (``vit_model.moe_experts:8``,
+   ``moe_every:2``, ``moe_k:1``, ``moe_group_size:788``: ViT-B/16 with 8
+   experts on every 2nd block, top-1, groups of 4 images), batch 256, bf16,
+   one epoch and its validation: 284,946,664 parameters, finite losses and
+   ``moe_aux`` terms in (0, 8], each MoE layer's share of dropped routing
+   choices in the run's last forward (the last validation batch, read after
+   the run), K3, K4 and K5 12 launches a step (K3 also 12 a validation
+   forward), all bf16; the median step against ``vit_train``'s (both by
+   CUDA events after each step), bench.py's ``moe_over_dense``, img/s and
+   peak memory. Then 8 more steps, validation off, under
+   ``torch.profiler`` with ``MoEMlp``'s stages in ranges
+   (``vmoe_train_profile``): device ms a step for K3-K5, the experts'
+   GEMMs, routing (router and top-k, dispatch, combine), the GEMMs outside
+   the experts, layer norms, copies, SGD, and the idle share. Then
+   ``vmoe_cpu_check``: one forward of the same model on the card against
+   the CPU path, float32, TF32 off, batch 8, the same weights: logits
+   within rel L2 1e-3, fewer than 0.1 % of the routing choices differing,
+   with the count of near-ties in the router's argmax.
 7. augment_kernel (run right after the build, ahead of the long profiles
    of the train phases) — K1 against its plain version (the port's eager chain)
    at 4096x32x32x3 (the warp plan) and 256x224x224x3 (the block plan)
@@ -118,16 +137,18 @@ Phases, each printing one JSON line:
    dense head, the loss, AdamW, copies), the ten largest kernels, and the
    device's idle share of the unprofiled step.
 11. zoo_train — ``run --pipeline=train_mobilenet_v2`` (2 epochs),
-   ``train_mobilenet_v3``, ``train_densenet`` and ``train_convnext`` (1
-   epoch each) in this process at full width with the conf's models
-   (MobileNetV2 1.0, MobileNetV3-Large, DenseNet-121, ConvNeXt-Tiny) and
+   ``train_mobilenet_v3``, ``train_densenet``, ``train_convnext`` and
+   ``train_swin`` (1 epoch each) in this process at full width with the
+   conf's models (MobileNetV2 1.0, MobileNetV3-Large, DenseNet-121,
+   ConvNeXt-Tiny, Swin-T with drop path 0.2) and
    ``train_resnet50``'s hp (SGD lr 0.1, batch 256, bf16) on the synthetic
-   ``imagenet224`` set, no checkpoints: finite losses; K2 launches per
-   training and validation forward of 34, 30, 119 and 0, by epilogue
+   ``imagenet224`` set, no checkpoints: finite losses; torchvision's
+   parameter counts; K2 launches per
+   training and validation forward of 34, 30, 119, 0 and 0, by epilogue
    activation (relu6 17 and none 17; hard_swish 10, relu 5 and none 15;
-   none 119), every one bf16 in x and w; the median step of the last
-   epoch (CUDA events after each step), img/s, peak memory, parameters,
-   the data's digest and the cuts. Then one more epoch of
+   none 119), every one bf16 in x and w, and no flash launch; the median
+   step of the last epoch (CUDA events after each step), img/s, peak
+   memory, parameters, the data's digest and the cuts. Then one more epoch of
    ``train_mobilenet_v2``, cut to 8 steps, validation off, under
    ``torch.profiler`` (``zoo_train_profile``): device time a step by group
    (K2's forward, K2's backward, the depthwise and stem convs and
@@ -211,6 +232,7 @@ from deepcv_tpu_torch.ops.kernels.flash_attention import (
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
     fused_conv2d_bias_act, plain_conv2d_bias_act)
 from deepcv_tpu_torch.ops.kernels import fused_layer
+from deepcv_tpu_torch.ops.moe import MoEMlp
 from deepcv_tpu_torch.ops.nn import FusedConv2d
 from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bundle
 from deepcv_tpu_torch.server import InferenceServer
@@ -274,11 +296,16 @@ WIDE_EPOCHS = 2            # cut from train_wide_classifier's 10
 #: (SGD lr 0.1, batch 256, bf16) on the synthetic imagenet224 set: the
 #: epochs each is cut to (from 10) and K2's launches per forward by epilogue
 #: activation ("none": no activation in the epilogue; DenseNet's relu runs
-#: before each conv, ConvNeXt has no conv K2 takes)
+#: before each conv, ConvNeXt and Swin have no conv K2 takes)
 ZOO_PIPELINES = {"train_mobilenet_v2": (2, {"relu6": 17, "none": 17}),
                  "train_mobilenet_v3": (1, {"hard_swish": 10, "relu": 5, "none": 15}),
                  "train_densenet": (1, {"none": 119}),
-                 "train_convnext": (1, {})}
+                 "train_convnext": (1, {}),
+                 "train_swin": (1, {})}
+#: the zoo models' parameters at 1000 classes: torchvision's counts
+ZOO_PARAMETERS = {"train_mobilenet_v2": 3_504_872, "train_mobilenet_v3": 5_483_032,
+                  "train_densenet": 7_978_856, "train_convnext": 28_589_128,
+                  "train_swin": 28_288_354}
 #: the zoo models whose K2 convs kernel_forward_bf16 times, at batch 256
 ZOO_FORWARDS = (("mobilenet_v2", mobilenet_v2_spec),
                 ("mobilenet_v3", functools.partial(mobilenet_v3_spec, variant="large")),
@@ -1325,7 +1352,8 @@ FLASH_COUNTERS = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_b
 def _run_train_vit(label, epochs, *extra):
     """``run --pipeline=train_vit`` in this process with the flash kernels'
     counts set to 0 just before and read just after. Returns the store, the
-    argv, the wall time and the counts by kernel and by dtype."""
+    argv, the wall time, the counts by kernel and by dtype, and a CUDA event
+    recorded after every step."""
     cut = {"train_resnet50.epochs": epochs, "train_resnet50.save_every_iters": 0,
            "train_resnet50.log_progress_every_iters": 1,
            "train_resnet50.output_path": str(_build.BUILD_DIR / label)}
@@ -1335,22 +1363,46 @@ def _run_train_vit(label, epochs, *extra):
     for c in FLASH_COUNTERS:
         c.launches = 0
         c.launches_by_dtype = dict.fromkeys(c.launches_by_dtype, 0)
-    t0 = time.perf_counter()
-    store = cli.run(argv)
-    wall = time.perf_counter() - t0
+    with _step_events() as (ends, _):
+        t0 = time.perf_counter()
+        store = cli.run(argv)
+        wall = time.perf_counter() - t0
     counts = {name: c.launches for name, c in zip(("K3", "K4", "K5"), FLASH_COUNTERS)}
     by_dtype = {name: dict(c.launches_by_dtype)
                 for name, c in zip(("K3", "K4", "K5"), FLASH_COUNTERS)}
-    return store, argv, wall, counts, by_dtype
+    return store, argv, wall, counts, by_dtype, ends
 
 
-def phase_vit_train(card, label="vit_train", dtype="bfloat16", epochs=TRAIN_EPOCHS, extra=()):
+@contextlib.contextmanager
+def _step_events():
+    """A CUDA event recorded after every ``train_step`` inside the block, and
+    cuDNN's (deterministic, benchmark) flags counted at every step."""
+    ends, flags = [], collections.Counter()
+    real_step = training.train_step
+
+    def step(*a, **kw):
+        flags[(torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)] += 1
+        out = real_step(*a, **kw)
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return out
+
+    training.train_step = step
+    try:
+        yield ends, flags
+    finally:
+        training.train_step = real_step
+
+
+def _vit_train_line(card, label, dtype, epochs, extra):
     """train_vit through the port's ``run``, in this process, so the kernels'
     counts read here are the run's. ``dtype`` is the route every flash launch
     must take: bfloat16 under the conf's autocast, float32 with
-    :data:`F32_TRAIN_PARAMS` in ``extra``."""
+    :data:`F32_TRAIN_PARAMS` in ``extra``. Returns the run's line, its
+    store, the launches, the step ms from the last epoch's throughput and
+    the median step of the last epoch (CUDA events after each step)."""
     torch.cuda.reset_peak_memory_stats()
-    store, argv, wall, counts, by_dtype = _run_train_vit(label, epochs, *extra)
+    store, argv, wall, counts, by_dtype, ends = _run_train_vit(label, epochs, *extra)
     k3, k4, k5 = counts["K3"], counts["K4"], counts["K5"]
     peak = torch.cuda.max_memory_allocated()
     h = store["train_results"]["history"]
@@ -1360,8 +1412,9 @@ def phase_vit_train(card, label="vit_train", dtype="bfloat16", epochs=TRAIN_EPOC
     val_forwards = len(h["valid"]) * math.ceil(n_valid / eval_bs)
     steps = h["steps"]
     losses = [e["main_loss"] for e in h["train"]]
-    if steps == 0 or not np.isfinite(losses).all():
-        raise AssertionError(f"{label}: {steps} steps, losses {losses[:4]}...")
+    if steps == 0 or not np.isfinite(losses).all() or len(ends) != steps:
+        raise AssertionError(f"{label}: {steps} steps ({len(ends)} timed), "
+                             f"losses {losses[:4]}...")
     if (k4, k5) != (VIT_BLOCKS * steps, VIT_BLOCKS * steps) or \
             k3 != VIT_BLOCKS * (steps + val_forwards):
         raise AssertionError(f"{label} launches K3 {k3}, K4 {k4}, K5 {k5} for {steps} "
@@ -1372,22 +1425,36 @@ def phase_vit_train(card, label="vit_train", dtype="bfloat16", epochs=TRAIN_EPOC
         raise AssertionError(f"{label} launches by dtype {by_dtype}, expected all {dtype}")
     tput = h["throughput_img_s"]
     step_ms = batch / tput[-1] * 1e3
-    emit({"phase": label, "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
-          "dtype": dtype,
-          "cut": {"epochs": f"10 -> {epochs}", "checkpoints": "off (save_every_iters 0)"},
-          "batch": batch, "steps": steps, "train_images": len(store["datasets"]["trainset"]),
-          "valid_images": n_valid, "first_loss": losses[0], "last_loss": losses[-1],
-          "valid": h["valid"][-1], "throughput_img_s": tput,
-          "step_ms": step_ms, "wall_s": wall,
-          "launches": {"K3": k3, "K4": k4, "K5": k5},
-          "launches_by_dtype": by_dtype,
-          "launches_per_step": {"K3": (k3 - VIT_BLOCKS * val_forwards) / steps,
-                                "K4": k4 / steps, "K5": k5 / steps},
-          "validation_forwards": val_forwards,
-          "peak_memory_gib": peak / 2 ** 30, "card": card})
+    warm = _last_epoch_steps(ends, steps, epochs)
+    median_ms = statistics.median(warm)
+    line = {"phase": label, "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+            "dtype": dtype,
+            "cut": {"epochs": f"10 -> {epochs}", "checkpoints": "off (save_every_iters 0)"},
+            "batch": batch, "steps": steps, "train_images": len(store["datasets"]["trainset"]),
+            "valid_images": n_valid, "first_loss": losses[0], "last_loss": losses[-1],
+            "valid": h["valid"][-1], "throughput_img_s": tput,
+            "step_ms": step_ms, "step_ms_median_last_epoch": median_ms,
+            "step_ms_warm_range": [min(warm), max(warm)], "wall_s": wall,
+            "parameters": store["model"].capacity(),
+            "launches": {"K3": k3, "K4": k4, "K5": k5},
+            "launches_by_dtype": by_dtype,
+            "launches_per_step": {"K3": (k3 - VIT_BLOCKS * val_forwards) / steps,
+                                  "K4": k4 / steps, "K5": k5 / steps},
+            "validation_forwards": val_forwards,
+            "peak_memory_gib": peak / 2 ** 30, "card": card}
+    return line, store, {"K3": k3, "K4": k4, "K5": k5}, step_ms, median_ms
+
+
+def phase_vit_train(card, label="vit_train", dtype="bfloat16", epochs=TRAIN_EPOCHS, extra=()):
+    """:func:`_vit_train_line`'s run, its line emitted. Returns the
+    launches, the step ms from the last epoch's throughput and the median
+    step of the last epoch."""
+    line, store, launches, step_ms, median_ms = _vit_train_line(card, label, dtype, epochs,
+                                                                extra)
+    emit(line)
     del store
     torch.cuda.empty_cache()
-    return {"K3": k3, "K4": k4, "K5": k5}, step_ms
+    return launches, step_ms, median_ms
 
 
 def phase_vit_train_profile(card, step_ms, label="vit_train_profile",
@@ -1398,7 +1465,7 @@ def phase_vit_train_profile(card, step_ms, label="vit_train_profile",
     against the unprofiled step time ``step_ms``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        store, _, _, counts, _ = _run_train_vit(label, 1, *extra)
+        store, _, _, counts, _, _ = _run_train_vit(label, 1, *extra)
         torch.cuda.synchronize()
     h = store["train_results"]["history"]
     steps = h["steps"]
@@ -1454,7 +1521,7 @@ def phase_k45_f32(card):
                "device_ms": VIT_BLOCKS * (device_ms(lib_fwd_bwd, None) - device_ms(lib_fwd, None))}
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
-    store, _, _, counts, by_dtype = _run_train_vit(
+    store, _, _, counts, by_dtype, _ = _run_train_vit(
         "k45_f32_train", 2, *F32_TRAIN_PARAMS, *SHORT_TRAIN_PARAMS)
     h = store["train_results"]["history"]
     steps = h["steps"]
@@ -1475,12 +1542,14 @@ def phase_k45_f32(card):
     torch.cuda.empty_cache()
 
 
-def flash_kernel_lines(rows, serve_launches, train_launches, f32_train_launches, card):
+def flash_kernel_lines(rows, serve_launches, train_launches, f32_train_launches,
+                       vmoe_launches, card):
     """K3 per ViT-B/16 forward at the serving batch (f32), K4 and K5 per
     train step (bf16, batch 256): 12 launches each. Each entry's ``routes``
     give both dtypes' kernels: K3's f32 route per serving forward, K4's and
     K5's per ``vit_train_f32`` step (batch 256), all three bounded by their
-    3xTF32 products with the CUDA-core bound beside it."""
+    3xTF32 products with the CUDA-core bound beside it. The V-MoE path
+    (``vmoe_train``, bf16, the same shapes) adds to the bf16 launches."""
     serve, train_row = rows[("vit_serve", "float32")], rows[("vit_train", "bfloat16")]
     f32_train = rows[("vit_train", "float32")]
     train_per = (f"one train_vit step at batch {TRAIN_BATCH}, bfloat16 (12 launches at "
@@ -1492,15 +1561,17 @@ def flash_kernel_lines(rows, serve_launches, train_launches, f32_train_launches,
     for name, kind, row, src, launches, per in (
             ("flash_attention_fwd", "fwd", serve, "deepcv_tpu/ops/attention.py:73",
              {"vit_serve": serve_launches, "vit_train": train_launches["K3"],
-              "vit_train_f32": f32_train_launches["K3"]},
+              "vit_train_f32": f32_train_launches["K3"], "vmoe_train": vmoe_launches["K3"]},
              f"one forward of vit_spec('b_16') at batch {SERVE_BATCH}, float32 "
              f"(12 launches of flash_fwd_f32tc_kernel at N,H,T,Dh "
              f"{serve['shape_n_h_t_dh']})"),
             ("flash_attention_bwd_dq", "dq", train_row, "deepcv_tpu/ops/attention.py:185",
-             {"vit_train": train_launches["K4"], "vit_train_f32": f32_train_launches["K4"]},
+             {"vit_train": train_launches["K4"], "vit_train_f32": f32_train_launches["K4"],
+              "vmoe_train": vmoe_launches["K4"]},
              train_per),
             ("flash_attention_bwd_dkv", "dkv", train_row, "deepcv_tpu/ops/attention.py:222",
-             {"vit_train": train_launches["K5"], "vit_train_f32": f32_train_launches["K5"]},
+             {"vit_train": train_launches["K5"], "vit_train_f32": f32_train_launches["K5"],
+              "vmoe_train": vmoe_launches["K5"]},
              train_per)):
         lines.append({
             "name": name, "route": "cuda", "source": "deepcv_tpu_torch/csrc/flash_attention.cu",
@@ -1526,7 +1597,9 @@ def flash_kernel_lines(rows, serve_launches, train_launches, f32_train_launches,
                         "max_abs_err": max(f32_row["max_abs_err"][x] for x in outs[kind]),
                         "per": f32_per},
             "bfloat16": {"kernel": f"{kern}_tc_kernel (tensor cores, mma.sync)",
-                         "launches": train_launches[k],
+                         "launches": train_launches[k] + vmoe_launches[k],
+                         "launches_by_path": {"vit_train": train_launches[k],
+                                              "vmoe_train": vmoe_launches[k]},
                          **_per_unit(train_row, kind),
                          "max_abs_err": max(train_row["max_abs_err"][x] for x in outs[kind]),
                          "per": train_per}}
@@ -1702,17 +1775,6 @@ def _run_classifier(label, params, pipeline="train_image_classifier",
     params = [*params, f"{hp_key}.save_every_iters:0", f"{hp_key}.output_path:{out_dir}"]
     argv = [f"--pipeline={pipeline}", "--project-path", str(REPO),
             "--params", ",".join(params)]
-    flags = collections.Counter()
-    step_ends = []
-    real_step = training.train_step
-
-    def step(*a, **kw):
-        flags[(torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)] += 1
-        out = real_step(*a, **kw)
-        step_ends.append(torch.cuda.Event(enable_timing=True))
-        step_ends[-1].record()
-        return out
-
     routes = PreprocessedDataset.batch_transform.routes
     torch.cuda.reset_peak_memory_stats()
     fused_augment_normalize.launches = 0
@@ -1721,19 +1783,18 @@ def _run_classifier(label, params, pipeline="train_image_classifier",
         fused_conv2d_bias_act.launches_by_dtype, 0)
     fused_conv2d_bias_act.launches_by_act = dict.fromkeys(
         fused_conv2d_bias_act.launches_by_act, 0)
+    for c in FLASH_COUNTERS:
+        c.launches = 0
     routes_before = dict(routes)
-    training.train_step = step
-    try:
-        with _K2Dtypes() as k2_dtypes:
-            t0 = time.perf_counter()
-            store = cli.run(argv)
-            wall = time.perf_counter() - t0
-    finally:
-        training.train_step = real_step
+    with _K2Dtypes() as k2_dtypes, _step_events() as (step_ends, flags):
+        t0 = time.perf_counter()
+        store = cli.run(argv)
+        wall = time.perf_counter() - t0
     counts = {"K1": fused_augment_normalize.launches, "K2": fused_conv2d_bias_act.launches,
               "K2_by_dtype": dict(fused_conv2d_bias_act.launches_by_dtype),
               "K2_by_act": {k: v for k, v in fused_conv2d_bias_act.launches_by_act.items() if v},
               "routes": {k: routes[k] - routes_before[k] for k in routes},
+              "flash": sum(c.launches for c in FLASH_COUNTERS),
               "K2_dtypes": {"/".join(k): v for k, v in k2_dtypes.seen.items()}}
     return store, argv, wall, counts, flags, step_ends
 
@@ -2118,23 +2179,24 @@ def _own_kernels(event):
     return [k for k in event.kernels if k not in above]
 
 
-def _range_profile_groups(prof, backward_groups):
+def _range_profile_groups(prof, backward_groups, name_groups=NAME_GROUPS):
     """Device ms of a profiled run's kernels by group (:func:`_event_groups`,
-    else :data:`NAME_GROUPS`), the kernels by name (ms, launches), and K2's
-    forward launches the profiler recorded."""
+    else ``name_groups``), the kernels by name (ms, launches), the same by
+    (group, name), and K2's forward launches the profiler recorded."""
     events = prof.events()
     marked = _event_groups(events, backward_groups)
-    groups, kernels = collections.Counter(), {}
+    groups, kernels, by_group = collections.Counter(), {}, {}
     for e in events:
         for k in _own_kernels(e):
             group = marked.get(id(e)) or next(
-                (g for g, frags in NAME_GROUPS if any(f in k.name for f in frags)),
+                (g for g, frags in name_groups if any(f in k.name for f in frags)),
                 "other")
             groups[group] += k.duration / 1e3
-            ms, n = kernels.get(k.name, (0.0, 0))
-            kernels[k.name] = (ms + k.duration / 1e3, n + 1)
+            for table, key in ((kernels, k.name), (by_group, (group, k.name))):
+                ms, n = table.get(key, (0.0, 0))
+                table[key] = (ms + k.duration / 1e3, n + 1)
     k2 = sum(n for name, (_, n) in kernels.items() if "fused_conv2d_bias_act" in name)
-    return groups, kernels, k2
+    return groups, kernels, by_group, k2
 
 
 def phase_wide_train_profile(card, step_ms, tries=2):
@@ -2154,7 +2216,7 @@ def phase_wide_train_profile(card, step_ms, tries=2):
                 store, _, _, counts, _, _ = _run_classifier(
                     f"wide_train_profile_{pipeline}", params, pipeline, "train_wide_classifier")
                 torch.cuda.synchronize()
-            groups, kernels, k2 = _range_profile_groups(prof, WIDE_BACKWARD_GROUPS)
+            groups, kernels, _, k2 = _range_profile_groups(prof, WIDE_BACKWARD_GROUPS)
             if k2 == counts["K2"]:
                 break
         else:
@@ -2193,15 +2255,16 @@ def _last_epoch_steps(ends, steps, epochs):
 
 
 def phase_zoo_train(card):
-    """The rest of the CNN zoo through the port's ``run``, in this process,
-    at full width with ``train_resnet50``'s hp (SGD lr 0.1, batch 256,
+    """The rest of the zoo through the port's ``run``, in this process, at
+    full width with ``train_resnet50``'s hp (SGD lr 0.1, batch 256,
     bfloat16; DenseNet-121's peak is 32 GiB, so the batch is not cut) on the
     synthetic imagenet224 set,
     cut to :data:`ZOO_PIPELINES`' epochs, no checkpoints: finite losses, K2
     launches per forward (training and validation) by epilogue activation,
-    every one bf16 in x and w (the zoo's convs have no bias); the median
-    step of the last epoch (CUDA events after each step), img/s, peak
-    memory, parameters. Returns K2's launches and the step ms by pipeline."""
+    every one bf16 in x and w (the zoo's convs have no bias), no flash
+    launch; the median step of the last epoch (CUDA events after each step),
+    img/s, peak memory, parameters (torchvision's, :data:`ZOO_PARAMETERS`).
+    Returns K2's launches and the step ms by pipeline."""
     launches, step_ms = {}, {}
     for pipeline, (epochs, per_act) in ZOO_PIPELINES.items():
         torch.cuda.empty_cache()
@@ -2224,7 +2287,8 @@ def phase_zoo_train(card):
                 or counts["K2_by_act"] != {a: n * forwards for a, n in per_act.items()} \
                 or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": k2} \
                 or counts["K2_dtypes"] != ({"bfloat16/bfloat16": k2} if k2 else {}) \
-                or counts["K1"] != 0 or any(counts["routes"].values()) or len(ends) != steps:
+                or counts["K1"] != 0 or counts["flash"] != 0 or any(counts["routes"].values()) \
+                or len(ends) != steps or store["model"].capacity() != ZOO_PARAMETERS[pipeline]:
             raise AssertionError(f"{pipeline} counts {counts} for {steps} steps and "
                                  f"{val_forwards} validation forwards")
         warm = _last_epoch_steps(ends, steps, epochs)
@@ -2276,7 +2340,7 @@ def phase_zoo_train_profile(card, step_ms, k2_forward, tries=2):
             store, _, wall, counts, _, _ = _run_classifier(
                 f"zoo_train_profile_{pipeline}", params, pipeline, "train_resnet50")
             torch.cuda.synchronize()
-        groups, kernels, k2 = _range_profile_groups(prof, ZOO_BACKWARD_GROUPS)
+        groups, kernels, _, k2 = _range_profile_groups(prof, ZOO_BACKWARD_GROUPS)
         if k2 == counts["K2"]:
             break
     else:
@@ -2298,6 +2362,195 @@ def phase_zoo_train_profile(card, step_ms, k2_forward, tries=2):
           "top_kernels_ms_per_step": [[name[:90], v / steps, n] for name, (v, n) in top],
           "k2_launches_recorded": k2, "launches": counts, "wall_s": wall, "card": card})
     del store, prof
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# V-MoE: bench.py config 13's routing on train_vit
+# --------------------------------------------------------------------------- #
+
+#: bench.py config 13 (bench.py:1215-1224) as ``--params`` of train_vit:
+#: ViT-B/16 with 8 experts on every 2nd block (6 of 12), top-1, routed in
+#: groups of 4 images (788 = 4 x 197 tokens); train_resnet50's hp, whose
+#: moe_aux_weight is the default 0.01 (bench.py's)
+VMOE_PARAMS = ("vit_model.moe_experts:8", "vit_model.moe_every:2", "vit_model.moe_k:1",
+               "vit_model.moe_group_size:788")
+VMOE_EXPERTS, VMOE_LAYERS = 8, 6
+VMOE_PARAMETERS = 284_946_664        # ViT-B/16's 86,567,656 + 6 x 33,063,168
+#: the card-against-CPU check of one V-MoE forward: batch, the logits' rel
+#: L2 bound (both float32, TF32 off), the share of routing choices that may
+#: differ (an argmax near a tie may flip) and what counts as a near-tie (the
+#: top two router probabilities closer than this, on the CPU in float64)
+VMOE_CHECK_BATCH = 8
+VMOE_REL_L2, VMOE_FLIP_SHARE, VMOE_NEAR_TIE = 1e-3, 1e-3, 1e-5
+#: profiler ranges around MoEMlp's four stages (forward; the backward of
+#: each op launched there by autograd sequence numbers)
+VMOE_RANGES = ((MoEMlp, "route", "moe_router_topk"), (MoEMlp, "dispatch", "moe_dispatch"),
+               (MoEMlp, "experts", "moe_experts"), (MoEMlp, "combine", "moe_combine"))
+GEMM_FRAGMENTS = ("nvjet", "gemm", "Gemm", "cutlass", "xmma", "sm90_")
+#: by kernel name, for the kernels launched outside those ranges
+VMOE_NAME_GROUPS = (("K3", ("flash_fwd",)), ("K4", ("flash_bwd_dq",)),
+                    ("K5", ("flash_bwd_dkv",)),
+                    ("gemm_outside_experts", GEMM_FRAGMENTS),
+                    *((g, f) for g, f in VIT_PROFILE_GROUPS
+                      if g in ("layer_norm", "gelu", "softmax_loss")),
+                    *((g, f) for g, f in PROFILE_GROUPS
+                      if g in ("reduce", "upload", "copy", "elementwise")))
+VMOE_BACKWARD_GROUPS = (("sgd", "Optimizer.step#SGD.step"),)
+
+
+def phase_vmoe_train(card, dense_step_ms):
+    """train_vit with bench.py config 13's routing (:data:`VMOE_PARAMS`),
+    flash attention, batch 256, bf16, one epoch and its validation: the
+    parameter count, finite losses and ``moe_aux`` terms in (0, E], K3, K4
+    and K5 12 launches a step (K3 also 12 a validation forward), all
+    bfloat16; the median step against ``vit_train``'s (``dense_step_ms``,
+    the same median) as bench.py's ``moe_over_dense``. Each MoE layer's
+    share of dropped routing choices is read after the run from the
+    routing its last forward kept (the last validation batch), so that the
+    timed steps carry no extra work."""
+    line, store, launches, _, step_ms = _vit_train_line(card, "vmoe_train", "bfloat16", 1,
+                                                        VMOE_PARAMS)
+    model = store["model"]
+    layers = {n: m for n, m in model.named_modules() if isinstance(m, MoEMlp)}
+    aux = [e.get("moe_aux") for e in store["train_results"]["history"]["train"]]
+    if model.capacity() != VMOE_PARAMETERS or len(layers) != VMOE_LAYERS:
+        raise AssertionError(f"vmoe_train: {model.capacity()} parameters, MoE layers "
+                             f"{sorted(layers)}")
+    if len(aux) != line["steps"] or not all(a is not None and np.isfinite(a)
+                                            and 0.0 < a <= VMOE_EXPERTS for a in aux):
+        raise AssertionError(f"vmoe_train: moe_aux {aux}")
+    layer = next(iter(layers.values()))
+    line.update({"moe_aux": {"first": aux[0], "last": aux[-1], "min": min(aux),
+                             "max": max(aux), "mean": statistics.fmean(aux)},
+                 "routing": {"experts": layer.num_experts, "k": layer.k,
+                             "group_size_tokens": layer.group_size,
+                             "capacity_factor": layer.capacity_factor,
+                             "last_forward_groups": list(layer.routing[1].shape[:2])},
+                 "dropped_share_by_layer_last_validation_forward": {
+                     n: (~m.routing[1]).float().mean().item() for n, m in layers.items()},
+                 "vit_train_step_ms": dense_step_ms,
+                 "moe_over_dense": dense_step_ms / step_ms})
+    emit(line)
+    del store, model, layers, layer
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def phase_vmoe_train_profile(card, step_ms, tries=2):
+    """Where a V-MoE step's device time goes: 8 more steps
+    (:data:`SHORT_TRAIN_PARAMS`), validation off, under torch.profiler, with
+    MoEMlp's stages in ranges (:data:`VMOE_RANGES`): device ms a step by
+    group (K3, K4, K5; the experts' GEMMs and the rest of their range;
+    routing: router and top-k, dispatch, combine; GEMMs outside the
+    experts, layer norms, GELU, the loss, SGD, copies, elementwise), the ten
+    largest kernels and the device's idle share of the unprofiled median
+    step ``step_ms``. The profiler must record every flash launch the
+    wrappers counted, or the run is profiled again, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.empty_cache()
+        with _annotated_modules(VMOE_RANGES), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            store, _, wall, counts, by_dtype, _ = _run_train_vit(
+                "vmoe_train_profile", 1, *VMOE_PARAMS, *SHORT_TRAIN_PARAMS)
+            torch.cuda.synchronize()
+        groups, kernels, by_group, _ = _range_profile_groups(prof, VMOE_BACKWARD_GROUPS,
+                                                             VMOE_NAME_GROUPS)
+        flash = sum(n for name, (_, n) in kernels.items() if "flash_" in name)
+        if flash == sum(counts.values()):
+            break
+    else:
+        raise AssertionError(f"vmoe_train_profile: {flash} flash launches recorded of "
+                             f"{sum(counts.values())} in each of {tries} tries")
+    steps = store["train_results"]["history"]["steps"]
+    if store["train_results"]["history"]["valid"] or \
+            counts != dict.fromkeys(("K3", "K4", "K5"), VIT_BLOCKS * steps):
+        raise AssertionError(f"vmoe_train_profile: {counts} for {steps} steps")
+    upload = groups.pop("upload", 0.0)     # the dataset and weights, once per run
+    # the experts' range: its two batched GEMMs (forward and backward) and
+    # the rest (GELU, the weights' bf16 casts, bias sums)
+    experts = groups.pop("moe_experts", 0.0)
+    groups["moe_expert_gemms"] = sum(v for (g, name), (v, _) in by_group.items()
+                                     if g == "moe_experts"
+                                     and any(f in name for f in GEMM_FRAGMENTS))
+    groups["moe_expert_gelu_casts"] = experts - groups["moe_expert_gemms"]
+    busy = sum(groups.values()) / steps
+    routing = sum(groups[g] for g in ("moe_router_topk", "moe_dispatch", "moe_combine")) / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "vmoe_train_profile", "steps": steps,
+          "device_ms_per_step": {g: v / steps for g, v in groups.most_common()},
+          "moe_routing_ms_per_step": routing,
+          "flash_ms_per_step": sum(groups[g] for g in ("K3", "K4", "K5")) / steps,
+          "upload_ms_per_run": upload, "device_busy_ms_per_step": busy,
+          "step_ms_unprofiled": step_ms, "device_idle_share": 1.0 - busy / step_ms,
+          "share_of_step": {g: v / steps / step_ms for g, v in groups.most_common()},
+          "top_kernels_ms_per_step": [[name[:120], v / steps, n] for name, (v, n) in top],
+          "moe_kernels_ms_per_step": {
+              g: [[name[:100], v / steps, n] for (gg, name), (v, n) in
+                  sorted(by_group.items(), key=lambda kv: -kv[1][0]) if gg == g][:4]
+              for g in ("moe_router_topk", "moe_dispatch", "moe_combine", "moe_experts")},
+          "flash_launches_recorded": flash, "launches": counts,
+          "launches_by_dtype": by_dtype, "wall_s": wall, "card": card})
+    del store, prof
+    torch.cuda.empty_cache()
+
+
+def phase_vmoe_cpu_check(card):
+    """One V-MoE forward (bench.py config 13's model, flash, eval) on the
+    card against the CPU path: float32, TF32 off, batch 8, the same
+    weights. The logits' rel L2 within :data:`VMOE_REL_L2`; fewer than
+    :data:`VMOE_FLIP_SHARE` of the routing choices differ, with the count
+    of near-ties (top two router probabilities within
+    :data:`VMOE_NEAR_TIE`, from the CPU run's inputs to each layer); K3 12
+    float32 launches."""
+    hp = vit_spec("b_16", attn_impl="flash", moe_experts=VMOE_EXPERTS, moe_every=2, moe_k=1,
+                  moe_group_size=788)
+    t0 = time.perf_counter()
+    cpu = DeepcvModule(IMAGE_SHAPE, hp, device="cpu").eval()
+    gpu = DeepcvModule(IMAGE_SHAPE, hp, device="meta").to_empty(device=DEVICE).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    build_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.random.default_rng(SEED + 18).normal(
+        size=(VMOE_CHECK_BATCH, *IMAGE_SHAPE)).astype(np.float32))
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, args: inputs.__setitem__(mod, args[0]))
+             for m in cpu.modules() if isinstance(m, MoEMlp)]
+    k3 = flash_attention_fwd.launches_by_dtype["float32"]
+    with torch.no_grad():
+        got = gpu(x.to(DEVICE)).cpu()
+        t0 = time.perf_counter()
+        ref = cpu(x)
+        cpu_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    k3 = flash_attention_fwd.launches_by_dtype["float32"] - k3
+    rel_l2 = ((got - ref).norm() / ref.norm()).item()
+    layers = {}
+    for (name, mg), mc in zip(((n, m) for n, m in gpu.named_modules() if isinstance(m, MoEMlp)),
+                              (m for m in cpu.modules() if isinstance(m, MoEMlp))):
+        e_gpu, kept_gpu = (t.cpu() for t in mg.routing)
+        e_cpu, kept_cpu = mc.routing
+        xs = inputs[mc].double().reshape(*e_cpu.shape[:2], -1)
+        top2 = torch.softmax(xs @ mc.router.double(), -1).topk(2, -1).values
+        layers[name] = {"choices": e_cpu.numel(), "differ": int((e_gpu != e_cpu).sum()),
+                        "kept_differ": int((kept_gpu != kept_cpu).sum()),
+                        "near_ties": int((top2[..., 0] - top2[..., 1] < VMOE_NEAR_TIE).sum()),
+                        "dropped_share": float((~kept_cpu).float().mean())}
+    choices = sum(v["choices"] for v in layers.values())
+    differ = sum(v["differ"] for v in layers.values())
+    line = {"phase": "vmoe_cpu_check", "batch": VMOE_CHECK_BATCH, "dtype": "float32",
+            "tf32": False, "rel_l2": rel_l2, "bound_rel_l2": VMOE_REL_L2,
+            "routing_choices": choices, "routing_differ": differ,
+            "routing_differ_share": differ / choices, "bound_differ_share": VMOE_FLIP_SHARE,
+            "near_ties": sum(v["near_ties"] for v in layers.values()), "by_layer": layers,
+            "k3_float32_launches": k3, "logits_finite": bool(torch.isfinite(got).all()),
+            "build_s": build_s, "cpu_forward_s": cpu_s, "card": card}
+    emit(line)
+    if not (rel_l2 <= VMOE_REL_L2 and differ < VMOE_FLIP_SHARE * choices
+            and k3 == VIT_BLOCKS and line["logits_finite"] and len(layers) == VMOE_LAYERS):
+        raise AssertionError(f"vmoe_cpu_check failed: {line}")
+    del cpu, gpu
     torch.cuda.empty_cache()
 
 
@@ -2436,10 +2689,13 @@ def main() -> int:
     flash_rows = walls("flash_kernels", phase_flash_kernels, card)
     k2_line = walls("serve", phase_serve, card)
     serve_launches = walls("vit_serve", phase_vit_serve, card)
-    train_launches, vit_step_ms = walls("vit_train", phase_vit_train, card)
+    train_launches, vit_step_ms, vit_median_ms = walls("vit_train", phase_vit_train, card)
     walls("vit_train_profile", phase_vit_train_profile, card, vit_step_ms)
-    f32_train_launches, f32_step_ms = walls("vit_train_f32", phase_vit_train, card,
-                                            "vit_train_f32", "float32", 1, F32_TRAIN_PARAMS)
+    vmoe_launches, vmoe_step_ms = walls("vmoe_train", phase_vmoe_train, card, vit_median_ms)
+    walls("vmoe_train_profile", phase_vmoe_train_profile, card, vmoe_step_ms)
+    walls("vmoe_cpu_check", phase_vmoe_cpu_check, card)
+    f32_train_launches, f32_step_ms, _ = walls("vit_train_f32", phase_vit_train, card,
+                                               "vit_train_f32", "float32", 1, F32_TRAIN_PARAMS)
     walls("vit_train_f32_profile", phase_vit_train_profile, card, f32_step_ms,
           "vit_train_f32_profile", (*F32_TRAIN_PARAMS, *SHORT_TRAIN_PARAMS))
     classifier_counts = walls("classifier_train", phase_classifier_train, card)
@@ -2460,7 +2716,7 @@ def main() -> int:
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches,
-                                          f32_train_launches, card)]})
+                                          f32_train_launches, vmoe_launches, card)]})
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

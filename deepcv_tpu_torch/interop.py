@@ -26,7 +26,14 @@ keep theirs too: a squeeze-excitation node's ``reduce`` and ``expand``; a
 ConvNeXt stem's ``proj`` and ``ln``, a downsampling's ``ln`` and ``conv``,
 a block's ``dwconv`` (a depthwise kernel (kh, kw, 1, C) becomes (C, 1, kh,
 kw) as any conv kernel), ``ln``, ``fc1``, ``fc2`` and its own
-``layer_scale``.
+``layer_scale``. A Swin block's are ``ln_1``, ``attn/qkv``, ``attn/out``,
+``ln_2``, ``mlp/fc1``, ``mlp/fc2`` and ``attn/rel_pos_bias``, the
+((2w-1)^2, heads) bias table, kept as it is (the port stores it in the
+JAX layout, which is also torchvision's); a patch merging's ``ln`` and
+``reduce``. A V-MoE block's expert mixture sits under ``moe_mlp``:
+``router`` (D, E), ``expert_w1`` (E, D, M), ``expert_b1`` (E, M),
+``expert_w2`` (E, M, D) and ``expert_b2`` (E, D), all kept as they are
+(the port computes with the JAX layouts).
 
 The JAX package zero-pads conv inputs to at least 8 channels on the TPU
 (``pad_channels_for_tpu``), so a 3-channel stem kernel there is
@@ -58,8 +65,15 @@ _NORM_RE = re.compile(r"^norms_(\d+)$")
 #: and ``FlattenThen`` (``inner``) are taken off the path
 _OP_LEAF = {("kernel",): "weight", ("bias",): "bias", ("kernel", "scale"): "scale"}
 _PARAM_LEAF = {"scale": "weight", "bias": "bias"}
-#: leaves of a ViT node's submodules, by JAX name
+#: leaves of a ViT or Swin node's submodules, by JAX name
 _SUBMODULE_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+#: parameters of a node's submodule that keep their JAX name and layout:
+#: the Swin bias table (under ``attn``) and the V-MoE router and experts
+#: (under ``moe_mlp``)
+_SUBMODULE_PARAMS = {"attn": ("rel_pos_bias",),
+                     "moe_mlp": ("router", "expert_w1", "expert_b1", "expert_w2",
+                                 "expert_b2")}
+_KEPT_LAYOUT = frozenset(p for names in _SUBMODULE_PARAMS.values() for p in names)
 #: parameters a ViT or ConvNeXt node holds directly
 _NODE_PARAMS = ("cls_token", "pos_embedding", "layer_scale")
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
@@ -95,13 +109,18 @@ def _torch_key(collection: str, path: Tuple[str, ...]) -> str:
         return f"{base}.norms.{m.group(1)}.{table[rest[1]]}"
     if collection == "params" and len(rest) == 1 and rest[0] in _NODE_PARAMS:
         return f"{base}.{rest[0]}"
+    if collection == "params" and len(rest) == 2 and \
+            rest[1] in _SUBMODULE_PARAMS.get(rest[0], ()):
+        return f"{base}.{rest[0]}.{rest[1]}"
     if collection == "params" and len(rest) >= 2 and rest[-1] in _SUBMODULE_LEAF:
         return f"{base}.{'.'.join(rest[:-1])}.{_SUBMODULE_LEAF[rest[-1]]}"
     raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
 
 
 def _convert(key: str, a: np.ndarray, target: torch.Tensor) -> np.ndarray:
-    if a.ndim == 4:                     # HWIO -> OIHW
+    if key.rsplit(".", 1)[-1] in _KEPT_LAYOUT:
+        pass
+    elif a.ndim == 4:                   # HWIO -> OIHW
         cin = target.shape[1]
         if a.shape[2] != cin:
             if not (cin < TPU_MIN_CHANNELS and a.shape[2] == TPU_MIN_CHANNELS):

@@ -5,15 +5,19 @@ with weight norm and no activation norm; all three trained with the
 ``train_wide_classifier`` hp), the ImageNet-224 zoo pipelines trained with
 the ``train_resnet50`` hp (``train_resnet50``, ``train_vit``,
 ``train_mobilenet_v2``, ``train_mobilenet_v3``, ``train_convnext``,
-``train_densenet``) and the preprocess-only ``preprocess_cifar10``,
-``preprocess_cifar100`` and ``preprocess_mnist``.
+``train_swin``, ``train_densenet``) and the preprocess-only
+``preprocess_cifar10``, ``preprocess_cifar100`` and ``preprocess_mnist``:
+all fifteen of the JAX package's.
 
 Counterpart of ``deepcv_tpu/pipelines/classification.py``
 (``create_model``, ``train``, ``get_pipelines``): preprocess -> create the
 model from its conf (the input shape and the head's width from the
-dataset) -> train. ``create_model`` carries every zoo builder but ``swin``
-(not ported yet: it raises) and plain architecture specs, nested modules
-included; ``train_swin`` is not ported yet.
+dataset) -> train. ``create_model`` carries every zoo builder and plain
+architecture specs, nested modules included. The ``vit`` builder also
+takes vit_spec's V-MoE arguments (``moe_experts``, ``moe_every``,
+``moe_k``, ``moe_capacity_factor``, ``moe_router_noise``,
+``moe_group_size``), so ``--params vit_model.moe_experts:8`` trains a V-MoE;
+the JAX package's ``create_model`` passes them to no builder.
 """
 from __future__ import annotations
 
@@ -34,8 +38,12 @@ _logger = logging.getLogger(__name__)
 
 #: the JAX package's zoo builders, ported and not
 PORTED_ZOO = ("resnet", "vit", "mobilenet_v2", "mobilenet_v3", "efficientnet_b0",
-              "densenet", "convnext")
-UNPORTED_ZOO = ("swin",)
+              "densenet", "convnext", "swin")
+UNPORTED_ZOO = ()
+#: vit_spec's V-MoE arguments, which the ``vit`` builder takes from the conf
+VIT_MOE_ARGS = {"moe_experts": int, "moe_every": int, "moe_k": int,
+                "moe_capacity_factor": float, "moe_router_noise": float,
+                "moe_group_size": int}
 
 
 def _reject(zoo, hp, *keys):
@@ -87,6 +95,12 @@ def create_model(datasets: Mapping[str, Any], model_params: Mapping[str, Any],
             built = builders.convnext_spec(
                 variant=str(hp.pop("variant", "tiny")), num_classes=classes,
                 stochastic_depth=float(hp.pop("stochastic_depth", 0.1)), pool_kernel=pool)
+        elif str(zoo) == "swin":
+            _reject(zoo, hp, "depth", "width_mult", "norm", "groups", "width_per_group")
+            built = builders.swin_spec(
+                variant=str(hp.pop("variant", "t")), num_classes=classes,
+                window=int(hp.pop("window", 7)),
+                stochastic_depth=float(hp.pop("stochastic_depth", 0.2)), pool_kernel=pool)
         elif str(zoo) == "vit":
             _reject(zoo, hp, "depth", "width_mult", "norm", "window", "groups",
                     "width_per_group")
@@ -95,7 +109,9 @@ def create_model(datasets: Mapping[str, Any], model_params: Mapping[str, Any],
                                       dropout=float(hp.pop("dropout", 0.0)),
                                       attn_dropout=float(hp.pop("attn_dropout", 0.0)),
                                       stochastic_depth=float(hp.pop("stochastic_depth", 0.0)),
-                                      attn_impl=str(hp.pop("attn_impl", "xla")))
+                                      attn_impl=str(hp.pop("attn_impl", "xla")),
+                                      **{k: cast(hp.pop(k)) for k, cast in VIT_MOE_ARGS.items()
+                                         if k in hp})
         elif str(zoo) == "resnet":
             _reject(zoo, hp, "width_mult", "variant", "window")
             built = builders.resnet_spec(depth=int(hp.pop("depth", 50)),
@@ -104,9 +120,6 @@ def create_model(datasets: Mapping[str, Any], model_params: Mapping[str, Any],
                                          groups=int(hp.pop("groups", 1)),
                                          width_per_group=int(hp.pop("width_per_group", 64)),
                                          pool_kernel=pool)
-        elif str(zoo) in UNPORTED_ZOO:
-            raise NotImplementedError(f"zoo builder '{zoo}' is not ported yet "
-                                      f"(ported: {', '.join(PORTED_ZOO)})")
         else:
             raise ValueError(f"Unknown zoo builder '{zoo}' (known: "
                              f"{', '.join(PORTED_ZOO + UNPORTED_ZOO)})")
@@ -191,5 +204,6 @@ def get_pipelines() -> Dict[str, Pipeline]:
         **{f"train_{family}": train_pipeline(
             f"train_{family}", f"{family}_model", "train_resnet50",
             ds="imagenet224", pp_key="imagenet224_preprocessing")
-           for family in ("vit", "mobilenet_v2", "mobilenet_v3", "convnext", "densenet")},
+           for family in ("vit", "mobilenet_v2", "mobilenet_v3", "convnext", "swin",
+                          "densenet")},
     }

@@ -5,7 +5,9 @@ Counterpart of ``deepcv_tpu/spec/creators.py`` (``CreatorContext``,
 ``fully_connected``, ``average_pooling``, ``max_pooling``, ``flatten``,
 ``activation``, ``residual_link``, ``dense_link``,
 ``_new_branch_from_tensor``, the ViT nodes ``patch_embed``,
-``transformer_block``, ``take_token`` and ``norm``, the squeeze-excitation
+``transformer_block`` (with the V-MoE ``moe``), ``take_token`` and
+``norm``, the Swin nodes ``swin_block`` and ``patch_merging``, the
+squeeze-excitation
 cell ``squeeze_cell`` and the ConvNeXt nodes ``convnext_stem``,
 ``convnext_downsample`` and ``convnext_block``).
 
@@ -414,13 +416,13 @@ def _patch_embed(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.
                    required=("num_heads", "mlp_dim"))
 def _transformer_block(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
     """Pre-LN transformer encoder block on tokens (N, T, D)
-    (``attn_impl: flash`` runs the flash-attention kernels). ``moe`` (the
-    V-MoE expert MLP) is not ported yet and is refused."""
+    (``attn_impl: flash`` runs the flash-attention kernels; ``moe:
+    {num_experts, k, capacity_factor, router_noise, group_size, mlp_dim}``
+    swaps the dense MLP for the V-MoE expert mixture, ops/moe.py)."""
     from deepcv_tpu_torch.ops.attention import TransformerEncoderBlock
-    from deepcv_tpu_torch.spec.graph import SpecError
-    if params.get("moe"):
-        raise SpecError(f"Submodule '{name}' (transformer_block): 'moe' (V-MoE "
-                        "expert MLPs) is not ported yet")
+    moe = params.get("moe") or None
+    if moe is not None and "num_experts" not in moe:
+        raise ValueError(f"{name}: moe config requires num_experts (got {dict(moe)})")
     if len(in_shape) != 3:
         raise ValueError(f"Submodule '{name}' (transformer_block): input must be "
                          f"tokens (N, T, D), got shape {list(in_shape)}")
@@ -432,7 +434,35 @@ def _transformer_block(params, ctx: CreatorContext, name: str, in_shape: Shape) 
         attn_impl=str(params.get("attn_impl", "xla")),
         ln_eps=float(params.get("ln_eps", 1e-6)),
         norm=str(params.get("norm", "layer_norm")),
-        mlp_act=str(params.get("mlp_act", "gelu")))
+        mlp_act=str(params.get("mlp_act", "gelu")),
+        moe=dict(moe) if moe else None)
+
+
+@submodule_creator("swin_block",
+                   allowed=("num_heads", "window", "shift", "mlp_ratio",
+                            "drop_path_prob", "ln_eps", "norm"),
+                   required=("num_heads",))
+def _swin_block(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """Swin transformer block on a feature map (arXiv:2103.14030):
+    (shifted-)window attention with relative-position bias + exact-GELU
+    MLP; ``shift: window // 2`` gives the SW-MSA variant."""
+    from deepcv_tpu_torch.ops.attention import SwinBlock
+    return SwinBlock(_feature_map_channels(in_shape, name, "swin_block"),
+                     (int(in_shape[2]), int(in_shape[3])), int(params["num_heads"]),
+                     window=int(params.get("window", 7)), shift=int(params.get("shift", 0)),
+                     mlp_ratio=float(params.get("mlp_ratio", 4.0)),
+                     drop_path_prob=float(params.get("drop_path_prob") or 0.0),
+                     ln_eps=float(params.get("ln_eps", 1e-5)),
+                     norm=str(params.get("norm", "layer_norm")))
+
+
+@submodule_creator("patch_merging", allowed=("ln_eps",))
+def _patch_merging(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.Module:
+    """Swin between-stage downsampling: 2x2 concat + LN + bias-free
+    Linear to 2C."""
+    from deepcv_tpu_torch.ops.attention import PatchMerging
+    return PatchMerging(_feature_map_channels(in_shape, name, "patch_merging"),
+                        ln_eps=float(params.get("ln_eps", 1e-5)))
 
 
 @submodule_creator("take_token", allowed=("index",))

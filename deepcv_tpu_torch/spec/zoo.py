@@ -3,7 +3,8 @@
 Counterpart of ``deepcv_tpu/spec/zoo.py`` (``resnet_spec``,
 ``RESNET_LAYERS``, ``vit_spec``, ``VIT_SETTINGS``, ``_make_divisible``,
 ``mobilenet_v2_spec``, ``efficientnet_b0_spec``, ``mobilenet_v3_spec``,
-``convnext_spec``, ``densenet_spec`` and their settings tables), copied so
+``convnext_spec``, ``swin_spec``, ``densenet_spec`` and their settings
+tables), copied so
 that the port imports nothing of the JAX package: these functions emit
 plain architecture lists, the same dicts a user could write in YAML and the
 same dicts the JAX builders return for the same arguments. The layer unit
@@ -12,8 +13,11 @@ counts are torchvision's (resnet_spec(50) has 25,557,032, vit_spec('b_16')
 at 224x224 has 86,567,656, mobilenet_v2_spec() 3,504,872,
 mobilenet_v3_spec() 5,483,032 and ('small') 2,542,856,
 efficientnet_b0_spec() 5,288,548, densenet_spec(121 / 169 / 201)
-7,978,856 / 14,149,480 / 20,013,928, convnext_spec('tiny') 28,589,128).
-The swin builder is not ported yet.
+7,978,856 / 14,149,480 / 20,013,928, convnext_spec('tiny') 28,589,128,
+swin_spec('t' / 's' / 'b') 28,288,354 / 49,606,258 / 87,768,224). vit_spec's
+V-MoE arguments put an expert mixture in every ``moe_every``-th block
+(bench.py config 13's ViT-B/16 with 8 experts on every 2nd block has
+284,946,664).
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from typing import Any, Dict, List
 __all__ = ["resnet_spec", "RESNET_LAYERS", "vit_spec", "VIT_SETTINGS",
            "mobilenet_v2_spec", "MOBILENET_V2_SETTINGS", "efficientnet_b0_spec",
            "EFFICIENTNET_B0_SETTINGS", "mobilenet_v3_spec", "MOBILENET_V3_SETTINGS",
-           "convnext_spec", "CONVNEXT_SETTINGS", "densenet_spec", "DENSENET_SETTINGS"]
+           "convnext_spec", "CONVNEXT_SETTINGS", "swin_spec", "SWIN_SETTINGS",
+           "densenet_spec", "DENSENET_SETTINGS"]
 
 #: blocks per stage for the standard depths
 RESNET_LAYERS = {
@@ -145,12 +150,6 @@ VIT_SETTINGS = {
     "h_14": (14, 32, 16, 1280, 5120),
 }
 
-#: vit_spec's V-MoE arguments at their defaults: the MoE MLP is not ported
-_MOE_DEFAULTS = {"moe_experts": 0, "moe_every": 2, "moe_k": 1,
-                 "moe_capacity_factor": 1.25, "moe_router_noise": 0.0,
-                 "moe_group_size": 0}
-
-
 def vit_spec(variant: str = "b_16", num_classes: int = 1000,
              dropout: float = 0.0, attn_dropout: float = 0.0,
              stochastic_depth: float = 0.0,
@@ -165,14 +164,14 @@ def vit_spec(variant: str = "b_16", num_classes: int = 1000,
     embed (+[cls] + learned position table), ``layers`` pre-LN encoder
     blocks (exact-GELU MLP unless ``mlp_act='gelu_tanh'``), final norm (eps
     1e-6), [cls] token -> Linear head. ``attn_impl='flash'`` runs every
-    block's attention through the flash-attention kernels. The V-MoE
-    arguments are accepted at their defaults only: anything else raises."""
-    moe = {"moe_experts": moe_experts, "moe_every": moe_every, "moe_k": moe_k,
-           "moe_capacity_factor": moe_capacity_factor,
-           "moe_router_noise": moe_router_noise, "moe_group_size": moe_group_size}
-    bad = sorted(k for k, v in moe.items() if v != _MOE_DEFAULTS[k])
-    if bad:
-        raise NotImplementedError(f"vit_spec: {bad} (V-MoE) are not ported yet")
+    block's attention through the flash-attention kernels.
+
+    V-MoE (Riquelme et al., arXiv:2106.05974): ``moe_experts`` > 0 swaps
+    the MLP of every ``moe_every``-th block, counted from the back, for a
+    top-``moe_k`` mixture of that many experts (ops/moe.py), routed in
+    groups of whole images of at most ``moe_group_size`` tokens (0: one
+    group); training adds ``hp['moe_aux_weight']`` times the mean
+    load-balance loss to the objective."""
     if variant not in VIT_SETTINGS:
         raise ValueError(f"variant must be one of {sorted(VIT_SETTINGS)}, "
                          f"got {variant!r}")
@@ -194,6 +193,12 @@ def vit_spec(variant: str = "b_16", num_classes: int = 1000,
             node["mlp_act"] = mlp_act
         if norm != "layer_norm":
             node["norm"] = norm
+        # V-MoE placement: every moe_every-th block, counted from the back
+        if moe_experts and (layers - 1 - i) % max(1, int(moe_every)) == 0:
+            node["moe"] = {"num_experts": int(moe_experts), "k": int(moe_k),
+                           "capacity_factor": float(moe_capacity_factor),
+                           "router_noise": float(moe_router_noise),
+                           "group_size": int(moe_group_size)}
         arch.append({"transformer_block": [f"enc{i}", node]})
     arch.append({"norm": ["final_ln", {norm: {"eps": 1e-6}}]})
     arch.append({"take_token": {"index": 0}})
@@ -487,6 +492,60 @@ def convnext_spec(variant: str = "tiny", num_classes: int = 1000,
                                      "stride": [pool_kernel, pool_kernel]}})
     arch.append({"flatten": {}})
     arch.append({"norm": ["head_ln", {"layer_norm": {"eps": 1e-6}}]})
+    arch.append({"fully_connected": {"out_features": num_classes,
+                                     "act_fn": None, "batch_norm": None,
+                                     "group_norm": None}})
+    return {"act_fn": "gelu_exact", "architecture": arch,
+            "dropout_prob": 0.0}
+
+
+#: Swin variants (Liu et al., arXiv:2103.14030; torchvision naming):
+#: (embed dim, depths per stage, heads per stage)
+SWIN_SETTINGS = {
+    "t": (96, (2, 2, 6, 2), (3, 6, 12, 24)),
+    "s": (96, (2, 2, 18, 2), (3, 6, 12, 24)),
+    "b": (128, (2, 2, 18, 2), (4, 8, 16, 32)),
+}
+
+
+def swin_spec(variant: str = "t", num_classes: int = 1000,
+              window: int = 7, stochastic_depth: float = 0.2,
+              pool_kernel: int = 7,
+              norm: str = "layer_norm") -> Dict[str, Any]:
+    """Swin Transformer: patchify stem (reshape + Dense + LayerNorm, the
+    ConvNeXt stem at eps 1e-5), stages of W-MSA/SW-MSA pairs (shift =
+    window // 2 on odd blocks, relative-position bias inside windows),
+    PatchMerging (2x2 concat + LN + bias-free 2C Linear) between stages,
+    final LN on the map, global pool, Linear head. Stochastic depth ramps
+    linearly over all blocks (torchvision's 0.2 for swin_t). Parameter
+    counts at 224 are torchvision's (swin_t 28,288,354). ``pool_kernel`` =
+    input_size // 32; every stage's map must stay divisible by ``window``
+    (224 -> 56/28/14/7 with window 7)."""
+    if variant not in SWIN_SETTINGS:
+        raise ValueError(f"variant must be one of {sorted(SWIN_SETTINGS)}, "
+                         f"got {variant!r}")
+    dim, depths, heads = SWIN_SETTINGS[variant]
+    total = sum(depths)
+    arch: List[Any] = [
+        {"convnext_stem": ["stem", {"dim": dim, "patch": 4, "ln_eps": 1e-5}]},
+    ]
+    bi = 0
+    for s, (n_blocks, nh) in enumerate(zip(depths, heads)):
+        if s > 0:
+            arch.append({"patch_merging": [f"merge{s}", {}]})
+        for b in range(n_blocks):
+            dp = stochastic_depth * bi / max(1, total - 1)
+            node = {"num_heads": nh, "window": window,
+                    "shift": 0 if b % 2 == 0 else window // 2,
+                    "drop_path_prob": round(dp, 6)}
+            if norm != "layer_norm":
+                node["norm"] = norm
+            arch.append({"swin_block": [f"s{s}b{b}", node]})
+            bi += 1
+    arch.append({"norm": ["head_ln", {"layer_norm": {"eps": 1e-5}}]})
+    arch.append({"average_pooling": {"kernel_size": [pool_kernel, pool_kernel],
+                                     "stride": [pool_kernel, pool_kernel]}})
+    arch.append({"flatten": {}})
     arch.append({"fully_connected": {"out_features": num_classes,
                                      "act_fn": None, "batch_norm": None,
                                      "group_norm": None}})

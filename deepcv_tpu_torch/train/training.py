@@ -13,6 +13,10 @@ card:
   way; validation batches are not augmented), runs the forward under
   ``torch.autocast`` when ``dtype`` is bfloat16 (parameters stay float32),
   computes the loss in float32, and applies one optimizer update;
+* a model with V-MoE blocks (:class:`~deepcv_tpu_torch.ops.moe.MoEMlp`)
+  adds ``moe_aux_weight`` times the mean of their load-balance losses to
+  the objective and reports it as the step's ``moe_aux`` term; their router
+  noise draws from the run's generator;
 * ``deterministic: true`` sets cuDNN's ``deterministic`` and clears its
   ``benchmark`` (autotuning) for the run, restoring both after it, as the
   reference's ``setup_cudnn(deterministic, seed)`` did;
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 
 from deepcv_tpu_torch.hyperparams import to_hyperparameters
+from deepcv_tpu_torch.ops.moe import MoEMlp
 from deepcv_tpu_torch.ops.nn import Dropout
 from deepcv_tpu_torch.train.checkpoint import CheckpointManager, resume_from_path
 from deepcv_tpu_torch.train.losses import WeightedLosses
@@ -157,7 +162,8 @@ def request_preemption() -> None:
 @dataclasses.dataclass
 class TrainState:
     """What ``train()`` trains: the model, its optimizer, the number of
-    updates applied and the generator that feeds dropout and drop-path."""
+    updates applied and the generator that feeds dropout, drop-path and the
+    MoE router noise."""
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int
@@ -245,14 +251,22 @@ def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
 def train_step(state: TrainState, losses: Callable, metrics: Mapping[str, Callable],
                x: torch.Tensor, y: torch.Tensor, *, dtype: Optional[torch.dtype] = None,
                schedules: Optional[Mapping[str, Callable[[int], float]]] = None,
-               log_grad_norm: bool = True) -> Dict[str, torch.Tensor]:
+               log_grad_norm: bool = True,
+               moe_aux_weight: float = 0.0) -> Dict[str, torch.Tensor]:
     """One update on a transformed batch ``x`` (NHWC float) with targets
-    ``y``; returns the step's metrics as device scalars."""
+    ``y``; returns the step's metrics as device scalars. With
+    ``moe_aux_weight``, the mean load-balance loss of the model's MoE
+    layers (their ``aux`` after this forward), times the weight, joins the
+    objective as the JAX package's ``train()`` adds it."""
     model, opt = state.model, state.optimizer
     apply_schedules(opt, schedules or {}, state.step)
     with _autocast(x.device, dtype):
         logits = model(x)
     main, terms = losses(logits, y)
+    if moe_aux_weight:
+        aux = torch.stack([m.aux for m in model.modules() if isinstance(m, MoEMlp)]).mean()
+        main = main + moe_aux_weight * aux
+        terms = {**terms, "moe_aux": aux, WeightedLosses.MAIN: main}
     opt.zero_grad(set_to_none=True)
     main.backward()
     out = {k: v.detach() for k, v in terms.items()}
@@ -351,16 +365,19 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
     optimizer = build_optimizer(hp["optimizer"], hp["optimizer_opts"],
                                 model.parameters(), schedules)
     generator = torch.Generator(device=device).manual_seed(seed)
+    has_moe = False
     for m in model.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, (Dropout, MoEMlp)):
             m.generator = generator
+        has_moe = has_moe or isinstance(m, MoEMlp)
     state = TrainState(model, optimizer, 0, generator)
     if hp["resume_from"]:
         state.load(resume_from_path(hp["resume_from"], map_location=device))
         _logger.info("Resumed from %s at step %d", hp["resume_from"], state.step)
     dtype = _resolve_dtype(hp.get("dtype")) or getattr(model, "dtype", None)
     step_kw = dict(dtype=dtype, schedules=schedules,
-                   log_grad_norm=bool(hp.get("log_grad_norm", True)))
+                   log_grad_norm=bool(hp.get("log_grad_norm", True)),
+                   moe_aux_weight=float(hp["moe_aux_weight"] or 0.0) if has_moe else 0.0)
 
     run_dir = hp.get("run_dir") or \
         f"run_{datetime.datetime.now().strftime('%Y%m%d-%H%M%S')}_{os.getpid()}"

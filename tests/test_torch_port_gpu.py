@@ -888,3 +888,100 @@ def test_zoo_model_on_card_matches_cpu(cuda, family, dtype):
     assert fused_conv2d_bias_act.launches_by_dtype == {**by_dtype, dtype: by_dtype[dtype] + n}
     assert got.shape == ref.shape == (2, 10) and torch.isfinite(got).all()
     assert _rel(got, ref) <= (1e-3 if dtype == "float32" else 1e-2)
+
+
+# --------------------------------------------------------------------------- #
+# Swin and V-MoE on the card
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swin_on_card_matches_cpu(cuda, dtype):
+    """swin_spec('t') at full width, window 4 on 64x64 images (maps 16, 8,
+    4, 2: shifted windows in stages 1 and 2, the clamp in stage 3), batch 2,
+    eval, weights from one seed: within 1e-3 of the largest logit in float32
+    and 1e-2 under bf16 autocast; no kernel is launched (Swin's windowed
+    attention reaches no kernel)."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
+    from deepcv_tpu_torch.spec import DeepcvModule
+    from deepcv_tpu_torch.spec.zoo import swin_spec
+
+    hp = swin_spec("t", num_classes=10, window=4, pool_kernel=2)
+    cpu = DeepcvModule((64, 64, 3), hp, device="cpu", dtype=dtype).eval()
+    gpu = DeepcvModule((64, 64, 3), hp, dtype=dtype).eval()
+    x = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 64, 64, 3))
+                         .astype(np.float32))
+    k2, k3 = fused_conv2d_bias_act.launches, flash_attention_fwd.launches
+    with torch.no_grad():
+        got = gpu(x.to(cuda)).float().cpu()
+        ref = cpu(x).float()
+    assert (fused_conv2d_bias_act.launches, flash_attention_fwd.launches) == (k2, k3)
+    assert got.shape == ref.shape == (2, 10) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= (1e-3 if dtype == "float32" else 1e-2)
+
+
+def _vmoe_hp(layers=4):
+    """ViT-B/16 (flash) with 4 experts on every 2nd block, top-2, groups of
+    2 images of 17 tokens (64x64 images), cut to its last ``layers``
+    blocks."""
+    from deepcv_tpu_torch.spec.zoo import vit_spec
+
+    hp = vit_spec("b_16", num_classes=10, attn_impl="flash", moe_experts=4, moe_every=2,
+                  moe_k=2, moe_group_size=34)
+    hp["architecture"] = hp["architecture"][:1] + hp["architecture"][13 - layers:]
+    return hp
+
+
+def test_vmoe_on_card_matches_cpu_with_the_same_routing(cuda):
+    """Four blocks, two with experts, batch 6 in float32 (TF32 off), the same
+    weights: logits within 1e-3 of the largest, every routing choice the
+    same on both, and K3 launched once per block."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import flash_attention_fwd
+    from deepcv_tpu_torch.ops.moe import MoEMlp
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    cpu = DeepcvModule((64, 64, 3), _vmoe_hp(), device="cpu").eval()
+    gpu = DeepcvModule((64, 64, 3), _vmoe_hp()).eval()
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(6, 64, 64, 3))
+                         .astype(np.float32))
+    before = flash_attention_fwd.launches
+    with torch.no_grad():
+        got = gpu(x.to(cuda)).cpu()
+        ref = cpu(x)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches - before == 4
+    assert _rel(got, ref) <= 1e-3
+    routes = [[m.routing for m in model.modules() if isinstance(m, MoEMlp)]
+              for model in (gpu, cpu)]
+    assert len(routes[0]) == 2
+    for (e_gpu, k_gpu), (e_cpu, k_cpu) in zip(*routes):
+        assert e_gpu.shape == (3, 34, 2)
+        assert torch.equal(e_gpu.cpu(), e_cpu) and torch.equal(k_gpu.cpu(), k_cpu)
+
+
+def test_vmoe_train_step_bf16_counts_the_flash_launches(cuda):
+    """One SGD step of the four-block V-MoE under bf16 autocast with
+    ``moe_aux_weight`` 0.01: K3, K4 and K5 once per block, all on bfloat16
+    inputs; the loss is CE + 0.01 x the mean aux, which is in (0, 4]."""
+    from deepcv_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from deepcv_tpu_torch.spec import DeepcvModule
+    from deepcv_tpu_torch.train.losses import WeightedLosses, cross_entropy_loss
+    from deepcv_tpu_torch.train.training import TrainState, build_optimizer, train_step
+
+    model = DeepcvModule((64, 64, 3), _vmoe_hp(), dtype="bfloat16").train()
+    state = TrainState(model, build_optimizer("sgd", {"lr": 0.1, "momentum": 0.9},
+                                              model.parameters()),
+                       0, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.random((6, 64, 64, 3), dtype=np.float32)).to(cuda)
+    y = torch.from_numpy(rng.integers(0, 10, size=(6,))).to(cuda)
+    wrappers = (flash_attention_fwd, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    before = [dict(w.launches_by_dtype) for w in wrappers]
+    out = train_step(state, WeightedLosses(cross_entropy_loss), {}, x, y,
+                     dtype=torch.bfloat16, moe_aux_weight=0.01)
+    torch.cuda.synchronize()
+    assert [{k: w.launches_by_dtype[k] - b[k] for k in b} for w, b in zip(wrappers, before)] \
+        == [{"float32": 0, "bfloat16": 4}] * 3
+    aux = out["moe_aux"].item()
+    assert 0.0 < aux <= 4.0
+    assert abs(out["main_loss"].item() - (out["loss"].item() + 0.01 * aux)) <= 1e-5

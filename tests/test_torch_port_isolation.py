@@ -129,7 +129,8 @@ print(json.dumps({"pipes": pipes, "bad": bad}))
                              "train_convnext", "train_densenet",
                              "train_image_classifier", "train_image_classifier_cifar100",
                              "train_mobilenet_v2", "train_mobilenet_v3",
-                             "train_resnet50", "train_vit", "train_wide_classifier",
+                             "train_resnet50", "train_swin", "train_vit",
+                             "train_wide_classifier",
                              "train_wide_classifier_gn", "train_wide_classifier_ws"],
                    "bad": []}
 

@@ -113,14 +113,25 @@ def test_interop_maps_every_vit_variable_and_keeps_qkv_row_order():
 
 
 def test_vit_refuses_what_this_slice_does_not_carry():
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        vit_spec(moe_experts=4)
-    with pytest.raises(NotImplementedError, match="moe_k"):
-        vit_spec(moe_k=2)
+    """What the JAX package refuses: a ``moe`` without ``num_experts`` (by
+    the JAX creator's message) and ``k`` outside [1, E] (by the JAX
+    module's); a Swin key on a transformer block; an unknown attention impl
+    or variant."""
     hp = _tiny(vit_spec, "xla")
-    hp["architecture"][1]["transformer_block"][1]["moe"] = {"num_experts": 4}
-    with pytest.raises(SpecError, match="moe"):
+    hp["architecture"][1]["transformer_block"][1]["moe"] = {"k": 1}
+    with pytest.raises(ValueError) as ref:
+        JaxModule((16, 16, 3), hp)
+    with pytest.raises(ValueError) as got:
         DeepcvModule((16, 16, 3), hp, device="cpu")
+    assert str(got.value) == str(ref.value) == "enc0: moe config requires num_experts " \
+        "(got {'k': 1})"
+    for k in (0, 5):
+        hp = _tiny(vit_spec, "xla", moe_experts=4, moe_k=k, moe_every=1)
+        with pytest.raises(ValueError) as ref:
+            JaxModule((16, 16, 3), hp).init(jax.random.PRNGKey(0))
+        with pytest.raises(ValueError) as got:
+            DeepcvModule((16, 16, 3), hp, device="cpu")
+        assert str(got.value) == str(ref.value) == f"k={k} must be in [1, E=4]"
     hp = _tiny(vit_spec, "xla")
     hp["architecture"][1]["transformer_block"][1]["window"] = 7
     with pytest.raises(ValueError, match="unexpected param.*window"):

@@ -363,8 +363,10 @@ def test_create_model_refuses_the_keys_the_jax_package_refuses(family, key):
 
 
 def test_only_swin_is_left_unported():
-    assert UNPORTED_ZOO == ("swin",)
-    assert set(PORTED_ZOO) == set(BUILDERS) | {"resnet", "vit"}
+    """Every zoo builder of the JAX package is ported: swin was the last
+    (tests/test_torch_port_swin.py)."""
+    assert UNPORTED_ZOO == ()
+    assert set(PORTED_ZOO) == set(BUILDERS) | {"resnet", "vit", "swin"}
 
 
 # --------------------------------------------------------------------------- #
@@ -407,13 +409,15 @@ PIPELINES = {"train_mobilenet_v2": ("mobilenet_v2_model.width_mult:0.25",),
 
 
 def test_the_port_has_the_four_zoo_pipelines():
+    """The four, and train_swin (run end to end in
+    tests/test_torch_port_swin.py), each with train_resnet50's hp."""
     pipes = get_pipelines()
-    for name in PIPELINES:
+    for name in (*PIPELINES, "train_swin"):
         assert [n.name for n in pipes[name].nodes] == ["preprocess", "create_model", "train"]
         inputs = [i for n in pipes[name].nodes for i in n.inputs]
         assert "imagenet224_train" in inputs and "params:train_resnet50" in inputs
         assert f"params:{name[len('train_'):]}_model" in inputs
-    assert "train_swin" not in pipes
+    assert "train_swin" in pipes
 
 
 @pytest.fixture(scope="module")
