@@ -25,8 +25,11 @@ Phases, each printing one JSON line:
    every epilogue activation (none, relu, leaky_relu, relu6, hard_swish,
    silu; relu6 and hard_swish on x scaled by 4, and the check fails unless
    their plain outputs reach both corners: 0 and 6, pre-activations past
-   -3 and 3), float32 and bfloat16, and at image_classifier's conv shapes at
-   batch 4096 in bfloat16; error relative to max|ref|, kernel
+   -3 and 3), float32 and bfloat16, at image_classifier's conv shapes at
+   batch 4096 in bfloat16, and at the dense paths' own shapes (the dense
+   head, 1x1 32 -> 4, in float32 at batch 64; U-Net's 3 -> 32 and 96 -> 32
+   at 256x256 and 768 -> 256 at 32x32 in bfloat16 at batch 32); error
+   relative to max|ref|, kernel
    time (median of CUDA-event timed launches), its bound on the card (f32:
    by 3xTF32, with the CUDA-core one beside it), and the same ``F.conv2d``
    call's time as a yardstick. Then per-forward sums: in bfloat16,
@@ -35,9 +38,10 @@ Phases, each printing one JSON line:
    64-256 channels and batch 1024 with bias and leaky_relu, and the K2
    convs of a MobileNetV2 forward (34: 1x1s, relu6 on 17), of a
    MobileNetV3-Large forward (30: hard_swish on 10, relu on 5) and of a
-   DenseNet-121 forward (119) at batch 256 without bias, read from the
-   models (``kernel_forward_bf16``, per shape, with the same corner
-   checks); in float32, the
+   DenseNet-121 forward (119) at batch 256 without bias, and the 19 convs
+   of a U-Net segmenter forward at batch 32 and 256x256 (18 3x3 with relu
+   and no bias, the head), read from the models (``kernel_forward_bf16``,
+   per shape, with the same corner checks); in float32, the
    same 46 (the serving forward) and image_classifier's five at
    ``classifier_train``'s batch 32 (``kernel_forward_f32``), each per
    forward by CUDA events around its convs in order, with cuDNN's device
@@ -155,6 +159,30 @@ Phases, each printing one JSON line:
    BatchNorm, each forward and backward, found by profiler ranges and
    autograd sequence numbers, SGD, elementwise, the rest), the ten largest
    kernels and the device's idle share of the unprofiled step.
+12. dense_train — ``run --pipeline=train_semantic_segmentation`` (6
+   epochs) and ``--pipeline=train_pose_estimator`` (8) in this process with
+   the conf's HRNet models and hp (batch 64, AdamW, one_cycle for
+   segmentation, float32), epochs not cut, on the catalog's synthetic
+   32x32 sets: finite losses and validation metrics (pixel accuracy and
+   mean IoU; PCK), 89,258 parameters each, exactly one float32 K2 launch
+   (the head) a training and a validation forward; the median step of the
+   last epoch (CUDA events after each step).
+13. unet_train — ``create_segmenter(datasets, unet_spec())`` and
+   ``train_segmenter``, as bench.py config 12 drives them, at full width
+   (depth 4, base 32, group norm) on 1,280 synthetic 256x256 images of
+   ``generate_segmentation_dataset`` (a fifth for validation), batch 32,
+   bf16, AdamW, one_cycle, 2 epochs: 7,849,700 parameters, 19 K2 launches
+   a training and a validation forward, all bf16 in x and w, finite losses
+   and mIoU; the median step of the last epoch, img/s, peak memory. Then,
+   in a process of its own (``--unet-profile``, below), one unprofiled step
+   and 8 steps of a fresh model under ``torch.profiler``
+   (``unet_train_profile``): device ms a step by group (K2's forward and
+   backward, group norm, the resize, max pool, the links, the loss and
+   metrics, AdamW, copies), the ten largest kernels, the idle share.
+14. dense_cpu_check — one float32 forward of the conf's HRNet segmenter
+   (32x32) and of the U-Net segmenter (64x64), batch 8, on the card against
+   the CPU path with the same weights: rel L2 within 1e-3, 1 and 19 float32
+   K2 launches.
 
 Then the wall seconds of every phase (``walls``), the kernels line and,
 last, the contract line
@@ -191,6 +219,11 @@ registers and spills), ``augment_kernel`` (every ``AUG_SHAPES`` row with
 its CUDA-event and device times, and the noise statistics), and
 ``augment_train`` cut to 2 epochs plus one profiled epoch
 (``k1_augment_train``: the step time and K1's device time a step).
+
+    python3 chip_smoke.py --unet-profile STEP_MS CARD
+
+is ``unet_train_profile`` alone, its idle share taken of ``STEP_MS`` and
+its line marked with ``CARD``; the whole run starts it so.
 """
 from __future__ import annotations
 
@@ -220,7 +253,9 @@ import torch
 import torch.nn.functional as F
 
 from deepcv_tpu_torch import cli
-from deepcv_tpu_torch.data.preprocess import PreprocessedDataset
+from deepcv_tpu_torch.config import load_yaml
+from deepcv_tpu_torch.data.datasets import ArrayDataset
+from deepcv_tpu_torch.data.preprocess import PreprocessedDataset, preprocess
 from deepcv_tpu_torch.data.transforms import normalize, to_tensor
 from deepcv_tpu_torch.ops import nn as port_nn
 from deepcv_tpu_torch.ops.kernels import _build
@@ -234,11 +269,14 @@ from deepcv_tpu_torch.ops.kernels.fused_layer import (
 from deepcv_tpu_torch.ops.kernels import fused_layer
 from deepcv_tpu_torch.ops.moe import MoEMlp
 from deepcv_tpu_torch.ops.nn import FusedConv2d
+from deepcv_tpu_torch.pipelines import segmentation as seg_pipeline
+from deepcv_tpu_torch.pipelines.framework import append_dense_head
 from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bundle
 from deepcv_tpu_torch.server import InferenceServer
 from deepcv_tpu_torch.spec import DeepcvModule
+from deepcv_tpu_torch.spec.creators import ForwardCallback, MaxPool
 from deepcv_tpu_torch.spec.zoo import (densenet_spec, mobilenet_v2_spec, mobilenet_v3_spec,
-                                       resnet_spec, vit_spec)
+                                       resnet_spec, unet_spec, vit_spec)
 from deepcv_tpu_torch.train import training
 
 REPO = Path(__file__).resolve().parent
@@ -310,6 +348,39 @@ ZOO_PARAMETERS = {"train_mobilenet_v2": 3_504_872, "train_mobilenet_v3": 5_483_0
 ZOO_FORWARDS = (("mobilenet_v2", mobilenet_v2_spec),
                 ("mobilenet_v3", functools.partial(mobilenet_v3_spec, variant="large")),
                 ("densenet_121", densenet_spec))
+#: the dense pipelines as dense_train runs them, with the conf's HRNet
+#: models (hrnet_backbone and the 1x1 head to 4 channels) and hp (batch 64,
+#: AdamW lr 2e-3 wd 1e-4, one_cycle for segmentation, float32): the
+#: pipeline (also its training hp's key), its epochs (the conf's, not cut)
+#: and the validation metrics it reports
+DENSE_PIPELINES = {"segmentation": ("train_semantic_segmentation", 6,
+                                    ("valid_pixel_accuracy", "valid_mean_iou")),
+                   "pose": ("train_pose_estimator", 8, ("valid_pck",))}
+#: the conf's HRNet segmenter and pose estimator at 32x32: the JAX models'
+#: 90,698 less the 1,440 weights of their stems' zero-padded input rows
+DENSE_PARAMETERS = 89_258
+#: unet_train: bench.py config 12's functions (create_segmenter,
+#: train_segmenter) on unet_spec() at its defaults (depth 4, base 32, group
+#: norm), generate_segmentation_dataset's images at 256x256 (1,280, a fifth
+#: for validation), batch 32, bf16, AdamW, one_cycle
+UNET_IMAGES, UNET_SIZE, UNET_BATCH, UNET_EPOCHS = 1280, 256, 32, 2
+#: unet_spec() with the 4-class head: the JAX model's 7,851,140 less 1,440
+UNET_PARAMETERS = 7_849_700
+#: K2 convs a U-Net forward: 18 3x3 (no bias, relu) and the head (bias)
+UNET_CONVS_PER_FORWARD = 19
+UNET_HP = {"epochs": UNET_EPOCHS, "batch_size": UNET_BATCH, "optimizer": "adamw",
+           "optimizer_opts": {"lr": 2e-3, "weight_decay": 1e-4}, "scheduler": "one_cycle",
+           "dtype": "bfloat16", "save_every_iters": 0, "validate_every_epochs": UNET_EPOCHS,
+           "log_progress_every_iters": (UNET_IMAGES * 4 // 5) // UNET_BATCH}
+UNET_PROFILE_STEPS = 8
+#: K2 at the dense paths' own shapes in the kernel phase: the head in f32 at
+#: dense_train's batch (Cout 4, below every tile width), U-Net's first conv,
+#: its widest decoder input and its full-resolution decoder conv in bf16 at
+#: unet_train's batch
+DENSE_KERNEL_CASES = [((64, 8, 8, 32, 4, 1), ("float32",)),
+                      ((UNET_BATCH, 256, 256, 3, 32, 3), ("bfloat16",)),
+                      ((UNET_BATCH, 32, 32, 768, 256, 3), ("bfloat16",)),
+                      ((UNET_BATCH, 256, 256, 96, 32, 3), ("bfloat16",))]
 DEVICE = "cuda"
 IMAGE_SHAPE = (224, 224, 3)
 SERVE_BATCH = 64
@@ -775,7 +846,7 @@ def phase_kernel(card):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(shape, ("float32", "bfloat16")) for shape in PHASE2_SHAPES] + \
-        [(shape, ("bfloat16",)) for shape in CLASSIFIER_CONVS]
+        [(shape, ("bfloat16",)) for shape in CLASSIFIER_CONVS] + DENSE_KERNEL_CASES
     rows = {}
     for (n, h, w, cin, cout, k), dtypes in cases:
         for dtype in dtypes:
@@ -821,10 +892,11 @@ def _with_act(convs, act, bias=True):
     return {(*shape, act, bias): count for shape, count in convs.items()}
 
 
-def model_convs(hp, batch):
-    """K2's convs in one forward of the model of ``hp`` at 224x224 and
-    ``batch``, as (N, H, W, Cin, Cout, k, act, bias) -> count: read from the
-    model's own FusedConv2d calls in a forward on the meta device."""
+def model_convs(hp, batch, image_shape=IMAGE_SHAPE):
+    """K2's convs in one forward of the model of ``hp`` at ``image_shape``
+    (224x224 by default) and ``batch``, as (N, H, W, Cin, Cout, k, act,
+    bias) -> count: read from the model's own FusedConv2d calls in a
+    forward on the meta device."""
     seen = collections.Counter()
 
     def hook(mod, args):
@@ -832,13 +904,19 @@ def model_convs(hp, batch):
         cout, _, k, _ = mod.weight.shape
         seen[(n, h, w, cin, cout, k, mod.act, mod.bias is not None)] += 1
 
-    model = DeepcvModule(IMAGE_SHAPE, hp, device="meta")
+    model = DeepcvModule(image_shape, hp, device="meta")
     for m in model.modules():
         if isinstance(m, FusedConv2d):
             m.register_forward_pre_hook(hook)
     with torch.no_grad():
-        model.eval()(torch.empty((batch, *IMAGE_SHAPE), device="meta"))
+        model.eval()(torch.empty((batch, *image_shape), device="meta"))
     return dict(seen)
+
+
+def unet_segmenter_hp():
+    """unet_spec() with create_segmenter's 4-class head at UNET_SIZE."""
+    return append_dense_head(unet_spec(), "seg_head", len(seg_pipeline.SEG_CLASSES),
+                             (UNET_SIZE, UNET_SIZE))
 
 
 def forward_convs(dtype):
@@ -846,15 +924,19 @@ def forward_convs(dtype):
     augment_train runs image_classifier (batch 4096), ResNet-50 at the
     serving batch, the wide classifiers as wide_train runs them (batch
     1024), MobileNetV2, MobileNetV3-Large and DenseNet-121 at the conf's
-    batch 256 (their own activations, no bias); f32 as ResNet-50 serving
-    and classifier_train (batch 32) run them."""
+    batch 256 (their own activations, no bias), the U-Net segmenter as
+    unet_train runs it (batch 32, 256x256: 18 convs with relu and no bias,
+    the head with bias); f32 as ResNet-50 serving and classifier_train
+    (batch 32) run them."""
     if dtype == "float32":
         return (("resnet_spec(50)", _with_act(RESNET50_CONVS, "relu")),
                 ("image_classifier", _with_act(CLASSIFIER_TRAIN_CONVS, "relu")))
     return (("image_classifier", _with_act(CLASSIFIER_CONVS, "relu")),
             ("resnet_spec(50)", _with_act(RESNET50_CONVS, "relu")),
             ("wide_classifier", _with_act(WIDE_CONVS, "leaky_relu")),
-            *((name, model_convs(spec(), TRAIN_BATCH)) for name, spec in ZOO_FORWARDS))
+            *((name, model_convs(spec(), TRAIN_BATCH)) for name, spec in ZOO_FORWARDS),
+            ("unet", model_convs(unet_segmenter_hp(), UNET_BATCH,
+                                 (UNET_SIZE, UNET_SIZE, 3))))
 
 
 def phase_kernel_forward(card, dtype):
@@ -1775,6 +1857,17 @@ def _run_classifier(label, params, pipeline="train_image_classifier",
     params = [*params, f"{hp_key}.save_every_iters:0", f"{hp_key}.output_path:{out_dir}"]
     argv = [f"--pipeline={pipeline}", "--project-path", str(REPO),
             "--params", ",".join(params)]
+    store, wall, counts, flags, step_ends = _counted(lambda: cli.run(argv))
+    return store, argv, wall, counts, flags, step_ends
+
+
+def _counted(run):
+    """``run()`` with every kernel count set to 0 just before it and read
+    just after it, and the peak memory reset. Returns its result, the wall
+    time, the counts (K1, K2 in all, by dtype, by activation and by the
+    dtypes of x, w and b at each call, the recipe's routes, the flash
+    launches), the cuDNN flags seen at every step, and a CUDA event
+    recorded after every step."""
     routes = PreprocessedDataset.batch_transform.routes
     torch.cuda.reset_peak_memory_stats()
     fused_augment_normalize.launches = 0
@@ -1788,7 +1881,7 @@ def _run_classifier(label, params, pipeline="train_image_classifier",
     routes_before = dict(routes)
     with _K2Dtypes() as k2_dtypes, _step_events() as (step_ends, flags):
         t0 = time.perf_counter()
-        store = cli.run(argv)
+        out = run()
         wall = time.perf_counter() - t0
     counts = {"K1": fused_augment_normalize.launches, "K2": fused_conv2d_bias_act.launches,
               "K2_by_dtype": dict(fused_conv2d_bias_act.launches_by_dtype),
@@ -1796,7 +1889,7 @@ def _run_classifier(label, params, pipeline="train_image_classifier",
               "routes": {k: routes[k] - routes_before[k] for k in routes},
               "flash": sum(c.launches for c in FLASH_COUNTERS),
               "K2_dtypes": {"/".join(k): v for k, v in k2_dtypes.seen.items()}}
-    return store, argv, wall, counts, flags, step_ends
+    return out, wall, counts, flags, step_ends
 
 
 def phase_classifier_train(card):
@@ -2182,19 +2275,36 @@ def _own_kernels(event):
 def _range_profile_groups(prof, backward_groups, name_groups=NAME_GROUPS):
     """Device ms of a profiled run's kernels by group (:func:`_event_groups`,
     else ``name_groups``), the kernels by name (ms, launches), the same by
-    (group, name), and K2's forward launches the profiler recorded."""
+    (group, name), and K2's forward launches the profiler recorded. Every
+    device record counts once: one that the profiler tied to no CPU event
+    (it loses a launch's correlation now and then) takes its group by
+    name. The device's copies of the CPU ranges (``range::...``,
+    ``Optimizer.step#...``) are no kernels and count nowhere."""
     events = prof.events()
     marked = _event_groups(events, backward_groups)
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = {e.name for e in events if e.device_type != torch.autograd.DeviceType.CUDA}
+    untied = collections.Counter((e.name, e.time_range.end - e.time_range.start)
+                                 for e in on_device if e.name not in ranges
+                                 and not getattr(e, "is_user_annotation", False))
     groups, kernels, by_group = collections.Counter(), {}, {}
+
+    def add(group, name, us):
+        groups[group] += us / 1e3
+        for table, key in ((kernels, name), (by_group, (group, name))):
+            ms, n = table.get(key, (0.0, 0))
+            table[key] = (ms + us / 1e3, n + 1)
+
+    def by_name(name):
+        return next((g for g, frags in name_groups if any(f in name for f in frags)), "other")
+
     for e in events:
         for k in _own_kernels(e):
-            group = marked.get(id(e)) or next(
-                (g for g, frags in name_groups if any(f in k.name for f in frags)),
-                "other")
-            groups[group] += k.duration / 1e3
-            for table, key in ((kernels, k.name), (by_group, (group, k.name))):
-                ms, n = table.get(key, (0.0, 0))
-                table[key] = (ms + k.duration / 1e3, n + 1)
+            add(marked.get(id(e)) or by_name(k.name), k.name, k.duration)
+            untied[(k.name, k.duration)] -= 1
+    for (name, us), n in untied.items():
+        for _ in range(n):
+            add(by_name(name), name, us)
     k2 = sum(n for name, (_, n) in kernels.items() if "fused_conv2d_bias_act" in name)
     return groups, kernels, by_group, k2
 
@@ -2554,6 +2664,253 @@ def phase_vmoe_cpu_check(card):
     torch.cuda.empty_cache()
 
 
+def _forwards(h, n_valid, batch):
+    """A run's forwards: its steps and its validation batches."""
+    return h["steps"] + len(h["valid"]) * math.ceil(n_valid / min(32 * batch, n_valid))
+
+
+def phase_dense_train(card):
+    """The dense pipelines through the port's ``run``, in this process, with
+    the conf's HRNet models and hp (:data:`DENSE_PIPELINES`: batch 64,
+    float32, TF32 off, epochs not cut, no checkpoints) on the catalog's
+    synthetic 32x32 sets: finite losses and validation metrics, the models'
+    parameters, exactly one float32 K2 launch (the head) a training and a
+    validation forward; the median step of the last epoch (CUDA events
+    recorded after each step). Returns the K2 launches and the step ms of
+    each."""
+    f32 = "float32/float32/float32"
+    launches, step_ms = {}, {}
+    for task, (pipeline, epochs, metrics) in DENSE_PIPELINES.items():
+        torch.cuda.empty_cache()
+        store, argv, wall, counts, _, ends = _run_classifier(f"dense_train_{task}", [],
+                                                             pipeline, pipeline)
+        h = store["train_results"]["history"]
+        steps = h["steps"]
+        batch = int(store["context"].params(f"{pipeline}.batch_size"))
+        n_valid = len(store["datasets"]["validset"])
+        forwards = _forwards(h, n_valid, batch)
+        losses = [e["main_loss"] for e in h["train"]]
+        valid = h["valid"][-1] if h["valid"] else {}
+        model = store["model"]
+        if steps == 0 or not np.isfinite(losses).all() or not valid \
+                or not np.isfinite([valid[m] for m in metrics]).all() \
+                or model.capacity() != DENSE_PARAMETERS:
+            raise AssertionError(f"dense_train {pipeline}: {steps} steps, losses {losses}, "
+                                 f"validation {h['valid']}, {model.capacity()} parameters")
+        if counts["K2"] != forwards or counts["K2_dtypes"] != {f32: forwards} \
+                or counts["K2_by_dtype"] != {"float32": forwards, "bfloat16": 0} \
+                or counts["K1"] or counts["flash"] or len(ends) != steps:
+            raise AssertionError(f"dense_train {pipeline} counts {counts} for {steps} steps "
+                                 f"and {forwards - steps} validation forwards")
+        warm = _last_epoch_steps(ends, steps, epochs)
+        step_ms[task] = statistics.median(warm)
+        launches[task] = counts["K2"]
+        emit({"phase": "dense_train", "pipeline": pipeline,
+              "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+              "cut": {"epochs": "none (the conf's)", "checkpoints": "off"},
+              "batch": batch, "dtype": "float32", "steps": steps,
+              "data": _images_digest(store),
+              "train_images": len(store["datasets"]["trainset"]), "valid_images": n_valid,
+              "parameters": model.capacity(), "loss": losses, "valid": h["valid"],
+              "step_ms": step_ms[task], "step_ms_warm_range": [min(warm), max(warm)],
+              "img_per_s": batch / step_ms[task] * 1e3,
+              "throughput_img_s": h["throughput_img_s"], "wall_s": wall,
+              "launches": counts, "validation_forwards": forwards - steps,
+              "launches_per_forward": {"K2": counts["K2"] / forwards},
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+        del store, model
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def _unet_datasets(n):
+    """``generate_segmentation_dataset`` at UNET_SIZE, split as the seg
+    preprocessing splits (a fifth for validation), ``to_tensor``."""
+    raw = seg_pipeline.generate_segmentation_dataset(n=n, image_size=UNET_SIZE, seed=0)
+    return preprocess({"trainset": raw}, {"seed": 0, "transforms": ["to_tensor"],
+                                          "split_dataset": {"validset_ratio": 0.2}})
+
+
+def phase_unet_train(card):
+    """``create_segmenter(datasets, unet_spec())`` and ``train_segmenter``,
+    as bench.py config 12 drives them, at full width (:data:`UNET_HP`:
+    256x256, batch 32, bf16, AdamW, one_cycle, 2 epochs, validation after
+    the last): 7,849,700 parameters, 19 K2 launches a training and a
+    validation forward, all bf16 in x and w, finite losses and mIoU; the
+    median step of the last epoch (CUDA events), img/s, peak memory.
+    Returns the K2 launches and the step ms."""
+    t0 = time.perf_counter()
+    datasets = _unet_datasets(UNET_IMAGES)
+    data_s = time.perf_counter() - t0
+    model = seg_pipeline.create_segmenter(datasets, unet_spec(), device=DEVICE)
+    hp = {**UNET_HP, "output_path": str(_build.BUILD_DIR / "unet_train")}
+    torch.cuda.empty_cache()
+    out, wall, counts, _, ends = _counted(
+        lambda: seg_pipeline.train_segmenter(datasets, model, hp))
+    h = out["history"]
+    steps, n_valid = h["steps"], len(datasets["validset"])
+    forwards = _forwards(h, n_valid, UNET_BATCH)
+    losses = [e["main_loss"] for e in h["train"]]
+    valid = h["valid"][-1] if h["valid"] else {}
+    if steps == 0 or not np.isfinite(losses).all() or not valid \
+            or not np.isfinite([valid["valid_loss"], valid["valid_mean_iou"]]).all() \
+            or model.capacity() != UNET_PARAMETERS:
+        raise AssertionError(f"unet_train: {steps} steps, losses {losses}, validation "
+                             f"{h['valid']}, {model.capacity()} parameters")
+    want = UNET_CONVS_PER_FORWARD * forwards
+    if counts["K2"] != want or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": want} \
+            or counts["K2_dtypes"] != {"bfloat16/bfloat16": want - forwards,
+                                       "bfloat16/bfloat16/bfloat16": forwards} \
+            or counts["K1"] or counts["flash"] or len(ends) != steps:
+        raise AssertionError(f"unet_train counts {counts} for {steps} steps and "
+                             f"{forwards - steps} validation forwards")
+    warm = _last_epoch_steps(ends, steps, UNET_EPOCHS)
+    step_ms = statistics.median(warm)
+    emit({"phase": "unet_train", "model": "unet_spec() + create_segmenter's head",
+          "hp": UNET_HP, "cut": {"depth": "none", "data": f"{UNET_IMAGES} synthetic images",
+                                 "epochs": UNET_EPOCHS, "checkpoints": "off"},
+          "image_size": UNET_SIZE, "batch": UNET_BATCH, "steps": steps,
+          "data": f"generate_segmentation_dataset(seed=0); train images sha256 " + hashlib.sha256(
+              datasets["trainset"].dataset.images.tobytes()).hexdigest()[:16],
+          "data_s": data_s, "train_images": len(datasets["trainset"]), "valid_images": n_valid,
+          "parameters": model.capacity(), "loss": losses, "valid": h["valid"],
+          "step_ms": step_ms, "step_ms_warm_range": [min(warm), max(warm)],
+          "img_per_s": UNET_BATCH / step_ms * 1e3, "throughput_img_s": h["throughput_img_s"],
+          "wall_s": wall, "launches": counts, "validation_forwards": forwards - steps,
+          "launches_per_forward": {"K2": counts["K2"] / forwards},
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+    del model, out, datasets
+    torch.cuda.empty_cache()
+    return counts["K2"], step_ms
+
+
+#: a U-Net step's groups found by profiler ranges (and the backward of what
+#: runs in them): group norm, the decoder's resize, the encoder's max pools,
+#: the links (dense_link's concatenation and its casts), the loss, the
+#: metrics train_step computes on every batch
+UNET_RANGES = ((port_nn.GroupNorm, "forward", "group_norm"),
+               (port_nn.Interpolate, "forward", "resize"),
+               (MaxPool, "forward", "max_pool"),
+               (ForwardCallback, "__call__", "dense_link"),
+               (seg_pipeline, "segmentation_loss", "loss"),
+               (seg_pipeline, "pixel_accuracy", "metrics"),
+               (seg_pipeline, "mean_iou", "metrics"))
+UNET_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
+                        ("adamw", "Optimizer.step#AdamW.step"))
+
+
+#: seconds unet_train_profile's process may take: its data, a warm-up step,
+#: up to three profiled epochs of 8 steps and their sorting
+UNET_PROFILE_PROCESS_S = 300
+
+
+def phase_unet_train_profile(card, step_ms):
+    """:func:`unet_train_profile` in a process of its own
+    (``chip_smoke.py --unet-profile STEP_MS CARD``), its lines passed on: in
+    this process, after the earlier phases' profiles, the profiler has lost
+    device records of a U-Net epoch (149 of its 152 K2 launches, twice in a
+    row), and in a fresh one it has not."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--unet-profile",
+                           repr(step_ms), card], capture_output=True, text=True,
+                          timeout=UNET_PROFILE_PROCESS_S, cwd=REPO)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    sys.stderr.write(proc.stderr)
+    sys.stderr.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"unet_train_profile: its process exited {proc.returncode}")
+
+
+def unet_train_profile(card, step_ms, tries=3):
+    """Where a U-Net step's device time goes: after one unprofiled step (the
+    kernels' loading, cuDNN's search), a fresh model trained for
+    :data:`UNET_PROFILE_STEPS` steps (one epoch of that many batches of
+    unet_train's images, validation off) under torch.profiler, with
+    :data:`UNET_RANGES`: device ms a step by group (K2's forward, K2's
+    backward, group norm, the resize, max pool, the links, the loss and
+    metrics, AdamW, copies, the rest), the ten largest kernels and the
+    device's idle share of unet_train's unprofiled step ``step_ms``. The
+    profiler must have recorded every K2 launch the wrapper counted, or the
+    epoch is run again, up to ``tries`` times (``profiled_epochs``: how many
+    it took)."""
+    from torch.profiler import ProfilerActivity, profile
+    datasets = _unet_datasets(UNET_IMAGES)
+    train = datasets["trainset"]
+
+    def first(n):
+        return {"trainset": PreprocessedDataset(train.dataset.subset(np.arange(n)),
+                                                train.transform),
+                "validset": datasets["validset"]}
+
+    hp = {**UNET_HP, "epochs": 1, "validate_every_epochs": 1000,
+          "output_path": str(_build.BUILD_DIR / "unet_train_profile")}
+    warm = first(UNET_BATCH)
+    seg_pipeline.train_segmenter(warm, seg_pipeline.create_segmenter(warm, unet_spec(),
+                                                                     device=DEVICE), hp)
+    sub = first(UNET_PROFILE_STEPS * UNET_BATCH)
+    for run in range(1, tries + 1):
+        model = seg_pipeline.create_segmenter(sub, unet_spec(), device=DEVICE)
+        torch.cuda.empty_cache()
+        with _annotated_modules(UNET_RANGES), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, counts, _, _ = _counted(lambda: seg_pipeline.train_segmenter(sub, model, hp))
+            torch.cuda.synchronize()
+        groups, kernels, _, k2 = _range_profile_groups(prof, UNET_BACKWARD_GROUPS)
+        if k2 == counts["K2"]:
+            break
+    else:
+        raise AssertionError(f"unet_train_profile: {k2} K2 launches recorded of "
+                             f"{counts['K2']} in each of {tries} tries")
+    steps = UNET_PROFILE_STEPS
+    if counts["K2"] != UNET_CONVS_PER_FORWARD * steps:
+        raise AssertionError(f"unet_train_profile: counts {counts} for {steps} steps")
+    upload = groups.pop("upload", 0.0)     # the dataset, once per run
+    busy = sum(groups.values()) / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "unet_train_profile", "steps": steps,
+          "device_ms_per_step": {g: ms / steps for g, ms in groups.most_common()},
+          "upload_ms_per_run": upload, "device_busy_ms_per_step": busy,
+          "step_ms_unprofiled": step_ms, "device_idle_share": 1.0 - busy / step_ms,
+          "k2_backward_share_of_step": groups["K2_backward"] / steps / step_ms,
+          "top_kernels_ms_per_step": [[name[:90], ms / steps, n] for name, (ms, n) in top],
+          "k2_launches_recorded": k2, "profiled_epochs": run, "launches": counts,
+          "card": card})
+
+
+def phase_dense_cpu_check(card):
+    """One float32 forward (eval, TF32 off, batch 8, the same weights) of
+    the conf's HRNet segmenter at 32x32 and of the U-Net segmenter at 64x64
+    on the card against the CPU path: within rel L2 :data:`SERVE_REL_L2`,
+    with 1 and 19 float32 K2 launches."""
+    conf = load_yaml(REPO / "conf" / "base" / "parameters.yml")["semantic_segmentation_model"]
+    for name, hp, size, per_forward in (("hrnet_segmenter", conf, 32, 1),
+                                        ("unet", unet_spec(), 64, UNET_CONVS_PER_FORWARD)):
+        sets = {"trainset": PreprocessedDataset(ArrayDataset(
+            np.zeros((1, size, size, 3), np.uint8), np.zeros((1, size, size), np.int32),
+            classes=list(seg_pipeline.SEG_CLASSES)))}
+        cpu = seg_pipeline.create_segmenter(sets, hp, device="cpu").eval()
+        gpu = seg_pipeline.create_segmenter(sets, hp, device=DEVICE).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        x = torch.from_numpy(np.random.default_rng(SEED + 19).normal(
+            size=(8, size, size, 3)).astype(np.float32))
+        k2 = fused_conv2d_bias_act.launches_by_dtype["float32"]
+        with torch.no_grad():
+            got = gpu(x.to(DEVICE)).cpu()
+        k2 = fused_conv2d_bias_act.launches_by_dtype["float32"] - k2
+        with torch.no_grad():
+            ref = cpu(x)
+        rel_l2 = ((got - ref).norm() / ref.norm()).item()
+        line = {"phase": "dense_cpu_check", "model": name, "batch": 8, "image_size": size,
+                "dtype": "float32", "tf32": False, "rel_l2": rel_l2,
+                "bound_rel_l2": SERVE_REL_L2, "k2_float32_launches": k2,
+                "finite": bool(torch.isfinite(got).all()), "card": card}
+        emit(line)
+        if not (rel_l2 <= SERVE_REL_L2 and k2 == per_forward and line["finite"]):
+            raise AssertionError(f"dense_cpu_check failed: {line}")
+        del cpu, gpu
+    torch.cuda.empty_cache()
+
+
 def k1_kernel_line(aug_rows, launches, card):
     row = aug_rows[(AUGMENT_BATCH, 32, 32, 3)]
     return {"name": "fused_augment_normalize", "route": "cuda",
@@ -2569,17 +2926,19 @@ def k1_kernel_line(aug_rows, launches, card):
             "card": card}
 
 
-def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
+def k2_routes(line, forward_bf16, forward_f32, bf16_launches, dense_head):
     """K2's entry in the kernels line gains both routes, both on the tensor
-    cores: float32 by 3xTF32 (serving ResNet-50 and ``classifier_train``:
-    the entry's own numbers, per ResNet-50 forward, its bound by 3xTF32 with
-    the CUDA-core one beside it, and per classifier_train forward at batch
-    32) and bfloat16 (``augment_train``: per image_classifier forward at
-    batch 4096; ``wide_train``: per wide classifier forward at batch 1024;
+    cores: float32 by 3xTF32 (serving ResNet-50, ``classifier_train`` and
+    ``dense_train``: the entry's own numbers, per ResNet-50 forward, its
+    bound by 3xTF32 with the CUDA-core one beside it, per classifier_train
+    forward at batch 32, and the dense head's one launch a forward at batch
+    64, ``dense_head``, the kernel phase's row) and bfloat16
+    (``augment_train``: per image_classifier forward at batch 4096;
+    ``wide_train``: per wide classifier forward at batch 1024;
     ``zoo_train``: per MobileNetV2, MobileNetV3-Large and DenseNet-121
-    forward at batch 256;
-    and per ResNet-50 forward at batch 64, the bf16 shape set no main path
-    runs yet)."""
+    forward at batch 256; ``unet_train``: per U-Net segmenter forward at
+    batch 32, 256x256; and per ResNet-50 forward at batch 64, the bf16
+    shape set no main path runs yet)."""
     f32_launches = line["launches"] - bf16_launches
     line["launches_by_dtype"] = {"float32": f32_launches, "bfloat16": bf16_launches}
     line["routes"] = {
@@ -2596,7 +2955,13 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
                     "classifier_train": {**forward_f32["image_classifier"],
                                          "per": "one image_classifier forward at "
                                                 "classifier_train's batch 32, float32 "
-                                                "(5 launches)"}},
+                                                "(5 launches)"},
+                    "dense_train": {**{k: dense_head[k] for k in (
+                        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                        "max_rel_err": max(dense_head["rel_err"].values()),
+                        "per": "the dense head's one launch a forward at dense_train's "
+                               "batch 64: 1x1, 32 -> 4 channels on 8x8 maps, float32 "
+                               "(kernel phase, with bias and relu)"}},
         "bfloat16": {"kernel": f"{K2_TC_KERNEL}<BN, EXT_ACT> (tensor cores, mma.sync)",
                      "launches": bf16_launches,
                      **forward_bf16["image_classifier"],
@@ -2622,7 +2987,12 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches):
                      "densenet_121": {**forward_bf16["densenet_121"],
                                       "per": f"one DenseNet-121 forward's 119 convs at batch "
                                              f"{TRAIN_BATCH}, bfloat16, no activation, no "
-                                             "bias (zoo_train's model)"}}}
+                                             "bias (zoo_train's model)"},
+                     "unet": {**forward_bf16["unet"],
+                              "per": f"one U-Net segmenter forward's "
+                                     f"{UNET_CONVS_PER_FORWARD} convs at batch {UNET_BATCH}, "
+                                     f"{UNET_SIZE}x{UNET_SIZE}, bfloat16: 18 3x3 with relu "
+                                     "and no bias, the 1x1 head with bias (unet_train)"}}}
 
 
 class _Walls:
@@ -2671,6 +3041,11 @@ def main() -> int:
         phase_augment_kernel(card)
         phase_k1_train(card)
         return 0
+    if sys.argv[1:2] == ["--unet-profile"] and len(sys.argv) == 4:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        unet_train_profile(sys.argv[3], float(sys.argv[2]))
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2705,14 +3080,21 @@ def main() -> int:
     zoo_launches, zoo_step_ms = walls("zoo_train", phase_zoo_train, card)
     walls("zoo_train_profile", phase_zoo_train_profile, card, zoo_step_ms,
           k2_rows["forward_bf16"]["mobilenet_v2"])
+    dense_launches, _ = walls("dense_train", phase_dense_train, card)
+    unet_launches, unet_step_ms = walls("unet_train", phase_unet_train, card)
+    walls("unet_train_profile", phase_unet_train_profile, card, unet_step_ms)
+    walls("dense_cpu_check", phase_dense_cpu_check, card)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
                                    "wide_train": wide_launches,
-                                   **{f"zoo_train:{p}": n for p, n in zoo_launches.items()}}
+                                   **{f"zoo_train:{p}": n for p, n in zoo_launches.items()},
+                                   **{f"dense_train:{t}": n for t, n in dense_launches.items()},
+                                   "unet_train": unet_launches}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
-              augment_counts["K2"] + wide_launches + sum(zoo_launches.values()))
+              augment_counts["K2"] + wide_launches + sum(zoo_launches.values())
+              + unet_launches, k2_rows[(DENSE_KERNEL_CASES[0][0], "float32")])
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches,

@@ -33,7 +33,14 @@ JAX layout, which is also torchvision's); a patch merging's ``ln`` and
 ``reduce``. A V-MoE block's expert mixture sits under ``moe_mlp``:
 ``router`` (D, E), ``expert_w1`` (E, D, M), ``expert_b1`` (E, M),
 ``expert_w2`` (E, M, D) and ``expert_b2`` (E, D), all kept as they are
-(the port computes with the JAX layouts).
+(the port computes with the JAX layouts). An HRNet node
+(``deepcv_tpu_torch/ops/hrnet.py``) names its JAX variables itself
+(``jax_names``): its convs ``stream<i>_conv``, ``stem_conv<i>``,
+``down_shared_32to32``, ``up_shared_32to32`` (or ``down_<j>to<i>_<k>``,
+``up_<j>to<i>``, ``down_newbranch``), and its norms, which the JAX modules
+create in their own scope, ``<class>_<k>`` (``LayerNorm_0``,
+``MeanOnlyBatchNorm_0``: the running ``mean``); a head's ``mix``,
+``v2/mix`` and ``pyr<i>`` keep their names.
 
 The JAX package zero-pads conv inputs to at least 8 channels on the TPU
 (``pad_channels_for_tpu``), so a 3-channel stem kernel there is
@@ -87,13 +94,23 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (str(k),), np.asarray(v)
 
 
-def _torch_key(collection: str, path: Tuple[str, ...]) -> str:
+def _torch_key(collection: str, path: Tuple[str, ...], model: torch.nn.Module) -> str:
     base, rest = "module", path
     while rest and rest[0].startswith("node_impls_"):
         base += f".nodes.{rest[0][len('node_impls_'):]}"
         rest = rest[1:]
     if base == "module" or not rest:
         raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
+    try:
+        names = getattr(model.get_submodule(base), "jax_names", None)
+    except AttributeError:
+        raise KeyError(f"JAX variable {collection}/{'/'.join(path)}: the model has no "
+                       f"'{base}'") from None
+    if names is not None and rest[0] in names and len(rest) == 2:
+        leaf = (_SUBMODULE_LEAF if collection == "params" else _STAT_LEAF).get(rest[1])
+        if leaf is None:
+            raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
+        return f"{base}.{names[rest[0]]}.{leaf}"
     if collection == "params" and rest[0] == "op":
         # WeightNorm names its scale by one key with slashes in it
         body = tuple(p for r in rest[1:] for p in r.split("/"))
@@ -158,7 +175,7 @@ def jax_to_torch_state_dict(variables_np: Mapping[str, Any],
         if collection not in ("params", "batch_stats"):
             raise KeyError(f"unmapped JAX collection '{collection}'")
         for path, arr in _flatten(tree):
-            key = _torch_key(collection, path)
+            key = _torch_key(collection, path, model)
             if key not in targets:
                 raise KeyError(f"JAX variable {collection}/{'/'.join(path)} maps to "
                                f"'{key}', which the model does not have")

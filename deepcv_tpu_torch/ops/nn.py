@@ -5,8 +5,9 @@ Counterpart of ``deepcv_tpu/ops/nn.py`` (``get_activation``, ``get_gain``,
 ``xavier_normal_with_gain``, ``avg_pool_nd``, ``max_pool_nd``, ``BatchNorm``,
 ``make_token_norm``, ``normalization_techniques``, ``Layer``, ``DropPath``,
 ``Flatten``, ``SqueezeExcitation``, ``ConvNeXtStem``, ``ConvNeXtDownsample``,
-``ConvNeXtBlock``) and of flax's ``WeightNorm`` around an op
-(:func:`weight_norm`, :meth:`Conv2d.add_weight_norm`). Feature maps inside
+``ConvNeXtBlock``, ``MeanOnlyBatchNorm``, ``Interpolate``) and of flax's
+``WeightNorm`` around an op (:func:`weight_norm`,
+:meth:`Conv2d.add_weight_norm`). Feature maps inside
 a model are NCHW-logical in
 ``torch.channels_last`` memory, so their channel dim is 1 (the JAX package's
 -1); token sequences (N, T, D) and rows (N, F) keep their features last, as
@@ -34,10 +35,10 @@ __all__ = [
     "ACTIVATION_FNS", "XAVIER_GAINS", "get_activation", "activation_name",
     "get_gain", "xavier_normal_with_gain", "xavier_uniform_with_gain",
     "avg_pool_nd", "max_pool_nd", "interpolate", "NormTechnique", "BatchNorm",
-    "GroupNorm", "LayerNorm", "RMSNorm", "make_token_norm",
-    "normalization_techniques", "weight_norm", "Conv2d", "FusedConv2d", "Dense", "Layer",
-    "Identity", "Flatten", "Dropout", "DropPath", "feature_dim",
-    "gelu_exact", "gelu_tanh", "get_padding_from_kernel", "SqueezeExcitation",
+    "MeanOnlyBatchNorm", "GroupNorm", "LayerNorm", "RMSNorm", "make_token_norm",
+    "normalization_techniques", "weight_norm", "Conv2d", "LecunConv2d", "FusedConv2d",
+    "Dense", "Layer", "Identity", "Interpolate", "Flatten", "Dropout", "DropPath",
+    "feature_dim", "gelu_exact", "gelu_tanh", "get_padding_from_kernel", "SqueezeExcitation",
     "ConvNeXtStem", "ConvNeXtDownsample", "ConvNeXtBlock",
 ]
 
@@ -164,6 +165,13 @@ def xavier_uniform_with_gain(gain: float = 1.0):
     return init
 
 
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """In-place flax default kernel init: a normal truncated at 2 std,
+    scaled so that the std after the truncation is sqrt(1 / fan_in)."""
+    std = math.sqrt(1.0 / _xavier_fans(t.shape)[0]) / 0.87962566103423978
+    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
 def get_padding_from_kernel(kernel_size: Sequence[int]) -> tuple:
     """'same' padding from odd kernel sizes."""
     if any(k % 2 == 0 for k in kernel_size):
@@ -196,10 +204,16 @@ def max_pool_nd(x: torch.Tensor, kernel_size, stride=None, padding=0) -> torch.T
     return fn(x, k, s, p)
 
 
-def interpolate(x: torch.Tensor, target_shape: Sequence[int]) -> torch.Tensor:
+def interpolate(x: torch.Tensor, target_shape: Sequence[int],
+                method: str = "linear") -> torch.Tensor:
     """Resize the spatial dims to ``target_shape`` with (bi/tri)linear
     interpolation, half-pixel centres and no antialiasing (the JAX package's
-    ``jax.image.resize(..., 'linear', antialias=False)``)."""
+    ``jax.image.resize(..., 'linear', antialias=False)``). ``method`` must
+    be 'linear': ``jax.image.resize``'s other methods are not torch's
+    (its 'nearest' rounds from half-pixel centres) and are not ported."""
+    if method != "linear":
+        raise NotImplementedError(f"interpolate method '{method}' is not ported "
+                                  "(ported: 'linear')")
     target = tuple(int(t) for t in target_shape)
     if tuple(x.shape[2:]) == target:
         return x
@@ -224,7 +238,7 @@ class NormTechnique:
     ALL = (BATCH_NORM, LAYER_NORM, INSTANCE_NORM, GROUP_NORM,
            LOCAL_RESPONSE_NORM, LAYER_NRM_AND_MEAN_BATCH_NRM, RMS_NORM)
     #: the techniques this port builds so far
-    PORTED = (BATCH_NORM, GROUP_NORM, LAYER_NORM, RMS_NORM)
+    PORTED = (BATCH_NORM, GROUP_NORM, LAYER_NORM, RMS_NORM, LAYER_NRM_AND_MEAN_BATCH_NRM)
 
 
 def _channel_view(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -279,6 +293,34 @@ class BatchNorm(nn.Module):
             a, b = a * self.weight, b * self.weight + self.bias
         a, b = _channel_view(a.to(x.dtype), x.dim()), _channel_view(b.to(x.dtype), x.dim())
         return torch.addcmul(b, x, a)
+
+
+class MeanOnlyBatchNorm(nn.Module):
+    """Mean-only batch normalization (the JAX package's ``MeanOnlyBatchNorm``,
+    half of ``layer_nrm_and_mean_batch_nrm``): subtract the per-channel
+    batch mean, taken in float32, in training and update ``running = (1 -
+    m) * running + m * batch``; subtract the running mean in eval. No
+    variance, no affine."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1):
+        super().__init__()
+        self.num_features, self.momentum = int(num_features), float(momentum)
+        self.register_buffer("running_mean", torch.empty(self.num_features))
+
+    def init_parameters(self, generator: torch.Generator):
+        self.running_mean.zero_()
+
+    def forward(self, x):
+        fdim = feature_dim(x)
+        if self.training:
+            mean = x.float().mean([d for d in range(x.dim()) if d != fdim])
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+        else:
+            mean = self.running_mean
+        shape = [1] * x.dim()
+        shape[fdim] = -1
+        return x - mean.to(x.dtype).reshape(shape)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -348,8 +390,9 @@ def make_token_norm(norm: str, eps: float, num_features: int) -> nn.Module:
 def normalization_techniques(norm_specs: Mapping[str, Optional[Mapping[str, Any]]],
                              num_features: int) -> List[nn.Module]:
     """Norm modules from spec dicts (torch-style kwargs), for
-    ``num_features`` channels. Ported: batch_norm, group_norm, layer_norm
-    and rms_norm."""
+    ``num_features`` channels. Ported: batch_norm, group_norm, layer_norm,
+    rms_norm and layer_nrm_and_mean_batch_nrm (a :class:`MeanOnlyBatchNorm`
+    then a :class:`LayerNorm`, both over the channels of each position)."""
     mods: List[nn.Module] = []
     for tech, spec in (norm_specs or {}).items():
         if spec is None or spec is False:
@@ -370,6 +413,10 @@ def normalization_techniques(norm_specs: Mapping[str, Optional[Mapping[str, Any]
         elif tech == NormTechnique.RMS_NORM:
             mods.append(RMSNorm(num_features, eps=float(spec.get("eps", 1e-6)),
                                 affine=bool(spec.get("elementwise_affine", True))))
+        elif tech == NormTechnique.LAYER_NRM_AND_MEAN_BATCH_NRM:
+            mods.append(MeanOnlyBatchNorm(num_features, momentum=float(spec.get("momentum", 0.1))))
+            mods.append(LayerNorm(num_features, eps=float(spec.get("eps", 1e-5)),
+                                  affine=bool(spec.get("elementwise_affine", True))))
         elif tech in NormTechnique.ALL:
             raise NotImplementedError(
                 f"normalization technique '{tech}' is not ported yet "
@@ -448,6 +495,19 @@ class Conv2d(_WeightOp):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.effective_weight().to(x.dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
+
+
+class LecunConv2d(Conv2d):
+    """A Conv2d initialised as flax's ``Conv`` default (the JAX package's
+    HRNet scaling and mixing convs): :func:`lecun_normal_` kernel, zero
+    bias."""
+
+    def init_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            lecun_normal_(self.weight, generator)
+            if self.bias is not None:
+                self.bias.zero_()
+            self._init_scale()
 
 
 class FusedConv2d(Conv2d):
@@ -538,6 +598,24 @@ class Identity(nn.Module):
         return x
 
 
+class Interpolate(nn.Module):
+    """Spatial resize node (the JAX package's ``Interpolate``): to ``size``,
+    or by ``scale`` (each spatial dim times ``scale``, rounded half to
+    even, as Python's ``round``), with :func:`interpolate`."""
+
+    def __init__(self, size: Optional[Sequence[int]] = None, scale: float = 0.0,
+                 method: str = "linear"):
+        super().__init__()
+        if size is None and not scale:
+            raise ValueError("Interpolate needs 'size' or 'scale'")
+        self.size = None if size is None else tuple(int(s) for s in size)
+        self.scale, self.method = float(scale), method
+
+    def forward(self, x):
+        target = self.size or tuple(int(round(s * self.scale)) for s in x.shape[2:])
+        return interpolate(x, target, self.method)
+
+
 class Dropout(nn.Module):
     """Train-mode dropout with an explicit generator: zero each entry with
     probability ``p`` and scale the survivors by 1/(1-p); identity in eval
@@ -622,15 +700,12 @@ class Layer(nn.Module):
 # --------------------------------------------------------------------------- #
 
 class LecunDense(Dense):
-    """A Dense initialised as flax's ``Dense`` default: LeCun-normal kernel
-    (a normal truncated at 2 std, scaled so that the std after the
-    truncation is sqrt(1 / fan_in)), zero bias."""
+    """A Dense initialised as flax's ``Dense`` default
+    (:func:`lecun_normal_` kernel, zero bias)."""
 
     def init_parameters(self, generator: torch.Generator):
         with torch.no_grad():
-            std = math.sqrt(1.0 / self.weight.shape[1]) / 0.87962566103423978
-            nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
+            lecun_normal_(self.weight, generator)
             if self.bias is not None:
                 self.bias.zero_()
             self._init_scale()

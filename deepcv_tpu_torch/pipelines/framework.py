@@ -1,7 +1,8 @@
 """Minimal pipeline orchestration: nodes, pipelines and the project context.
 
 Counterpart of ``deepcv_tpu/pipelines/framework.py`` (``Node``,
-``Pipeline``, ``ProjectContext``, ``preprocess_node``): conf loading from
+``Pipeline``, ``ProjectContext``, ``preprocess_node``,
+``append_dense_head``): conf loading from
 ``conf/base`` and ``conf/local``, ``params:<dotted.path>`` inputs with
 ``--params`` overrides, catalog entries loaded by ``load_dataset``, nodes
 run in order. Not ported yet: experiment trackers, partial runs and the
@@ -21,9 +22,23 @@ from deepcv_tpu_torch.data.datasets import load_dataset
 from deepcv_tpu_torch.hyperparams import apply_dotted_overrides
 from deepcv_tpu_torch.utils import resolve_device
 
-__all__ = ["Node", "Pipeline", "ProjectContext", "preprocess_node"]
+__all__ = ["Node", "Pipeline", "ProjectContext", "preprocess_node", "append_dense_head"]
 
 _logger = logging.getLogger(__name__)
+
+
+def append_dense_head(hp: dict, name: str, out_channels: int, size) -> dict:
+    """Append the dense-prediction head the pixel-level tasks share: a
+    norm-free 1x1 ``conv2d`` to ``out_channels`` (a K2 conv) and a bilinear
+    ``interpolate`` to ``size`` (segmentation class maps, pose heatmaps)."""
+    hp["architecture"].extend([
+        {"conv2d": [name, {"kernel_size": [1, 1], "out_channels": int(out_channels),
+                           "padding": 0, "act_fn": None,
+                           **{t: None for t in ("batch_norm", "group_norm", "layer_norm",
+                                                "layer_nrm_and_mean_batch_nrm")}}]},
+        {"interpolate": {"size": [int(v) for v in size]}},
+    ])
+    return hp
 
 
 def preprocess_node(trainset, testset, params):

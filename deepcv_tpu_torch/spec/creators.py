@@ -4,7 +4,9 @@ Counterpart of ``deepcv_tpu/spec/creators.py`` (``CreatorContext``,
 ``_as_layer``, ``_conv_common``, the conv creator with its kernel hook,
 ``fully_connected``, ``average_pooling``, ``max_pooling``, ``flatten``,
 ``activation``, ``residual_link``, ``dense_link``,
-``_new_branch_from_tensor``, the ViT nodes ``patch_embed``,
+``_new_branch_from_tensor``, ``interpolate``, the HRNet nodes
+``hrnet_input_stem``, ``parallel_conv``, ``multiresolution_fusion`` and
+``hrnet_repr_head_{v1,v2,vZ,v2p}``, the ViT nodes ``patch_embed``,
 ``transformer_block`` (with the V-MoE ``moe``), ``take_token`` and
 ``norm``, the Swin nodes ``swin_block`` and ``patch_merging``, the
 squeeze-excitation
@@ -15,7 +17,8 @@ A creator maps one spec entry to an ``nn.Module`` or a
 :class:`ForwardCallback` (a parameter-free node over the current tensor and
 referenced outputs). Unlike flax, torch modules need their input sizes at
 construction, so a creator also receives ``in_shape``, the NCHW-logical shape
-of the current tensor that the spec engine infers on the meta device.
+of the current tensor that the spec engine infers on the meta device (a
+list of shapes after a node that outputs parallel streams, as HRNet's do).
 
 Every plain stride-1 'same' odd-kernel 2-d conv becomes a
 :class:`~deepcv_tpu_torch.ops.nn.FusedConv2d` — the CUDA kernel on a card —
@@ -46,6 +49,8 @@ __all__ = [
 ]
 
 Shape = Tuple[int, ...]
+#: a tensor's shape, or a stream list's shapes
+Shapes = Union[Shape, List[Shape]]
 
 # --------------------------------------------------------------------------- #
 # Reductions (channel dim is 1 in the port)
@@ -104,12 +109,23 @@ class CreatorContext:
 @dataclasses.dataclass
 class ForwardCallback:
     """A parameter-free graph node applied to (x, referenced outputs).
-    ``uses_current=False`` means x is ignored (``_new_branch_from_tensor``)."""
+    ``uses_current=False`` means x is ignored (``_new_branch_from_tensor``).
+    ``apply_in_parallel`` zips the callback over a stream list: stream i
+    sees stream i of each referenced stream list (a list with fewer
+    streams gives it none) and every referenced single tensor."""
     fn: Callable[[Any, List[torch.Tensor]], Any]
     uses_current: bool = True
+    apply_in_parallel: bool = False
 
     def __call__(self, x, refs):
-        return self.fn(x, refs)
+        if not (self.apply_in_parallel and isinstance(x, (list, tuple))):
+            return self.fn(x, refs)
+        out = []
+        for i, xi in enumerate(x):
+            refs_i = [r[i] if isinstance(r, (list, tuple)) else r for r in refs
+                      if not isinstance(r, (list, tuple)) or i < len(r)]
+            out.append(self.fn(xi, refs_i))
+        return out
 
 
 #: global hp keys auto-forwarded to layer-producing creators
@@ -339,7 +355,7 @@ def _maybe_rescale(ref: torch.Tensor, like: torch.Tensor, allow_scaling: bool,
     return ref
 
 
-_LINK_ALLOWED = ("allow_scaling", "reduction", "scaling_mode",
+_LINK_ALLOWED = ("allow_scaling", "reduction", "apply_in_parallel", "scaling_mode",
                  YamlTokens.FROM, YamlTokens.FROM_NAS_INPUT_CHOICE)
 
 
@@ -359,7 +375,7 @@ def _residual_link(params, ctx: CreatorContext, name: str, in_shape: Shape) -> F
                 f"{x.shape[1]} — residual refs must preserve channel count")
         return x + combined.to(x.dtype)
 
-    return ForwardCallback(fn=fn)
+    return ForwardCallback(fn=fn, apply_in_parallel=bool(params.get("apply_in_parallel", False)))
 
 
 @submodule_creator("dense_link", aliases=("concat_link",), allowed=_LINK_ALLOWED)
@@ -372,7 +388,7 @@ def _dense_link(params, ctx: CreatorContext, name: str, in_shape: Shape) -> Forw
         refs = [_maybe_rescale(r, x, allow_scaling, name).to(x.dtype) for r in refs]
         return torch.cat([x, *refs], dim=1)
 
-    return ForwardCallback(fn=fn)
+    return ForwardCallback(fn=fn, apply_in_parallel=bool(params.get("apply_in_parallel", False)))
 
 
 @submodule_creator(YamlTokens.NEW_BRANCH_FROM_TENSOR, aliases=("new_branch_from_tensor",),
@@ -386,6 +402,95 @@ def _new_branch(params, ctx: CreatorContext, name: str, in_shape: Shape) -> Forw
         return reduction(refs) if len(refs) > 1 else refs[0]
 
     return ForwardCallback(fn=fn, uses_current=False)
+
+
+@submodule_creator("interpolate", aliases=("upsample", "resize"),
+                   allowed=("size", "scale", "method"))
+def _interpolate(params, ctx: CreatorContext, name: str, in_shape: Shapes) -> nn.Module:
+    """Spatial resize node: to ``size: [h, w]`` or by ``scale: k``,
+    bilinear (``method: linear``, the one method ported)."""
+    size = params.get("size")
+    return dnn.Interpolate(size=size or None, scale=float(params.get("scale") or 0.0),
+                           method=str(params.get("method", "linear")))
+
+
+# --------------------------------------------------------------------------- #
+# HRNet nodes
+# --------------------------------------------------------------------------- #
+
+def _stream_shapes(in_shape: Shapes, name: str, creator: str) -> List[Shape]:
+    shapes = list(in_shape) if isinstance(in_shape, list) else [in_shape]
+    if any(len(s) != 4 for s in shapes):
+        raise ValueError(f"Submodule '{name}' ({creator}): streams must be image feature "
+                         f"maps, got shapes {shapes}")
+    return [tuple(s) for s in shapes]
+
+
+def _layer_kwargs(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The global layer keys of an HRNet node's layer units."""
+    return dict(act_fn=dnn.get_activation(params.get("act_fn")),
+                dropout_prob=float(params.get("dropout_prob") or 0.0),
+                preactivation=bool(params.get("preactivation", False)),
+                norm_specs=_norm_specs_from_params(params))
+
+
+@submodule_creator("hrnet_input_stem", global_keys=GLOBAL_LAYER_KEYS,
+                   allowed=("out_channels", "conv_count"), required=("out_channels",))
+def _hrnet_stem(params, ctx: CreatorContext, name: str, in_shape: Shapes) -> nn.Module:
+    from deepcv_tpu_torch.ops.hrnet import HRNetInputStem
+    return HRNetInputStem(_stream_shapes(in_shape, name, "hrnet_input_stem")[0][1],
+                          int(params["out_channels"]),
+                          conv_count=int(params.get("conv_count", 2)), **_layer_kwargs(params))
+
+
+@submodule_creator("parallel_conv", aliases=("parallel_convolution",),
+                   global_keys=GLOBAL_LAYER_KEYS,
+                   allowed=("kernel_size", "out_channels", "groups"),
+                   required=("kernel_size", "out_channels"))
+def _parallel_conv(params, ctx: CreatorContext, name: str, in_shape: Shapes) -> nn.Module:
+    from deepcv_tpu_torch.ops.hrnet import ParallelConvolution
+    return ParallelConvolution([s[1] for s in _stream_shapes(in_shape, name, "parallel_conv")],
+                               params["kernel_size"], params["out_channels"],
+                               groups=params.get("groups", 1), **_layer_kwargs(params))
+
+
+@submodule_creator("multiresolution_fusion", global_keys=GLOBAL_LAYER_KEYS,
+                   allowed=("create_new_branch", "new_branch_channels",
+                            "reuse_scaling_convs"))
+def _multires_fusion(params, ctx: CreatorContext, name: str, in_shape: Shapes) -> nn.Module:
+    from deepcv_tpu_torch.ops.hrnet import MultiresolutionFusion
+    nb = params.get("new_branch_channels")
+    return MultiresolutionFusion(
+        _stream_shapes(in_shape, name, "multiresolution_fusion"),
+        create_new_branch=bool(params.get("create_new_branch", True)),
+        new_branch_channels=int(nb) if nb else None,
+        reuse_scaling_convs=bool(params.get("reuse_scaling_convs", False)),
+        act_fn=dnn.get_activation(params.get("act_fn")))
+
+
+def _hrnet_head(version: str):
+    def creator(params, ctx: CreatorContext, name: str, in_shape: Shapes) -> nn.Module:
+        from deepcv_tpu_torch.ops import hrnet
+        chans = [s[1] for s in _stream_shapes(in_shape, name, f"hrnet_repr_head_{version}")]
+        if version == "v1":
+            return hrnet.HRNetV1RepresentationHead()
+        oc = params.get("out_channels")
+        kw = dict(out_channels=int(oc) if oc else None,
+                  act_fn=dnn.get_activation(params.get("act_fn")))
+        if version == "v2":
+            return hrnet.HRNetV2RepresentationHead(chans, **kw)
+        return hrnet.HRNetV2pRepresentationHead(
+            chans, pyramid_levels=int(params.get("pyramid_levels", 3)), **kw)
+    return creator
+
+
+submodule_creator("hrnet_repr_head_v1", global_keys=GLOBAL_LAYER_KEYS,
+                  allowed=())(_hrnet_head("v1"))
+# the reference's YAML writes 'hrnet_repr_head_vZ', an alias of v2
+submodule_creator("hrnet_repr_head_v2", aliases=("hrnet_repr_head_vZ",),
+                  global_keys=GLOBAL_LAYER_KEYS, allowed=("out_channels",))(_hrnet_head("v2"))
+submodule_creator("hrnet_repr_head_v2p", global_keys=GLOBAL_LAYER_KEYS,
+                  allowed=("out_channels", "pyramid_levels"))(_hrnet_head("v2p"))
 
 
 # --------------------------------------------------------------------------- #

@@ -5,7 +5,8 @@ Counterpart of ``deepcv_tpu/spec/graph.py`` (``SpecError``,
 node list. Shapes are inferred while compiling: every node is built on the
 meta device and run there on a meta tensor of the current shape, so each
 creator learns its input size and no FLOP is spent (the JAX package used
-``jax.eval_shape``). Spec faults are :class:`SpecError`\\ s raised here, at
+``jax.eval_shape``). A node that outputs parallel streams (HRNet's) has a
+list of shapes. Spec faults are :class:`SpecError`\\ s raised here, at
 build time.
 
 Ported: plain creators, links and nested modules (``_nested_deepcvmodule``
@@ -23,7 +24,7 @@ import torch
 import torch.nn as nn
 
 from deepcv_tpu_torch.spec.creators import (
-    CreatorContext, ForwardCallback, check_creator_params, get_creator)
+    CreatorContext, ForwardCallback, Shapes, check_creator_params, get_creator)
 from deepcv_tpu_torch.spec.tokens import YamlTokens as T
 
 __all__ = ["SpecError", "NodeMeta", "define_nn_architecture", "SpecModule"]
@@ -74,24 +75,38 @@ def _creator_label(key) -> str:
     return str(key).lstrip("_")
 
 
+def _shape_of(x) -> Shapes:
+    """A tensor's shape, or a stream list's shapes."""
+    return [tuple(t.shape) for t in x] if isinstance(x, (list, tuple)) else tuple(x.shape)
+
+
+def _meta_input(shape: Shapes):
+    """Meta tensors of ``shape`` (a list for a stream list); feature maps in
+    channels_last memory."""
+    if isinstance(shape, list):
+        return [_meta_input(s) for s in shape]
+    x = torch.empty(tuple(shape))
+    return x.contiguous(memory_format=torch.channels_last) if len(shape) == 4 else x
+
+
 def define_nn_architecture(architecture: Sequence[Any], hp: Mapping[str, Any],
-                           ctx: CreatorContext, input_shape: Sequence[int],
+                           ctx: CreatorContext, input_shape: Shapes,
                            ) -> Tuple[Tuple[NodeMeta, ...], Dict[str, Any],
-                                      Tuple[str, ...], Dict[str, Tuple[int, ...]]]:
+                                      Tuple[str, ...], Dict[str, Shapes]]:
     """Compile a YAML architecture list for an NCHW-logical ``input_shape``
-    (batch dim included) into ``(node_metas, node_impls, referenced,
-    node_shapes)``. Modules are created on the meta device."""
+    (batch dim included; a list of shapes for a stream list) into
+    ``(node_metas, node_impls, referenced, node_shapes)``. Modules are
+    created on the meta device."""
     if not isinstance(architecture, (list, tuple)) or not architecture:
         raise SpecError(f"'architecture' must be a non-empty list, got {type(architecture)}")
 
     metas: List[NodeMeta] = []
     impls: Dict[str, Any] = {}
-    shapes: Dict[str, Tuple[int, ...]] = {}
+    shapes: Dict[str, Shapes] = {}
     names_seen: Dict[str, int] = {}
     refs_needed = set()
     with torch.device("meta"):
-        x = torch.empty(tuple(input_shape)).contiguous(memory_format=torch.channels_last) \
-            if len(input_shape) == 4 else torch.empty(tuple(input_shape))
+        x = _meta_input(input_shape)
         stored: Dict[str, torch.Tensor] = {}
         for idx, entry in enumerate(architecture):
             explicit_name, key, params = _entry_name_and_params(entry, idx)
@@ -115,11 +130,11 @@ def define_nn_architecture(architecture: Sequence[Any], hp: Mapping[str, Any],
                 sub = SpecModule(*define_nn_architecture(
                     sub_hp["architecture"], sub_hp,
                     CreatorContext(hp=sub_hp, weight_norm=ctx.weight_norm),
-                    tuple(x.shape))[:3])
+                    _shape_of(x))[:3])
                 names_seen[name] = idx
                 metas.append(NodeMeta(name=name, kind="module", creator="nested"))
                 x = sub(x)
-                impls[name], stored[name], shapes[name] = sub, x, tuple(x.shape)
+                impls[name], stored[name], shapes[name] = sub, x, _shape_of(x)
                 ctx = dataclasses.replace(ctx, submodule_names=tuple(names_seen))
                 continue
             refs = params.pop(T.FROM, None)
@@ -137,7 +152,7 @@ def define_nn_architecture(architecture: Sequence[Any], hp: Mapping[str, Any],
             merged = {k: hp[k] for k in entry_c["global_keys"] if k in hp}
             merged.update(params)
             check_creator_params(key, merged)
-            impl = entry_c["fn"](merged, ctx, name, tuple(x.shape))
+            impl = entry_c["fn"](merged, ctx, name, _shape_of(x))
 
             if isinstance(impl, ForwardCallback):
                 if not refs and not impl.uses_current:
@@ -153,7 +168,7 @@ def define_nn_architecture(architecture: Sequence[Any], hp: Mapping[str, Any],
                 x = impl(x)
             impls[name] = impl
             stored[name] = x
-            shapes[name] = tuple(x.shape)
+            shapes[name] = _shape_of(x)
             ctx = dataclasses.replace(ctx, submodule_names=tuple(names_seen))
     return tuple(metas), impls, tuple(sorted(refs_needed)), shapes
 

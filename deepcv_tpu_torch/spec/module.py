@@ -7,7 +7,7 @@ initialisers. The model owns its parameters, as PyTorch modules do.
 
 Public layout stays the JAX package's: ``forward`` takes NHWC images
 (``input_shape`` is (H, W, C)) and returns NHWC feature maps, (N, T, D)
-tokens or (N, F) rows; inside, feature maps are NCHW-logical in
+tokens, (N, F) rows or a list of NHWC maps (parallel streams); inside, feature maps are NCHW-logical in
 ``torch.channels_last`` memory, which is the same NHWC bytes, so the
 permutes at the edges copy nothing.
 
@@ -101,7 +101,8 @@ class DeepcvModule(nn.Module):
 
     @property
     def output_shape(self):
-        """Output shape at batch 1 (channel-last for feature maps)."""
+        """Output shape at batch 1 (channel-last for feature maps; a list of
+        shapes for parallel streams)."""
         return self.node_shapes[self.module.node_metas[-1].name]
 
     def init_parameters(self, generator: torch.Generator) -> None:
@@ -111,14 +112,17 @@ class DeepcvModule(nn.Module):
             if m is not self and hasattr(m, "init_parameters"):
                 m.init_parameters(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """NHWC in; NHWC feature maps, (N, T, D) tokens or (N, F) rows out."""
+    def forward(self, x: torch.Tensor):
+        """NHWC in; NHWC feature maps, (N, T, D) tokens, (N, F) rows or a
+        list of NHWC maps out."""
         x = x.movedim(-1, 1)
         if self.dtype is not None and x.device.type in ("cpu", "cuda"):
             with torch.autocast(x.device.type, dtype=self.dtype):
                 y = self.module(x)
         else:
             y = self.module(x)
+        if isinstance(y, (list, tuple)):
+            return [t.movedim(1, -1) if t.dim() > 3 else t for t in y]
         return y.movedim(1, -1) if y.dim() > 3 else y
 
     def capacity(self) -> int:
@@ -129,6 +133,8 @@ class DeepcvModule(nn.Module):
 
 
 def _channel_last(shape):
+    if isinstance(shape, list):
+        return [_channel_last(s) for s in shape]
     shape = tuple(shape)
     return (shape[0], *shape[2:], shape[1]) if len(shape) > 3 else shape
 

@@ -3,8 +3,8 @@
 Counterpart of ``deepcv_tpu/spec/zoo.py`` (``resnet_spec``,
 ``RESNET_LAYERS``, ``vit_spec``, ``VIT_SETTINGS``, ``_make_divisible``,
 ``mobilenet_v2_spec``, ``efficientnet_b0_spec``, ``mobilenet_v3_spec``,
-``convnext_spec``, ``swin_spec``, ``densenet_spec`` and their settings
-tables), copied so
+``convnext_spec``, ``swin_spec``, ``densenet_spec``, ``unet_spec`` and
+their settings tables), copied so
 that the port imports nothing of the JAX package: these functions emit
 plain architecture lists, the same dicts a user could write in YAML and the
 same dicts the JAX builders return for the same arguments. The layer unit
@@ -17,7 +17,9 @@ efficientnet_b0_spec() 5,288,548, densenet_spec(121 / 169 / 201)
 swin_spec('t' / 's' / 'b') 28,288,354 / 49,606,258 / 87,768,224). vit_spec's
 V-MoE arguments put an expert mixture in every ``moe_every``-th block
 (bench.py config 13's ViT-B/16 with 8 experts on every 2nd block has
-284,946,664).
+284,946,664). unet_spec() at 256x256 has 7,849,568 parameters, 7,849,700
+with ``create_segmenter``'s 4-class head: the JAX model's 7,851,140 less
+the 1,440 weights of its first conv's zero-padded input rows.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ __all__ = ["resnet_spec", "RESNET_LAYERS", "vit_spec", "VIT_SETTINGS",
            "mobilenet_v2_spec", "MOBILENET_V2_SETTINGS", "efficientnet_b0_spec",
            "EFFICIENTNET_B0_SETTINGS", "mobilenet_v3_spec", "MOBILENET_V3_SETTINGS",
            "convnext_spec", "CONVNEXT_SETTINGS", "swin_spec", "SWIN_SETTINGS",
-           "densenet_spec", "DENSENET_SETTINGS"]
+           "densenet_spec", "DENSENET_SETTINGS", "unet_spec"]
 
 #: blocks per stage for the standard depths
 RESNET_LAYERS = {
@@ -639,4 +641,38 @@ def densenet_spec(depth: int = 121, num_classes: int = 1000,
     hp: Dict[str, Any] = {"act_fn": "relu", "architecture": arch,
                           "dropout_prob": 0.0}
     hp[norm] = dict(norm_spec)
+    return hp
+
+
+def unet_spec(depth: int = 4, base_channels: int = 32,
+              norm: str = "group_norm") -> Dict[str, Any]:
+    """U-Net (Ronneberger et al., arXiv:1505.04597): the encoder halves the
+    resolution per level (double 3x3 conv, then a 2x2 max pool), the
+    decoder doubles it (an ``interpolate`` node, bilinear), concatenates
+    the matching encoder output (``dense_link``) and runs a double conv.
+    The output keeps the input's resolution and ``base_channels`` width;
+    ``create_segmenter`` appends the 1x1 class conv. H and W must be
+    divisible by 2**depth. Group norm (8 groups) by default; the convs
+    have no bias when a norm follows."""
+    arch: List[Any] = []
+    c = int(base_channels)
+    bias = not bool(norm)
+
+    def double_conv(prefix, out_ch):
+        arch.append(_conv(f"{prefix}a", out_ch, 3, bias=bias))
+        arch.append(_conv(f"{prefix}b", out_ch, 3, bias=bias))
+
+    enc_names = []
+    for d in range(depth):
+        double_conv(f"enc{d}_", c * 2 ** d)
+        enc_names.append(f"enc{d}_b")
+        arch.append({"max_pooling": {"kernel_size": [2, 2], "stride": [2, 2]}})
+    double_conv("mid_", c * 2 ** depth)
+    for d in reversed(range(depth)):
+        arch.append({"interpolate": {"scale": 2}})
+        arch.append({"dense_link": [f"dec{d}_cat", {"_from": enc_names[d]}]})
+        double_conv(f"dec{d}_", c * 2 ** d)
+    hp: Dict[str, Any] = {"act_fn": "relu", "architecture": arch, "dropout_prob": 0.0}
+    if norm:
+        hp[norm] = _norm_hp(norm, num_groups=8)
     return hp

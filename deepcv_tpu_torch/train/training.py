@@ -5,7 +5,10 @@ Counterpart of ``deepcv_tpu/train/training.py`` (``train``,
 ``Preempted``), the subset that ``train_resnet50``-style runs use on one
 card:
 
-* the whole trainset lives on the device as uint8; each epoch visits every
+* the whole trainset lives on the device as uint8, its targets as the
+  dataset keeps them (float ones, such as pose heatmaps, as float32;
+  labels and masks as int64), as the JAX loop keeps the dataset's dtype;
+  each epoch visits every
   sample once in the order of a permutation drawn from a generator keyed by
   (seed, epoch) alone, so a resumed run replays the same order;
 * each step transforms its batch on the device (augmenting it from a
@@ -282,6 +285,14 @@ def train_step(state: TrainState, losses: Callable, metrics: Mapping[str, Callab
     return out
 
 
+def _device_targets(targets: np.ndarray, device) -> torch.Tensor:
+    """Targets on ``device``: float ones (pose heatmaps) as float32, integer
+    ones (labels, masks) as int64. The JAX loop keeps the dataset's dtype and
+    each loss casts what it needs."""
+    t = torch.from_numpy(np.asarray(targets))
+    return (t.float() if t.is_floating_point() else t.long()).to(device)
+
+
 def epoch_permutation(seed: int, epoch: int, n: int) -> torch.Tensor:
     """The order of epoch ``epoch``: a permutation of ``n`` from a CPU
     generator keyed by (seed, epoch) alone."""
@@ -359,7 +370,7 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
                          "zero steps per epoch (reduce batch_size)")
     steps_per_epoch = n // batch_size
     images = torch.from_numpy(np.ascontiguousarray(trainset.dataset.images)).to(device)
-    targets = torch.from_numpy(np.asarray(trainset.dataset.targets)).long().to(device)
+    targets = _device_targets(trainset.dataset.targets, device)
 
     schedules = build_schedules(hp.get("scheduler"), hp.to_dict(), steps_per_epoch)
     optimizer = build_optimizer(hp["optimizer"], hp["optimizer_opts"],
@@ -396,7 +407,7 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
             for lo in range(0, len(validset), eval_bs):
                 x = validset.batch_transform(torch.from_numpy(
                     np.ascontiguousarray(vx[lo:lo + eval_bs])).to(device), augment=False)
-                y = torch.from_numpy(vy[lo:lo + eval_bs]).long().to(device)
+                y = _device_targets(vy[lo:lo + eval_bs], device)
                 with _autocast(device, dtype):
                     logits = model(x)
                 _, terms = losses(logits, y)

@@ -985,3 +985,79 @@ def test_vmoe_train_step_bf16_counts_the_flash_launches(cuda):
     aux = out["moe_aux"].item()
     assert 0.0 < aux <= 4.0
     assert abs(out["main_loss"].item() - (out["loss"].item() + 0.01 * aux)) <= 1e-5
+
+
+# --------------------------------------------------------------------------- #
+# dense prediction on the card
+# --------------------------------------------------------------------------- #
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+class _Set:
+    """The ``datasets['trainset']`` view that ``create_segmenter`` reads."""
+
+    def __init__(self, image_shape):
+        self.classes, self.image_shape = None, image_shape
+        self.dataset = self
+
+
+def test_unet_bf16_on_card_matches_cpu(cuda):
+    """``unet_spec()`` at full width (depth 4, base 32) with the 4-class
+    head through ``create_segmenter``, 64x64, batch 2, eval, weights from
+    one seed, under bf16 autocast (as ``train()`` runs a ``dtype:
+    bfloat16`` hp): 19 K2 launches on the card, all bf16. bf16 itself costs
+    the CPU path rel L2 4.5e-2 against its float32 forward at this seed
+    (19 convs on bf16 inputs and weights, each normalised after); the
+    card's bf16 forward is within that of the CPU's bf16 forward (2.0e-2 on
+    an H100), and off the CPU's float32 forward by at most 1.25 times
+    it."""
+    from deepcv_tpu_torch.pipelines.segmentation import create_segmenter
+    from deepcv_tpu_torch.spec.zoo import unet_spec
+
+    datasets = {"trainset": _Set((64, 64, 3))}
+    cpu = create_segmenter(datasets, unet_spec(), device="cpu").eval()
+    gpu = create_segmenter(datasets, unet_spec()).eval()
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 64, 64, 3))
+                         .astype(np.float32))
+    before = dict(fused_conv2d_bias_act.launches_by_dtype)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        got = gpu(x.to(cuda)).float().cpu()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ref = cpu(x)
+        with torch.autocast("cpu", dtype=torch.bfloat16):
+            ref_bf16 = cpu(x).float()
+    assert fused_conv2d_bias_act.launches_by_dtype == {**before,
+                                                      "bfloat16": before["bfloat16"] + 19}
+    assert got.shape == ref.shape == (2, 64, 64, 4) and torch.isfinite(got).all()
+    bf16_cost = _rel_l2(ref_bf16, ref)
+    assert _rel_l2(got, ref_bf16) <= bf16_cost
+    assert _rel_l2(got, ref) <= 1.25 * bf16_cost
+
+
+def test_hrnet_segmenter_f32_on_card_matches_cpu(cuda):
+    """The conf's semantic_segmentation_model (hrnet_backbone) through
+    ``create_segmenter`` at 32x32, batch 8, float32 (TF32 off), the same
+    weights: one f32 K2 launch (the head) in eval and in train mode, within
+    rel L2 1e-3 of the CPU path in both."""
+    from deepcv_tpu_torch.config import load_yaml
+    from deepcv_tpu_torch.pipelines.segmentation import create_segmenter
+
+    hp = load_yaml("conf/base/parameters.yml")["semantic_segmentation_model"]
+    datasets = {"trainset": _Set((32, 32, 3))}
+    cpu = create_segmenter(datasets, hp, device="cpu")
+    gpu = create_segmenter(datasets, hp)
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(8, 32, 32, 3))
+                         .astype(np.float32))
+    for train in (False, True):
+        before = dict(fused_conv2d_bias_act.launches_by_dtype)
+        with torch.no_grad():
+            got = gpu.train(train)(x.to(cuda)).cpu()
+            ref = cpu.train(train)(x)
+        torch.cuda.synchronize()
+        assert fused_conv2d_bias_act.launches_by_dtype == {**before,
+                                                          "float32": before["float32"] + 1}
+        assert got.shape == ref.shape == (8, 32, 32, 4) and torch.isfinite(got).all()
+        assert _rel_l2(got, ref) <= 1e-3

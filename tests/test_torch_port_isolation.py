@@ -109,6 +109,7 @@ from deepcv_tpu_torch.pipelines import ProjectContext
 from deepcv_tpu_torch.pipelines import classification, registry  # noqa
 from deepcv_tpu_torch.data import augmentation, datasets, preprocess, transforms  # noqa
 from deepcv_tpu_torch.ops.kernels import fused_augment  # noqa
+from deepcv_tpu_torch.ops import hrnet  # noqa
 from deepcv_tpu_torch.train import checkpoint, losses, metrics, schedules, training  # noqa
 from deepcv_tpu_torch.spec import DeepcvModule
 from deepcv_tpu_torch.spec.zoo import vit_spec
@@ -129,7 +130,8 @@ print(json.dumps({"pipes": pipes, "bad": bad}))
                              "train_convnext", "train_densenet",
                              "train_image_classifier", "train_image_classifier_cifar100",
                              "train_mobilenet_v2", "train_mobilenet_v3",
-                             "train_resnet50", "train_swin", "train_vit",
+                             "train_pose_estimator", "train_resnet50",
+                             "train_semantic_segmentation", "train_swin", "train_vit",
                              "train_wide_classifier",
                              "train_wide_classifier_gn", "train_wide_classifier_ws"],
                    "bad": []}

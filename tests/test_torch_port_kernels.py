@@ -303,11 +303,14 @@ def _rel(got, ref):
 #: 5x5 and 3x3); 1x1 in one chunk and in two (Cin 80 > 64) with Cout across
 #: two BN blocks; a 7x7 kernel; H and W that leave partial tiles (13x13,
 #: 17x13), Cin 5 and 33 (the 2-byte loads), whole 6x6 images stacked in one
-#: tile with Cout 129
+#: tile with Cout 129; the dense head (1x1, 32 -> 4: Cout below every tile
+#: width) and U-Net's first conv (3 -> 32) and decoder convs on concatenated
+#: inputs (96 -> 32, 768 -> 256 over twelve 64-channel chunks)
 TC_SHAPES = [(2, 32, 32, 3, 4, 5), (2, 32, 32, 4, 4, 5), (2, 16, 16, 4, 16, 3),
              (2, 16, 16, 16, 16, 3), (2, 9, 11, 16, 24, 1), (1, 12, 10, 80, 136, 1),
              (1, 12, 10, 8, 24, 7), (3, 13, 13, 5, 7, 5), (1, 17, 13, 33, 64, 5),
-             (3, 6, 6, 65, 129, 7)]
+             (3, 6, 6, 65, 129, 7), (2, 8, 8, 32, 4, 1), (1, 16, 16, 3, 32, 3),
+             (1, 16, 16, 96, 32, 3), (1, 4, 4, 768, 256, 3)]
 
 
 @pytest.mark.parametrize("act,bias", [("relu", True), ("leaky_relu", False)])
