@@ -28,7 +28,12 @@ Phases, each printing one JSON line:
    -3 and 3), float32 and bfloat16, at image_classifier's conv shapes at
    batch 4096 in bfloat16, and at the dense paths' own shapes (the dense
    head, 1x1 32 -> 4, in float32 at batch 64; U-Net's 3 -> 32 and 96 -> 32
-   at 256x256 and 768 -> 256 at 32x32 in bfloat16 at batch 32); error
+   at 256x256 and 768 -> 256 at 32x32 in bfloat16 at batch 32), and at the
+   detection and keypoint paths' (the detectors' stem 3 -> 16 and the
+   single-grid head 1x1 32 -> 8 in float32 at batch 64; config 12's stem
+   3 -> 32 at 64x64 and c4 conv 64 -> 128 at 8x8 in bfloat16 at batch
+   512; the autoencoder's stem and its last conv 16 -> 3 in bfloat16 at
+   batch 32); error
    relative to max|ref|, kernel
    time (median of CUDA-event timed launches), its bound on the card (f32:
    by 3xTF32, with the CUDA-core one beside it), and the same ``F.conv2d``
@@ -40,7 +45,8 @@ Phases, each printing one JSON line:
    MobileNetV3-Large forward (30: hard_swish on 10, relu on 5) and of a
    DenseNet-121 forward (119) at batch 256 without bias, and the 19 convs
    of a U-Net segmenter forward at batch 32 and 256x256 (18 3x3 with relu
-   and no bias, the head), read from the models (``kernel_forward_bf16``,
+   and no bias, the head), and the four backbone convs of config 12's FPN
+   detector forward at batch 512 and 64x64, read from the models (``kernel_forward_bf16``,
    per shape, with the same corner checks); in float32, the
    same 46 (the serving forward) and image_classifier's five at
    ``classifier_train``'s batch 32 (``kernel_forward_f32``), each per
@@ -183,6 +189,41 @@ Phases, each printing one JSON line:
    (32x32) and of the U-Net segmenter (64x64), batch 8, on the card against
    the CPU path with the same weights: rel L2 within 1e-3, 1 and 19 float32
    K2 launches.
+15. detect_train — ``run --pipeline=train_object_detector`` (6 epochs) and
+   ``--pipeline=train_fpn_detector`` (8) in this process with the conf's
+   models and hp (batch 64, AdamW lr 2e-3 wd 1e-4, float32, TF32 off),
+   epochs not cut, on the catalog's synthetic 32x32 shapes sets: finite
+   losses, a finite ``valid_map50`` in [0, 1] with the objectness accuracy
+   (and the mean IoU on the single grid), 14,760 and 117,864 parameters,
+   exactly 4 float32 K2 launches a training and a validation forward, no
+   K1 and no flash launch; the median step of the last epoch and the wall
+   of every validation pass, mAP included.
+16. fpn_train — bench.py config 12's FPN detector (bench.py:1049-1087)
+   through the port's ``generate_shapes_dataset_fpn``, ``preprocess``,
+   ``create_fpn_detector`` and ``train_fpn_detector``: 8,192 64x64 images,
+   grids (16, 8), a 0.05 validation split, fpn_channels 64, batch 512,
+   bf16, AdamW lr 2e-3, 4 epochs, validation after the last (bench.py's is
+   off: the one cut): 221,064 parameters, 4 bf16 K2 launches a forward,
+   finite losses and map50; the median step of the last epoch, img/s, peak
+   memory. Then, in a process of its own (``--fpn-profile``), 8 profiled
+   steps (``fpn_train_profile``): device ms a step for K2's forward and
+   backward, the FPN's cuDNN convs, the nearest resize, the focal loss,
+   AdamW, copies, and the idle share.
+17. keypoints_train — ``run --pipeline=train_keypoint_detector`` with the
+   conf's hp (batch 32, AdamW lr 1e-3) in bf16 (passed as ``--params``; the
+   conf trains in float32), cut to 1 epoch, on CIFAR-10 (the line names
+   which pixels): 3,267 parameters, 3 bf16 K2 launches a forward (relu,
+   relu, and none before the sigmoid), finite ``reconstruction_mse`` in
+   training and validation; the median step.
+18. keypoints_match — bench.py config 4 (bench.py:256-341): the conf's
+   encoder at 64x64 in bf16 eval, 64 pairs (``img_b = img_a + 0.02
+   noise``), K = 256: encode, dense descriptors, keypoints of the mean
+   |activation|, their descriptors, per-pair mutual NN; pairs/s over 20
+   iterations by CUDA events, 1 K2 launch an encoder forward; AdaLAM on the
+   first pair (its surviving share); then the chain in float32 on the card
+   and on the CPU (8 pairs, the same weights, inputs and Gumbel draws):
+   matches and AdaLAM masks agree for at least 99 % of the keypoints.
+   Config 4's classical baseline is not ported (P12) and is left out.
 
 Then the wall seconds of every phase (``walls``), the kernels line and,
 last, the contract line
@@ -221,9 +262,11 @@ its CUDA-event and device times, and the noise statistics), and
 (``k1_augment_train``: the step time and K1's device time a step).
 
     python3 chip_smoke.py --unet-profile STEP_MS CARD
+    python3 chip_smoke.py --fpn-profile STEP_MS CARD
 
-is ``unet_train_profile`` alone, its idle share taken of ``STEP_MS`` and
-its line marked with ``CARD``; the whole run starts it so.
+are ``unet_train_profile`` and ``fpn_train_profile`` alone, the idle
+share taken of ``STEP_MS`` and the line marked with ``CARD``; the whole
+run starts them so.
 """
 from __future__ import annotations
 
@@ -244,6 +287,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 from typing import Optional
 from unittest import mock
@@ -269,6 +313,8 @@ from deepcv_tpu_torch.ops.kernels.fused_layer import (
 from deepcv_tpu_torch.ops.kernels import fused_layer
 from deepcv_tpu_torch.ops.moe import MoEMlp
 from deepcv_tpu_torch.ops.nn import FusedConv2d
+from deepcv_tpu_torch.pipelines import detection as det_pipeline
+from deepcv_tpu_torch.pipelines import keypoints as kp_pipeline
 from deepcv_tpu_torch.pipelines import segmentation as seg_pipeline
 from deepcv_tpu_torch.pipelines.framework import append_dense_head
 from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bundle
@@ -348,17 +394,25 @@ ZOO_PARAMETERS = {"train_mobilenet_v2": 3_504_872, "train_mobilenet_v3": 5_483_0
 ZOO_FORWARDS = (("mobilenet_v2", mobilenet_v2_spec),
                 ("mobilenet_v3", functools.partial(mobilenet_v3_spec, variant="large")),
                 ("densenet_121", densenet_spec))
-#: the dense pipelines as dense_train runs them, with the conf's HRNet
-#: models (hrnet_backbone and the 1x1 head to 4 channels) and hp (batch 64,
-#: AdamW lr 2e-3 wd 1e-4, one_cycle for segmentation, float32): the
-#: pipeline (also its training hp's key), its epochs (the conf's, not cut)
-#: and the validation metrics it reports
-DENSE_PIPELINES = {"segmentation": ("train_semantic_segmentation", 6,
-                                    ("valid_pixel_accuracy", "valid_mean_iou")),
-                   "pose": ("train_pose_estimator", 8, ("valid_pck",))}
+#: a pipeline that a train phase (:func:`phase_pipeline_runs`) runs through
+#: the port's ``run`` with the conf's model and hp: its label, the
+#: pipeline (also its training hp's key), the --params it adds, its epochs
+#: (the conf's unless ``params`` cut them), its parameters, its K2 convs a
+#: training and a validation forward by epilogue activation, K2's dtype,
+#: its validation metrics with the top of their range, and its cuts
+PipelineRun = collections.namedtuple(
+    "PipelineRun", "label pipeline params epochs parameters k2_by_act dtype metrics cut")
 #: the conf's HRNet segmenter and pose estimator at 32x32: the JAX models'
 #: 90,698 less the 1,440 weights of their stems' zero-padded input rows
 DENSE_PARAMETERS = 89_258
+#: dense_train: the conf's HRNet models (hrnet_backbone and the 1x1 head to
+#: 4 channels, its one K2 launch) and hp (batch 64, AdamW lr 2e-3 wd 1e-4,
+#: one_cycle for segmentation, float32), epochs not cut
+DENSE_RUNS = (
+    PipelineRun("segmentation", "train_semantic_segmentation", (), 6, DENSE_PARAMETERS,
+                {"none": 1}, "float32", {"valid_pixel_accuracy": 1, "valid_mean_iou": 1}, {}),
+    PipelineRun("pose", "train_pose_estimator", (), 8, DENSE_PARAMETERS, {"none": 1},
+                "float32", {"valid_pck": 1}, {}))
 #: unet_train: bench.py config 12's functions (create_segmenter,
 #: train_segmenter) on unet_spec() at its defaults (depth 4, base 32, group
 #: norm), generate_segmentation_dataset's images at 256x256 (1,280, a fifth
@@ -381,6 +435,68 @@ DENSE_KERNEL_CASES = [((64, 8, 8, 32, 4, 1), ("float32",)),
                       ((UNET_BATCH, 256, 256, 3, 32, 3), ("bfloat16",)),
                       ((UNET_BATCH, 32, 32, 768, 256, 3), ("bfloat16",)),
                       ((UNET_BATCH, 256, 256, 96, 32, 3), ("bfloat16",))]
+#: detect_train: the conf's single-grid and FPN detectors with the conf's
+#: hp (batch 64, AdamW lr 2e-3 wd 1e-4, float32, epochs not cut) on the
+#: catalog's synthetic 32x32 sets; their parameters are the JAX models'
+#: 15,480 and 118,584 less the stem's 720 zero-padded kernel rows
+DETECT_BATCH, DETECT_SIZE = 64, 32
+DETECT_RUNS = (
+    PipelineRun("single", "train_object_detector", (), 6, 14_760, {"relu": 3, "none": 1},
+                "float32", {"valid_map50": 1, "valid_objectness_accuracy": 1,
+                            "valid_mean_iou": 1}, {}),
+    PipelineRun("fpn", "train_fpn_detector", (), 8, 117_864, {"relu": 4}, "float32",
+                {"valid_map50": 1, "valid_objectness_accuracy": 1}, {}))
+#: fpn_train: bench.py config 12's FPN detector (bench.py:1049-1087) at full
+#: size: 8,192 synthetic 64x64 images of generate_shapes_dataset_fpn, grids
+#: (16, 8), a 0.05 validation split, its backbone with fpn_channels 64,
+#: batch 512, bf16, AdamW lr 2e-3, 4 epochs; validation after the last
+#: (bench.py's is off), so that map50 runs on the card
+FPN_IMAGES, FPN_SIZE, FPN_GRIDS, FPN_BATCH, FPN_EPOCHS = 8192, 64, (16, 8), 512, 4
+FPN_BACKBONE = {"act_fn": "relu", "fpn_channels": 64, "architecture": [
+    {"conv2d": {"kernel_size": [3, 3], "out_channels": 32, "padding": 1}},
+    {"avg_pooling": {"kernel_size": [2, 2], "stride": [2, 2]}},
+    {"conv2d": {"kernel_size": [3, 3], "out_channels": 64, "padding": 1}},
+    {"avg_pooling": {"kernel_size": [2, 2], "stride": [2, 2]}},
+    {"conv2d": ["c3", {"kernel_size": [3, 3], "out_channels": 64, "padding": 1}]},
+    {"avg_pooling": {"kernel_size": [2, 2], "stride": [2, 2]}},
+    {"conv2d": ["c4", {"kernel_size": [3, 3], "out_channels": 128, "padding": 1}]},
+    {"_new_branch_from_tensor": {"_from": ["c3", "c4"]}}]}
+FPN_HP = {"epochs": FPN_EPOCHS, "batch_size": FPN_BATCH, "optimizer": "adamw",
+          "optimizer_opts": {"lr": 2e-3}, "save_every_iters": 0,
+          "validate_every_epochs": FPN_EPOCHS, "log_progress_every_iters": 1_000_000,
+          "seed": 0, "device_resident_dataset": True, "dtype": "bfloat16",
+          "handle_preemption": False, "fpn_grids": FPN_GRIDS}
+#: the JAX model's 222,504 less the stem's 1,440 zero-padded kernel rows
+FPN_PARAMETERS = 221_064
+FPN_CONVS_PER_FORWARD = 4
+FPN_PROFILE_STEPS = 8
+FPN_PROFILE_PROCESS_S = 300
+#: keypoints_train: the conf's autoencoder (3,267 parameters: the JAX
+#: model's 3,987 less 720 zero-padded rows) with the conf's hp (batch 32,
+#: AdamW lr 1e-3, its warm-up schedule, deterministic) in bf16 (the conf
+#: trains in float32; bf16 passed as --params), cut to 1 epoch, on CIFAR-10
+KEYPOINT_BATCH = 32
+KEYPOINT_RUNS = (
+    PipelineRun("autoencoder", "train_keypoint_detector",
+                ("train_keypoint_detector.epochs:1", "train_keypoint_detector.dtype:bfloat16"),
+                1, 3_267, {"relu": 2, "none": 1}, "bfloat16",
+                {"valid_reconstruction_mse": math.inf},
+                {"epochs": "2 -> 1", "dtype": "the conf trains in float32; bfloat16 "
+                                              "passed as --params"}),)
+#: keypoints_match: bench.py config 4 (bench.py:256-341): the conf's encoder
+#: at 64x64 in bf16 eval, 64 pairs, K = 256 keypoints, 20 timed iterations
+MATCH_PAIRS, MATCH_SIZE, MATCH_K, MATCH_ITERS = 64, 64, 256, 20
+MATCH_AGREE = 0.99
+#: K2 at the detection and keypoint paths' own shapes: the detectors' stem
+#: and single-grid head (Cout 8) in f32 at batch 64, the FPN's stem and c4
+#: conv at config 12's batch 512 and the autoencoder's stem and last conv
+#: (Cout 3) at batch 32 in bf16
+DETECT_KERNEL_CASES = [((64, 32, 32, 3, 16, 3), ("float32",)),
+                       ((64, 8, 8, 32, 8, 1), ("float32",)),
+                       ((FPN_BATCH, 64, 64, 3, 32, 3), ("bfloat16",)),
+                       ((FPN_BATCH, 8, 8, 64, 128, 3), ("bfloat16",)),
+                       ((32, 32, 32, 3, 16, 3), ("bfloat16",)),
+                       ((32, 32, 32, 16, 3, 3), ("bfloat16",))]
 DEVICE = "cuda"
 IMAGE_SHAPE = (224, 224, 3)
 SERVE_BATCH = 64
@@ -846,7 +962,8 @@ def phase_kernel(card):
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     cases = [(shape, ("float32", "bfloat16")) for shape in PHASE2_SHAPES] + \
-        [(shape, ("bfloat16",)) for shape in CLASSIFIER_CONVS] + DENSE_KERNEL_CASES
+        [(shape, ("bfloat16",)) for shape in CLASSIFIER_CONVS] + DENSE_KERNEL_CASES \
+        + DETECT_KERNEL_CASES
     rows = {}
     for (n, h, w, cin, cout, k), dtypes in cases:
         for dtype in dtypes:
@@ -894,23 +1011,62 @@ def _with_act(convs, act, bias=True):
 
 def model_convs(hp, batch, image_shape=IMAGE_SHAPE):
     """K2's convs in one forward of the model of ``hp`` at ``image_shape``
-    (224x224 by default) and ``batch``, as (N, H, W, Cin, Cout, k, act,
-    bias) -> count: read from the model's own FusedConv2d calls in a
-    forward on the meta device."""
+    (224x224 by default) and ``batch``: :func:`module_convs` of the
+    DeepcvModule on the meta device."""
+    return module_convs(DeepcvModule(image_shape, hp, device="meta"), batch, image_shape)
+
+
+def module_convs(model, batch, image_shape):
+    """K2's convs in one forward of ``model`` (built on the meta device) at
+    ``batch``, as (N, H, W, Cin, Cout, k, act, bias) -> count: read from
+    the model's own FusedConv2d calls in a forward on the meta device. ``act``
+    is the kernel's epilogue (None where the activation, such as a sigmoid,
+    runs after the kernel)."""
     seen = collections.Counter()
 
     def hook(mod, args):
         n, cin, h, w = args[0].shape
         cout, _, k, _ = mod.weight.shape
-        seen[(n, h, w, cin, cout, k, mod.act, mod.bias is not None)] += 1
+        act = mod.act if isinstance(mod.act, str) else None
+        seen[(n, h, w, cin, cout, k, act, mod.bias is not None)] += 1
 
-    model = DeepcvModule(image_shape, hp, device="meta")
     for m in model.modules():
         if isinstance(m, FusedConv2d):
             m.register_forward_pre_hook(hook)
     with torch.no_grad():
         model.eval()(torch.empty((batch, *image_shape), device="meta"))
     return dict(seen)
+
+
+def conf_hp(key):
+    """The entry ``key`` of the conf's ``parameters.yml``."""
+    return load_yaml(REPO / "conf" / "base" / "parameters.yml")[key]
+
+
+def _creator_datasets(image_shape):
+    """The ``datasets['trainset']`` view the creators read: the image shape
+    and the detection targets' last axis (5 + 3 classes a cell)."""
+    targets = np.zeros((1, 5 + len(det_pipeline.SHAPE_CLASSES)), np.float32)
+    return {"trainset": types.SimpleNamespace(
+        image_shape=image_shape, dataset=types.SimpleNamespace(targets=targets))}
+
+
+def detector_convs(create, hp, batch, size):
+    """K2's convs in one forward of the detector ``create`` (the pipeline's
+    ``create_detector`` or ``create_fpn_detector``) makes of ``hp`` at
+    ``size`` x ``size`` and ``batch``."""
+    shape = (size, size, 3)
+    return module_convs(create(_creator_datasets(shape), hp, device="meta"), batch, shape)
+
+
+def autoencoder_convs():
+    """K2's convs in one forward of the conf's keypoint autoencoder as
+    keypoints_train runs it (CIFAR-10's 32x32, its batch 32)."""
+    shape = (32, 32, 3)
+    model = kp_pipeline.create_autoencoder(_creator_datasets(shape),
+                                           conf_hp("keypoints_encoder_model"),
+                                           conf_hp("keypoints_decoder_model"), device="meta")
+    return module_convs(model, KEYPOINT_BATCH, shape)
 
 
 def unet_segmenter_hp():
@@ -920,23 +1076,42 @@ def unet_segmenter_hp():
 
 
 def forward_convs(dtype):
-    """The per-forward conv sets of K2's route ``dtype``: bf16 as
-    augment_train runs image_classifier (batch 4096), ResNet-50 at the
-    serving batch, the wide classifiers as wide_train runs them (batch
-    1024), MobileNetV2, MobileNetV3-Large and DenseNet-121 at the conf's
-    batch 256 (their own activations, no bias), the U-Net segmenter as
-    unet_train runs it (batch 32, 256x256: 18 convs with relu and no bias,
-    the head with bias); f32 as ResNet-50 serving and classifier_train
-    (batch 32) run them."""
+    """The per-forward conv sets of K2's route ``dtype``, each read from its
+    model where the model is built from a spec: bf16 as augment_train runs
+    image_classifier (batch 4096), ResNet-50 at the serving batch, the wide
+    classifiers as wide_train runs them (batch 1024), MobileNetV2,
+    MobileNetV3-Large and DenseNet-121 at the conf's batch 256 (their own
+    activations, no bias), the U-Net segmenter as unet_train runs it (batch
+    32, 256x256: 18 convs with relu and no bias, the head with bias),
+    config 12's FPN detector as fpn_train runs it (batch 512, 64x64: its
+    four backbone convs with relu and bias), the conf's keypoint
+    autoencoder as keypoints_train runs it (batch 32, 32x32) and its
+    encoder as keypoints_match runs it (batch 64, 64x64); f32 as ResNet-50
+    serving and classifier_train (batch 32) run them, the conf's two
+    detectors as detect_train runs them (batch 64, 32x32) and the conf's
+    autoencoder in its own float32 (batch 32, 32x32: keypoints_train runs
+    it in bf16)."""
     if dtype == "float32":
         return (("resnet_spec(50)", _with_act(RESNET50_CONVS, "relu")),
-                ("image_classifier", _with_act(CLASSIFIER_TRAIN_CONVS, "relu")))
+                ("image_classifier", _with_act(CLASSIFIER_TRAIN_CONVS, "relu")),
+                ("object_detector", detector_convs(
+                    det_pipeline.create_detector, conf_hp("object_detector_model"),
+                    DETECT_BATCH, DETECT_SIZE)),
+                ("fpn_detector_conf", detector_convs(
+                    det_pipeline.create_fpn_detector, conf_hp("fpn_detector_model"),
+                    DETECT_BATCH, DETECT_SIZE)),
+                ("keypoint_autoencoder", autoencoder_convs()))
     return (("image_classifier", _with_act(CLASSIFIER_CONVS, "relu")),
             ("resnet_spec(50)", _with_act(RESNET50_CONVS, "relu")),
             ("wide_classifier", _with_act(WIDE_CONVS, "leaky_relu")),
             *((name, model_convs(spec(), TRAIN_BATCH)) for name, spec in ZOO_FORWARDS),
             ("unet", model_convs(unet_segmenter_hp(), UNET_BATCH,
-                                 (UNET_SIZE, UNET_SIZE, 3))))
+                                 (UNET_SIZE, UNET_SIZE, 3))),
+            ("fpn_detector", detector_convs(det_pipeline.create_fpn_detector, FPN_BACKBONE,
+                                            FPN_BATCH, FPN_SIZE)),
+            ("keypoint_autoencoder", autoencoder_convs()),
+            ("keypoint_encoder", model_convs(conf_hp("keypoints_encoder_model"), MATCH_PAIRS,
+                                             (MATCH_SIZE, MATCH_SIZE, 3))))
 
 
 def phase_kernel_forward(card, dtype):
@@ -2669,54 +2844,61 @@ def _forwards(h, n_valid, batch):
     return h["steps"] + len(h["valid"]) * math.ceil(n_valid / min(32 * batch, n_valid))
 
 
-def phase_dense_train(card):
-    """The dense pipelines through the port's ``run``, in this process, with
-    the conf's HRNet models and hp (:data:`DENSE_PIPELINES`: batch 64,
-    float32, TF32 off, epochs not cut, no checkpoints) on the catalog's
-    synthetic 32x32 sets: finite losses and validation metrics, the models'
-    parameters, exactly one float32 K2 launch (the head) a training and a
-    validation forward; the median step of the last epoch (CUDA events
-    recorded after each step). Returns the K2 launches and the step ms of
-    each."""
-    f32 = "float32/float32/float32"
+def phase_pipeline_runs(card, phase, runs, data=None):
+    """The pipelines ``runs`` (:class:`PipelineRun`) through the port's
+    ``run``, in this process, TF32 off, no checkpoints: finite training
+    values, finite validation metrics within their range, the models'
+    parameters, exactly the row's K2 launches a training and a validation
+    forward, all in its dtype in x, w and b, no K1 and no flash launch; the
+    median step of the last epoch (CUDA events recorded after each step)
+    and the wall time of each validation pass, its metrics included.
+    ``data`` names the pixels where the catalog's set is not synthetic.
+    Returns the K2 launches and the step ms of each run by label."""
     launches, step_ms = {}, {}
-    for task, (pipeline, epochs, metrics) in DENSE_PIPELINES.items():
+    for run in runs:
         torch.cuda.empty_cache()
-        store, argv, wall, counts, _, ends = _run_classifier(f"dense_train_{task}", [],
-                                                             pipeline, pipeline)
+        with _validation_walls() as val_walls:
+            store, argv, wall, counts, _, ends = _run_classifier(
+                f"{phase}_{run.label}", list(run.params), run.pipeline, run.pipeline)
         h = store["train_results"]["history"]
         steps = h["steps"]
-        batch = int(store["context"].params(f"{pipeline}.batch_size"))
+        batch = int(store["context"].params(f"{run.pipeline}.batch_size"))
         n_valid = len(store["datasets"]["validset"])
         forwards = _forwards(h, n_valid, batch)
         losses = [e["main_loss"] for e in h["train"]]
         valid = h["valid"][-1] if h["valid"] else {}
         model = store["model"]
-        if steps == 0 or not np.isfinite(losses).all() or not valid \
-                or not np.isfinite([valid[m] for m in metrics]).all() \
-                or model.capacity() != DENSE_PARAMETERS:
-            raise AssertionError(f"dense_train {pipeline}: {steps} steps, losses {losses}, "
-                                 f"validation {h['valid']}, {model.capacity()} parameters")
-        if counts["K2"] != forwards or counts["K2_dtypes"] != {f32: forwards} \
-                or counts["K2_by_dtype"] != {"float32": forwards, "bfloat16": 0} \
+        if steps == 0 or not np.isfinite([v for e in h["train"] for v in e.values()]).all() \
+                or not valid or not all(0.0 <= valid.get(m, np.nan) <= top
+                                        for m, top in run.metrics.items()) \
+                or not np.isfinite(list(valid.values())).all() \
+                or model.capacity() != run.parameters or len(val_walls) != len(h["valid"]):
+            raise AssertionError(f"{phase} {run.pipeline}: {steps} steps, losses {losses}, "
+                                 f"validation {h['valid']}, {model.capacity()} parameters, "
+                                 f"{len(val_walls)} validation passes timed")
+        k2 = counts["K2"]
+        if k2 != sum(run.k2_by_act.values()) * forwards \
+                or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": 0, run.dtype: k2} \
+                or counts["K2_by_act"] != {a: n * forwards for a, n in run.k2_by_act.items()} \
+                or counts["K2_dtypes"] != {"/".join([run.dtype] * 3): k2} \
                 or counts["K1"] or counts["flash"] or len(ends) != steps:
-            raise AssertionError(f"dense_train {pipeline} counts {counts} for {steps} steps "
+            raise AssertionError(f"{phase} {run.pipeline} counts {counts} for {steps} steps "
                                  f"and {forwards - steps} validation forwards")
-        warm = _last_epoch_steps(ends, steps, epochs)
-        step_ms[task] = statistics.median(warm)
-        launches[task] = counts["K2"]
-        emit({"phase": "dense_train", "pipeline": pipeline,
+        warm = _last_epoch_steps(ends, steps, run.epochs)
+        step_ms[run.label] = statistics.median(warm)
+        launches[run.label] = k2
+        emit({"phase": phase, "pipeline": run.pipeline,
               "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
-              "cut": {"epochs": "none (the conf's)", "checkpoints": "off"},
-              "batch": batch, "dtype": "float32", "steps": steps,
-              "data": _images_digest(store),
+              "cut": {"epochs": "none (the conf's)", "checkpoints": "off", **run.cut},
+              "batch": batch, "dtype": run.dtype, "tf32": False, "steps": steps,
+              "data": data or _images_digest(store),
               "train_images": len(store["datasets"]["trainset"]), "valid_images": n_valid,
               "parameters": model.capacity(), "loss": losses, "valid": h["valid"],
-              "step_ms": step_ms[task], "step_ms_warm_range": [min(warm), max(warm)],
-              "img_per_s": batch / step_ms[task] * 1e3,
-              "throughput_img_s": h["throughput_img_s"], "wall_s": wall,
-              "launches": counts, "validation_forwards": forwards - steps,
-              "launches_per_forward": {"K2": counts["K2"] / forwards},
+              "step_ms": step_ms[run.label], "step_ms_warm_range": [min(warm), max(warm)],
+              "img_per_s": batch / step_ms[run.label] * 1e3,
+              "throughput_img_s": h["throughput_img_s"], "validation_pass_s": val_walls,
+              "wall_s": wall, "launches": counts, "validation_forwards": forwards - steps,
+              "launches_per_forward": {"K2": k2 / forwards},
               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
         del store, model
     torch.cuda.empty_cache()
@@ -2882,7 +3064,7 @@ def phase_dense_cpu_check(card):
     the conf's HRNet segmenter at 32x32 and of the U-Net segmenter at 64x64
     on the card against the CPU path: within rel L2 :data:`SERVE_REL_L2`,
     with 1 and 19 float32 K2 launches."""
-    conf = load_yaml(REPO / "conf" / "base" / "parameters.yml")["semantic_segmentation_model"]
+    conf = conf_hp("semantic_segmentation_model")
     for name, hp, size, per_forward in (("hrnet_segmenter", conf, 32, 1),
                                         ("unet", unet_spec(), 64, UNET_CONVS_PER_FORWARD)):
         sets = {"trainset": PreprocessedDataset(ArrayDataset(
@@ -2911,6 +3093,287 @@ def phase_dense_cpu_check(card):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _validation_walls():
+    """The wall seconds of every validation pass of a ``train()`` inside the
+    block: from the model's ``eval()`` to its ``train()`` after it (the
+    device synchronised at both), the pass's forwards, losses and metrics,
+    mAP included."""
+    real = DeepcvModule.train
+    walls, started = [], []
+
+    def train(self, mode=True):
+        # a model of several DeepcvModules (the autoencoder) toggles each:
+        # the first to leave training starts the pass, the first back ends it
+        if bool(mode) != self.training and bool(mode) == bool(started):
+            torch.cuda.synchronize()
+            if mode:
+                walls.append(time.perf_counter() - started.pop())
+            else:
+                started.append(time.perf_counter())
+        return real(self, mode)
+
+    DeepcvModule.train = train
+    try:
+        yield walls
+    finally:
+        DeepcvModule.train = real
+
+
+def _fpn_datasets(n):
+    """bench.py config 12's detection data: ``generate_shapes_dataset_fpn``
+    at FPN_SIZE with grids FPN_GRIDS (seed 0), a 0.05 validation split,
+    ``to_tensor``."""
+    raw = det_pipeline.generate_shapes_dataset_fpn(n=n, image_size=FPN_SIZE, grids=FPN_GRIDS,
+                                                   seed=0)
+    return preprocess({"trainset": raw}, {"seed": 0, "split_dataset": {"validset_ratio": 0.05},
+                                          "transforms": ["to_tensor"]})
+
+
+def phase_fpn_train(card):
+    """Config 12's FPN detector through the port's
+    ``generate_shapes_dataset_fpn``, ``preprocess``, ``create_fpn_detector``
+    and ``train_fpn_detector`` at full size (:data:`FPN_HP`: 8,192 64x64
+    images, batch 512, bf16, AdamW, 4 epochs; validation after the last):
+    221,064 parameters, 4 K2 launches a training and a validation forward,
+    all bf16 in x, w and b, finite losses and map50; the median step of the
+    last epoch (CUDA events), img/s, peak memory, the validation pass's
+    wall. Returns the K2 launches and the step ms."""
+    t0 = time.perf_counter()
+    datasets = _fpn_datasets(FPN_IMAGES)
+    data_s = time.perf_counter() - t0
+    model = det_pipeline.create_fpn_detector(datasets, FPN_BACKBONE, device=DEVICE)
+    hp = {**FPN_HP, "output_path": str(_build.BUILD_DIR / "fpn_train")}
+    torch.cuda.empty_cache()
+    with _validation_walls() as val_walls:
+        out, wall, counts, _, ends = _counted(
+            lambda: det_pipeline.train_fpn_detector(datasets, model, hp))
+    h = out["history"]
+    steps, n_valid = h["steps"], len(datasets["validset"])
+    forwards = _forwards(h, n_valid, FPN_BATCH)
+    losses = [e["main_loss"] for e in h["train"]]
+    valid = h["valid"][-1] if h["valid"] else {}
+    if steps == 0 or not np.isfinite(losses).all() or not valid \
+            or not np.isfinite([valid["valid_loss"], valid["valid_map50"]]).all() \
+            or model.capacity() != FPN_PARAMETERS:
+        raise AssertionError(f"fpn_train: {steps} steps, losses {losses}, validation "
+                             f"{h['valid']}, {model.capacity()} parameters")
+    want = FPN_CONVS_PER_FORWARD * forwards
+    if counts["K2"] != want or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": want} \
+            or counts["K2_dtypes"] != {"bfloat16/bfloat16/bfloat16": want} \
+            or counts["K2_by_act"] != {"relu": want} \
+            or counts["K1"] or counts["flash"] or len(ends) != steps:
+        raise AssertionError(f"fpn_train counts {counts} for {steps} steps and "
+                             f"{forwards - steps} validation forwards")
+    warm = _last_epoch_steps(ends, steps, FPN_EPOCHS)
+    step_ms = statistics.median(warm)
+    emit({"phase": "fpn_train", "model": "bench.py config 12's FPN detector "
+                                         "(create_fpn_detector, fpn_channels 64)",
+          "hp": FPN_HP, "cut": {"depth": "none", "validation": "after the last epoch "
+                                                               "(bench.py: off), for map50",
+                                "checkpoints": "off"},
+          "image_size": FPN_SIZE, "grids": FPN_GRIDS, "batch": FPN_BATCH, "steps": steps,
+          "data": "generate_shapes_dataset_fpn(seed=0); train images sha256 " + hashlib.sha256(
+              datasets["trainset"].dataset.images.tobytes()).hexdigest()[:16],
+          "data_s": data_s, "train_images": len(datasets["trainset"]), "valid_images": n_valid,
+          "parameters": model.capacity(), "loss": losses, "valid": h["valid"],
+          "step_ms": step_ms, "step_ms_warm_range": [min(warm), max(warm)],
+          "img_per_s": FPN_BATCH / step_ms * 1e3, "throughput_img_s": h["throughput_img_s"],
+          "validation_pass_s": val_walls, "wall_s": wall, "launches": counts,
+          "validation_forwards": forwards - steps,
+          "launches_per_forward": {"K2": counts["K2"] / forwards},
+          "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+    del model, out, datasets
+    torch.cuda.empty_cache()
+    return counts["K2"], step_ms
+
+
+#: an FPN detector step's groups found by profiler ranges (and the backward
+#: of what runs in them): the FPN's convs (plain F.conv2d, cuDNN), its
+#: nearest resize, the focal loss, the metrics train_step computes
+FPN_RANGES = ((port_nn.Conv2d, "forward", "fpn_convs"),
+              (port_nn, "interpolate", "nearest_resize"),
+              (det_pipeline, "detection_loss_focal", "focal_loss"),
+              (det_pipeline, "objectness_accuracy", "metrics"))
+FPN_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
+                       ("adamw", "Optimizer.step#AdamW.step"))
+
+
+def phase_fpn_train_profile(card, step_ms):
+    """:func:`fpn_train_profile` in a process of its own
+    (``chip_smoke.py --fpn-profile STEP_MS CARD``), as unet_train_profile
+    runs (a fresh process keeps every device record), its lines passed on."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--fpn-profile",
+                           repr(step_ms), card], capture_output=True, text=True,
+                          timeout=FPN_PROFILE_PROCESS_S, cwd=REPO)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    sys.stderr.write(proc.stderr)
+    sys.stderr.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"fpn_train_profile: its process exited {proc.returncode}")
+
+
+def fpn_train_profile(card, step_ms, tries=3):
+    """Where an FPN detector step's device time goes: after one unprofiled
+    step, a fresh model trained for :data:`FPN_PROFILE_STEPS` steps of
+    fpn_train's data (validation off) under torch.profiler with
+    :data:`FPN_RANGES`: device ms a step by group (K2's forward and
+    backward, the FPN's cuDNN convs, the nearest resize, the focal loss,
+    the metrics, AdamW, copies, the rest), the ten largest kernels and the
+    device's idle share of fpn_train's unprofiled step ``step_ms``. The
+    profiler must have recorded every K2 launch the wrapper counted, or the
+    run is repeated, up to ``tries`` times."""
+    from torch.profiler import ProfilerActivity, profile
+    datasets = _fpn_datasets(FPN_IMAGES)
+    train = datasets["trainset"]
+
+    def first(n):
+        return {"trainset": PreprocessedDataset(train.dataset.subset(np.arange(n)),
+                                                train.transform),
+                "validset": datasets["validset"]}
+
+    hp = {**FPN_HP, "epochs": 1, "validate_every_epochs": 1000,
+          "output_path": str(_build.BUILD_DIR / "fpn_train_profile")}
+    warm = first(FPN_BATCH)
+    det_pipeline.train_fpn_detector(warm, det_pipeline.create_fpn_detector(
+        warm, FPN_BACKBONE, device=DEVICE), hp)
+    sub = first(FPN_PROFILE_STEPS * FPN_BATCH)
+    for run in range(1, tries + 1):
+        model = det_pipeline.create_fpn_detector(sub, FPN_BACKBONE, device=DEVICE)
+        torch.cuda.empty_cache()
+        with _annotated_modules(FPN_RANGES), \
+                profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, counts, _, _ = _counted(lambda: det_pipeline.train_fpn_detector(sub, model, hp))
+            torch.cuda.synchronize()
+        groups, kernels, _, k2 = _range_profile_groups(prof, FPN_BACKWARD_GROUPS)
+        if k2 == counts["K2"]:
+            break
+    else:
+        raise AssertionError(f"fpn_train_profile: {k2} K2 launches recorded of "
+                             f"{counts['K2']} in each of {tries} tries")
+    steps = FPN_PROFILE_STEPS
+    if counts["K2"] != FPN_CONVS_PER_FORWARD * steps:
+        raise AssertionError(f"fpn_train_profile: counts {counts} for {steps} steps")
+    upload = groups.pop("upload", 0.0)     # the dataset, once per run
+    busy = sum(groups.values()) / steps
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "fpn_train_profile", "steps": steps,
+          "device_ms_per_step": {g: ms / steps for g, ms in groups.most_common()},
+          "upload_ms_per_run": upload, "device_busy_ms_per_step": busy,
+          "step_ms_unprofiled": step_ms, "device_idle_share": 1.0 - busy / step_ms,
+          "top_kernels_ms_per_step": [[name[:90], ms / steps, n] for name, (ms, n) in top],
+          "k2_launches_recorded": k2, "profiled_runs": run, "launches": counts,
+          "card": card})
+
+
+def _match_chain(encoder, img_a, img_b, k):
+    """bench.py config 4's chain: encode both images, dense unit-norm
+    descriptors, the top-k keypoints of each map's mean |activation|, their
+    descriptors, per-pair mutual nearest neighbours. Returns (keypoints a,
+    keypoints b, matches, valid)."""
+    fa, fb = encoder(img_a).float(), encoder(img_b).float()
+    da = kp_pipeline.extract_dense_descriptors(fa)
+    db = kp_pipeline.extract_dense_descriptors(fb)
+    ka, _ = kp_pipeline.extract_keypoints(fa.abs().mean(-1), k=k)
+    kb, _ = kp_pipeline.extract_keypoints(fb.abs().mean(-1), k=k)
+    w, c = fa.shape[2], da.shape[-1]
+    sa = da.gather(1, (ka[..., 0] * w + ka[..., 1])[..., None].expand(-1, -1, c))
+    sb = db.gather(1, (kb[..., 0] * w + kb[..., 1])[..., None].expand(-1, -1, c))
+    return (ka, kb, *kp_pipeline.match_descriptors(sa, sb, mutual=True))
+
+
+def _adalam_all(ka, kb, matches, valid, gumbel):
+    """filter_matches_adalam on every pair with the given Gumbel draws."""
+    return torch.stack([kp_pipeline.filter_matches_adalam(
+        ka[i], kb[i], matches[i], valid[i], gumbel=gumbel[i].to(ka.device))
+        for i in range(len(ka))])
+
+
+def phase_keypoints_match(card):
+    """bench.py config 4 in the port: the conf's encoder at 64x64 in bf16
+    eval, 64 pairs (``img_b = img_a + 0.02 noise``), K = 256: pairs/s of the
+    whole chain (:func:`_match_chain`) over 20 iterations by CUDA events, 1
+    K2 launch an encoder forward; ``filter_matches_adalam`` on the first
+    pair and its surviving share. Then the same chain in float32 on the card
+    and on the CPU (same weights and inputs): the keypoints, and the matched
+    indices and validity, agree for at least 99 %, and so do the AdaLAM
+    masks of every pair given the same Gumbel draws. Config 4's classical
+    baseline (``pipelines/classical_features.py``) is not ported yet and is
+    left out. Returns the bf16 K2 launches."""
+    hp = conf_hp("keypoints_encoder_model")
+    shape = (MATCH_SIZE, MATCH_SIZE, 3)
+    encoder = DeepcvModule(shape, hp, device=DEVICE, dtype="bfloat16").eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    img_a = torch.rand((MATCH_PAIRS, *shape), generator=gen, device=DEVICE)
+    img_b = img_a + 0.02 * torch.randn(img_a.shape, generator=gen, device=DEVICE)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed():
+        start.record()
+        for i in range(MATCH_ITERS):
+            out = _match_chain(encoder, img_a, img_b + i * 1e-3, MATCH_K)
+        end.record()
+        torch.cuda.synchronize()
+        return out
+
+    with torch.no_grad():
+        _match_chain(encoder, img_a, img_a, MATCH_K)
+        torch.cuda.synchronize()
+        (ka, kb, matches, valid), _, counts, _, _ = _counted(timed)
+        t0 = time.perf_counter()
+        kept = kp_pipeline.filter_matches_adalam(ka[0], kb[0], matches[0], valid[0])
+        torch.cuda.synchronize()
+        adalam_ms = (time.perf_counter() - t0) * 1e3
+    ms = start.elapsed_time(end)
+    launches = counts["K2"]
+    if launches != 2 * MATCH_ITERS or counts["K2_by_dtype"] != {"float32": 0,
+                                                                "bfloat16": launches} \
+            or counts["K1"] or counts["flash"]:
+        raise AssertionError(f"keypoints_match: counts {counts} for {2 * MATCH_ITERS} "
+                             "encoder forwards")
+
+    # the float32 chain on the card against the CPU
+    cpu_enc = DeepcvModule(shape, hp, device="cpu").eval()
+    gpu_enc = DeepcvModule(shape, hp, device=DEVICE).eval()
+    gpu_enc.load_state_dict(cpu_enc.state_dict())
+    xa, xb = img_a[:8].cpu(), img_b[:8].cpu()
+    with torch.no_grad():
+        got = _match_chain(gpu_enc, xa.to(DEVICE), xb.to(DEVICE), MATCH_K)
+        ref = _match_chain(cpu_enc, xa, xb, MATCH_K)
+        gumbel = -torch.log(-torch.log(torch.rand(
+            (len(xa), min(32, MATCH_K), 16, MATCH_K),
+            generator=torch.Generator().manual_seed(SEED + 5)).clamp(1e-12, 1 - 1e-7)))
+        mask_got = _adalam_all(*got, gumbel).cpu()
+        mask_ref = _adalam_all(*ref, gumbel)
+    got = [t.cpu() for t in got]
+    same_kp = float(((got[0] == ref[0]).all(-1) & (got[1] == ref[1]).all(-1)).float().mean())
+    same_match = float(((got[2] == ref[2]) & (got[3] == ref[3])).float().mean())
+    same_mask = float((mask_got == mask_ref).float().mean())
+    line = {"phase": "keypoints_match", "config": "bench.py config 4 (bench.py:256-341)",
+            "encoder": "conf keypoints_encoder_model at 64x64x3, bf16, eval",
+            "encoder_parameters": encoder.capacity(), "pairs": MATCH_PAIRS,
+            "keypoints_per_image": MATCH_K, "iterations": MATCH_ITERS,
+            "ms_per_iteration": ms / MATCH_ITERS, "pairs_per_s": MATCH_PAIRS * MATCH_ITERS
+            / ms * 1e3, "launches": counts,
+            "k2_launches_per_encoder_forward": launches / (2 * MATCH_ITERS),
+            "mutual_matches_share_first_pair": float(valid[0].float().mean()),
+            "adalam_first_pair": {"valid": int(valid[0].sum()), "kept": int(kept.sum()),
+                                  "surviving_share": float(kept.sum() / valid[0].sum().clamp(
+                                      min=1)), "wall_ms": adalam_ms},
+            "cpu_check": {"pairs": len(xa), "dtype": "float32", "tf32": False,
+                          "keypoints_agree": same_kp, "matches_agree": same_match,
+                          "adalam_masks_agree": same_mask, "bound": MATCH_AGREE},
+            "left_out": "config 4's classical baseline (pipelines/classical_features.py, "
+                        "not ported yet)", "card": card}
+    emit(line)
+    if not min(same_kp, same_match, same_mask) >= MATCH_AGREE:
+        raise AssertionError(f"keypoints_match CPU check failed: {line}")
+    del encoder, cpu_enc, gpu_enc
+    torch.cuda.empty_cache()
+    return launches
+
+
 def k1_kernel_line(aug_rows, launches, card):
     row = aug_rows[(AUGMENT_BATCH, 32, 32, 3)]
     return {"name": "fused_augment_normalize", "route": "cuda",
@@ -2932,13 +3395,18 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches, dense_head):
     ``dense_train``: the entry's own numbers, per ResNet-50 forward, its
     bound by 3xTF32 with the CUDA-core one beside it, per classifier_train
     forward at batch 32, and the dense head's one launch a forward at batch
-    64, ``dense_head``, the kernel phase's row) and bfloat16
-    (``augment_train``: per image_classifier forward at batch 4096;
-    ``wide_train``: per wide classifier forward at batch 1024;
+    64, ``dense_head``, the kernel phase's row; ``detect_train``: per
+    forward of each of the conf's detectors at batch 64; and per forward of
+    the conf's autoencoder in its own float32, which no main path runs) and
+    bfloat16 (``augment_train``: per image_classifier forward at batch
+    4096; ``wide_train``: per wide classifier forward at batch 1024;
     ``zoo_train``: per MobileNetV2, MobileNetV3-Large and DenseNet-121
     forward at batch 256; ``unet_train``: per U-Net segmenter forward at
-    batch 32, 256x256; and per ResNet-50 forward at batch 64, the bf16
-    shape set no main path runs yet)."""
+    batch 32, 256x256; ``fpn_train``: per config 12 FPN detector forward at
+    batch 512, 64x64; ``keypoints_train``: per autoencoder forward at batch
+    32; ``keypoints_match``: per encoder forward at batch 64, 64x64; and
+    per ResNet-50 forward at batch 64, the bf16 shape set no main path runs
+    yet)."""
     f32_launches = line["launches"] - bf16_launches
     line["launches_by_dtype"] = {"float32": f32_launches, "bfloat16": bf16_launches}
     line["routes"] = {
@@ -2961,7 +3429,22 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches, dense_head):
                         "max_rel_err": max(dense_head["rel_err"].values()),
                         "per": "the dense head's one launch a forward at dense_train's "
                                "batch 64: 1x1, 32 -> 4 channels on 8x8 maps, float32 "
-                               "(kernel phase, with bias and relu)"}},
+                               "(kernel phase, with bias and relu)"},
+                    "detect_train": {
+                        "single": {**forward_f32["object_detector"],
+                                   "per": "one forward of the conf's single-grid detector "
+                                          f"at detect_train's batch {DETECT_BATCH}, "
+                                          f"{DETECT_SIZE}x{DETECT_SIZE}, float32: 3 3x3 "
+                                          "with relu, the 1x1 head (32 -> 8) without"},
+                        "fpn": {**forward_f32["fpn_detector_conf"],
+                                "per": "one forward of the conf's FPN detector's 4 backbone "
+                                       f"convs at detect_train's batch {DETECT_BATCH}, "
+                                       f"{DETECT_SIZE}x{DETECT_SIZE}, float32, relu"}},
+                    "keypoint_autoencoder": {
+                        **forward_f32["keypoint_autoencoder"],
+                        "per": f"one forward of the conf's autoencoder at batch "
+                               f"{KEYPOINT_BATCH}, 32x32, in the conf's float32 (no main "
+                               "path runs it: keypoints_train runs it in bfloat16)"}},
         "bfloat16": {"kernel": f"{K2_TC_KERNEL}<BN, EXT_ACT> (tensor cores, mma.sync)",
                      "launches": bf16_launches,
                      **forward_bf16["image_classifier"],
@@ -2988,6 +3471,21 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches, dense_head):
                                       "per": f"one DenseNet-121 forward's 119 convs at batch "
                                              f"{TRAIN_BATCH}, bfloat16, no activation, no "
                                              "bias (zoo_train's model)"},
+                     "fpn_detector": {**forward_bf16["fpn_detector"],
+                                      "per": f"one config 12 FPN detector forward's "
+                                             f"{FPN_CONVS_PER_FORWARD} backbone convs at batch "
+                                             f"{FPN_BATCH}, {FPN_SIZE}x{FPN_SIZE}, bfloat16, "
+                                             "relu and bias (fpn_train)"},
+                     "keypoint_autoencoder": {
+                         **forward_bf16["keypoint_autoencoder"],
+                         "per": f"one autoencoder forward's 3 convs at batch "
+                                f"{KEYPOINT_BATCH}, 32x32, bfloat16: 2 with relu, the "
+                                "16 -> 3 before its sigmoid (keypoints_train)"},
+                     "keypoint_encoder": {
+                         **forward_bf16["keypoint_encoder"],
+                         "per": f"one encoder forward's conv at batch {MATCH_PAIRS}, "
+                                f"{MATCH_SIZE}x{MATCH_SIZE}, bfloat16, relu "
+                                "(keypoints_match)"},
                      "unet": {**forward_bf16["unet"],
                               "per": f"one U-Net segmenter forward's "
                                      f"{UNET_CONVS_PER_FORWARD} convs at batch {UNET_BATCH}, "
@@ -3046,6 +3544,11 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         unet_train_profile(sys.argv[3], float(sys.argv[2]))
         return 0
+    if sys.argv[1:2] == ["--fpn-profile"] and len(sys.argv) == 4:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        fpn_train_profile(sys.argv[3], float(sys.argv[2]))
+        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3080,21 +3583,34 @@ def main() -> int:
     zoo_launches, zoo_step_ms = walls("zoo_train", phase_zoo_train, card)
     walls("zoo_train_profile", phase_zoo_train_profile, card, zoo_step_ms,
           k2_rows["forward_bf16"]["mobilenet_v2"])
-    dense_launches, _ = walls("dense_train", phase_dense_train, card)
+    dense_launches, _ = walls("dense_train", phase_pipeline_runs, card, "dense_train",
+                              DENSE_RUNS)
     unet_launches, unet_step_ms = walls("unet_train", phase_unet_train, card)
     walls("unet_train_profile", phase_unet_train_profile, card, unet_step_ms)
     walls("dense_cpu_check", phase_dense_cpu_check, card)
+    detect_launches, _ = walls("detect_train", phase_pipeline_runs, card, "detect_train",
+                               DETECT_RUNS)
+    fpn_launches, fpn_step_ms = walls("fpn_train", phase_fpn_train, card)
+    walls("fpn_train_profile", phase_fpn_train_profile, card, fpn_step_ms)
+    keypoint_launches = walls("keypoints_train", phase_pipeline_runs, card,
+                              "keypoints_train", KEYPOINT_RUNS, data)[0]["autoencoder"]
+    match_launches = walls("keypoints_match", phase_keypoints_match, card)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
                                    "wide_train": wide_launches,
                                    **{f"zoo_train:{p}": n for p, n in zoo_launches.items()},
                                    **{f"dense_train:{t}": n for t, n in dense_launches.items()},
-                                   "unet_train": unet_launches}
+                                   "unet_train": unet_launches,
+                                   **{f"detect_train:{k}": n for k, n in detect_launches.items()},
+                                   "fpn_train": fpn_launches,
+                                   "keypoints_train": keypoint_launches,
+                                   "keypoints_match": match_launches}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
               augment_counts["K2"] + wide_launches + sum(zoo_launches.values())
-              + unet_launches, k2_rows[(DENSE_KERNEL_CASES[0][0], "float32")])
+              + unet_launches + fpn_launches + keypoint_launches + match_launches,
+              k2_rows[(DENSE_KERNEL_CASES[0][0], "float32")])
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches,

@@ -53,6 +53,12 @@ eps)``, so the port's forward equals the JAX forward. Gradients do not: in
 the JAX package the padded rows take part in the norm and are trained,
 here they do not exist. They agree where the padded rows are zero. A key
 that does not map, or a parameter of the port left without a value, raises.
+
+An FPN node's convs keep their JAX names (``lateral<i>``, ``smooth<i>``,
+``shared_head``). A model of several ``DeepcvModule``\\ s names them in
+``jax_parts``: the keypoints ``Autoencoder``'s variables are
+``params/encoder/...`` and ``params/decoder/...`` (and the same under
+``batch_stats``), each part mapped as a model of its own.
 """
 from __future__ import annotations
 
@@ -164,10 +170,30 @@ def _fold_padded_rows(out: Dict[str, torch.Tensor], op: str, full: np.ndarray,
     out[f"{op}.scale"] = torch.tensor(scale.double().numpy() * ratio, dtype=scale.dtype)
 
 
+def _parts_state_dict(variables_np: Mapping[str, Any], model: torch.nn.Module,
+                      parts) -> Dict[str, torch.Tensor]:
+    """A model of several ``DeepcvModule``\\ s (``model.jax_parts``, the
+    keypoints ``Autoencoder``'s ``encoder`` and ``decoder``), whose JAX
+    variables hold one subtree per part in each collection."""
+    for collection, tree in variables_np.items():
+        extra = set(tree) - set(parts)
+        if extra:
+            raise KeyError(f"unmapped JAX variable {collection}/{sorted(extra)[0]}")
+    out: Dict[str, torch.Tensor] = {}
+    for part in parts:
+        sub = {c: tree[part] for c, tree in variables_np.items() if part in tree}
+        out.update({f"{part}.{k}": v for k, v in
+                    jax_to_torch_state_dict(sub, getattr(model, part)).items()})
+    return out
+
+
 def jax_to_torch_state_dict(variables_np: Mapping[str, Any],
                             model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """``state_dict`` for ``model`` from the JAX variables of the same spec
     (``{'params': ..., 'batch_stats': ...}`` as numpy arrays)."""
+    parts = getattr(model, "jax_parts", None)
+    if parts:
+        return _parts_state_dict(variables_np, model, parts)
     targets = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     padded: Dict[str, np.ndarray] = {}     # conv kernels whose padded rows were cut

@@ -5,7 +5,8 @@ Counterpart of ``deepcv_tpu/ops/nn.py`` (``get_activation``, ``get_gain``,
 ``xavier_normal_with_gain``, ``avg_pool_nd``, ``max_pool_nd``, ``BatchNorm``,
 ``make_token_norm``, ``normalization_techniques``, ``Layer``, ``DropPath``,
 ``Flatten``, ``SqueezeExcitation``, ``ConvNeXtStem``, ``ConvNeXtDownsample``,
-``ConvNeXtBlock``, ``MeanOnlyBatchNorm``, ``Interpolate``) and of flax's
+``ConvNeXtBlock``, ``MeanOnlyBatchNorm``, ``Interpolate``,
+``FeaturePyramid``) and of flax's
 ``WeightNorm`` around an op (:func:`weight_norm`,
 :meth:`Conv2d.add_weight_norm`). Feature maps inside
 a model are NCHW-logical in
@@ -39,7 +40,7 @@ __all__ = [
     "normalization_techniques", "weight_norm", "Conv2d", "LecunConv2d", "FusedConv2d",
     "Dense", "Layer", "Identity", "Interpolate", "Flatten", "Dropout", "DropPath",
     "feature_dim", "gelu_exact", "gelu_tanh", "get_padding_from_kernel", "SqueezeExcitation",
-    "ConvNeXtStem", "ConvNeXtDownsample", "ConvNeXtBlock",
+    "ConvNeXtStem", "ConvNeXtDownsample", "ConvNeXtBlock", "FeaturePyramid",
 ]
 
 
@@ -206,17 +207,20 @@ def max_pool_nd(x: torch.Tensor, kernel_size, stride=None, padding=0) -> torch.T
 
 def interpolate(x: torch.Tensor, target_shape: Sequence[int],
                 method: str = "linear") -> torch.Tensor:
-    """Resize the spatial dims to ``target_shape`` with (bi/tri)linear
-    interpolation, half-pixel centres and no antialiasing (the JAX package's
-    ``jax.image.resize(..., 'linear', antialias=False)``). ``method`` must
-    be 'linear': ``jax.image.resize``'s other methods are not torch's
-    (its 'nearest' rounds from half-pixel centres) and are not ported."""
-    if method != "linear":
+    """Resize the spatial dims to ``target_shape`` as the JAX package's
+    ``jax.image.resize(..., method, antialias=False)`` does: 'linear' is
+    (bi/tri)linear with half-pixel centres (``align_corners=False``);
+    'nearest' takes the source pixel whose centre is nearest the output
+    pixel's half-pixel centre, which is torch's ``'nearest-exact'`` (its
+    ``'nearest'`` floors from the corners instead). Other methods raise."""
+    if method not in ("linear", "nearest"):
         raise NotImplementedError(f"interpolate method '{method}' is not ported "
-                                  "(ported: 'linear')")
+                                  "(ported: 'linear', 'nearest')")
     target = tuple(int(t) for t in target_shape)
     if tuple(x.shape[2:]) == target:
         return x
+    if method == "nearest":
+        return F.interpolate(x, size=target, mode="nearest-exact")
     mode = {1: "linear", 2: "bilinear", 3: "trilinear"}[x.dim() - 2]
     return F.interpolate(x, size=target, mode=mode, align_corners=False)
 
@@ -815,3 +819,48 @@ class ConvNeXtBlock(nn.Module):
         y = self.fc2(gelu_exact(self.fc1(self.ln(self.dwconv(x)))))
         y = y * _channel_view(self.layer_scale.to(y.dtype), y.dim())
         return x + self.drop_path(y)
+
+
+class FeaturePyramid(nn.Module):
+    """Feature Pyramid Network (Lin et al., arXiv:1612.03144), the JAX
+    package's ``FeaturePyramid``: over a list of feature maps ordered fine
+    to coarse, 1x1 laterals to ``channels``, a top-down pathway that adds
+    the nearest-upsampled coarser level to each lateral, and a 3x3 conv
+    smoothing each sum. Returns the list of P-levels; with
+    ``head_outputs`` one shared 3x3 head conv is applied to every level and
+    the levels are flattened and concatenated to (N, sum of H*W,
+    head_outputs), each level in NHWC row-major order (cell (y, x), then
+    channels), the flat layout of the JAX package's dense targets.
+
+    Its convs are plain ``F.conv2d`` (the JAX module's are flax's ``Conv``
+    in XLA, not its kernel), initialised as flax's default."""
+
+    #: the JAX module's refusal of anything but a stream list
+    NEEDS_LIST = ("FeaturePyramid expects a list of >=2 feature maps (fine -> coarse); "
+                  "wire it after a _new_branch_from_tensor gather of named nodes")
+
+    def __init__(self, in_channels: Sequence[int], channels: int = 64, head_outputs: int = 0):
+        super().__init__()
+        if len(in_channels) < 2:
+            raise ValueError(self.NEEDS_LIST)
+        c = int(channels)
+        self.levels, self.head_outputs = len(in_channels), int(head_outputs)
+        for i, cin in enumerate(in_channels):
+            self.add_module(f"lateral{i}", LecunConv2d(int(cin), c, (1, 1)))
+        for i in range(self.levels):
+            self.add_module(f"smooth{i}", LecunConv2d(c, c, (3, 3), padding=(1, 1)))
+        self.shared_head = LecunConv2d(c, self.head_outputs, (3, 3), padding=(1, 1)) \
+            if self.head_outputs else None
+
+    def forward(self, xs):
+        if not isinstance(xs, (list, tuple)) or len(xs) != self.levels:
+            raise ValueError(self.NEEDS_LIST)
+        lat = [getattr(self, f"lateral{i}")(x) for i, x in enumerate(xs)]
+        merged = list(lat)
+        for i in range(self.levels - 2, -1, -1):
+            merged[i] = lat[i] + interpolate(merged[i + 1], lat[i].shape[2:], method="nearest")
+        outs = [getattr(self, f"smooth{i}")(m) for i, m in enumerate(merged)]
+        if self.shared_head is None:
+            return outs
+        return torch.cat([self.shared_head(o).permute(0, 2, 3, 1).reshape(
+            o.shape[0], -1, self.head_outputs) for o in outs], dim=1)

@@ -2,8 +2,8 @@
 
 Counterpart of ``deepcv_tpu/pipelines/registry.py`` (``create_pipelines``,
 ``TASK_PACKAGES``): the task packages' ``get_pipelines()`` in one mapping.
-``classification``, ``pose`` and ``segmentation`` are ported; asking for
-another task package raises.
+``classification``, ``keypoints``, ``detection``, ``pose`` and
+``segmentation`` are ported; asking for ``video`` raises.
 """
 from __future__ import annotations
 
@@ -14,8 +14,8 @@ from deepcv_tpu_torch.pipelines.framework import Pipeline
 
 __all__ = ["create_pipelines", "TASK_PACKAGES", "UNPORTED_TASK_PACKAGES"]
 
-TASK_PACKAGES = ("classification", "pose", "segmentation")
-UNPORTED_TASK_PACKAGES = ("keypoints", "detection", "video")
+TASK_PACKAGES = ("classification", "keypoints", "detection", "pose", "segmentation")
+UNPORTED_TASK_PACKAGES = ("video",)
 
 
 def create_pipelines(plugins: Optional[Mapping[str, Any]] = None) -> Dict[str, Pipeline]:

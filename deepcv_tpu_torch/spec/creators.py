@@ -4,7 +4,7 @@ Counterpart of ``deepcv_tpu/spec/creators.py`` (``CreatorContext``,
 ``_as_layer``, ``_conv_common``, the conv creator with its kernel hook,
 ``fully_connected``, ``average_pooling``, ``max_pooling``, ``flatten``,
 ``activation``, ``residual_link``, ``dense_link``,
-``_new_branch_from_tensor``, ``interpolate``, the HRNet nodes
+``_new_branch_from_tensor``, ``interpolate``, ``fpn``, the HRNet nodes
 ``hrnet_input_stem``, ``parallel_conv``, ``multiresolution_fusion`` and
 ``hrnet_repr_head_{v1,v2,vZ,v2p}``, the ViT nodes ``patch_embed``,
 ``transformer_block`` (with the V-MoE ``moe``), ``take_token`` and
@@ -408,10 +408,23 @@ def _new_branch(params, ctx: CreatorContext, name: str, in_shape: Shape) -> Forw
                    allowed=("size", "scale", "method"))
 def _interpolate(params, ctx: CreatorContext, name: str, in_shape: Shapes) -> nn.Module:
     """Spatial resize node: to ``size: [h, w]`` or by ``scale: k``,
-    bilinear (``method: linear``, the one method ported)."""
+    ``method: linear`` (bilinear, the default) or ``nearest``."""
     size = params.get("size")
     return dnn.Interpolate(size=size or None, scale=float(params.get("scale") or 0.0),
                            method=str(params.get("method", "linear")))
+
+
+@submodule_creator("fpn", aliases=("feature_pyramid",), allowed=("channels", "head_outputs"))
+def _fpn(params, ctx: CreatorContext, name: str, in_shape: Shapes) -> nn.Module:
+    """Feature Pyramid Network over the stream list of a
+    ``_new_branch_from_tensor`` gather of named levels (fine to coarse);
+    ``head_outputs`` adds the shared 3x3 head and emits the flat (N,
+    T_total, head_outputs) dense prediction."""
+    if not isinstance(in_shape, list) or len(in_shape) < 2:
+        raise ValueError(f"Submodule '{name}': {dnn.FeaturePyramid.NEEDS_LIST}")
+    return dnn.FeaturePyramid([int(s[1]) for s in in_shape],
+                              channels=int(params.get("channels", 64)),
+                              head_outputs=int(params.get("head_outputs", 0)))
 
 
 # --------------------------------------------------------------------------- #

@@ -1,7 +1,7 @@
 """Losses and their weighting.
 
 Counterpart of ``deepcv_tpu/train/losses.py`` (``cross_entropy_loss``,
-``WeightedLosses``); the other losses (distillation, JSD consistency,
+``mse_loss``, ``WeightedLosses``); the other losses (distillation, JSD consistency,
 triplet, label smoothing by name) are not ported yet.
 """
 from __future__ import annotations
@@ -11,7 +11,7 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cross_entropy_loss", "WeightedLosses", "LOSS_FNS"]
+__all__ = ["cross_entropy_loss", "mse_loss", "WeightedLosses", "LOSS_FNS"]
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -33,6 +33,11 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if label_smoothing:
         y = y * (1.0 - label_smoothing) + label_smoothing / num_classes
     return -(y * logp).sum(-1).mean()
+
+
+def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean squared error in float32."""
+    return (pred.float() - target.float()).square().mean()
 
 
 LOSS_FNS: Dict[str, Callable] = {"cross_entropy": cross_entropy_loss}

@@ -23,8 +23,13 @@ card:
 * ``deterministic: true`` sets cuDNN's ``deterministic`` and clears its
   ``benchmark`` (autotuning) for the run, restoring both after it, as the
   reference's ``setup_cudnn(deterministic, seed)`` did;
+* ``self_supervised_target: input`` trains against the batch itself (an
+  autoencoder's reconstruction): the target is the transformed batch, cast
+  to ``dtype`` as the JAX loop casts it, in training and in validation;
 * validation after every ``validate_every_epochs`` epochs, periodic and
   best-k checkpoints, exact resume, SIGTERM preemption and injected crashes;
+  ``eval_metrics`` are computed in the validation pass only, after
+  ``metrics`` (detection's mAP, a ranked greedy matching);
 * ``history`` has the JAX package's keys, ``throughput_img_s`` one entry
   per epoch (images over the epoch's step time, validation excluded).
 
@@ -130,7 +135,6 @@ UNPORTED_HP: Dict[str, Any] = {
     "flat_params": False,
     "wire_compression": False,
     "train_arch_params": True,
-    "self_supervised_target": None,
     "ema_decay": None,
     "gradient_clip_norm": None,
     "freeze_params": None,
@@ -293,6 +297,12 @@ def _device_targets(targets: np.ndarray, device) -> torch.Tensor:
     return (t.float() if t.is_floating_point() else t.long()).to(device)
 
 
+def _batch_target(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """The target of a self-supervised batch: the transformed batch in the
+    compute dtype (the JAX loop casts the batch before it takes it)."""
+    return x if dtype is None else x.to(dtype)
+
+
 def epoch_permutation(seed: int, epoch: int, n: int) -> torch.Tensor:
     """The order of epoch ``epoch``: a permutation of ``n`` from a CPU
     generator keyed by (seed, epoch) alone."""
@@ -338,6 +348,18 @@ def _refuse_unported(hp: Mapping[str, Any]) -> None:
             "not ported yet; the port keeps the dataset on the device")
 
 
+def _self_target(hp: Mapping[str, Any]) -> bool:
+    """Whether the batch is its own target (``self_supervised_target:
+    input``); any other value but off raises, naming the key."""
+    value = hp.get("self_supervised_target")
+    if value in (None, False):
+        return False
+    if value != "input":
+        raise ValueError(f"hp 'self_supervised_target' = {value!r}: the one target the "
+                         "training loop takes is 'input' (or null for the dataset's targets)")
+    return True
+
+
 def _resolve_dtype(dtype) -> Optional[torch.dtype]:
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
@@ -350,16 +372,21 @@ def _resolve_dtype(dtype) -> Optional[torch.dtype]:
 
 def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mapping[str, Any],
           metrics: Optional[Mapping[str, Callable]] = None,
-          loggers: Iterable[Any] = ()) -> Tuple[TrainState, Dict[str, Any]]:
+          loggers: Iterable[Any] = (),
+          eval_metrics: Optional[Mapping[str, Callable]] = None
+          ) -> Tuple[TrainState, Dict[str, Any]]:
     """Train ``model`` on ``datasets`` ({'trainset', 'validset'[, 'testset']}
     of :class:`~deepcv_tpu_torch.data.preprocess.PreprocessedDataset`) on the
-    device its parameters live on; returns ``(state, history)``."""
+    device its parameters live on; returns ``(state, history)``.
+    ``eval_metrics`` join ``metrics`` in the validation pass only."""
     hp, _ = to_hyperparameters(dict(hp), TRAINING_HP_DEFAULTS)
     _refuse_unported(hp)
+    self_target = _self_target(hp)
     device = next(model.parameters()).device
     if not isinstance(losses, WeightedLosses):
         losses = WeightedLosses(losses, weights=hp.get("losses_weights"))
     metrics = dict(metrics or {"accuracy": accuracy})
+    eval_metrics = {**metrics, **dict(eval_metrics or {})}
     seed = int(hp["seed"])
     trainset = datasets["trainset"]
     validset = datasets.get("validset", datasets.get("testset", trainset))
@@ -407,12 +434,13 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
             for lo in range(0, len(validset), eval_bs):
                 x = validset.batch_transform(torch.from_numpy(
                     np.ascontiguousarray(vx[lo:lo + eval_bs])).to(device), augment=False)
-                y = _device_targets(vy[lo:lo + eval_bs], device)
+                y = _batch_target(x, dtype) if self_target \
+                    else _device_targets(vy[lo:lo + eval_bs], device)
                 with _autocast(device, dtype):
                     logits = model(x)
                 _, terms = losses(logits, y)
                 out = dict(terms)
-                for name, fn in metrics.items():
+                for name, fn in eval_metrics.items():
                     out[name] = fn(logits.float(), y)
                 acc.update(out, weight=len(y))
         model.train()
@@ -461,7 +489,8 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
                     idx = perm[i * batch_size:(i + 1) * batch_size]
                     x = trainset.batch_transform(
                         images[idx], generator=step_generator(seed, state.step, device))
-                    m = train_step(state, losses, metrics, x, targets[idx], **step_kw)
+                    y = _batch_target(x, dtype) if self_target else targets[idx]
+                    m = train_step(state, losses, metrics, x, y, **step_kw)
                     train_acc.update(m)
                     seen += batch_size
                     if state.step % log_every == 0:

@@ -251,13 +251,14 @@ def test_unet_parameter_count_at_256():
 def test_create_pipelines_lists_both_dense_pipelines():
     pipes = create_pipelines()
     assert {"train_semantic_segmentation", "train_pose_estimator"} <= set(pipes)
-    assert TASK_PACKAGES == ("classification", "pose", "segmentation")
+    assert TASK_PACKAGES == ("classification", "keypoints", "detection", "pose",
+                             "segmentation")
     jax_pipes = jax_create_pipelines({"enabled": list(TASK_PACKAGES)})
     assert set(pipes) == set(jax_pipes) - {"__default__"}
     assert [n.name for n in pipes["train_pose_estimator"].nodes] == \
         [n.name for n in jax_pipes["train_pose_estimator"].nodes]
-    with pytest.raises(NotImplementedError, match="detection"):
-        create_pipelines({"enabled": ["detection"]})
+    with pytest.raises(NotImplementedError, match="video"):
+        create_pipelines({"enabled": ["video"]})
 
 
 @pytest.fixture(scope="module")

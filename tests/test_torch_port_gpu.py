@@ -1061,3 +1061,100 @@ def test_hrnet_segmenter_f32_on_card_matches_cpu(cuda):
                                                           "float32": before["float32"] + 1}
         assert got.shape == ref.shape == (8, 32, 32, 4) and torch.isfinite(got).all()
         assert _rel_l2(got, ref) <= 1e-3
+
+
+class _Targets:
+    """The ``datasets['trainset']`` view ``create_fpn_detector`` reads."""
+
+    def __init__(self, image_shape, targets):
+        self.image_shape, self.targets = image_shape, targets
+        self.dataset = self
+
+
+def test_fpn_detector_f32_on_card_matches_cpu(cuda):
+    """Config 12's FPN detector (64x64, grids (16, 8), 3 classes) through
+    ``create_fpn_detector``, batch 8, float32 (TF32 off), the same weights:
+    4 f32 K2 launches a forward, the flat (8, 320, 8) output within rel L2
+    1e-3 of the CPU path."""
+    from chip_smoke import FPN_BACKBONE
+    from deepcv_tpu_torch.pipelines.detection import create_fpn_detector
+
+    datasets = {"trainset": _Targets((64, 64, 3), np.zeros((1, 320, 8), np.float32))}
+    cpu = create_fpn_detector(datasets, FPN_BACKBONE, device="cpu").eval()
+    gpu = create_fpn_detector(datasets, FPN_BACKBONE).eval()
+    assert gpu.capacity() == 221_064
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(8, 64, 64, 3))
+                         .astype(np.float32))
+    before = dict(fused_conv2d_bias_act.launches_by_dtype)
+    with torch.no_grad():
+        got = gpu(x.to(cuda)).cpu()
+        ref = cpu(x)
+    torch.cuda.synchronize()
+    assert fused_conv2d_bias_act.launches_by_dtype == {**before,
+                                                      "float32": before["float32"] + 4}
+    assert got.shape == ref.shape == (8, 320, 8) and torch.isfinite(got).all()
+    assert _rel_l2(got, ref) <= 1e-3
+
+
+def test_nms_and_map_on_card_equal_the_cpu(cuda):
+    """``decode_detections_flat`` with class-aware NMS and ``map50_flat`` on
+    the same logits on the card and on the CPU: the same kept candidates,
+    classes and mAP (boxes and scores within 1e-6)."""
+    from deepcv_tpu_torch.pipelines.detection import (
+        decode_detections_flat, generate_shapes_dataset_fpn, map50_flat)
+
+    grids = (16, 8)
+    target = torch.from_numpy(generate_shapes_dataset_fpn(
+        n=64, image_size=64, grids=grids, seed=3).targets)
+    rng = np.random.default_rng(7)
+    pred = torch.from_numpy(rng.normal(size=target.shape).astype(np.float32))
+    pred[..., 0] += 4.0 * (target[..., 0] - 0.5)
+    got = [t.cpu() for t in decode_detections_flat(pred.to(cuda), grids, nms_iou=0.5)]
+    ref = decode_detections_flat(pred, grids, nms_iou=0.5)
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[1] > 0, ref[1] > 0)
+    assert (got[0] - ref[0]).abs().max() <= 1e-6 and (got[1] - ref[1]).abs().max() <= 1e-6
+    m_got = float(map50_flat(pred.to(cuda), target.to(cuda), grids))
+    m_ref = float(map50_flat(pred, target, grids))
+    assert 0.0 < m_ref < 1.0 and abs(m_got - m_ref) <= 1e-6
+
+
+def test_keypoint_chain_on_card_agrees_with_cpu(cuda):
+    """bench.py config 4's chain (the conf's encoder at 64x64, float32,
+    K = 256, 4 pairs) on the card and on the CPU with the same weights and
+    images: one K2 launch an encoder forward, the keypoints, matched
+    indices and AdaLAM masks (the same Gumbel draws) agreeing for at least
+    99 % of the keypoints."""
+    from deepcv_tpu_torch.config import load_yaml
+    from deepcv_tpu_torch.pipelines import keypoints as kp
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    hp = load_yaml("conf/base/parameters.yml")["keypoints_encoder_model"]
+    cpu = DeepcvModule((64, 64, 3), hp, device="cpu").eval()
+    gpu = DeepcvModule((64, 64, 3), hp).eval()
+    rng = np.random.default_rng(8)
+    xa = torch.from_numpy(rng.uniform(size=(4, 64, 64, 3)).astype(np.float32))
+    xb = xa + 0.02 * torch.from_numpy(rng.normal(size=xa.shape).astype(np.float32))
+    gumbel = torch.from_numpy(rng.gumbel(size=(4, 32, 16, 256)).astype(np.float32))
+
+    def chain(enc, a, b):
+        fa, fb = enc(a), enc(b)
+        ka, _ = kp.extract_keypoints(fa.abs().mean(-1), k=256)
+        kb, _ = kp.extract_keypoints(fb.abs().mean(-1), k=256)
+        da, db = kp.extract_dense_descriptors(fa), kp.extract_dense_descriptors(fb)
+        sa = da.gather(1, (ka[..., 0] * 64 + ka[..., 1])[..., None].expand(-1, -1, 16))
+        sb = db.gather(1, (kb[..., 0] * 64 + kb[..., 1])[..., None].expand(-1, -1, 16))
+        m, v = kp.match_descriptors(sa, sb)
+        masks = torch.stack([kp.filter_matches_adalam(ka[i], kb[i], m[i], v[i],
+                                                      gumbel=gumbel[i].to(a.device))
+                             for i in range(len(a))])
+        return [t.cpu() for t in (ka, kb, m, v, masks)]
+
+    before = fused_conv2d_bias_act.launches
+    with torch.no_grad():
+        got = chain(gpu, xa.to(cuda), xb.to(cuda))
+        ref = chain(cpu, xa, xb)
+    assert fused_conv2d_bias_act.launches == before + 2
+    assert float((got[0] == ref[0]).all(-1).float().mean()) >= 0.99
+    assert float(((got[2] == ref[2]) & (got[3] == ref[3])).float().mean()) >= 0.99
+    assert float((got[4] == ref[4]).float().mean()) >= 0.99
+    assert ref[3].any() and ref[4].any()

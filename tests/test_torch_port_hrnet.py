@@ -292,11 +292,11 @@ def test_interpolate_node_matches_jax(node, out_hw):
     assert got[0].shape == (2, *out_hw, 5) and tm.output_shape == (1, *out_hw, 5)
 
 
-@pytest.mark.parametrize("node,err", [({"size": [4, 4], "method": "nearest"}, NotImplementedError),
+@pytest.mark.parametrize("node,err", [({"size": [4, 4], "method": "cubic"}, NotImplementedError),
                                       ({}, ValueError)])
 def test_interpolate_node_refuses_other_methods_and_no_target(node, err):
     hp = {"act_fn": "relu", "architecture": [{"interpolate": node}]}
-    with pytest.raises(err, match="nearest" if node else "size"):
+    with pytest.raises(err, match="cubic" if node else "size"):
         DeepcvModule((8, 8, 3), hp, device="meta")
     with pytest.raises(NotImplementedError, match="'cubic'"):
         dnn.interpolate(torch.zeros(1, 2, 4, 4), (8, 8), method="cubic")

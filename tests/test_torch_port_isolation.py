@@ -127,9 +127,11 @@ print(json.dumps({"pipes": pipes, "bad": bad}))
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res == {"pipes": ["preprocess_cifar10", "preprocess_cifar100", "preprocess_mnist",
-                             "train_convnext", "train_densenet",
+                             "train_convnext", "train_densenet", "train_fpn_detector",
                              "train_image_classifier", "train_image_classifier_cifar100",
+                             "train_keypoint_detector",
                              "train_mobilenet_v2", "train_mobilenet_v3",
+                             "train_object_detector",
                              "train_pose_estimator", "train_resnet50",
                              "train_semantic_segmentation", "train_swin", "train_vit",
                              "train_wide_classifier",

@@ -305,12 +305,17 @@ def _rel(got, ref):
 #: 17x13), Cin 5 and 33 (the 2-byte loads), whole 6x6 images stacked in one
 #: tile with Cout 129; the dense head (1x1, 32 -> 4: Cout below every tile
 #: width) and U-Net's first conv (3 -> 32) and decoder convs on concatenated
-#: inputs (96 -> 32, 768 -> 256 over twelve 64-channel chunks)
+#: inputs (96 -> 32, 768 -> 256 over twelve 64-channel chunks); the
+#: single-grid detector's head (1x1, 32 -> 8), the detectors' and the
+#: autoencoder's stem (3 -> 16), the autoencoder's last conv (16 -> 3) and
+#: config 12's FPN c4 conv (64 -> 128 on 8x8)
 TC_SHAPES = [(2, 32, 32, 3, 4, 5), (2, 32, 32, 4, 4, 5), (2, 16, 16, 4, 16, 3),
              (2, 16, 16, 16, 16, 3), (2, 9, 11, 16, 24, 1), (1, 12, 10, 80, 136, 1),
              (1, 12, 10, 8, 24, 7), (3, 13, 13, 5, 7, 5), (1, 17, 13, 33, 64, 5),
              (3, 6, 6, 65, 129, 7), (2, 8, 8, 32, 4, 1), (1, 16, 16, 3, 32, 3),
-             (1, 16, 16, 96, 32, 3), (1, 4, 4, 768, 256, 3)]
+             (1, 16, 16, 96, 32, 3), (1, 4, 4, 768, 256, 3),
+             (2, 8, 8, 32, 8, 1), (2, 16, 16, 3, 16, 3), (1, 16, 16, 16, 3, 3),
+             (1, 8, 8, 64, 128, 3)]
 
 
 @pytest.mark.parametrize("act,bias", [("relu", True), ("leaky_relu", False)])

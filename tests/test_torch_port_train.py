@@ -250,8 +250,7 @@ _ON = {"nni_compression": {"sparsity": 0.5}, "log_param_histograms": True,
        "grad_accumulation_steps": 2, "remat": True, "sampling": "with_replacement",
        "max_epochs_per_dispatch": 2, "sync_every_dispatches": 2, "runtime_lr": True,
        "flatten_optimizer": True, "flat_params": True, "wire_compression": True,
-       "train_arch_params": False, "self_supervised_target": "input",
-       "ema_decay": 0.999, "gradient_clip_norm": 1.0, "freeze_params": "embed", "lr_scales": {".*": 0.1},
+       "train_arch_params": False, "ema_decay": 0.999, "gradient_clip_norm": 1.0, "freeze_params": "embed", "lr_scales": {".*": 0.1},
        "mixup_alpha": 0.2, "cutmix_alpha": 1.0, "uda": {"weight": 1.0},
        "backend_conf": {"n_devices": 2}, "augmix_jsd": {"weight": 12.0}}
 
