@@ -210,11 +210,11 @@ Phases, each printing one JSON line:
    backward, the FPN's cuDNN convs, the nearest resize, the focal loss,
    AdamW, copies, and the idle share.
 17. keypoints_train — ``run --pipeline=train_keypoint_detector`` with the
-   conf's hp (batch 32, AdamW lr 1e-3) in bf16 (passed as ``--params``; the
-   conf trains in float32), cut to 1 epoch, on CIFAR-10 (the line names
-   which pixels): 3,267 parameters, 3 bf16 K2 launches a forward (relu,
-   relu, and none before the sigmoid), finite ``reconstruction_mse`` in
-   training and validation; the median step.
+   conf's hp (batch 32, AdamW lr 1e-3), cut to 1 epoch, on CIFAR-10 (the
+   line names which pixels), twice: in bf16 (passed as ``--params``) and in
+   the conf's own float32: 3,267 parameters, 3 K2 launches a forward in the
+   run's dtype (relu, relu, and none before the sigmoid), finite
+   ``reconstruction_mse`` in training and validation; the median step.
 18. keypoints_match — bench.py config 4 (bench.py:256-341): the conf's
    encoder at 64x64 in bf16 eval, 64 pairs (``img_b = img_a + 0.02
    noise``), K = 256: encode, dense descriptors, keypoints of the mean
@@ -224,6 +224,28 @@ Phases, each printing one JSON line:
    and on the CPU (8 pairs, the same weights, inputs and Gumbel draws):
    matches and AdaLAM masks agree for at least 99 % of the keypoints.
    Config 4's classical baseline is not ported (P12) and is left out.
+19. video_train — ``run --pipeline=train_optical_flow`` (40 epochs),
+   ``train_video_classifier`` (12), ``train_temporal_classifier`` with the
+   conf's ``gru`` and with ``temporal_classifier_model.temporal:transformer``
+   (20 each) in this process with the conf's models and hp (batch 64,
+   AdamW, float32, TF32 off), epochs not cut, on the catalog's synthetic
+   flow pairs (32x32) and clips (6 frames of 12x12): 14,754, 15,396, 13,668
+   and 16,196 parameters, finite losses, a finite ``valid_epe`` and
+   ``valid_accuracy`` in [0, 1], no K1, K2 or flash launch (no TPU kernel
+   lies on these paths); the median step of the last epoch, img/s, peak
+   memory and the wall of each validation pass.
+20. video_cpu_check — one float32 forward (eval, batch 8, validation
+   inputs) of each of the four trained models on the card against a copy
+   on the CPU: rel L2 within 1e-3; then ``flow_warp`` and
+   ``interpolate_frames`` on the flow set's 32x32 pairs with the trained
+   flow model's flow, on the card against the CPU: within 1e-5.
+21. tracking — ``track_sequence`` and ``mot_metrics`` on a synthetic clip
+   at MOT17-04's length (1,050 frames, 1920x1080): 48 lanes, objects at
+   constant velocity (bouncing at the edges) with position jitter, births,
+   deaths and dropped detections, 64 padded detection rows a frame in a
+   shuffled order, ``max_tracks`` 128, on the card and on the CPU: the ids
+   equal on every row (else the first frame where they part), the counts
+   equal and MOTA within 1e-6; frames/s on the card and on the CPU.
 
 Then the wall seconds of every phase (``walls``), the kernels line and,
 last, the contract line
@@ -272,6 +294,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import faulthandler
 import functools
 import hashlib
@@ -316,6 +339,8 @@ from deepcv_tpu_torch.ops.nn import FusedConv2d
 from deepcv_tpu_torch.pipelines import detection as det_pipeline
 from deepcv_tpu_torch.pipelines import keypoints as kp_pipeline
 from deepcv_tpu_torch.pipelines import segmentation as seg_pipeline
+from deepcv_tpu_torch.pipelines import tracking as tracking_pipeline
+from deepcv_tpu_torch.pipelines import video as video_pipeline
 from deepcv_tpu_torch.pipelines.framework import append_dense_head
 from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bundle
 from deepcv_tpu_torch.server import InferenceServer
@@ -473,8 +498,8 @@ FPN_PROFILE_STEPS = 8
 FPN_PROFILE_PROCESS_S = 300
 #: keypoints_train: the conf's autoencoder (3,267 parameters: the JAX
 #: model's 3,987 less 720 zero-padded rows) with the conf's hp (batch 32,
-#: AdamW lr 1e-3, its warm-up schedule, deterministic) in bf16 (the conf
-#: trains in float32; bf16 passed as --params), cut to 1 epoch, on CIFAR-10
+#: AdamW lr 1e-3, its warm-up schedule, deterministic), cut to 1 epoch, on
+#: CIFAR-10: in bf16 (passed as --params) and in the conf's own float32
 KEYPOINT_BATCH = 32
 KEYPOINT_RUNS = (
     PipelineRun("autoencoder", "train_keypoint_detector",
@@ -482,7 +507,10 @@ KEYPOINT_RUNS = (
                 1, 3_267, {"relu": 2, "none": 1}, "bfloat16",
                 {"valid_reconstruction_mse": math.inf},
                 {"epochs": "2 -> 1", "dtype": "the conf trains in float32; bfloat16 "
-                                              "passed as --params"}),)
+                                              "passed as --params"}),
+    PipelineRun("autoencoder_f32", "train_keypoint_detector",
+                ("train_keypoint_detector.epochs:1",), 1, 3_267, {"relu": 2, "none": 1},
+                "float32", {"valid_reconstruction_mse": math.inf}, {"epochs": "2 -> 1"}))
 #: keypoints_match: bench.py config 4 (bench.py:256-341): the conf's encoder
 #: at 64x64 in bf16 eval, 64 pairs, K = 256 keypoints, 20 timed iterations
 MATCH_PAIRS, MATCH_SIZE, MATCH_K, MATCH_ITERS = 64, 64, 256, 20
@@ -497,6 +525,27 @@ DETECT_KERNEL_CASES = [((64, 32, 32, 3, 16, 3), ("float32",)),
                        ((FPN_BATCH, 8, 8, 64, 128, 3), ("bfloat16",)),
                        ((32, 32, 32, 3, 16, 3), ("bfloat16",)),
                        ((32, 32, 32, 16, 3, 3), ("bfloat16",))]
+#: video_train: the video pipelines with the conf's models and hp (batch
+#: 64, AdamW, float32), epochs not cut, on the catalog's synthetic flow
+#: pairs and clips; no TPU kernel lies on these paths, so no K2 launch
+VIDEO_RUNS = (
+    PipelineRun("flow", "train_optical_flow", (), 40, 14_754, {}, "float32",
+                {"valid_epe": math.inf}, {}),
+    PipelineRun("conv3d", "train_video_classifier", (), 12, 15_396, {}, "float32",
+                {"valid_accuracy": 1}, {}),
+    PipelineRun("gru", "train_temporal_classifier", (), 20, 13_668, {}, "float32",
+                {"valid_accuracy": 1}, {}),
+    PipelineRun("transformer", "train_temporal_classifier",
+                ("temporal_classifier_model.temporal:transformer",), 20, 16_196, {}, "float32",
+                {"valid_accuracy": 1}, {"temporal": "transformer passed as --params (the "
+                                                    "conf's is gru)"}))
+VIDEO_CHECK_BATCH = 8
+VIDEO_OP_TOL = 1e-5
+#: tracking: a clip at MOT17-04's length and frame size (1,050 frames,
+#: 1920x1080), 48 lanes, 64 detection rows a frame, 128 track slots
+TRACK_FRAMES, TRACK_OBJECTS, TRACK_ROWS, TRACK_SLOTS = 1050, 48, 64, 128
+TRACK_FRAME_WH = (1920, 1080)
+MOTA_TOL = 1e-6
 DEVICE = "cuda"
 IMAGE_SHAPE = (224, 224, 3)
 SERVE_BATCH = 64
@@ -1089,8 +1138,8 @@ def forward_convs(dtype):
     encoder as keypoints_match runs it (batch 64, 64x64); f32 as ResNet-50
     serving and classifier_train (batch 32) run them, the conf's two
     detectors as detect_train runs them (batch 64, 32x32) and the conf's
-    autoencoder in its own float32 (batch 32, 32x32: keypoints_train runs
-    it in bf16)."""
+    autoencoder in its own float32 as keypoints_train's float32 row runs it
+    (batch 32, 32x32)."""
     if dtype == "float32":
         return (("resnet_spec(50)", _with_act(RESNET50_CONVS, "relu")),
                 ("image_classifier", _with_act(CLASSIFIER_TRAIN_CONVS, "relu")),
@@ -2844,16 +2893,18 @@ def _forwards(h, n_valid, batch):
     return h["steps"] + len(h["valid"]) * math.ceil(n_valid / min(32 * batch, n_valid))
 
 
-def phase_pipeline_runs(card, phase, runs, data=None):
+def phase_pipeline_runs(card, phase, runs, data=None, models=None):
     """The pipelines ``runs`` (:class:`PipelineRun`) through the port's
     ``run``, in this process, TF32 off, no checkpoints: finite training
     values, finite validation metrics within their range, the models'
     parameters, exactly the row's K2 launches a training and a validation
-    forward, all in its dtype in x, w and b, no K1 and no flash launch; the
-    median step of the last epoch (CUDA events recorded after each step)
-    and the wall time of each validation pass, its metrics included.
-    ``data`` names the pixels where the catalog's set is not synthetic.
-    Returns the K2 launches and the step ms of each run by label."""
+    forward (none for a row without K2 convs), all in its dtype in x, w and
+    b, no K1 and no flash launch; the median step of the last epoch (CUDA
+    events recorded after each step) and the wall time of each validation
+    pass, its metrics included. ``data`` names the pixels where the
+    catalog's set is not synthetic. ``models``, a dict, receives each
+    trained model and its datasets by label. Returns the K2 launches and
+    the step ms of each run by label."""
     launches, step_ms = {}, {}
     for run in runs:
         torch.cuda.empty_cache()
@@ -2880,7 +2931,7 @@ def phase_pipeline_runs(card, phase, runs, data=None):
         if k2 != sum(run.k2_by_act.values()) * forwards \
                 or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": 0, run.dtype: k2} \
                 or counts["K2_by_act"] != {a: n * forwards for a, n in run.k2_by_act.items()} \
-                or counts["K2_dtypes"] != {"/".join([run.dtype] * 3): k2} \
+                or counts["K2_dtypes"] != ({"/".join([run.dtype] * 3): k2} if k2 else {}) \
                 or counts["K1"] or counts["flash"] or len(ends) != steps:
             raise AssertionError(f"{phase} {run.pipeline} counts {counts} for {steps} steps "
                                  f"and {forwards - steps} validation forwards")
@@ -2900,6 +2951,8 @@ def phase_pipeline_runs(card, phase, runs, data=None):
               "wall_s": wall, "launches": counts, "validation_forwards": forwards - steps,
               "launches_per_forward": {"K2": k2 / forwards},
               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card})
+        if models is not None:
+            models[run.label] = (model, store["datasets"])
         del store, model
     torch.cuda.empty_cache()
     return launches, step_ms
@@ -3099,12 +3152,13 @@ def _validation_walls():
     block: from the model's ``eval()`` to its ``train()`` after it (the
     device synchronised at both), the pass's forwards, losses and metrics,
     mAP included."""
-    real = DeepcvModule.train
+    real = torch.nn.Module.train
     walls, started = [], []
 
     def train(self, mode=True):
-        # a model of several DeepcvModules (the autoencoder) toggles each:
-        # the first to leave training starts the pass, the first back ends it
+        # a module's train() toggles its children too, and a model of several
+        # DeepcvModules (the autoencoder) toggles each: the first to leave
+        # training starts the pass, the first back ends it
         if bool(mode) != self.training and bool(mode) == bool(started):
             torch.cuda.synchronize()
             if mode:
@@ -3113,11 +3167,11 @@ def _validation_walls():
                 started.append(time.perf_counter())
         return real(self, mode)
 
-    DeepcvModule.train = train
+    torch.nn.Module.train = train
     try:
         yield walls
     finally:
-        DeepcvModule.train = real
+        torch.nn.Module.train = real
 
 
 def _fpn_datasets(n):
@@ -3374,6 +3428,138 @@ def phase_keypoints_match(card):
     return launches
 
 
+def phase_video_cpu_check(card, models):
+    """One float32 forward (eval, TF32 off, batch 8 of the validation set)
+    of each trained video model on the card against a copy on the CPU
+    (within rel L2 :data:`SERVE_REL_L2`, no K2 launch); then ``flow_warp``
+    and ``interpolate_frames`` on the flow set's pairs with the trained flow
+    model's flow, on the card against the CPU (within ``VIDEO_OP_TOL``)."""
+    for label, (gpu, datasets) in models.items():
+        valid = datasets["validset"]
+        x = valid.batch_transform(torch.from_numpy(
+            valid.dataset.images[:VIDEO_CHECK_BATCH]).to(DEVICE), augment=False)
+        cpu = copy.deepcopy(gpu).cpu().eval()
+        k2 = fused_conv2d_bias_act.launches
+        with torch.no_grad():
+            got = gpu.eval()(x).cpu()
+            ref = cpu(x.cpu())
+        k2 = fused_conv2d_bias_act.launches - k2
+        rel_l2 = ((got - ref).norm() / ref.norm()).item()
+        line = {"phase": "video_cpu_check", "model": label, "class": type(gpu).__name__,
+                "batch": VIDEO_CHECK_BATCH, "input_shape": list(x.shape[1:]),
+                "dtype": "float32", "tf32": False, "rel_l2": rel_l2,
+                "bound_rel_l2": SERVE_REL_L2, "k2_launches": k2,
+                "finite": bool(torch.isfinite(got).all()), "card": card}
+        emit(line)
+        if not (rel_l2 <= SERVE_REL_L2 and k2 == 0 and line["finite"]):
+            raise AssertionError(f"video_cpu_check failed: {line}")
+        if label == "flow":
+            with torch.no_grad():
+                flow = gpu(x)
+            a, b = x[..., :3], x[..., 3:]
+            errs = {}
+            for name, fn in (("flow_warp", lambda a, b, f: video_pipeline.flow_warp(b, f)),
+                             ("interpolate_frames", lambda a, b, f:
+                              video_pipeline.interpolate_frames(a, b, flow=f))):
+                on_card = fn(a, b, flow).cpu()
+                on_cpu = fn(a.cpu(), b.cpu(), flow.cpu())
+                errs[name] = (on_card - on_cpu).abs().max().item()
+            line = {"phase": "video_cpu_check", "ops": errs, "bound_abs": VIDEO_OP_TOL,
+                    "flow_range": [flow.min().item(), flow.max().item()],
+                    "pairs": VIDEO_CHECK_BATCH, "image_size": list(a.shape[1:3]), "card": card}
+            emit(line)
+            if not all(e <= VIDEO_OP_TOL for e in errs.values()):
+                raise AssertionError(f"video_cpu_check failed: {line}")
+    models.clear()
+    torch.cuda.empty_cache()
+
+
+def tracking_clip(frames=TRACK_FRAMES, objects=TRACK_OBJECTS, rows=TRACK_ROWS, seed=SEED,
+                  frame_wh=TRACK_FRAME_WH):
+    """A synthetic detection clip: ``objects`` horizontal lanes 22 px apart
+    (12x16 boxes, so no two boxes ever overlap), each holding one object
+    after another: born at a random x, moving at a constant velocity of up
+    to 3 px a frame (bouncing at the frame's edges) with 0.5 px of position
+    jitter, living 100-500 frames, then a gap of 5-40 frames; 5 % of the
+    detections dropped. Each frame's detections sit in ``rows`` padded rows
+    in a shuffled order. Returns (F, rows, 4) float32 xyxy boxes, the (F,
+    rows) bool mask and the (F, rows) int32 ground-truth identities."""
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((frames, rows, 4), np.float32)
+    mask = np.zeros((frames, rows), bool)
+    gt_ids = np.zeros((frames, rows), np.int32)
+    width = frame_wh[0] - 12
+    alive = [[] for _ in range(frames)]          # (identity, x, y) a frame
+    next_id = 0
+    for lane in range(objects):
+        y = 20.0 + 22.0 * lane
+        t = int(rng.integers(0, 60))
+        while t < frames:
+            life = int(rng.integers(100, 501))
+            x, v = rng.uniform(0, width), rng.uniform(-3.0, 3.0)
+            for f in range(t, min(frames, t + life)):
+                alive[f].append((next_id, x, y))
+                x += v
+                if not 0.0 <= x <= width:
+                    v, x = -v, min(max(x, 0.0), float(width))
+            next_id += 1
+            t += life + int(rng.integers(5, 41))
+    for f, objs in enumerate(alive):
+        order = rng.permutation(rows)[:len(objs)]
+        for row, (ident, x, y) in zip(order, objs):
+            jx, jy = rng.normal(0.0, 0.5, 2)
+            boxes[f, row] = (x + jx, y + jy, x + jx + 12.0, y + jy + 16.0)
+            mask[f, row] = rng.uniform() >= 0.05
+            gt_ids[f, row] = ident
+    return torch.from_numpy(boxes), torch.from_numpy(mask), torch.from_numpy(gt_ids)
+
+
+def phase_tracking(card):
+    """``track_sequence`` (max_tracks 128) and ``mot_metrics`` on
+    :func:`tracking_clip`, on the card and on the CPU: the ids equal on every
+    row, the counts equal, MOTA within ``MOTA_TOL``; frames/s of each (the
+    card's after 20 warm-up frames). The ground truth is every object alive
+    in a frame, dropped detections included (they count as misses)."""
+    boxes, mask, gt_ids = tracking_clip()
+    gt_mask = boxes.abs().sum(-1) > 0
+    n_ids = int(gt_ids.max()) + 1
+    track = functools.partial(tracking_pipeline.track_sequence, max_tracks=TRACK_SLOTS)
+    dev = [t.to(DEVICE) for t in (boxes, mask, gt_ids, gt_mask)]
+    track(dev[0][:20], dev[1][:20])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = track(dev[0], dev[1])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = track(boxes, mask)
+    cpu_s = time.perf_counter() - t0
+    got = got.cpu()
+    differ = (got != ref).any(-1).nonzero()
+    t0 = time.perf_counter()
+    m_got = tracking_pipeline.mot_metrics(dev[0], dev[2], dev[3], dev[0], got.to(DEVICE), dev[1],
+                                          max_gt_ids=n_ids)
+    m_got = {k: v.item() for k, v in m_got.items()}
+    metrics_card_s = time.perf_counter() - t0
+    m_ref = {k: v.item() for k, v in tracking_pipeline.mot_metrics(
+        boxes, gt_ids, gt_mask, boxes, ref, mask, max_gt_ids=n_ids).items()}
+    line = {"phase": "tracking", "frames": len(boxes), "frame_wh": list(TRACK_FRAME_WH),
+            "lanes": TRACK_OBJECTS, "objects": n_ids, "rows": TRACK_ROWS,
+            "max_tracks": TRACK_SLOTS, "detections": int(mask.sum()),
+            "ground_truth": int(gt_mask.sum()),
+            "ids_equal": not len(differ),
+            "first_frame_apart": int(differ[0, 0]) if len(differ) else None,
+            "tracks_born": int(ref.max()) + 1, "card_s": card_s, "cpu_s": cpu_s,
+            "frames_per_s": len(boxes) / card_s, "cpu_frames_per_s": len(boxes) / cpu_s,
+            "mot_metrics_card_s": metrics_card_s, "metrics": m_got, "cpu_metrics": m_ref,
+            "card": card}
+    emit(line)
+    counts_equal = all(m_got[k] == m_ref[k] for k in m_ref if k != "mota")
+    if len(differ) or not counts_equal or abs(m_got["mota"] - m_ref["mota"]) > MOTA_TOL \
+            or not (ref[mask] >= 0).all():
+        raise AssertionError(f"tracking failed: {line}")
+
+
 def k1_kernel_line(aug_rows, launches, card):
     row = aug_rows[(AUGMENT_BATCH, 32, 32, 3)]
     return {"name": "fused_augment_normalize", "route": "cuda",
@@ -3397,7 +3583,7 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches, dense_head):
     forward at batch 32, and the dense head's one launch a forward at batch
     64, ``dense_head``, the kernel phase's row; ``detect_train``: per
     forward of each of the conf's detectors at batch 64; and per forward of
-    the conf's autoencoder in its own float32, which no main path runs) and
+    the conf's autoencoder in its own float32, keypoints_train's f32 row) and
     bfloat16 (``augment_train``: per image_classifier forward at batch
     4096; ``wide_train``: per wide classifier forward at batch 1024;
     ``zoo_train``: per MobileNetV2, MobileNetV3-Large and DenseNet-121
@@ -3443,8 +3629,8 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches, dense_head):
                     "keypoint_autoencoder": {
                         **forward_f32["keypoint_autoencoder"],
                         "per": f"one forward of the conf's autoencoder at batch "
-                               f"{KEYPOINT_BATCH}, 32x32, in the conf's float32 (no main "
-                               "path runs it: keypoints_train runs it in bfloat16)"}},
+                               f"{KEYPOINT_BATCH}, 32x32, in the conf's float32 "
+                               "(keypoints_train's float32 row)"}},
         "bfloat16": {"kernel": f"{K2_TC_KERNEL}<BN, EXT_ACT> (tensor cores, mma.sync)",
                      "launches": bf16_launches,
                      **forward_bf16["image_classifier"],
@@ -3593,8 +3779,13 @@ def main() -> int:
     fpn_launches, fpn_step_ms = walls("fpn_train", phase_fpn_train, card)
     walls("fpn_train_profile", phase_fpn_train_profile, card, fpn_step_ms)
     keypoint_launches = walls("keypoints_train", phase_pipeline_runs, card,
-                              "keypoints_train", KEYPOINT_RUNS, data)[0]["autoencoder"]
+                              "keypoints_train", KEYPOINT_RUNS, data)[0]
     match_launches = walls("keypoints_match", phase_keypoints_match, card)
+    video_models = {}
+    video_launches = walls("video_train", phase_pipeline_runs, card, "video_train",
+                           VIDEO_RUNS, None, video_models)[0]
+    walls("video_cpu_check", phase_video_cpu_check, card, video_models)
+    walls("tracking", phase_tracking, card)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
@@ -3604,12 +3795,15 @@ def main() -> int:
                                    "unet_train": unet_launches,
                                    **{f"detect_train:{k}": n for k, n in detect_launches.items()},
                                    "fpn_train": fpn_launches,
-                                   "keypoints_train": keypoint_launches,
-                                   "keypoints_match": match_launches}
+                                   **{f"keypoints_train:{k}": n
+                                      for k, n in keypoint_launches.items()},
+                                   "keypoints_match": match_launches,
+                                   **{f"video_train:{k}": n for k, n in video_launches.items()}}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
               augment_counts["K2"] + wide_launches + sum(zoo_launches.values())
-              + unet_launches + fpn_launches + keypoint_launches + match_launches,
+              + unet_launches + fpn_launches + keypoint_launches["autoencoder"]
+              + match_launches,
               k2_rows[(DENSE_KERNEL_CASES[0][0], "float32")])
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,

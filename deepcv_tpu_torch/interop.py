@@ -59,6 +59,16 @@ An FPN node's convs keep their JAX names (``lateral<i>``, ``smooth<i>``,
 ``jax_parts``: the keypoints ``Autoencoder``'s variables are
 ``params/encoder/...`` and ``params/decoder/...`` (and the same under
 ``batch_stats``), each part mapped as a model of its own.
+
+A 3-d conv kernel (kd, kh, kw, Cin, Cout) DHWIO becomes (Cout, Cin, kd, kh,
+kw) and a 1-d one (kw, Cin, Cout) WIO (Cout, Cin, kw), their padded input
+rows cut as a 2-d kernel's (the ``conv3d`` stem of the video classifier has
+3 real channels of 8). The video models (``pipelines/video.py``) name
+their parameters by the JAX paths themselves (``jax_flat``): ``FlowModel``'s
+``c1``, ``c2``, ``out``; ``TemporalVideoModel``'s ``enc_conv_<i>``,
+``enc_gn_<i>``, ``embed``, ``pos_embedding``, ``block_<i>`` (a ViT
+encoder block's names), ``ln_final``, ``gru/{ir,iz,in,hr,hz,hn}`` and
+``head``.
 """
 from __future__ import annotations
 
@@ -141,16 +151,17 @@ def _torch_key(collection: str, path: Tuple[str, ...], model: torch.nn.Module) -
 
 
 def _convert(key: str, a: np.ndarray, target: torch.Tensor) -> np.ndarray:
+    conv = a.ndim in (4, 5) or (a.ndim == 3 and key.endswith(".weight"))
     if key.rsplit(".", 1)[-1] in _KEPT_LAYOUT:
         pass
-    elif a.ndim == 4:                   # HWIO -> OIHW
+    elif conv:                          # (*k, I, O) -> (O, I, *k): HWIO, DHWIO, WIO
         cin = target.shape[1]
-        if a.shape[2] != cin:
-            if not (cin < TPU_MIN_CHANNELS and a.shape[2] == TPU_MIN_CHANNELS):
+        if a.shape[-2] != cin:
+            if not (cin < TPU_MIN_CHANNELS and a.shape[-2] == TPU_MIN_CHANNELS):
                 raise ValueError(f"{key}: JAX kernel {a.shape} does not fit "
                                  f"{tuple(target.shape)}")
-            a = a[:, :, :cin, :]
-        a = a.transpose(3, 2, 0, 1)
+            a = a[..., :cin, :]
+        a = a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
     elif a.ndim == 2:                   # dense (in, out) -> (out, in)
         a = a.T
     if tuple(a.shape) != tuple(target.shape):
@@ -187,6 +198,28 @@ def _parts_state_dict(variables_np: Mapping[str, Any], model: torch.nn.Module,
     return out
 
 
+def _flat_state_dict(variables_np: Mapping[str, Any], model: torch.nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+    """A model whose parameter names are its JAX variables' paths
+    (``model.jax_flat``: the video models): ``a/b/kernel`` -> ``a.b.weight``,
+    ``scale`` -> ``weight``, ``bias`` -> ``bias``, any other leaf (the
+    temporal transformer's ``pos_embedding``) kept by name and layout."""
+    targets = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for collection, tree in variables_np.items():
+        for path, arr in _flatten(tree):
+            key = ".".join(path[:-1] + (_SUBMODULE_LEAF.get(path[-1], path[-1]),))
+            if collection != "params" or key not in targets:
+                raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
+            t = targets[key]
+            out[key] = torch.tensor(_convert(key, arr, t), dtype=t.dtype)
+    missing = sorted(set(targets) - set(out))
+    if missing:
+        raise KeyError(f"no JAX variable for {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
+    return out
+
+
 def jax_to_torch_state_dict(variables_np: Mapping[str, Any],
                             model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """``state_dict`` for ``model`` from the JAX variables of the same spec
@@ -194,6 +227,8 @@ def jax_to_torch_state_dict(variables_np: Mapping[str, Any],
     parts = getattr(model, "jax_parts", None)
     if parts:
         return _parts_state_dict(variables_np, model, parts)
+    if getattr(model, "jax_flat", False):
+        return _flat_state_dict(variables_np, model)
     targets = model.state_dict()
     out: Dict[str, torch.Tensor] = {}
     padded: Dict[str, np.ndarray] = {}     # conv kernels whose padded rows were cut

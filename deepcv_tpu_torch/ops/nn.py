@@ -37,7 +37,7 @@ __all__ = [
     "get_gain", "xavier_normal_with_gain", "xavier_uniform_with_gain",
     "avg_pool_nd", "max_pool_nd", "interpolate", "NormTechnique", "BatchNorm",
     "MeanOnlyBatchNorm", "GroupNorm", "LayerNorm", "RMSNorm", "make_token_norm",
-    "normalization_techniques", "weight_norm", "Conv2d", "LecunConv2d", "FusedConv2d",
+    "normalization_techniques", "weight_norm", "Conv2d", "ConvNd", "LecunConv2d", "FusedConv2d",
     "Dense", "Layer", "Identity", "Interpolate", "Flatten", "Dropout", "DropPath",
     "feature_dim", "gelu_exact", "gelu_tanh", "get_padding_from_kernel", "SqueezeExcitation",
     "ConvNeXtStem", "ConvNeXtDownsample", "ConvNeXtBlock", "FeaturePyramid",
@@ -499,6 +499,18 @@ class Conv2d(_WeightOp):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.effective_weight().to(x.dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
+
+
+class ConvNd(Conv2d):
+    """A 1-d or 3-d convolution (the spec's ``conv1d`` and ``conv3d``) on an
+    NCW or NCDHW tensor: plain ``F.conv1d``/``F.conv3d``, as the JAX package
+    leaves them to XLA. Weight (Cout, Cin/groups, *kernel), Xavier-normal."""
+
+    def forward(self, x):
+        fn = {3: F.conv1d, 5: F.conv3d}[self.weight.dim()]
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return fn(x, self.effective_weight().to(x.dtype), b, self.stride, self.padding,
+                  self.dilation, self.groups)
 
 
 class LecunConv2d(Conv2d):

@@ -1,3 +1,3 @@
-"""Pipelines of the port: nodes, the project context and the task packages
-``classification``, ``pose`` and ``segmentation`` (``registry.py``)."""
+"""Pipelines of the port: nodes, the project context and the six task
+packages (``registry.py``), with the SORT tracker (``tracking.py``)."""
 from deepcv_tpu_torch.pipelines.framework import Node, Pipeline, ProjectContext  # noqa: F401

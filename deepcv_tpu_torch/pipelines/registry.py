@@ -1,9 +1,8 @@
 """Project pipeline registry.
 
 Counterpart of ``deepcv_tpu/pipelines/registry.py`` (``create_pipelines``,
-``TASK_PACKAGES``): the task packages' ``get_pipelines()`` in one mapping.
-``classification``, ``keypoints``, ``detection``, ``pose`` and
-``segmentation`` are ported; asking for ``video`` raises.
+``TASK_PACKAGES``): the task packages' ``get_pipelines()`` in one mapping,
+all six of the JAX package's.
 """
 from __future__ import annotations
 
@@ -12,10 +11,10 @@ from typing import Any, Dict, Mapping, Optional
 
 from deepcv_tpu_torch.pipelines.framework import Pipeline
 
-__all__ = ["create_pipelines", "TASK_PACKAGES", "UNPORTED_TASK_PACKAGES"]
+__all__ = ["create_pipelines", "TASK_PACKAGES"]
 
-TASK_PACKAGES = ("classification", "keypoints", "detection", "pose", "segmentation")
-UNPORTED_TASK_PACKAGES = ("video",)
+#: built-in task packages, in the JAX package's registration order
+TASK_PACKAGES = ("classification", "keypoints", "detection", "pose", "segmentation", "video")
 
 
 def create_pipelines(plugins: Optional[Mapping[str, Any]] = None) -> Dict[str, Pipeline]:
@@ -31,13 +30,9 @@ def create_pipelines(plugins: Optional[Mapping[str, Any]] = None) -> Dict[str, P
     enabled = plugins.get("enabled")
     disabled = set(plugins.get("disabled") or ())
     for group in (enabled or (), disabled):
-        bad = set(group) - set(TASK_PACKAGES) - set(UNPORTED_TASK_PACKAGES)
+        bad = set(group) - set(TASK_PACKAGES)
         if bad:
             raise ValueError(f"Unknown task package(s) {sorted(bad)}")
-    unported = set(enabled or ()) & set(UNPORTED_TASK_PACKAGES)
-    if unported:
-        raise NotImplementedError(f"task package(s) {sorted(unported)} not ported yet "
-                                  f"(ported: {TASK_PACKAGES})")
     pipelines: Dict[str, Pipeline] = {}
     for pkg in TASK_PACKAGES:
         if (enabled is None or pkg in enabled) and pkg not in disabled:

@@ -1,7 +1,8 @@
 """Submodule-creator registry and the creators the first slice needs.
 
 Counterpart of ``deepcv_tpu/spec/creators.py`` (``CreatorContext``,
-``_as_layer``, ``_conv_common``, the conv creator with its kernel hook,
+``_as_layer``, ``_conv_common``, the ``conv{1,2,3}d`` creators with the
+2-d one's kernel hook,
 ``fully_connected``, ``average_pooling``, ``max_pooling``, ``flatten``,
 ``activation``, ``residual_link``, ``dense_link``,
 ``_new_branch_from_tensor``, ``interpolate``, ``fpn``, the HRNet nodes
@@ -104,6 +105,8 @@ class CreatorContext:
     hp: Mapping[str, Any]                      # global model hyperparameters
     submodule_names: Tuple[str, ...] = ()      # names defined so far
     weight_norm: Optional[Mapping[str, Any]] = None   # hp 'weight_norm'
+    #: the model's input is a 1-d signal (W, C): its 3-d tensors are NCW maps
+    signal_1d: bool = False
 
 
 @dataclasses.dataclass
@@ -253,35 +256,56 @@ def _torch_padding(padding, ks, strides, name):
     return tuple(p for p, _ in padding)
 
 
-@submodule_creator("conv2d", global_keys=GLOBAL_LAYER_KEYS, allowed=_CONV_ALLOWED,
-                   required=("kernel_size", "out_channels"))
-def _conv2d(params: Mapping[str, Any], ctx: CreatorContext, name: str,
-            in_shape: Shape) -> nn.Module:
-    if len(in_shape) != 4:
-        raise ValueError(f"Submodule '{name}' (conv2d): input must be 2-d "
-                         f"spatial, got shape {list(in_shape)}")
-    ks, strides, padding, dilation = _conv_common(params, 2)
-    if params.get("output_padding"):
-        raise ValueError(f"Submodule '{name}': 'output_padding' only applies "
-                         "to transposed convolutions")
-    gain = dnn.get_gain(params.get("act_fn"))
-    use_bias = bool(params.get("use_bias", params.get("bias", True)))
-    in_ch, out_ch = int(in_shape[1]), int(params["out_channels"])
-    groups = int(params.get("groups", 1))
-    pads = _torch_padding(padding, ks, strides, name)
-    # the kernel hook: every plain stride-1 'same' odd-kernel conv; the
-    # activation fuses into the kernel's epilogue in post-activation order
-    plain = (groups == 1 and strides == (1, 1) and dilation == (1, 1)
-             and all(k % 2 == 1 for k in ks)
-             and pads == tuple(k // 2 for k in ks))
-    if plain:
-        preact = bool(params.get("preactivation", False))
-        act = None if preact else dnn.get_activation(params.get("act_fn"))
-        op = dnn.FusedConv2d(in_ch, out_ch, ks, act=act, use_bias=use_bias, gain=gain)
-        return _as_layer(op, params, ctx, name, in_ch, out_ch, act_in_op=not preact)
-    op = dnn.Conv2d(in_ch, out_ch, ks, stride=strides, padding=pads,
-                    dilation=dilation, groups=groups, use_bias=use_bias, gain=gain)
-    return _as_layer(op, params, ctx, name, in_ch, out_ch)
+#: norms a 1-d map (NCW) takes: those over the channel dim 1
+_NCW_NORMS = (dnn.NormTechnique.BATCH_NORM, dnn.NormTechnique.GROUP_NORM)
+
+
+def _make_conv_creator(rank: int):
+    """The ``conv<rank>d`` creator. Only rank 2 takes the kernel, as in the
+    JAX package (its ``PallasConv`` hook is 2-d only): every plain stride-1
+    'same' odd-kernel 2-d conv; a 1-d or 3-d conv is a plain
+    :class:`~deepcv_tpu_torch.ops.nn.ConvNd`."""
+    def creator(params: Mapping[str, Any], ctx: CreatorContext, name: str,
+                in_shape: Shape) -> nn.Module:
+        if len(in_shape) != rank + 2:
+            raise ValueError(f"Submodule '{name}' (conv{rank}d): input must be {rank}-d "
+                             f"spatial, got shape {list(in_shape)}")
+        ks, strides, padding, dilation = _conv_common(params, rank)
+        if params.get("output_padding"):
+            raise ValueError(f"Submodule '{name}': 'output_padding' only applies "
+                             "to transposed convolutions")
+        if rank == 1:
+            bad = [t for t in _norm_specs_from_params(params) if t not in _NCW_NORMS]
+            if bad:
+                raise ValueError(f"Submodule '{name}' (conv1d): norms {bad} would take "
+                                 f"the length as the feature dim; 1-d maps take "
+                                 f"{list(_NCW_NORMS)}")
+        gain = dnn.get_gain(params.get("act_fn"))
+        use_bias = bool(params.get("use_bias", params.get("bias", True)))
+        in_ch, out_ch = int(in_shape[1]), int(params["out_channels"])
+        groups = int(params.get("groups", 1))
+        pads = _torch_padding(padding, ks, strides, name)
+        # the kernel hook: every plain stride-1 'same' odd-kernel 2-d conv;
+        # the activation fuses into the kernel's epilogue in post-activation
+        # order
+        plain = (rank == 2 and groups == 1 and strides == (1, 1) and dilation == (1, 1)
+                 and all(k % 2 == 1 for k in ks)
+                 and pads == tuple(k // 2 for k in ks))
+        if plain:
+            preact = bool(params.get("preactivation", False))
+            act = None if preact else dnn.get_activation(params.get("act_fn"))
+            op = dnn.FusedConv2d(in_ch, out_ch, ks, act=act, use_bias=use_bias, gain=gain)
+            return _as_layer(op, params, ctx, name, in_ch, out_ch, act_in_op=not preact)
+        cls = dnn.Conv2d if rank == 2 else dnn.ConvNd
+        op = cls(in_ch, out_ch, ks, stride=strides, padding=pads, dilation=dilation,
+                 groups=groups, use_bias=use_bias, gain=gain)
+        return _as_layer(op, params, ctx, name, in_ch, out_ch)
+    return creator
+
+
+for _r in (1, 2, 3):
+    submodule_creator(f"conv{_r}d", global_keys=GLOBAL_LAYER_KEYS, allowed=_CONV_ALLOWED,
+                      required=("kernel_size", "out_channels"))(_make_conv_creator(_r))
 
 
 @submodule_creator("fully_connected", aliases=("linear",), global_keys=GLOBAL_LAYER_KEYS,
@@ -294,6 +318,9 @@ def _fully_connected(params: Mapping[str, Any], ctx: CreatorContext, name: str,
             f"Submodule '{name}' (fully_connected): 'out_features' unresolved; "
             "set it explicitly for standalone use.")
     flatten = bool(params.get("flatten_input"))
+    if ctx.signal_1d and len(in_shape) == 3 and not flatten:
+        raise ValueError(f"Submodule '{name}' (fully_connected): a 1-d map {list(in_shape)} "
+                         "takes a dense layer after 'flatten' (or with flatten_input)")
     fdim = _feature_dim(in_shape)
     in_features = 1
     for d in (in_shape[1:] if flatten else in_shape[fdim:fdim + 1]):

@@ -129,7 +129,8 @@ def define_nn_architecture(architecture: Sequence[Any], hp: Mapping[str, Any],
                 # and the model's weight_norm, as in the JAX package
                 sub = SpecModule(*define_nn_architecture(
                     sub_hp["architecture"], sub_hp,
-                    CreatorContext(hp=sub_hp, weight_norm=ctx.weight_norm),
+                    CreatorContext(hp=sub_hp, weight_norm=ctx.weight_norm,
+                                   signal_1d=ctx.signal_1d),
                     _shape_of(x))[:3])
                 names_seen[name] = idx
                 metas.append(NodeMeta(name=name, kind="module", creator="nested"))

@@ -9,7 +9,9 @@ Public layout stays the JAX package's: ``forward`` takes NHWC images
 (``input_shape`` is (H, W, C)) and returns NHWC feature maps, (N, T, D)
 tokens, (N, F) rows or a list of NHWC maps (parallel streams); inside, feature maps are NCHW-logical in
 ``torch.channels_last`` memory, which is the same NHWC bytes, so the
-permutes at the edges copy nothing.
+permutes at the edges copy nothing. Clips (``input_shape`` (F, H, W, C),
+``conv3d``) and 1-d signals ((W, C), ``conv1d``) are channel-first inside
+in the same way; a 1-d signal's 3-d tensors are maps, not tokens.
 
 ``weight_norm`` (``{eps: ...}``) wraps the op of every conv and dense layer
 in flax's ``WeightNorm`` (``spec/creators.py``); ``spectral_norm`` is not
@@ -80,12 +82,15 @@ class DeepcvModule(nn.Module):
             raise SpecError(f"hp 'weight_norm' must be a mapping such as {{eps: 1.0e-6}}, "
                             f"got {wn!r}")
         nchw = (1, self.input_shape[-1], *self.input_shape[:-1])
+        #: a 1-d signal (W, C): its 3-d tensors are NCW maps, not tokens
+        self._map_dims = 3 if len(self.input_shape) == 2 else 4
         metas, impls, refd, shapes = define_nn_architecture(
             self._hp["architecture"], self._hp,
-            CreatorContext(hp=self._hp, weight_norm=wn or None), nchw)
+            CreatorContext(hp=self._hp, weight_norm=wn or None,
+                           signal_1d=self._map_dims == 3), nchw)
         self.module = SpecModule(metas, impls, refd)
         #: per-node output shapes at batch 1, channel-last like the JAX package's
-        self.node_shapes = {k: _channel_last(s) for k, s in shapes.items()}
+        self.node_shapes = {k: _channel_last(s, self._map_dims) for k, s in shapes.items()}
         if dev.type != "meta":
             self.to_empty(device="cpu")
             self.init_parameters(generator or torch.Generator().manual_seed(0))
@@ -122,8 +127,8 @@ class DeepcvModule(nn.Module):
         else:
             y = self.module(x)
         if isinstance(y, (list, tuple)):
-            return [t.movedim(1, -1) if t.dim() > 3 else t for t in y]
-        return y.movedim(1, -1) if y.dim() > 3 else y
+            return [t.movedim(1, -1) if t.dim() >= self._map_dims else t for t in y]
+        return y.movedim(1, -1) if y.dim() >= self._map_dims else y
 
     def capacity(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -132,11 +137,11 @@ class DeepcvModule(nn.Module):
         return DeepcvModuleDescriptor(self)
 
 
-def _channel_last(shape):
+def _channel_last(shape, map_dims: int = 4):
     if isinstance(shape, list):
-        return [_channel_last(s) for s in shape]
+        return [_channel_last(s, map_dims) for s in shape]
     shape = tuple(shape)
-    return (shape[0], *shape[2:], shape[1]) if len(shape) > 3 else shape
+    return (shape[0], *shape[2:], shape[1]) if len(shape) >= map_dims else shape
 
 
 class DeepcvModuleDescriptor:

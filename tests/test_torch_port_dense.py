@@ -252,13 +252,13 @@ def test_create_pipelines_lists_both_dense_pipelines():
     pipes = create_pipelines()
     assert {"train_semantic_segmentation", "train_pose_estimator"} <= set(pipes)
     assert TASK_PACKAGES == ("classification", "keypoints", "detection", "pose",
-                             "segmentation")
+                             "segmentation", "video")
     jax_pipes = jax_create_pipelines({"enabled": list(TASK_PACKAGES)})
     assert set(pipes) == set(jax_pipes) - {"__default__"}
     assert [n.name for n in pipes["train_pose_estimator"].nodes] == \
         [n.name for n in jax_pipes["train_pose_estimator"].nodes]
-    with pytest.raises(NotImplementedError, match="video"):
-        create_pipelines({"enabled": ["video"]})
+    assert set(create_pipelines({"enabled": ["video"]})) == \
+        {"train_optical_flow", "train_video_classifier", "train_temporal_classifier"}
 
 
 @pytest.fixture(scope="module")

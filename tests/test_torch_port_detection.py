@@ -28,8 +28,7 @@ from deepcv_tpu_torch.data.preprocess import preprocess
 from deepcv_tpu_torch.interop import jax_to_torch_state_dict, load_jax_variables
 from deepcv_tpu_torch.ops import nn as dnn
 from deepcv_tpu_torch.pipelines import detection as td
-from deepcv_tpu_torch.pipelines.registry import (
-    TASK_PACKAGES, UNPORTED_TASK_PACKAGES, create_pipelines)
+from deepcv_tpu_torch.pipelines.registry import TASK_PACKAGES, create_pipelines
 from deepcv_tpu_torch.spec import DeepcvModule
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -410,8 +409,10 @@ def test_train_fpn_detector_refuses_bad_grids_as_jax(grids, match):
 
 def test_create_pipelines_lists_the_detection_and_keypoint_pipelines():
     pipes = create_pipelines()
-    assert TASK_PACKAGES == ("classification", "keypoints", "detection", "pose", "segmentation")
-    assert UNPORTED_TASK_PACKAGES == ("video",)
+    assert TASK_PACKAGES == ("classification", "keypoints", "detection", "pose", "segmentation",
+                             "video")
+    assert set(create_pipelines({"enabled": ["video"]})) == \
+        {"train_optical_flow", "train_video_classifier", "train_temporal_classifier"}
     assert {"train_object_detector", "train_fpn_detector", "train_keypoint_detector"} \
         <= set(pipes)
     jax_pipes = jax_create_pipelines({"enabled": list(TASK_PACKAGES)})

@@ -1158,3 +1158,63 @@ def test_keypoint_chain_on_card_agrees_with_cpu(cuda):
     assert float(((got[2] == ref[2]) & (got[3] == ref[3])).float().mean()) >= 0.99
     assert float((got[4] == ref[4]).float().mean()) >= 0.99
     assert ref[3].any() and ref[4].any()
+
+
+class _Clips:
+    """The ``datasets['trainset']`` view the video model creators read."""
+
+    def __init__(self, image_shape, num_classes):
+        self.image_shape, self.num_classes = image_shape, num_classes
+
+
+#: the four video models chip_smoke.py trains: (creator, conf key, overrides,
+#: input shape, classes)
+VIDEO_MODELS = {"flow": ("create_flow_model", "optical_flow_model", {}, (32, 32, 6), None),
+                "conv3d": ("create_model", "video_classifier_model", {}, (6, 12, 12, 3), 4),
+                "gru": ("create_temporal_model", "temporal_classifier_model", {},
+                        (6, 12, 12, 3), 4),
+                "transformer": ("create_temporal_model", "temporal_classifier_model",
+                                {"temporal": "transformer"}, (6, 12, 12, 3), 4)}
+
+
+@pytest.mark.parametrize("name", sorted(VIDEO_MODELS))
+def test_video_model_f32_on_card_matches_cpu(cuda, name):
+    """The conf's optical-flow, conv3d and temporal (gru and transformer)
+    models, batch 8, float32 (TF32 off), the same weights, in eval and in
+    train mode: within rel L2 1e-3 of the CPU path, no K2 launch."""
+    from deepcv_tpu_torch.config import load_yaml
+    from deepcv_tpu_torch.pipelines import classification, video
+
+    creator, key, extra, shape, classes = VIDEO_MODELS[name]
+    create = getattr(video if hasattr(video, creator) else classification, creator)
+    hp = {**load_yaml("conf/base/parameters.yml")[key], **extra}
+    datasets = {"trainset": _Clips(shape, classes)}
+    cpu = create(datasets, hp, device="cpu")
+    gpu = create(datasets, hp)
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.default_rng(9).uniform(size=(8, *shape)).astype(np.float32))
+    for train in (False, True):
+        before = fused_conv2d_bias_act.launches
+        with torch.no_grad():
+            got = gpu.train(train)(x.to(cuda)).cpu()
+            ref = cpu.train(train)(x)
+        torch.cuda.synchronize()
+        assert fused_conv2d_bias_act.launches == before
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert _rel_l2(got, ref) <= 1e-3
+
+
+def test_track_sequence_on_card_equals_the_cpu(cuda):
+    """A jittered clip of 60 frames, 12 objects in lanes, births, deaths and
+    dropped detections: the ids and ``mot_metrics`` on CUDA equal the CPU's."""
+    from chip_smoke import tracking_clip
+    from deepcv_tpu_torch.pipelines.tracking import mot_metrics, track_sequence
+
+    boxes, mask, gt_ids = tracking_clip(frames=60, objects=12, rows=16, seed=3)
+    got = track_sequence(boxes.to(cuda), mask.to(cuda), max_tracks=32).cpu()
+    ref = track_sequence(boxes, mask, max_tracks=32)
+    assert torch.equal(got, ref) and (ref[mask] >= 0).all()
+    m_got = mot_metrics(boxes.to(cuda), gt_ids.to(cuda), mask.to(cuda), boxes.to(cuda),
+                        got.to(cuda), mask.to(cuda))
+    m_ref = mot_metrics(boxes, gt_ids, mask, boxes, ref, mask)
+    assert {k: v.item() for k, v in m_got.items()} == {k: v.item() for k, v in m_ref.items()}

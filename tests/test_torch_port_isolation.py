@@ -132,9 +132,11 @@ print(json.dumps({"pipes": pipes, "bad": bad}))
                              "train_keypoint_detector",
                              "train_mobilenet_v2", "train_mobilenet_v3",
                              "train_object_detector",
+                             "train_optical_flow",
                              "train_pose_estimator", "train_resnet50",
-                             "train_semantic_segmentation", "train_swin", "train_vit",
-                             "train_wide_classifier",
+                             "train_semantic_segmentation", "train_swin",
+                             "train_temporal_classifier", "train_video_classifier",
+                             "train_vit", "train_wide_classifier",
                              "train_wide_classifier_gn", "train_wide_classifier_ws"],
                    "bad": []}
 
