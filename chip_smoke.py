@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
 
 0. device — the card (``nvidia-smi`` name and power limit), torch and CUDA.
-1. build — the port's CUDA kernels (K1, K2, and K3-K5 in one library)
+1. build — the port's CUDA kernels (K1, K2, K3-K5 in one library, and
+   ``int8_conv``: 16 instantiations, none spilling)
    compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
    and ``ptxas``'s registers, shared memory and spills; for the K2 and flash
    libraries also their tensor-core kernels (K2 in bf16 and in f32 by
@@ -69,6 +70,41 @@ Phases, each printing one JSON line:
    1, 5, 17 and 64 images; every answer is held against the port's CPU path
    on the same weights; K2 must have launched 46 times per forward, all on
    float32 inputs, so all on ``fused_conv2d_bias_act_f32tc_kernel``.
+4b. int8_kernel — ``int8_conv`` (``csrc/int8_conv.cu``, the port-only w8a8
+   conv) against its plain version at the shapes bench.py config 8 serves:
+   the wide classifier's six 3x3 convs at batch 4096, 32x32, and
+   ResNet-50's 23 distinct convs at batch 256, 224x224 (read from an int8
+   forward on the meta device), a depthwise and a ragged shape: int32 sums
+   bit-equal and the bf16 output equal to the plain version's, the
+   kernel's time (CUDA events, median), the plain version's, the bound
+   (int8 operations at 1,979 TOP/s or bytes at 3.35 TB/s) and the bf16
+   ``F.conv2d`` at the same shape (no PyTorch call computes an int8 conv
+   on CUDA); per-forward sums by count.
+4c. int8_serve — bench.py config 8 (``bench_serving_int8``) for ``wide``
+   (batch 4096) and ``resnet50`` (batch 256, 224x224): the bf16 model from
+   the seed, static scales calibrated on its first 256 and 64 images, the
+   int8 build; 5 alternating draws of bf16 and int8 (3 calls each, cut
+   from bench.py's 40), the median ratio, img/s, the top-1 agreement on
+   min(512, B) rows; ``int8_conv`` counted from 0 over those calls (6 and
+   53 a forward) and one counted forward with K2 at 0; one float32 int8
+   forward on the card against the CPU path (``int8_cpu_check``: every
+   int8 op on the CPU path's own input equal to the CPU op; in the first
+   op whose activation codes differ between the paths, every difference
+   one step at a rounding tie; the whole forward within rel L2 1e-3 with
+   no flipped code, else 2e-2 with the top-1 class equal on 95 % of the
+   rows). Then ``run
+   --pipeline=train_wide_classifier`` with ``quantize: int8_qat`` (batch
+   1024, bf16, 19 steps: one epoch on 20,000 images, no validation), the
+   result calibrated and served int8 against its fake-quant forward.
+4d. serve_extras — ``predict`` (``cli.main``) in this process on the serve
+   phase's ResNet-50 weights as a bundle, float and ``--quantize int8
+   --calibrate 64``, equal to ``Predictor`` on the same weights (K2 46
+   launches in each, the int8 run's in its float calibration forward;
+   ``int8_conv`` 0 and 53); MC-dropout of the wide classifier with dropout
+   0.2 (4 samples, std > 0, running statistics unchanged, 6 K2 launches a
+   forward); a two-member ``EnsemblePredictor`` against the CPU path
+   within 1e-5 and a ``StackedEnsemble`` fit on the card, its weights
+   within 1e-4 of the CPU fit's (6 K2 launches a member forward).
 5. vit_serve — the same for ``vit_spec('b_16', attn_impl='flash')``: K3
    must have launched 12 times per forward, all on float32 inputs, so all
    on ``flash_fwd_f32tc_kernel`` (3xTF32 on the tensor cores).
@@ -320,6 +356,7 @@ import torch
 import torch.nn.functional as F
 
 from deepcv_tpu_torch import cli
+from deepcv_tpu_torch.compression import activation_codes, calibrate_int8_scales
 from deepcv_tpu_torch.config import load_yaml
 from deepcv_tpu_torch.data.datasets import ArrayDataset
 from deepcv_tpu_torch.data.preprocess import PreprocessedDataset, preprocess
@@ -334,6 +371,7 @@ from deepcv_tpu_torch.ops.kernels.flash_attention import (
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
     fused_conv2d_bias_act, plain_conv2d_bias_act)
 from deepcv_tpu_torch.ops.kernels import fused_layer
+from deepcv_tpu_torch.ops.kernels.int8_conv import int8_conv, plain_int8_conv
 from deepcv_tpu_torch.ops.moe import MoEMlp
 from deepcv_tpu_torch.ops.nn import FusedConv2d
 from deepcv_tpu_torch.pipelines import detection as det_pipeline
@@ -342,7 +380,8 @@ from deepcv_tpu_torch.pipelines import segmentation as seg_pipeline
 from deepcv_tpu_torch.pipelines import tracking as tracking_pipeline
 from deepcv_tpu_torch.pipelines import video as video_pipeline
 from deepcv_tpu_torch.pipelines.framework import append_dense_head
-from deepcv_tpu_torch.serve import Predictor, load_model_bundle, save_model_bundle
+from deepcv_tpu_torch.serve import (EnsemblePredictor, Predictor, StackedEnsemble,
+                                    load_model_bundle, save_model_bundle)
 from deepcv_tpu_torch.server import InferenceServer
 from deepcv_tpu_torch.spec import DeepcvModule
 from deepcv_tpu_torch.spec.creators import ForwardCallback, MaxPool
@@ -552,7 +591,7 @@ SERVE_BATCH = 64
 REQUEST_SIZES = (1, 5, 17, 64)
 ROUNDS = 6
 LAUNCHES_PER_FORWARD = 46
-KERNEL_LIBRARIES = ("fused_augment", "fused_conv2d_bias_act", "flash_attention")
+KERNEL_LIBRARIES = ("fused_augment", "fused_conv2d_bias_act", "flash_attention", "int8_conv")
 #: ViT-B/16 at 224: 12 blocks, 12 heads, 197 tokens, head dim 64
 VIT_BLOCKS, VIT_HEADS, VIT_T, VIT_DH = 12, 12, 197, 64
 TRAIN_BATCH = 256          # train_resnet50's batch_size, which train_vit uses
@@ -837,6 +876,32 @@ def _k1_kernel_stats(log):
     return stats
 
 
+#: int8_conv's instantiations: load width, output tile, output type
+INT8_KERNEL = "int8_conv_kernel"
+INT8_OUT_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+INT8_INSTANTIATIONS = (3 * 3 - 1) * len(INT8_OUT_TYPES)     # no 16-byte loads at 1 channel
+
+
+def _int8_kernel_stats(log):
+    """Registers, shared memory and spills of each int8_conv instantiation,
+    from ptxas's -v log: {"vec16_oct8_bfloat16": {...}}."""
+    stats, key = {}, None
+    pat = re.compile(INT8_KERNEL + r"ILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E")
+    for ln in log.splitlines():
+        if "Compiling entry" in ln or "Function properties" in ln:
+            m = pat.search(ln)
+            key = f"vec{m.group(1)}_oct{m.group(2)}_{INT8_OUT_TYPES[m.group(3)]}" if m else None
+        elif key is not None and "spill" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
+            stats.setdefault(key, {}).update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+        elif key is not None and "registers" in ln:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            stats.setdefault(key, {}).update(
+                registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
+                static_smem_bytes=int(smem.group(1)) if smem else 0)
+    return stats
+
+
 def phase_build(libraries=KERNEL_LIBRARIES):
     """Every kernel library built at once (one nvcc each), then loaded."""
     t0 = time.perf_counter()
@@ -908,6 +973,15 @@ def phase_build(libraries=KERNEL_LIBRARIES):
                 raise AssertionError(f"tensor-core kernels {missing} lack ptxas stats or (TF32) "
                                      f"HMMA ({dict(hmma)}); CUDA-core kernels that must not "
                                      f"be compiled: {cuda_core}; f32 backward spills {spills}")
+        if name == "int8_conv":
+            # every (load width, output tile, output type) instantiation, none
+            # spilling (log is empty only when the library was built before)
+            row["kernel_stats"] = st = _int8_kernel_stats(log)
+            spills = {k: v for k, v in st.items()
+                      if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
+            if (log and len(st) != INT8_INSTANTIATIONS) or spills:
+                raise AssertionError(f"int8_conv ptxas stats {st}: {len(st)} instantiations "
+                                     f"(expected {INT8_INSTANTIATIONS}), spills {spills}")
         if name == "fused_conv2d_bias_act":
             tc = _tc_kernel_stats(log, {K2_TC_KERNEL: _k2_tc_smem,
                                         K2_F32_KERNEL: lambda bn: _k2_tc_smem(bn, 4)})
@@ -1463,6 +1537,8 @@ def _serve_over_http(phase, gpu_model, cpu_model, counter, per_forward, card):
 
 
 def phase_serve(card):
+    """ResNet-50 over HTTP; returns K2's kernels-line entry and the served
+    model on the card and on the CPU (``serve_extras`` reuses them)."""
     gpu_model, cpu_model = _bundle_models(resnet_spec(50), "resnet_spec(50)")
     kern_tot, max_abs = _main_path_kernels(gpu_model, card)
     fused_conv2d_bias_act.launches_by_dtype = dict.fromkeys(
@@ -1485,7 +1561,7 @@ def phase_serve(card):
             "library_ms": kern_tot["library_ms"],
             "device_ms": kern_tot["device_ms"], "library_device_ms": kern_tot["library_device_ms"],
             "per": f"one forward of resnet_spec(50) at batch {SERVE_BATCH}, float32",
-            "card": card}
+            "card": card}, (gpu_model, cpu_model)
 
 
 # --------------------------------------------------------------------------- #
@@ -3560,6 +3636,485 @@ def phase_tracking(card):
         raise AssertionError(f"tracking failed: {line}")
 
 
+# --------------------------------------------------------------------------- #
+# int8_conv and w8a8 serving (bench.py config 8), MC-dropout, ensembles
+# --------------------------------------------------------------------------- #
+
+INT8_TOP_S = 1979e12       # H100 SXM, dense int8 on the tensor cores
+INT8_BATCH = {"wide": 4096, "resnet50": 256}
+INT8_SHAPE = {"wide": (32, 32, 3), "resnet50": IMAGE_SHAPE}
+INT8_PER_FORWARD = {"wide": 6, "resnet50": 53}
+INT8_CALIB = {"wide": 256, "resnet50": 64}          # bench.py's calibration images
+INT8_DRAWS = 5                                      # bench.py's alternating draws
+INT8_TIMER_ITERS = 3                                # cut from bench.py's 40
+INT8_AGREE = 512                                    # bench.py's agreement rows, min(512, B)
+INT8_CPU_CHECK = {"wide": 64, "resnet50": 8}        # rows of the f32 card-vs-CPU check
+INT8_TIE_TOL = 2e-2        # int8 forwards past a rounding tie (the CPU tests' bound)
+#: (N, H, W, Cin, Cout, k, stride, padding, groups) beyond the two models': a
+#: depthwise 3x3 (MobileNet's) and a ragged one (odd sizes, 5 -> 7 channels)
+INT8_EXTRA_CONVS = {"depthwise": (256, 56, 56, 144, 144, 3, 1, 1, 144),
+                    "ragged": (7, 13, 29, 5, 7, 3, 2, 1, 1)}
+QAT_PARAMS = ("wide_classifier_model.quantize:int8_qat", "train_wide_classifier.epochs:1",
+              "train_wide_classifier.validate_every_epochs:2",
+              "cifar10_preprocessing.split_dataset.validset_ratio:0.6")
+QAT_STEPS = 19             # 20,000 of CIFAR-10's 50,000 images at batch 1024
+MC_SAMPLES = 4
+ENSEMBLE_TOL = 1e-5
+STACK_TOL = 1e-4           # stacker weights after 300 Adam steps, card vs CPU
+
+
+def int8_conv_bound(n, h, w, cin, cout, k, stride, pad, groups, out_bytes=2):
+    """Least time of one int8 conv on an H100 SXM: int8 operations at the
+    tensor cores' dense peak, or the bytes (int8 in, ``out_bytes`` out, the
+    scales) at the memory rate. Returns (ms, bound_by)."""
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    ops = 2.0 * n * ho * wo * cout * (cin // groups) * k * k
+    nbytes = n * h * w * cin + cout * (cin // groups) * k * k + n * ho * wo * cout * out_bytes \
+        + 4 * (cout + 1)
+    t_ops, t_bytes = ops / INT8_TOP_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _int8_serve_hp(name):
+    if name == "wide":
+        hp = copy.deepcopy(dict(conf_hp("wide_classifier_model")))
+        hp["architecture"][-1]["fully_connected"]["out_features"] = 10
+        return hp
+    return resnet_spec(50, num_classes=1000, pool_kernel=7)
+
+
+def int8_model_convs(name):
+    """(N, H, W, Cin, Cout, k, stride, padding, groups) -> count of one int8
+    forward at config 8's batch, from a forward on the meta device."""
+    model = DeepcvModule(INT8_SHAPE[name], _int8_serve_hp(name), device="meta",
+                         quantize="int8")
+    convs = collections.Counter()
+
+    def hook(mod, args):
+        n, cin, h, w = args[0].shape
+        cout, _, k, _ = mod.weight.shape
+        convs[(n, h, w, cin, cout, k, mod.stride[0], mod.padding[0], mod.groups)] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, port_nn.Conv2d) and m.quant is not None]
+    with torch.no_grad():
+        model(torch.empty((INT8_BATCH[name], *INT8_SHAPE[name]), device="meta"))
+    for hnd in handles:
+        hnd.remove()
+    if sum(convs.values()) != INT8_PER_FORWARD[name]:
+        raise AssertionError(f"{name}: {sum(convs.values())} int8 convs a forward")
+    return convs
+
+
+def _int8_row(gen, case, count=1):
+    """One int8_conv shape: the kernel against its plain version (int32 sums
+    bit-equal, the bf16 output's error), CUDA-event times of the kernel, of
+    the plain version and of the bf16 ``F.conv2d`` at the same shape, and
+    the bound."""
+    n, h, w, cin, cout, k, stride, pad, groups = case
+    xq = torch.randint(-127, 128, (n, cin, h, w), generator=gen, device=DEVICE,
+                       dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (cout, cin // groups, k, k), generator=gen, device=DEVICE,
+                       dtype=torch.int8)
+    s_act = torch.rand((), generator=gen, device=DEVICE) * 0.05
+    s_w = torch.rand((cout,), generator=gen, device=DEVICE) * 0.01
+    args = (xq, wq, s_act, s_w, stride, pad, 1, groups)
+    acc = int8_conv(*args, return_acc=True)
+    ref_acc = plain_int8_conv(*args, return_acc=True)
+    if not torch.equal(acc, ref_acc):
+        raise AssertionError(f"int8_conv {case}: int32 sums differ from the plain version in "
+                             f"{int((acc != ref_acc).sum())} places")
+    del acc, ref_acc
+    y = int8_conv(*args, out_dtype=torch.bfloat16)
+    ref = plain_int8_conv(*args, out_dtype=torch.bfloat16)
+    err = float((y.float() - ref.float()).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"int8_conv {case}: bf16 output differs by {err}")
+    del y, ref
+    xb = xq.to(torch.bfloat16)
+    wb = wq.to(torch.bfloat16)
+    ms = cuda_ms(lambda: int8_conv(*args, out_dtype=torch.bfloat16), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: plain_int8_conv(*args, out_dtype=torch.bfloat16),
+                       iters=1, warmup=0)
+    bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, pad, 1, groups), iters=5, warmup=2)
+    bound_ms, bound_by = int8_conv_bound(*case)
+    del xq, wq, xb, wb
+    return {"shape_nhwc_cin_cout_k_stride_pad_groups": list(case), "count": count,
+            "acc_equal": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bf16_conv2d_ms": bf16_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "top_s": _int8_ops(case) / (ms * 1e-3) / 1e12}
+
+
+def _int8_ops(case):
+    n, h, w, cin, cout, k, stride, pad, groups = case
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    return 2.0 * n * ho * wo * cout * (cin // groups) * k * k
+
+
+def phase_int8_kernel(card):
+    """int8_conv against its plain version at the shapes config 8 serves:
+    the wide classifier's six 3x3 convs at batch 4096 and ResNet-50's
+    distinct convs at batch 256 (both read from a meta-device int8
+    forward), a depthwise and a ragged shape; per-forward sums by count."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    out = {}
+    for name in ("wide", "resnet50"):
+        rows = [_int8_row(gen, case, count) for case, count in int8_model_convs(name).items()]
+        tot = {key: sum(r["count"] * r[key] for r in rows)
+               for key in ("ms", "plain_ms", "bf16_conv2d_ms", "bound_ms")}
+        by_ops = sum(r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        tot["bound_by"] = "operations" if by_ops >= tot["bound_ms"] / 2 else "bytes"
+        tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        tot["launches"] = sum(r["count"] for r in rows)
+        tot["top_s"] = sum(r["count"] * _int8_ops(r["shape_nhwc_cin_cout_k_stride_pad_groups"])
+                           for r in rows) / (tot["ms"] * 1e-3) / 1e12
+        out[name] = tot
+        emit({"phase": "int8_kernel", "model": name, "batch": INT8_BATCH[name],
+              "out_dtype": "bfloat16", "signatures": rows, "per_forward": tot, "card": card})
+        torch.cuda.empty_cache()
+    extra = {k: _int8_row(gen, case) for k, case in INT8_EXTRA_CONVS.items()}
+    emit({"phase": "int8_kernel", "model": "extra", "out_dtype": "bfloat16", "rows": extra,
+          "card": card})
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_inputs(model, x):
+    """The model's output on ``x`` and each int8 op's input to it, {op
+    name: (op, input)} in the order the ops ran."""
+    seen = {}
+    hooks = [op.register_forward_pre_hook(
+        lambda m, a, q=q: seen.__setitem__(q, (m, a[0].detach())))
+        for q, op in model.named_modules() if getattr(op, "quant", None) is not None]
+    with torch.inference_mode():
+        out = model(x)
+    for hnd in hooks:
+        hnd.remove()
+    return out, seen
+
+
+def int8_tie_flips(ref_inputs, got_inputs):
+    """Activation codes of each int8 op on two paths, each from its own
+    input to the op (:func:`_int8_inputs`). In the first op where any
+    differ, every difference must be one code step at a rounding tie of the
+    reference input (|x / s - k - 1/2| < 1e-3); the ops after it see inputs
+    that the flip moved. Returns the count of differing codes over all ops,
+    the first op where any differ (None) and its count."""
+    flips, first, first_n = 0, None, 0
+    for q, (op, xr) in ref_inputs.items():
+        s = op.quant.act_scale
+        cr, sr = activation_codes(xr, s)
+        cg = activation_codes(got_inputs[q][1], s)[0].cpu()
+        diff = cr != cg
+        n = int(diff.sum())
+        if n and first is None:
+            first, first_n = q, n
+            step = int((cr.int() - cg.int()).abs().max())
+            ratio = xr.double()[diff] / float(sr)
+            off = float(((ratio - ratio.trunc()).abs() - 0.5).abs().max())
+            if step != 1 or not off < 1e-3:
+                raise AssertionError(f"int8 card vs CPU: {n} codes of op {q} differ by up "
+                                     f"to {step} steps, {off:.3e} from a rounding tie")
+        flips += n
+    return flips, first, first_n
+
+
+def int8_cpu_check(gpu_model, cpu_model, x):
+    """One float32 int8 forward on the card against the CPU path (the same
+    weights and scales). Each int8 op is first run on the card on the CPU
+    path's own input to it: its output must equal the CPU op's (the same
+    codes, exact int32 sums, the same rescale). Then the codes of each op
+    on either path, each from its own input (:func:`int8_tie_flips`): the
+    first op where any differ may differ only by one step at a rounding
+    tie, where the two paths' inputs, a few ulps apart after their float ops
+    (batch norm, pools), fall on either side of k + 1/2. With no flipped
+    code the forwards agree within SERVE_REL_L2; past a flip within
+    INT8_TIE_TOL, with the top-1 class equal on 95 % of the rows."""
+    ref, ref_inputs = _int8_inputs(cpu_model, x.cpu())
+    got, got_inputs = _int8_inputs(gpu_model, x.to(DEVICE))
+    got = got.cpu()
+    op_err = 0.0
+    with torch.inference_mode():
+        for q, (op, xin) in ref_inputs.items():
+            yout = op(xin)
+            diff = (got_inputs[q][0](xin.to(DEVICE)).cpu().float() - yout.float()).abs().max()
+            op_err = max(op_err, float(diff))
+    flips, first, first_n = int8_tie_flips(ref_inputs, got_inputs)
+    rel = float((got - ref).norm() / ref.norm())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    tol = SERVE_REL_L2 if flips == 0 else INT8_TIE_TOL
+    if op_err != 0.0 or list(got_inputs) != list(ref_inputs) or not rel <= tol \
+            or (flips and agree < 0.95):
+        raise AssertionError(f"int8 f32 card vs CPU: ops differ by {op_err}, {flips} codes "
+                             f"flipped (first in {first}), forward rel L2 {rel:.3e} "
+                             f"(tol {tol}), top-1 agreement {agree}")
+    return {"ops": len(ref_inputs), "op_max_abs_err": op_err, "code_flips": flips,
+            "first_flip_op": first, "first_op_flips": first_n, "rel_l2": rel,
+            "top1_agreement": agree, "tol": tol}
+
+
+def _timer(fn, x):
+    """bench.py's timer: one call, a host sync, then ``INT8_TIMER_ITERS``
+    calls and a sync; seconds a call."""
+    n = INT8_TIMER_ITERS
+    with torch.inference_mode():
+        float(fn(x).float().sum())
+        t0 = time.perf_counter()
+        for _ in range(n):
+            r = fn(x)
+        float(r.float().sum())
+    return (time.perf_counter() - t0) / n
+
+
+def phase_int8_serve(card, data):
+    """bench.py config 8 (``bench_serving_int8``) for ``wide`` and
+    ``resnet50``: the bf16 model from the seed, static scales calibrated on
+    its first images, the int8 build; 5 alternating draws of bf16 and int8
+    (3 calls each, cut from 40), the median ratio, img/s and the top-1
+    agreement on min(512, B) rows; int8_conv counted from 0 over those calls
+    (6 and 53 a forward) and one counted forward with K2 at 0; one float32
+    int8 forward on the card against the CPU path. Then a short QAT
+    fine-tune of the wide classifier, calibrated and served int8."""
+    launches = {}
+    for name in ("wide", "resnet50"):
+        shape, batch = INT8_SHAPE[name], INT8_BATCH[name]
+        hp = _int8_serve_hp(name)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        mf = DeepcvModule(shape, hp, device=DEVICE, dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(SEED)).eval()
+        x = torch.randn((batch, *shape), generator=gen, device=DEVICE).to(torch.bfloat16)
+        t0 = time.perf_counter()
+        scales = calibrate_int8_scales(mf, [x[:INT8_CALIB[name]].float()])
+        calib_s = time.perf_counter() - t0
+        ms = mf.with_options(quantize="int8", quantize_scales=scales)
+        int8_conv.launches, fused_conv2d_bias_act.launches = 0, 0
+        with torch.inference_mode():
+            ms(x)
+        torch.cuda.synchronize()
+        one = {"int8_conv": int8_conv.launches, "K2": fused_conv2d_bias_act.launches}
+        if one != {"int8_conv": INT8_PER_FORWARD[name], "K2": 0}:
+            raise AssertionError(f"int8 {name} forward launched {one}")
+        int8_conv.launches = 0
+        ratios, t_bf, t_i8 = [], [], []
+        for _ in range(INT8_DRAWS):
+            a, b = _timer(mf, x), _timer(ms, x)
+            t_bf.append(a)
+            t_i8.append(b)
+            ratios.append(a / b)
+        agree_n = min(INT8_AGREE, batch)
+        with torch.inference_mode():
+            yf, ys = mf(x[:agree_n]), ms(x[:agree_n])
+        agree = float((yf.argmax(-1) == ys.argmax(-1)).float().mean())
+        int8_forwards = INT8_DRAWS * (INT8_TIMER_ITERS + 1) + 1
+        if int8_conv.launches != INT8_PER_FORWARD[name] * int8_forwards \
+                or not torch.isfinite(ys.float()).all():
+            raise AssertionError(f"int8 {name}: {int8_conv.launches} launches for "
+                                 f"{int8_forwards} forwards, finite {bool(torch.isfinite(ys.float()).all())}")
+        launches[name] = int8_conv.launches + one["int8_conv"]
+        # float32 on the card against the CPU path, the same weights and scales
+        n_cpu = INT8_CPU_CHECK[name]
+        g32 = ms.with_options(dtype=None)
+        c32 = DeepcvModule(shape, hp, device="cpu", quantize="int8", quantize_scales=scales,
+                           generator=torch.Generator().manual_seed(SEED))
+        cpu_check = int8_cpu_check(g32, c32, x[:n_cpu].float())
+        ratios.sort()
+        emit({"phase": "int8_serve", "model": name, "batch": batch,
+              "input_shape": list(shape), "metric": "int8_static_serving_speedup",
+              "value": ratios[INT8_DRAWS // 2],
+              "unit": f"x vs bf16 (median of {INT8_DRAWS} alternating draws)",
+              "ratio_spread": [ratios[0], ratios[-1]],
+              "bf16_img_s": batch / statistics.median(t_bf),
+              "int8_img_s": batch / statistics.median(t_i8),
+              "bf16_ms": statistics.median(t_bf) * 1e3, "int8_ms": statistics.median(t_i8) * 1e3,
+              "top1_agreement": agree, "agreement_rows": agree_n,
+              "calibration_images": INT8_CALIB[name], "calibration_s": calib_s,
+              "scales": len(scales), "one_forward_launches": one,
+              "int8_conv_launches": launches[name],
+              "f32_card_vs_cpu": {"rows": n_cpu, **cpu_check},
+              "cut": {"timer_iters": f"40 -> {INT8_TIMER_ITERS}"}, "data": "synthetic normal",
+              "card": card})
+        del mf, ms, g32, c32, x, yf, ys
+        torch.cuda.empty_cache()
+    launches["qat"] = _qat_fine_tune(card, data)
+    return launches
+
+
+def _qat_fine_tune(card, data):
+    """``run --pipeline=train_wide_classifier`` with ``quantize: int8_qat``
+    (batch 1024, bf16), cut to one epoch of 19 steps and no validation; the
+    trained weights calibrated on 256 validation images and served int8 in
+    bf16 against the QAT model's own fake-quant forward on 1,024."""
+    store, argv, wall, counts, _, _ = _run_classifier(
+        "int8_qat", list(QAT_PARAMS), "train_wide_classifier", "train_wide_classifier")
+    h = store["train_results"]["history"]
+    losses = [e["main_loss"] for e in h["train"]]
+    if h["steps"] != QAT_STEPS or not np.isfinite(losses).all() or counts["K2"] != 0:
+        raise AssertionError(f"QAT: {h['steps']} steps, losses {losses}, counts {counts}")
+    model = store["model"].eval()
+    valid = store["datasets"]["validset"]
+    with torch.inference_mode():
+        xs = valid.batch_transform(torch.from_numpy(valid.dataset.images[:1024]).to(DEVICE),
+                                   augment=False)
+    scales = calibrate_int8_scales(model.with_options(quantize=None), [xs[:256].float()])
+    served = model.with_options(quantize="int8", quantize_scales=scales)
+    with torch.inference_mode():
+        int8_conv.launches = 0
+        y8 = served(xs)
+        launches = int8_conv.launches
+        yq = model(xs)
+    labels = torch.as_tensor(np.asarray(valid.dataset.targets[:1024]), device=DEVICE)
+    agree = float((y8.argmax(-1) == yq.argmax(-1)).float().mean())
+    if launches != INT8_PER_FORWARD["wide"] or not torch.isfinite(y8.float()).all():
+        raise AssertionError(f"QAT int8 serve: {launches} launches")
+    emit({"phase": "int8_serve", "model": "wide_qat",
+          "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+          "cut": {"epochs": "10 -> 1", "train_images": "50,000 -> 20,000 (validset_ratio 0.6)",
+                  "validation": "off"},
+          "steps": h["steps"], "loss": losses[-1], "wall_s": wall, "dtype": "bfloat16",
+          "data": data, "serve_dtype": "bfloat16", "scales": len(scales),
+          "int8_vs_qat_top1_agreement": agree,
+          "int8_accuracy": float((y8.argmax(-1) == labels).float().mean()),
+          "qat_accuracy": float((yq.argmax(-1) == labels).float().mean()),
+          "int8_conv_launches": launches, "card": card})
+    del store, model, served
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _wide_f32(seed, **hp_extra):
+    """The conf's wide classifier hp (10 classes, ``hp_extra`` merged) and a
+    generator for its weights."""
+    hp = copy.deepcopy(dict(conf_hp("wide_classifier_model")))
+    hp["architecture"][-1]["fully_connected"]["out_features"] = 10
+    hp.update(hp_extra)
+    return hp, torch.Generator().manual_seed(seed)
+
+
+def phase_serve_extras(card, serve_models):
+    """``python -m deepcv_tpu_torch predict`` in this process on the serve
+    phase's ResNet-50 weights (as a bundle), float and ``--quantize int8
+    --calibrate 64``, held to ``Predictor`` on the same weights, with K2 at
+    46 launches for each (the float forward; the int8 run's float
+    calibration forward, its int8 forward none) and int8_conv at 0 and 53;
+    MC-dropout of the wide classifier with dropout 0.2 on the card (std > 0,
+    running statistics unchanged, 6 K2 launches a forward); a two-member
+    ``EnsemblePredictor`` and a ``StackedEnsemble`` fit on the card against
+    the CPU path, 6 K2 launches a member forward."""
+    gpu_model, _ = serve_models
+    rng = np.random.default_rng(SEED + 22)
+    images = rng.integers(0, 256, (SERVE_BATCH, *IMAGE_SHAPE), dtype=np.uint8)
+    norm = ",".join(map(str, IMAGENET_MEAN)) + "/" + ",".join(map(str, IMAGENET_STD))
+    rows = {}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        save_model_bundle(d, gpu_model)
+        np.save(Path(d) / "x.npy", images)
+        pred = Predictor(gpu_model, batch_size=SERVE_BATCH, preprocess=_preprocess,
+                         device=DEVICE)
+        with torch.inference_mode():
+            cal = _preprocess(torch.from_numpy(images).to(DEVICE)).float()
+        scales = calibrate_int8_scales(gpu_model, [cal])
+        refs = {"float": pred(images),
+                "int8": Predictor(gpu_model.with_options(quantize="int8", quantize_scales=scales),
+                                  batch_size=SERVE_BATCH, preprocess=_preprocess,
+                                  device=DEVICE)(images)}
+        for mode, extra in (("float", []), ("int8", ["--quantize", "int8", "--calibrate",
+                                                     str(SERVE_BATCH)])):
+            out = Path(d) / f"{mode}.npy"
+            int8_conv.launches, fused_conv2d_bias_act.launches = 0, 0
+            t0 = time.perf_counter()
+            rc = cli.main(["predict", "--bundle", d, "--input", str(Path(d) / "x.npy"),
+                           "--output", str(out), "--batch-size", str(SERVE_BATCH),
+                           "--to-tensor", "--normalize", norm, "--device", DEVICE, *extra])
+            wall = time.perf_counter() - t0
+            got = np.load(out)
+            rel = float(np.linalg.norm(got - refs[mode]) / np.linalg.norm(refs[mode]))
+            want = INT8_PER_FORWARD["resnet50"] if mode == "int8" else 0
+            k2 = fused_conv2d_bias_act.launches
+            if rc != 0 or not rel <= 1e-5 or int8_conv.launches != want \
+                    or k2 != LAUNCHES_PER_FORWARD:
+                raise AssertionError(f"predict {mode}: rc {rc}, rel {rel:.3e}, "
+                                     f"{int8_conv.launches} int8_conv and {k2} K2 launches")
+            rows[mode] = {"rel_l2_vs_predictor": rel, "int8_conv_launches": int8_conv.launches,
+                          "K2_launches": k2, "wall_s": wall,
+                          "top1_agreement_vs_float": float(
+                              (got.argmax(-1) == refs["float"].argmax(-1)).mean())}
+    predict_launches = rows["int8"]["int8_conv_launches"]
+    predict_k2 = rows["float"]["K2_launches"] + rows["int8"]["K2_launches"]
+    emit({"phase": "serve_extras", "part": "predict", "bundle": "resnet_spec(50), serve's weights",
+          "images": SERVE_BATCH, "rows": rows, "tol": 1e-5, "card": card})
+    # MC-dropout on the card
+    hp, gen = _wide_f32(SEED + 1, dropout_prob=0.2)
+    model = DeepcvModule((32, 32, 3), hp, device=DEVICE, generator=gen).eval()
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    x = rng.integers(0, 256, (256, 32, 32, 3), dtype=np.uint8)
+    mc = Predictor(model, batch_size=256, preprocess=to_tensor, device=DEVICE)
+    fused_conv2d_bias_act.launches = 0
+    mean, std = mc.predict_with_uncertainty(x, n_samples=MC_SAMPLES, seed=SEED)
+    k2 = fused_conv2d_bias_act.launches
+    unchanged = all(torch.equal(v, before[k]) for k, v in model.named_buffers())
+    if not (std > 0).mean() > 0.9 or not unchanged or k2 != 6 * MC_SAMPLES \
+            or not np.isfinite(mean).all():
+        raise AssertionError(f"MC-dropout: std>0 share {(std > 0).mean()}, buffers unchanged "
+                             f"{unchanged}, {k2} K2 launches")
+    emit({"phase": "serve_extras", "part": "mc_dropout", "model": "wide classifier, dropout 0.2",
+          "images": 256, "samples": MC_SAMPLES, "std_positive_share": float((std > 0).mean()),
+          "mean_std": float(std.mean()), "running_stats_unchanged": unchanged,
+          "K2_launches": k2, "card": card})
+    # a two-member ensemble, card against CPU
+    members, cpu_members = ([DeepcvModule((32, 32, 3), _wide_f32(SEED + s)[0], device=dev,
+                                          generator=_wide_f32(SEED + s)[1]).eval()
+                             for s in (2, 3)] for dev in (DEVICE, "cpu"))
+    xe = x[:64]
+    labels = rng.integers(0, 10, len(xe))
+    fused_conv2d_bias_act.launches = 0
+    got = EnsemblePredictor(members, batch_size=64, preprocess=to_tensor, device=DEVICE)(xe)
+    ref = EnsemblePredictor(cpu_members, batch_size=64, preprocess=to_tensor, device="cpu")(xe)
+    err = float(np.abs(got - ref).max())
+    stacked = StackedEnsemble(members, batch_size=64, preprocess=to_tensor, device=DEVICE)
+    loss = stacked.fit(xe, labels)
+    cpu_stacked = StackedEnsemble(cpu_members, batch_size=64, preprocess=to_tensor,
+                                  device="cpu")
+    cpu_loss = cpu_stacked.fit(xe, labels)
+    ens_k2 = fused_conv2d_bias_act.launches
+    w_err = max(float((stacked._stack_params[k].cpu() - v).abs().max())
+                for k, v in cpu_stacked._stack_params.items())
+    on_card = all(v.device.type == "cuda" for v in stacked._stack_params.values())
+    if not (err <= ENSEMBLE_TOL and w_err <= STACK_TOL and on_card) \
+            or ens_k2 != 6 * len(members) * 2:
+        raise AssertionError(f"ensemble card vs CPU: max abs {err:.3e}, stacker weights "
+                             f"{w_err:.3e} (on the card {on_card}), {ens_k2} K2 launches")
+    emit({"phase": "serve_extras", "part": "ensemble", "members": 2, "mode": "prob",
+          "images": len(xe), "max_abs_err_vs_cpu": err, "tol": ENSEMBLE_TOL,
+          "stacked_fit": {"steps": 300, "loss": loss, "cpu_loss": cpu_loss,
+                          "weights_max_abs_err_vs_cpu": w_err, "tol": STACK_TOL},
+          "K2_launches": ens_k2, "card": card})
+    del model, members, cpu_members, stacked, cpu_stacked
+    torch.cuda.empty_cache()
+    return {"int8_conv": predict_launches, "K2_predict": predict_k2, "K2_mc_dropout": k2,
+            "K2_ensemble": ens_k2}
+
+
+def int8_kernel_line(rows, launches_by_path, card):
+    wide, res = rows["wide"], rows["resnet50"]
+    return {"name": "int8_conv", "route": "cuda", "source": "deepcv_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "deepcv_tpu/compression.py:184 (port-only: XLA's int8 conv in the JAX "
+                        "package, no TPU kernel)",
+            "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+            "max_abs_err": max(wide["max_abs_err"], res["max_abs_err"]),
+            "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+            "bound_by": wide["bound_by"], "library_ms": None,
+            "bf16_conv2d_ms": wide["bf16_conv2d_ms"], "top_s": wide["top_s"],
+            "per": "one wide classifier int8 forward's 6 convs at batch 4096, 32x32, bf16 "
+                   "out (int8_kernel); library_ms null: no PyTorch call computes an int8 "
+                   "conv on CUDA, bf16_conv2d_ms is the bf16 F.conv2d at the same shapes",
+            "resnet50": {k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "bf16_conv2d_ms", "top_s", "launches")},
+            "resnet50_per": "one resnet_spec(50) int8 forward's 53 convs at batch 256, "
+                            "224x224, bf16 out",
+            "card": card}
+
+
 def k1_kernel_line(aug_rows, launches, card):
     row = aug_rows[(AUGMENT_BATCH, 32, 32, 3)]
     return {"name": "fused_augment_normalize", "route": "cuda",
@@ -3751,7 +4306,11 @@ def main() -> int:
     aug_rows = walls("augment_kernel", phase_augment_kernel, card)
     k2_rows = walls("kernel", phase_kernel, card)
     flash_rows = walls("flash_kernels", phase_flash_kernels, card)
-    k2_line = walls("serve", phase_serve, card)
+    k2_line, serve_models = walls("serve", phase_serve, card)
+    int8_rows = walls("int8_kernel", phase_int8_kernel, card)
+    int8_launches = walls("int8_serve", phase_int8_serve, card, data)
+    extras = walls("serve_extras", phase_serve_extras, card, serve_models)
+    del serve_models
     serve_launches = walls("vit_serve", phase_vit_serve, card)
     train_launches, vit_step_ms, vit_median_ms = walls("vit_train", phase_vit_train, card)
     walls("vit_train_profile", phase_vit_train_profile, card, vit_step_ms)
@@ -3798,7 +4357,10 @@ def main() -> int:
                                    **{f"keypoints_train:{k}": n
                                       for k, n in keypoint_launches.items()},
                                    "keypoints_match": match_launches,
-                                   **{f"video_train:{k}": n for k, n in video_launches.items()}}
+                                   **{f"video_train:{k}": n for k, n in video_launches.items()},
+                                   "serve_extras:predict": extras["K2_predict"],
+                                   "serve_extras:mc_dropout": extras["K2_mc_dropout"],
+                                   "serve_extras:ensemble": extras["K2_ensemble"]}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
               augment_counts["K2"] + wide_launches + sum(zoo_launches.values())
@@ -3808,7 +4370,10 @@ def main() -> int:
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches,
-                                          f32_train_launches, vmoe_launches, card)]})
+                                          f32_train_launches, vmoe_launches, card),
+                      int8_kernel_line(int8_rows, {
+                          **{f"int8_serve:{k}": n for k, n in int8_launches.items()},
+                          "serve_extras:predict": extras["int8_conv"]}, card)]})
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

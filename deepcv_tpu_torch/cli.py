@@ -1,8 +1,9 @@
 """Command-line interface of the port.
 
-Counterpart of ``deepcv_tpu/cli.py``'s ``run``, ``list``, ``describe`` and
-``serve`` subcommands (``_parse_extra_params``, ``_cmd_serve``); the other
-subcommands come with later slices. Usage::
+Counterpart of ``deepcv_tpu/cli.py``'s ``run``, ``list``, ``describe``,
+``predict`` and ``serve`` subcommands (``_parse_extra_params``,
+``_cmd_predict``, ``_cmd_serve``); the other subcommands come with later
+slices. Usage::
 
     python -m deepcv_tpu_torch run --pipeline=train_vit \\
         --params vit_model.attn_impl:flash,train_resnet50.epochs:1 \\
@@ -11,11 +12,21 @@ subcommands come with later slices. Usage::
     python -m deepcv_tpu_torch describe --pipeline=train_vit
     python -m deepcv_tpu_torch serve --bundle DIR [--port 8000] \\
         [--batch-size 256] [--to-tensor] [--normalize M1,M2,M3/S1,S2,S3] \\
+        [--quantize int8] [--device cuda]
+    python -m deepcv_tpu_torch predict --bundle DIR --input x.npy \\
+        [--output predictions.npy] [--batch-size 256] [--dtype bfloat16] \\
+        [--quantize int8 [--calibrate N]] [--to-tensor] [--normalize ...] \\
+        [--decode segmentation|detection[:g1,g2,...] [--top-k 16] [--nms-iou 0.5]] \\
         [--device cuda]
 
 ``run`` prints one JSON line summing up the training run; typed config
 faults (a bad ``--params`` override, a malformed spec) exit with code 2 and
-a one-line message.
+a one-line message. ``predict`` writes its predictions (an ``.npy``; int32
+argmax masks with ``--decode segmentation``; an ``.npz`` of boxes, scores
+and classes with ``--decode detection``) and prints one JSON line;
+``--quantize int8`` serves the float bundle in w8a8 with dynamic activation
+scales, or static ones recorded on the first ``--calibrate N`` inputs. A
+``.y4m`` video input waits for ``data/video_io.py``.
 """
 from __future__ import annotations
 
@@ -108,37 +119,58 @@ def _parse_normalize(spec: str):
     return [float(v) for v in m_s.split(",")], [float(v) for v in s_s.split(",")]
 
 
-def _cmd_serve(args) -> int:
-    """Online serving: bundle -> Predictor -> micro-batching HTTP server."""
-    from deepcv_tpu_torch.data.transforms import normalize, to_tensor
-    from deepcv_tpu_torch.serve import Predictor, load_model_bundle
-    from deepcv_tpu_torch.server import InferenceServer
+def _not_a_bundle(bundle: str) -> bool:
+    if (Path(bundle) / "model.yaml").exists():
+        return False
+    print(f"error: --bundle {bundle!r} is not a model bundle (no model.yaml; expected a "
+          "directory from serve.save_model_bundle)", file=sys.stderr)
+    return True
 
-    if args.quantize:
-        print(f"error: --quantize {args.quantize} is not ported yet (it comes "
-              "with the compression slice); serve the float model",
-              file=sys.stderr)
-        return 2
-    if not (Path(args.bundle) / "model.yaml").exists():
-        print(f"error: --bundle {args.bundle!r} is not a model bundle "
-              "(no model.yaml; expected a directory from "
-              "serve.save_model_bundle)", file=sys.stderr)
-        return 2
+
+def _preprocess_from_args(args):
+    """(ok, preprocess): ``--to-tensor`` then ``--normalize``, or None."""
+    from deepcv_tpu_torch.data.transforms import normalize, to_tensor
+
     mean = std = None
     if args.normalize:
         try:
             mean, std = _parse_normalize(args.normalize)
         except ValueError:
             print("error: --normalize expects 'm1,m2,m3/s1,s2,s3'", file=sys.stderr)
-            return 2
-    model = load_model_bundle(args.bundle, device=args.device)
-    preprocess = None
-    if args.to_tensor or args.normalize:
-        def preprocess(x):
-            x = to_tensor(x)
-            return x if mean is None else normalize(x, mean, std)
-    pred = Predictor(model, batch_size=args.batch_size, preprocess=preprocess,
+            return False, None
+    if not (args.to_tensor or args.normalize):
+        return True, None
+
+    def preprocess(x):
+        x = to_tensor(x)
+        return x if mean is None else normalize(x, mean, std)
+    return True, preprocess
+
+
+def serving_predictor(args):
+    """The ``serve`` command's Predictor (None after a printed refusal): the
+    bundle's model, in w8a8 with dynamic activation scales under
+    ``--quantize int8``, as the JAX package serves it."""
+    from deepcv_tpu_torch.serve import Predictor, load_model_bundle
+
+    if _not_a_bundle(args.bundle):
+        return None
+    ok, preprocess = _preprocess_from_args(args)
+    if not ok:
+        return None
+    model = load_model_bundle(args.bundle, device=args.device, quantize=args.quantize)
+    return Predictor(model, batch_size=args.batch_size, preprocess=preprocess,
                      dtype=args.dtype, device=args.device)
+
+
+def _cmd_serve(args) -> int:
+    """Online serving: bundle -> Predictor -> micro-batching HTTP server."""
+    from deepcv_tpu_torch.server import InferenceServer
+
+    pred = serving_predictor(args)
+    if pred is None:
+        return 2
+    model = pred.model
     server = InferenceServer(pred, port=args.port, host=args.host,
                              max_batch=args.batch_size,
                              max_wait_ms=args.max_wait_ms,
@@ -149,6 +181,87 @@ def _cmd_serve(args) -> int:
     print(f"serving {args.bundle} at {server.url} on {pred.device} "
           f"(batch {args.batch_size}, window {args.max_wait_ms}ms)", flush=True)
     server.serve_forever()
+    return 0
+
+
+def _cmd_predict(args) -> int:
+    """Batch inference: bundle + .npy images -> predictions on disk."""
+    import numpy as np
+    import torch
+
+    from deepcv_tpu_torch.serve import Predictor, load_model_bundle
+
+    if _not_a_bundle(args.bundle):
+        return 2
+    if str(args.input).lower().endswith(".y4m"):
+        print(f"error: --input {args.input!r}: .y4m video input needs the port of "
+              "data/video_io.py, which is not ported yet; pass an .npy of NHWC frames",
+              file=sys.stderr)
+        return 2
+    if not Path(args.input).exists():
+        print(f"error: --input file not found: {args.input!r}", file=sys.stderr)
+        return 2
+    if args.batch_size < 1:
+        print(f"error: --batch-size must be >= 1 (got {args.batch_size})", file=sys.stderr)
+        return 2
+    if args.decode and args.decode != "segmentation" \
+            and str(args.decode).partition(":")[0] != "detection":
+        print(f"error: unknown --decode mode {args.decode!r} "
+              "(known: detection[:g1,g2,...], segmentation)", file=sys.stderr)
+        return 2
+    ok, preprocess = _preprocess_from_args(args)
+    if not ok:
+        return 2
+    images = np.load(args.input)
+    if preprocess is None and images.dtype == np.uint8:
+        print("note: uint8 input without --to-tensor/--normalize — the model receives "
+              "raw 0-255 values; pass the transforms training used", file=sys.stderr)
+    model = load_model_bundle(args.bundle, device=args.device, dtype=args.dtype,
+                              quantize=args.quantize)
+    if args.quantize and args.calibrate > 0:
+        from deepcv_tpu_torch.compression import calibrate_int8_scales
+
+        # calibrate the float build on exactly what inference feeds the model
+        # (the same preprocess), then rebuild quantized with the scales; the
+        # input keeps its dtype until then, so to_tensor still scales uint8
+        fmodel = model.with_options(quantize=None, quantize_scales=None)
+        cal = torch.from_numpy(np.ascontiguousarray(images[:args.calibrate])).to(fmodel.device)
+        if preprocess is not None:
+            cal = preprocess(cal)
+        scales = calibrate_int8_scales(fmodel, [cal.float()])
+        model = model.with_options(quantize=args.quantize, quantize_scales=scales)
+    out = Predictor(model, batch_size=args.batch_size, preprocess=preprocess,
+                    device=args.device)(images)
+    if args.decode == "segmentation":
+        masks = np.argmax(out, axis=-1).astype(np.int32)
+        np.save(args.output, masks)
+        print(json.dumps({"inputs": len(images), "output": args.output,
+                          "mask_shape": list(masks.shape),
+                          "classes_present": sorted(int(c) for c in np.unique(masks))}))
+        return 0
+    if args.decode:
+        from deepcv_tpu_torch.pipelines.detection import (decode_detections,
+                                                          decode_detections_flat)
+
+        rest = str(args.decode).partition(":")[2]
+        raw = torch.from_numpy(out.astype(np.float32))
+        if rest:
+            grids = tuple(int(g) for g in rest.split(","))
+            boxes, scores, classes = decode_detections_flat(
+                raw, grids, top_k=args.top_k, nms_iou=args.nms_iou)
+        else:
+            boxes, scores, classes = decode_detections(raw, top_k=args.top_k,
+                                                       nms_iou=args.nms_iou)
+        out_path = str(Path(args.output).with_suffix(".npz"))
+        np.savez(out_path, boxes=boxes.numpy().astype(np.float32),
+                 scores=scores.numpy().astype(np.float32),
+                 classes=classes.numpy().astype(np.int32))
+        print(json.dumps({"inputs": len(images), "output": out_path, "top_k": args.top_k,
+                          "detections_kept": int((scores > 0).sum())}))
+        return 0
+    np.save(args.output, out)
+    print(json.dumps({"inputs": len(images), "output": args.output,
+                      "output_shape": list(out.shape)}))
     return 0
 
 
@@ -169,6 +282,39 @@ def build_parser() -> argparse.ArgumentParser:
     p_desc = sub.add_parser("describe", help="describe a pipeline")
     p_desc.add_argument("--pipeline", required=True)
     p_desc.add_argument("--project-path", default=".")
+    p_pred = sub.add_parser("predict", help="batch inference from a saved model bundle")
+    p_pred.add_argument("--bundle", required=True,
+                        help="directory from serve.save_model_bundle")
+    p_pred.add_argument("--input", required=True,
+                        help=".npy file of NHWC images (uint8 or float); .y4m video "
+                             "waits for the port of data/video_io.py")
+    p_pred.add_argument("--output", default="predictions.npy")
+    p_pred.add_argument("--batch-size", type=int, default=256)
+    p_pred.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],
+                        help="the model's compute dtype")
+    p_pred.add_argument("--quantize", default=None, choices=["int8"],
+                        help="compute conv/dense in w8a8 (the float bundle loads "
+                             "unchanged)")
+    p_pred.add_argument("--calibrate", type=int, default=0, metavar="N",
+                        help="with --quantize: static activation scales recorded on "
+                             "the first N input images")
+    p_pred.add_argument("--decode", default=None, metavar="MODE",
+                        help="'detection' (single-grid head), 'detection:8,4' (FPN "
+                             "flat layout, fine->coarse grids): an .npz of boxes, "
+                             "scores, classes after class-aware NMS; 'segmentation': "
+                             "int32 argmax masks (N, H, W)")
+    p_pred.add_argument("--top-k", type=int, default=16,
+                        help="with --decode: detections kept per image")
+    p_pred.add_argument("--nms-iou", type=float, default=0.5,
+                        help="with --decode: NMS IoU threshold (suppressed "
+                             "candidates get score 0)")
+    p_pred.add_argument("--to-tensor", action="store_true",
+                        help="scale uint8 inputs to [0,1] before the model")
+    p_pred.add_argument("--normalize", default=None, metavar="MEANS/STDS",
+                        help="per-channel normalize AFTER to_tensor (the stats "
+                             "training used)")
+    p_pred.add_argument("--device", default="cuda",
+                        help="'cuda' (default) or 'cpu' for the plain path")
     p_srv = sub.add_parser(
         "serve", help="online inference server with micro-batching "
                       "(POST /predict, GET /healthz, GET /stats)")
@@ -183,7 +329,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "open for followers (latency bound)")
     p_srv.add_argument("--dtype", default=None, choices=["float32", "bfloat16"])
     p_srv.add_argument("--quantize", default=None, choices=["int8"],
-                       help="not ported yet: refused")
+                       help="compute conv/dense in w8a8 with dynamic activation "
+                            "scales (the float bundle loads unchanged)")
     p_srv.add_argument("--to-tensor", action="store_true",
                        help="scale uint8 inputs to [0,1] before the model")
     p_srv.add_argument("--normalize", default=None, metavar="MEANS/STDS",
@@ -204,6 +351,8 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     if args.command == "serve":
         return _cmd_serve(args)
+    if args.command == "predict":
+        return _cmd_predict(args)
     if args.command in ("list", "describe"):
         args.device = "cpu"  # reads the conf only
         pipes = _context(args).pipelines

@@ -30,7 +30,6 @@ dtype for the second product.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Callable, Mapping, Optional, Tuple
 
@@ -61,11 +60,7 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
     return torch.matmul(p.to(v.dtype), v)
 
 
-def _no_autocast(device: torch.device):
-    """The kernels and their plain versions pick their own precision."""
-    if device.type in ("cpu", "cuda"):
-        return torch.autocast(device.type, enabled=False)
-    return contextlib.nullcontext()
+_no_autocast = dnn.no_autocast
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -21,6 +21,7 @@ pads channels for the TPU (``pad_channels_for_tpu`` is not carried over).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
@@ -28,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from deepcv_tpu_torch import compression
+from deepcv_tpu_torch.ops.kernels import int8_conv as int8_kernel
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
     EPILOGUE_ACTS, LEAKY_RELU_SLOPE, fused_conv2d_bias_act, pack_weight)
 from deepcv_tpu_torch.utils import get_by_identifier, register
@@ -446,15 +449,64 @@ def weight_norm(v: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tenso
         * scale.float().reshape((-1,) + (1,) * (v.dim() - 1))
 
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """Autocast's dtype where it is on for x's device, else x's."""
+    dev = x.device.type
+    if dev in ("cpu", "cuda") and torch.is_autocast_enabled(dev):
+        return torch.get_autocast_dtype(dev)
+    return x.dtype
+
+
+def no_autocast(device: torch.device):
+    """For the kernels, their plain versions and the quantized ops, which
+    pick their own dtypes."""
+    if device.type in ("cpu", "cuda"):
+        return torch.autocast(device.type, enabled=False)
+    return contextlib.nullcontext()
+
+
 class _WeightOp(nn.Module):
     """An op with a ``weight`` (out, ...) that flax's ``WeightNorm`` can wrap
     (:meth:`add_weight_norm`): then ``weight`` is the direction ``v`` and the
-    op computes with :func:`weight_norm` of it and ``scale``."""
+    op computes with :func:`weight_norm` of it and ``scale``.
+
+    ``quant`` (a :class:`~deepcv_tpu_torch.compression.QuantSpec`, set by
+    the spec engine under hp ``quantize``) makes the op compute in w8a8
+    int8 or fake quant: input and weight are cast to the compute dtype
+    (autocast's) first, as flax casts to the layer's ``dtype`` before its
+    op, then quantized; the bias is added after, in that dtype. A real-int8
+    op keeps its weight codes per weight version (:meth:`_per_version`)."""
 
     def __init__(self):
         super().__init__()
         self.register_parameter("scale", None)
         self.weight_norm_eps: Optional[float] = None
+        self.quant: Optional[compression.QuantSpec] = None
+        self._derived = None
+        self._derived_key = None
+
+    def _per_version(self, w: torch.Tensor, make: Callable):
+        """``make(w)`` of the weight ``w`` this forward computes with (a
+        kernel's packing of it, its int8 codes), kept once per version of
+        ``weight`` and dtype. Under weight norm ``w`` is a new tensor every
+        forward (a new tensor's version is 0 and may take the last one's
+        address), so it is made every time."""
+        if self.scale is not None:
+            with torch.no_grad():
+                return make(w)
+        version = -1 if self.weight.is_inference() else self.weight._version
+        key = (self.weight.data_ptr(), version, w.device, w.dtype)
+        if self._derived_key != key:
+            with torch.no_grad():
+                self._derived = make(w)
+            self._derived_key = key
+        return self._derived
+
+    def _quant_operands(self, x: torch.Tensor):
+        dt = _compute_dtype(x)
+        w = self.effective_weight().to(dt)
+        b = None if self.bias is None else self.bias.to(dt)
+        return x.to(dt), w, b
 
     def add_weight_norm(self, eps: float) -> None:
         """Reparameterise the weight as flax's ``WeightNorm`` with its
@@ -471,6 +523,13 @@ class _WeightOp(nn.Module):
         if self.scale is None:
             return self.weight
         return weight_norm(self.weight, self.scale, self.weight_norm_eps)
+
+
+def _conv_codes(w: torch.Tensor):
+    """A conv weight's int8 codes, scales and the kernel's packing of the
+    codes (on a card)."""
+    wq, sw = compression.quantize_weight(w)
+    return wq, sw, int8_kernel.pack_weight(wq) if w.device.type == "cuda" else None
 
 
 class Conv2d(_WeightOp):
@@ -495,7 +554,24 @@ class Conv2d(_WeightOp):
                 self.bias.zero_()
             self._init_scale()
 
+    def _quant_forward(self, x):
+        x, w, b = self._quant_operands(x)
+        q = self.quant
+        with no_autocast(x.device):
+            if q.real_int8:
+                wq, sw, packed = self._per_version(w, _conv_codes)
+                y = compression.int8_conv_nd(x, w, self.stride, self.padding, self.dilation,
+                                             self.groups, q.act_scale, w_quant=(wq, sw),
+                                             w_packed=packed)
+            else:
+                y = compression.fake_quant_conv_nd(x, w, self.stride, self.padding,
+                                                   self.dilation, self.groups, q.act_scale,
+                                                   q.bits)
+            return y if b is None else y + b.reshape(1, -1, *(1,) * (y.dim() - 2))
+
     def forward(self, x):
+        if self.quant is not None:
+            return self._quant_forward(x)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, self.effective_weight().to(x.dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
@@ -507,6 +583,8 @@ class ConvNd(Conv2d):
     leaves them to XLA. Weight (Cout, Cin/groups, *kernel), Xavier-normal."""
 
     def forward(self, x):
+        if self.quant is not None:
+            return self._quant_forward(x)
         fn = {3: F.conv1d, 5: F.conv3d}[self.weight.dim()]
         b = None if self.bias is None else self.bias.to(x.dtype)
         return fn(x, self.effective_weight().to(x.dtype), b, self.stride, self.padding,
@@ -532,8 +610,8 @@ class FusedConv2d(Conv2d):
     plain version on the CPU. The counterpart of the JAX package's
     ``PallasConv``; every conv that qualifies is routed here, whatever its
     channel count. Under autocast it runs in autocast's dtype. The weight is
-    packed for the kernel once per weight version and dtype; under weight
-    norm the kernel takes the normalised weight, packed at every forward."""
+    packed for the kernel once per weight version and dtype
+    (:meth:`_per_version`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
                  act: Optional[Callable] = None, use_bias: bool = True,
@@ -546,35 +624,15 @@ class FusedConv2d(Conv2d):
         # activation runs after the kernel
         self.act = None if name in ("identity", "linear") else (
             name if name and name in EPILOGUE_ACTS else act)
-        self._packed = None
-        self._packed_key = None
-
-    def _packed_weight(self, w: torch.Tensor) -> torch.Tensor:
-        """:func:`pack_weight` of ``w``, the weight this forward computes
-        with. Under weight norm ``w`` is a new tensor every forward (a new
-        tensor's version is 0 and may take the last one's address), so it is
-        packed every time; else once per version of ``weight`` and dtype."""
-        if self.scale is not None:
-            with torch.no_grad():
-                return pack_weight(w)
-        key = (self.weight.data_ptr(), self.weight._version, w.device, w.dtype)
-        if self._packed_key != key:
-            with torch.no_grad():
-                self._packed = pack_weight(w)
-            self._packed_key = key
-        return self._packed
 
     def forward(self, x):
         # autocast does not reach into the kernel's autograd.Function, so the
         # conv takes autocast's dtype here, as the JAX package's PallasConv
         # casts x, kernel and bias to the model's compute dtype
-        dev = x.device.type
-        if dev in ("cpu", "cuda") and torch.is_autocast_enabled(dev):
-            x = x.to(torch.get_autocast_dtype(dev))
-        x = x.contiguous(memory_format=torch.channels_last)
+        x = x.to(_compute_dtype(x)).contiguous(memory_format=torch.channels_last)
         w = self.effective_weight().to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        packed = self._packed_weight(w) if x.device.type == "cuda" else None
+        packed = self._per_version(w, pack_weight) if x.device.type == "cuda" else None
         return fused_conv2d_bias_act(x, w, b, self.act, w_packed=packed)
 
 
@@ -599,14 +657,29 @@ class Dense(_WeightOp):
                 self.bias.zero_()
             self._init_scale()
 
+    def _linear(self, x, w, b):
+        q = self.quant
+        if q is None:
+            return F.linear(x, w, b)
+        with no_autocast(x.device):
+            if q.real_int8:
+                y = compression.int8_dense(x, w, q.act_scale,
+                                           w_quant=self._per_version(w, compression.quantize_weight))
+            else:
+                y = compression.fake_quant_dense(x, w, q.act_scale, q.bits)
+            return y if b is None else y + b
+
     def forward(self, x):
         if self.flatten_input:
             x = Flatten.hwc(x)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        w = self.effective_weight().to(x.dtype)
+        if self.quant is not None:
+            x, w, b = self._quant_operands(x)
+        else:
+            b = None if self.bias is None else self.bias.to(x.dtype)
+            w = self.effective_weight().to(x.dtype)
         if feature_dim(x) == x.dim() - 1:
-            return F.linear(x, w, b)
-        return F.linear(x.movedim(1, -1), w, b).movedim(-1, 1)
+            return self._linear(x, w, b)
+        return self._linear(x.movedim(1, -1), w, b).movedim(-1, 1)
 
 
 class Identity(nn.Module):

@@ -133,9 +133,11 @@ def create_model(datasets: Mapping[str, Any], model_params: Mapping[str, Any],
             "or parameters.yml")
     _inject_out_features(arch, num_classes)
     dtype = hp.pop("dtype", None)
-    if hp.pop("quantize", None):
-        raise NotImplementedError("model hp 'quantize' is not ported yet")
-    model = DeepcvModule(input_shape, hp, device=device, dtype=dtype)
+    # 'int8_qat' makes the training pipeline quantization-aware (fake quant,
+    # straight-through estimator); 'int8' builds the inference-only w8a8
+    # graph, which the training loop then refuses
+    quantize = hp.pop("quantize", None)
+    model = DeepcvModule(input_shape, hp, device=device, dtype=dtype, quantize=quantize)
     _logger.info("created model: %s params on %s", f"{model.capacity():,}", model.device)
     return model
 

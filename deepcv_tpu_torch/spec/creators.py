@@ -31,6 +31,15 @@ wraps the op of every layer-unit creator (``conv2d``, ``fully_connected``)
 in flax's ``WeightNorm``, as the JAX package's ``_as_layer`` does; a conv
 so wrapped still runs the kernel, on the normalised weight. An op that
 cannot take it raises, naming its submodule.
+
+Under ``CreatorContext.quantize`` (the model's ``quantize``) the ops the
+JAX package overrides with its int8 or fake-quant ops get a
+``compression.QuantSpec`` (:func:`_quant`): the conv creators' (which then
+never take the kernel hook), ``fully_connected``'s, and the projections of
+``patch_embed`` (``proj``), ``transformer_block`` and ``swin_block``
+(``attn/qkv``, ``attn/out``, ``mlp/fc1``, ``mlp/fc2``; not the V-MoE
+experts) and ``patch_merging`` (``reduce``), each with its calibrated
+scale by full node path.
 """
 from __future__ import annotations
 
@@ -107,6 +116,14 @@ class CreatorContext:
     weight_norm: Optional[Mapping[str, Any]] = None   # hp 'weight_norm'
     #: the model's input is a 1-d signal (W, C): its 3-d tensors are NCW maps
     signal_1d: bool = False
+    #: 'int8' (w8a8, inference only) or 'int<N>_qat' (fake quant): the conv,
+    #: dense and transformer creators set their ops' ``quant``
+    quantize: Optional[str] = None
+    #: static activation scales by full node path, from
+    #: ``compression.calibrate_int8_scales`` (absent nodes quantize dynamically)
+    quantize_scales: Mapping[str, float] = dataclasses.field(default_factory=dict)
+    #: nesting prefix ('<nested name>/'), so that scale keys are full paths
+    scope: str = ""
 
 
 @dataclasses.dataclass
@@ -221,6 +238,27 @@ def _as_layer(op: nn.Module, params: Mapping[str, Any], ctx: CreatorContext, nam
         act_in_op=act_in_op)
 
 
+def _quant(ctx: CreatorContext, name: str, sub: Optional[str] = None):
+    """The ``QuantSpec`` of node ``name``'s op (or of its sub-layer ``sub``,
+    whose calibrated scale falls back to the node's), None in a float
+    build."""
+    from deepcv_tpu_torch.compression import QuantSpec
+    scale = ctx.quantize_scales.get(ctx.scope + name)
+    if sub is not None:
+        scale = ctx.quantize_scales.get(f"{ctx.scope}{name}/{sub}", scale)
+    return QuantSpec.make(ctx.quantize, scale)
+
+
+def _quantize_subs(module: nn.Module, ctx: CreatorContext, name: str,
+                   subs: Sequence[str]) -> nn.Module:
+    """Set the ``quant`` of the Dense ops at the '/'-paths ``subs`` below
+    ``module`` (the JAX package's per-sublayer dot overrides)."""
+    if ctx.quantize:
+        for sub in subs:
+            module.get_submodule(sub.replace("/", ".")).quant = _quant(ctx, name, sub)
+    return module
+
+
 def _conv_common(params: Mapping[str, Any], rank: int):
     ks = params["kernel_size"]
     ks = tuple(ks) if isinstance(ks, (list, tuple)) else (int(ks),) * rank
@@ -290,7 +328,7 @@ def _make_conv_creator(rank: int):
         # order
         plain = (rank == 2 and groups == 1 and strides == (1, 1) and dilation == (1, 1)
                  and all(k % 2 == 1 for k in ks)
-                 and pads == tuple(k // 2 for k in ks))
+                 and pads == tuple(k // 2 for k in ks) and not ctx.quantize)
         if plain:
             preact = bool(params.get("preactivation", False))
             act = None if preact else dnn.get_activation(params.get("act_fn"))
@@ -299,6 +337,7 @@ def _make_conv_creator(rank: int):
         cls = dnn.Conv2d if rank == 2 else dnn.ConvNd
         op = cls(in_ch, out_ch, ks, stride=strides, padding=pads, dilation=dilation,
                  groups=groups, use_bias=use_bias, gain=gain)
+        op.quant = _quant(ctx, name)
         return _as_layer(op, params, ctx, name, in_ch, out_ch)
     return creator
 
@@ -328,6 +367,7 @@ def _fully_connected(params: Mapping[str, Any], ctx: CreatorContext, name: str,
     op = dnn.Dense(in_features, int(out_features),
                    use_bias=bool(params.get("use_bias", params.get("bias", True))),
                    gain=dnn.get_gain(params.get("act_fn")), flatten_input=flatten)
+    op.quant = _quant(ctx, name)
     return _as_layer(op, params, ctx, name, int(in_shape[fdim]), int(out_features))
 
 
@@ -537,6 +577,10 @@ submodule_creator("hrnet_repr_head_v2p", global_keys=GLOBAL_LAYER_KEYS,
 # Vision-transformer nodes
 # --------------------------------------------------------------------------- #
 
+#: a transformer or Swin block's quantized projections
+_BLOCK_SUBS = ("attn/qkv", "attn/out", "mlp/fc1", "mlp/fc2")
+
+
 @submodule_creator("patch_embed",
                    allowed=("patch_size", "embed_dim", "use_cls_token",
                             "dropout_prob"),
@@ -548,10 +592,11 @@ def _patch_embed(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.
     if len(in_shape) != 4:
         raise ValueError(f"Submodule '{name}' (patch_embed): input must be an "
                          f"image feature map, got shape {list(in_shape)}")
-    return PatchEmbed(int(in_shape[1]), (int(in_shape[2]), int(in_shape[3])),
-                      int(params["patch_size"]), int(params["embed_dim"]),
-                      use_cls_token=bool(params.get("use_cls_token", True)),
-                      dropout_prob=float(params.get("dropout_prob") or 0.0))
+    return _quantize_subs(PatchEmbed(int(in_shape[1]), (int(in_shape[2]), int(in_shape[3])),
+                                     int(params["patch_size"]), int(params["embed_dim"]),
+                                     use_cls_token=bool(params.get("use_cls_token", True)),
+                                     dropout_prob=float(params.get("dropout_prob") or 0.0)),
+                          ctx, name, ("proj",))
 
 
 @submodule_creator("transformer_block", aliases=("encoder_block",),
@@ -571,7 +616,7 @@ def _transformer_block(params, ctx: CreatorContext, name: str, in_shape: Shape) 
     if len(in_shape) != 3:
         raise ValueError(f"Submodule '{name}' (transformer_block): input must be "
                          f"tokens (N, T, D), got shape {list(in_shape)}")
-    return TransformerEncoderBlock(
+    block = TransformerEncoderBlock(
         int(in_shape[2]), int(params["num_heads"]), int(params["mlp_dim"]),
         dropout_prob=float(params.get("dropout_prob") or 0.0),
         attn_dropout_prob=float(params.get("attn_dropout_prob") or 0.0),
@@ -581,6 +626,10 @@ def _transformer_block(params, ctx: CreatorContext, name: str, in_shape: Shape) 
         norm=str(params.get("norm", "layer_norm")),
         mlp_act=str(params.get("mlp_act", "gelu")),
         moe=dict(moe) if moe else None)
+    # the V-MoE experts and the attention products stay float, as in the JAX
+    # package
+    return _quantize_subs(block, ctx, name, ("attn/qkv", "attn/out") if moe else
+                          _BLOCK_SUBS)
 
 
 @submodule_creator("swin_block",
@@ -592,13 +641,14 @@ def _swin_block(params, ctx: CreatorContext, name: str, in_shape: Shape) -> nn.M
     (shifted-)window attention with relative-position bias + exact-GELU
     MLP; ``shift: window // 2`` gives the SW-MSA variant."""
     from deepcv_tpu_torch.ops.attention import SwinBlock
-    return SwinBlock(_feature_map_channels(in_shape, name, "swin_block"),
+    block = SwinBlock(_feature_map_channels(in_shape, name, "swin_block"),
                      (int(in_shape[2]), int(in_shape[3])), int(params["num_heads"]),
                      window=int(params.get("window", 7)), shift=int(params.get("shift", 0)),
                      mlp_ratio=float(params.get("mlp_ratio", 4.0)),
                      drop_path_prob=float(params.get("drop_path_prob") or 0.0),
                      ln_eps=float(params.get("ln_eps", 1e-5)),
                      norm=str(params.get("norm", "layer_norm")))
+    return _quantize_subs(block, ctx, name, _BLOCK_SUBS)
 
 
 @submodule_creator("patch_merging", allowed=("ln_eps",))
@@ -606,8 +656,9 @@ def _patch_merging(params, ctx: CreatorContext, name: str, in_shape: Shape) -> n
     """Swin between-stage downsampling: 2x2 concat + LN + bias-free
     Linear to 2C."""
     from deepcv_tpu_torch.ops.attention import PatchMerging
-    return PatchMerging(_feature_map_channels(in_shape, name, "patch_merging"),
-                        ln_eps=float(params.get("ln_eps", 1e-5)))
+    return _quantize_subs(PatchMerging(_feature_map_channels(in_shape, name, "patch_merging"),
+                                       ln_eps=float(params.get("ln_eps", 1e-5))),
+                          ctx, name, ("reduce",))
 
 
 @submodule_creator("take_token", allowed=("index",))

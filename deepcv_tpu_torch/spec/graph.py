@@ -130,7 +130,9 @@ def define_nn_architecture(architecture: Sequence[Any], hp: Mapping[str, Any],
                 sub = SpecModule(*define_nn_architecture(
                     sub_hp["architecture"], sub_hp,
                     CreatorContext(hp=sub_hp, weight_norm=ctx.weight_norm,
-                                   signal_1d=ctx.signal_1d),
+                                   signal_1d=ctx.signal_1d, quantize=ctx.quantize,
+                                   quantize_scales=ctx.quantize_scales,
+                                   scope=f"{ctx.scope}{name}/"),
                     _shape_of(x))[:3])
                 names_seen[name] = idx
                 metas.append(NodeMeta(name=name, kind="module", creator="nested"))

@@ -22,6 +22,18 @@ it first).
 with ``bfloat16`` the forward runs under ``torch.autocast`` (matmuls in
 bf16, norms and softmax statistics in float32) while parameters stay
 float32.
+
+``quantize`` is the JAX package's too: ``'int8'`` computes every conv,
+dense and transformer projection that the JAX package quantizes in w8a8
+(:mod:`deepcv_tpu_torch.compression`; the convs on the ``int8_conv``
+kernel, never on K2), with static activation scales where
+``quantize_scales`` (from ``calibrate_int8_scales``) has the node's key and
+dynamic ones elsewhere; ``'int<N>_qat'`` fake-quantizes them for
+quantization-aware training. The parameters are the float build's, so a
+trained ``state_dict`` loads unchanged and :meth:`with_options` rebuilds a
+model with another mode on the same tensors. A real-int8 build is
+inference-only: it starts in eval mode, and ``train()`` or a forward in
+training mode raise, as the JAX package's ``apply(train=True)`` does.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Union
 import torch
 import torch.nn as nn
 
+from deepcv_tpu_torch.compression import INFERENCE_ONLY_ERROR
 from deepcv_tpu_torch.hyperparams import Hyperparameters, to_hyperparameters
 from deepcv_tpu_torch.spec.creators import CreatorContext
 from deepcv_tpu_torch.spec.graph import SpecError, SpecModule, define_nn_architecture
@@ -66,12 +79,17 @@ class DeepcvModule(nn.Module):
     def __init__(self, input_shape: Sequence[int], hp: Mapping[str, Any], *,
                  device: Union[None, str, torch.device] = None,
                  generator: Optional[torch.Generator] = None,
-                 dtype: Union[None, str, torch.dtype] = None):
+                 dtype: Union[None, str, torch.dtype] = None,
+                 quantize: Optional[str] = None,
+                 quantize_scales: Optional[Mapping[str, float]] = None):
         super().__init__()
         dev = resolve_device(device)
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         #: compute dtype (None or float32: plain float32)
         self.dtype = None if dtype in (None, torch.float32) else dtype
+        #: None, 'int8' or 'int<N>_qat'
+        self.quantize = quantize or None
+        self.quantize_scales = dict(quantize_scales or {})
         #: channel-last input shape WITHOUT batch dim, e.g. (224, 224, 3)
         self.input_shape = tuple(int(s) for s in input_shape)
         self._hp, _ = to_hyperparameters(hp, self.HP_DEFAULTS, raise_if_missing=True)
@@ -87,7 +105,8 @@ class DeepcvModule(nn.Module):
         metas, impls, refd, shapes = define_nn_architecture(
             self._hp["architecture"], self._hp,
             CreatorContext(hp=self._hp, weight_norm=wn or None,
-                           signal_1d=self._map_dims == 3), nchw)
+                           signal_1d=self._map_dims == 3, quantize=self.quantize,
+                           quantize_scales=self.quantize_scales), nchw)
         self.module = SpecModule(metas, impls, refd)
         #: per-node output shapes at batch 1, channel-last like the JAX package's
         self.node_shapes = {k: _channel_last(s, self._map_dims) for k, s in shapes.items()}
@@ -95,6 +114,30 @@ class DeepcvModule(nn.Module):
             self.to_empty(device="cpu")
             self.init_parameters(generator or torch.Generator().manual_seed(0))
             self.to(dev)
+        if self.inference_only:
+            self.eval()
+
+    @property
+    def inference_only(self) -> bool:
+        """A real-int8 build: round and clip leave no gradient to train on."""
+        return self.quantize is not None and not str(self.quantize).endswith("_qat")
+
+    def train(self, mode: bool = True):
+        if mode and self.inference_only:
+            raise ValueError(INFERENCE_ONLY_ERROR.format(self.quantize))
+        return super().train(mode)
+
+    def with_options(self, **overrides) -> "DeepcvModule":
+        """This architecture rebuilt with other constructor options
+        (``quantize``, ``quantize_scales``, ``dtype``) on the SAME parameter
+        and buffer tensors, on their device, in this model's mode (eval for a
+        real-int8 build)."""
+        kw = dict(dtype=self.dtype, quantize=self.quantize,
+                  quantize_scales=self.quantize_scales)
+        kw.update(overrides)
+        new = type(self)(self.input_shape, self._hp.to_dict(), device="meta", **kw)
+        new.load_state_dict(self.state_dict(keep_vars=True), strict=True, assign=True)
+        return new if new.inference_only else new.train(self.training)
 
     @property
     def hp(self) -> Hyperparameters:
@@ -120,6 +163,8 @@ class DeepcvModule(nn.Module):
     def forward(self, x: torch.Tensor):
         """NHWC in; NHWC feature maps, (N, T, D) tokens, (N, F) rows or a
         list of NHWC maps out."""
+        if self.training and self.inference_only:
+            raise ValueError(INFERENCE_ONLY_ERROR.format(self.quantize))
         x = x.movedim(-1, 1)
         if self.dtype is not None and x.device.type in ("cpu", "cuda"):
             with torch.autocast(x.device.type, dtype=self.dtype):

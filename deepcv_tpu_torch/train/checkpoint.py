@@ -1,7 +1,7 @@
 """Checkpoints: every-N-steps saves, best-k by a validation metric, resume.
 
-Counterpart of ``deepcv_tpu/train/checkpoint.py`` (``CheckpointManager``,
-``resume_from_path``). The JAX package saves its whole ``TrainState`` with
+Counterpart of ``deepcv_tpu/train/checkpoint.py`` (``CheckpointManager``
+with ``restore_best``, ``resume_from_path``). The JAX package saves its whole ``TrainState`` with
 orbax; here a checkpoint is one ``torch.save`` file holding what an exact
 resume needs: the step, the model's and the optimizer's ``state_dict`` and
 the state of the training loop's generator.
@@ -92,6 +92,20 @@ class CheckpointManager:
         self._best[str(int(step))] = float(metric_value)
         self._best_index_path.write_text(json.dumps(self._best))
         return True
+
+
+    def best_checkpoints(self) -> Dict[str, float]:
+        """Metric value of each kept best checkpoint, by step."""
+        return dict(self._best)
+
+    def restore_best(self, map_location=None) -> Dict[str, Any]:
+        """The checkpoint of the best metric value kept."""
+        if not self._best:
+            raise FileNotFoundError(f"No best checkpoints recorded under {self._best_dir}")
+        pick = max if self.mode == "max" else min
+        step = pick(self._best, key=self._best.get)
+        return torch.load(self._best_dir / f"{step}.pt", map_location=map_location,
+                          weights_only=False)
 
 
 def resume_from_path(path, map_location=None) -> Dict[str, Any]:

@@ -1,8 +1,9 @@
 """Losses and their weighting.
 
 Counterpart of ``deepcv_tpu/train/losses.py`` (``cross_entropy_loss``,
-``mse_loss``, ``WeightedLosses``); the other losses (distillation, JSD consistency,
-triplet, label smoothing by name) are not ported yet.
+``mse_loss``, ``distillation_loss``, ``distill_accuracy``,
+``WeightedLosses``); the other losses (JSD consistency, triplet, label
+smoothing by name) are not ported yet.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cross_entropy_loss", "mse_loss", "WeightedLosses", "LOSS_FNS"]
+__all__ = ["cross_entropy_loss", "mse_loss", "distillation_loss", "distill_accuracy",
+           "WeightedLosses", "LOSS_FNS"]
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -40,7 +42,34 @@ def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (pred.float() - target.float()).square().mean()
 
 
-LOSS_FNS: Dict[str, Callable] = {"cross_entropy": cross_entropy_loss}
+def distillation_loss(student_logits: torch.Tensor, targets: torch.Tensor,
+                      temperature: float = 4.0, alpha: float = 0.5) -> torch.Tensor:
+    """Knowledge distillation (Hinton et al., arXiv:1503.02531) over
+    precomputed teacher logits: ``targets`` (N, 1 + C) hold the integer
+    label in column 0 and the frozen teacher's logits after it (the layout
+    :func:`deepcv_tpu_torch.serve.distill_targets` makes). Loss = alpha *
+    CE(student, label) + (1 - alpha) * T^2 * KL(teacher_T || student_T), in
+    float32."""
+    labels = targets[..., 0].to(torch.int64)
+    t_logits = targets[..., 1:].float()
+    s_logits = student_logits.float()
+    hard = cross_entropy_loss(s_logits, labels)
+    t = float(temperature)
+    p_t = F.softmax(t_logits / t, dim=-1)
+    logp_s = F.log_softmax(s_logits / t, dim=-1)
+    logp_t = F.log_softmax(t_logits / t, dim=-1)
+    kl = (p_t * (logp_t - logp_s)).sum(-1).mean()
+    return float(alpha) * hard + (1.0 - float(alpha)) * (t * t) * kl
+
+
+def distill_accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Accuracy against the hard label of a distillation target layout
+    (column 0 of the (N, 1 + C) targets)."""
+    return (logits.argmax(-1) == targets[..., 0].to(torch.int64)).float().mean()
+
+
+LOSS_FNS: Dict[str, Callable] = {"cross_entropy": cross_entropy_loss,
+                                 "distillation": distillation_loss}
 
 
 class WeightedLosses:

@@ -1218,3 +1218,148 @@ def test_track_sequence_on_card_equals_the_cpu(cuda):
                         got.to(cuda), mask.to(cuda))
     m_ref = mot_metrics(boxes, gt_ids, mask, boxes, ref, mask)
     assert {k: v.item() for k, v in m_got.items()} == {k: v.item() for k, v in m_ref.items()}
+
+
+# --------------------------------------------------------------------------- #
+# int8_conv: the port-only w8a8 conv kernel, and the int8 builds on the card
+# --------------------------------------------------------------------------- #
+
+#: (N, Cin, spatial, Cout, kernel, stride, padding, dilation, groups): every
+#: load width (16, 4 and 1 input channels a load) and output tile (8, 4 and
+#: 1 channels a thread), strides, dilation, groups, depthwise, a ResNet stem,
+#: 1-d and 3-d
+INT8_SHAPES = [(2, 64, (9, 11), 64, (3, 3), 1, 1, 1, 1), (2, 64, (9, 11), 128, (3, 3), 2, 1, 1, 1),
+               (3, 3, (17, 15), 64, (7, 7), 2, 3, 1, 1), (2, 12, (10, 10), 20, (3, 3), 1, 2, 2, 1),
+               (2, 32, (8, 9), 32, (3, 3), 1, 1, 1, 2), (2, 24, (8, 9), 24, (3, 3), 2, 1, 1, 24),
+               (2, 256, (7, 7), 512, (1, 1), 2, 0, 1, 1), (2, 5, (6, 6), 7, (3, 3), 1, 1, 1, 1),
+               (3, 6, (13,), 10, (5,), 2, 2, 1, 1), (2, 8, (4, 6, 5), 12, (3, 3, 3), 1, 1, 1, 2),
+               (2, 32, (5, 7), 3, (3, 3), 1, 1, 1, 1)]
+
+
+def _int8_operands(dev, n, cin, spatial, cout, ks, groups, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xq = torch.randint(-127, 128, (n, cin, *spatial), generator=g, device=dev,
+                       dtype=torch.int8)
+    if xq.dim() in (4, 5):
+        xq = xq.contiguous(memory_format=torch.channels_last if xq.dim() == 4
+                           else torch.channels_last_3d)
+    wq = torch.randint(-127, 128, (cout, cin // groups, *ks), generator=g, device=dev,
+                       dtype=torch.int8)
+    s_act = torch.rand((), generator=g, device=dev) * 0.1
+    s_w = torch.rand((cout,), generator=g, device=dev) * 0.01
+    return xq, wq, s_act, s_w
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_conv_kernel_equals_plain(cuda, shape, out_dtype):
+    """The int32 sums bit-equal, and the rescaled output equal to the bit:
+    both take float32(acc) * (s_act * s_w[o]) and one rounding to the
+    output type."""
+    from deepcv_tpu_torch.ops.kernels.int8_conv import int8_conv, plain_int8_conv
+
+    n, cin, spatial, cout, ks, stride, pad, dil, groups = shape
+    xq, wq, s_act, s_w = _int8_operands(cuda, n, cin, spatial, cout, ks, groups)
+    before = int8_conv.launches
+    acc = int8_conv(xq, wq, s_act, s_w, stride, pad, dil, groups, return_acc=True)
+    y = int8_conv(xq, wq, s_act, s_w, stride, pad, dil, groups, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert int8_conv.launches == before + 2
+    ref_acc = plain_int8_conv(xq, wq, s_act, s_w, stride, pad, dil, groups, return_acc=True)
+    ref = plain_int8_conv(xq, wq, s_act, s_w, stride, pad, dil, groups, out_dtype=out_dtype)
+    assert acc.dtype == torch.int32 and torch.equal(acc, ref_acc)
+    assert y.dtype == out_dtype and y.shape == ref.shape and torch.equal(y, ref)
+
+
+def _wide_int8(dev, dtype=None):
+    from deepcv_tpu_torch.config import load_yaml
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    hp = dict(load_yaml("conf/base/parameters.yml")["wide_classifier_model"])
+    hp["architecture"][-1]["fully_connected"]["out_features"] = 10
+    m = DeepcvModule((32, 32, 3), hp, device="cpu", dtype=dtype,
+                     generator=torch.Generator().manual_seed(3)).eval()
+    return m
+
+
+def _int8_op_inputs(model, x):
+    """The model's output on ``x`` and each int8 op's input to it, {op name:
+    (op, input)} in the order the ops ran."""
+    seen = {}
+    hooks = [op.register_forward_pre_hook(
+        lambda m, a, q=q: seen.__setitem__(q, (m, a[0].detach())))
+        for q, op in model.named_modules() if getattr(op, "quant", None) is not None]
+    with torch.no_grad():
+        out = model(x)
+    for h in hooks:
+        h.remove()
+    return out, seen
+
+
+def _tie_flips(ref_inputs, got_inputs):
+    """Differing activation codes of each op, each path's from its own input
+    to it. In the first op where any differ, every difference is one step at
+    a rounding tie of the CPU input (|x / s - k - 1/2| < 1e-3); ops after it
+    see inputs that the flip moved."""
+    from deepcv_tpu_torch.compression import activation_codes
+
+    flips = 0
+    for q, (op, xr) in ref_inputs.items():
+        cr, sr = activation_codes(xr, op.quant.act_scale)
+        cg = activation_codes(got_inputs[q][1], op.quant.act_scale)[0].cpu()
+        diff = cr != cg
+        if diff.any() and flips == 0:
+            assert (cr.int() - cg.int()).abs().max().item() == 1, q
+            ratio = xr.double()[diff] / float(sr)
+            assert (((ratio - ratio.trunc()).abs() - 0.5).abs() < 1e-3).all(), (q, ratio)
+        flips += int(diff.sum())
+    return flips
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_wide_classifier_on_card_matches_cpu(cuda, static):
+    """float32, TF32 off: the six convs on int8_conv (no K2), the dense on
+    torch._int_mm. Every int8 op on the CPU path's own input to it equals
+    the CPU op. The codes of each op, each path's from its own input, differ
+    only where an activation, a few ulps apart after the two paths' float
+    batch norms, sits on a rounding tie and takes the other code: the
+    first op where any differ differs by one step at a tie. With no flipped
+    code the forwards agree within rel L2 1e-3; past a flip within 2e-2,
+    the CPU tests' bound past a tie, with the top-1 class equal on at least
+    95 % of the rows."""
+    from deepcv_tpu_torch.compression import calibrate_int8_scales
+    from deepcv_tpu_torch.ops.kernels.int8_conv import int8_conv
+
+    cpu = _wide_int8("cpu")
+    x = torch.randn(64, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    scales = calibrate_int8_scales(cpu, [x]) if static else None
+    cpu8 = cpu.with_options(quantize="int8", quantize_scales=scales)
+    ref, ref_inputs = _int8_op_inputs(cpu8, x)
+    gpu8 = _wide_int8("cpu").to(cuda).with_options(quantize="int8", quantize_scales=scales)
+    k2 = fused_conv2d_bias_act.launches
+    before = int8_conv.launches
+    got, got_inputs = _int8_op_inputs(gpu8, x.to(cuda))
+    torch.cuda.synchronize()
+    assert int8_conv.launches - before == 6 and fused_conv2d_bias_act.launches == k2
+    assert len(ref_inputs) == 7 and list(got_inputs) == list(ref_inputs)
+    with torch.no_grad():
+        for q, (op, xin) in ref_inputs.items():
+            assert torch.equal(got_inputs[q][0](xin.to(cuda)).cpu(), op(xin)), q
+    flips = _tie_flips(ref_inputs, got_inputs)
+    rel = ((got.cpu() - ref).norm() / ref.norm()).item()
+    assert rel <= (1e-3 if flips == 0 else 2e-2), (rel, flips)
+    if flips:
+        assert (got.cpu().argmax(-1) == ref.argmax(-1)).float().mean() >= 0.95
+
+
+def test_int8_dense_on_card_equals_cpu(cuda):
+    from deepcv_tpu_torch.compression import _int_mm, int8_dense
+
+    g = torch.Generator().manual_seed(2)
+    for m, k, n in ((5, 24, 10), (300, 4096, 10), (64, 768, 2304)):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        assert torch.equal(_int_mm(a.to(cuda), b.to(cuda)).cpu(), _int_mm(a, b))
+    x = torch.randn(7, 33, generator=g)
+    w = torch.randn(12, 33, generator=g)
+    assert torch.equal(int8_dense(x.to(cuda), w.to(cuda)).cpu(), int8_dense(x, w))

@@ -149,3 +149,67 @@ def test_run_without_device_raises_with_no_card(no_card):
         main(["run", "--pipeline=train_vit", "--project-path", str(REPO)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ProjectContext(REPO)
+
+
+def test_compression_serving_and_sklearn_modules_leave_jax_out_of_sys_modules():
+    code = """
+import json, sys
+import numpy as np, torch
+from deepcv_tpu_torch import compression, sklearn_api  # noqa
+from deepcv_tpu_torch.ops.kernels import int8_conv  # noqa
+from deepcv_tpu_torch.serve import EnsemblePredictor, StackedEnsemble  # noqa
+from deepcv_tpu_torch.spec import DeepcvModule
+from deepcv_tpu_torch.spec.zoo import resnet_spec
+m = DeepcvModule((32, 32, 3), resnet_spec(18, width=8, num_classes=4, pool_kernel=1),
+                 device="cpu").eval()
+x = torch.zeros(2, 32, 32, 3)
+scales = compression.calibrate_int8_scales(m, [x])
+y = m.with_options(quantize="int8", quantize_scales=scales)(x)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "deepcv_tpu"))
+print(json.dumps({"shape": list(y.shape), "scales": len(scales), "bad": bad}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"shape": [2, 4], "scales": 21, "bad": []}
+
+
+@pytest.mark.parametrize("rel", sorted(str(p.relative_to(REPO))
+                                       for p in (PORT / "csrc").glob("*.cu")))
+def test_cuda_sources_are_plain_c_launchers_built_from_the_repo(rel):
+    """Every kernel source (``int8_conv.cu`` among them) is one ``nvcc``
+    unit with an ``extern "C"`` launcher, no PyTorch header, and a wrapper
+    module that builds it by name through ``ops/kernels/_build.py``."""
+    src = (REPO / rel).read_text()
+    includes = [ln for ln in src.splitlines() if ln.startswith("#include")]
+    assert 'extern "C"' in src and not any(
+        h in ln for ln in includes for h in ("torch/", "ATen/", "c10/")), includes
+    name = Path(rel).stem
+    wrappers = [p for p in (PORT / "ops" / "kernels").glob("*.py")
+                if f'_KERNEL = "{name}"' in p.read_text()]
+    assert len(wrappers) == 1, (name, wrappers)
+
+
+def test_predict_and_quantized_entry_points_raise_with_no_card(no_card, tmp_path):
+    from deepcv_tpu_torch.cli import main
+    from deepcv_tpu_torch.serve import load_model_bundle, save_model_bundle
+    from deepcv_tpu_torch.sklearn_api import DeepcvClassifier
+    from deepcv_tpu_torch.spec import DeepcvModule
+    from deepcv_tpu_torch.spec.zoo import resnet_spec
+
+    hp = resnet_spec(18, width=8, num_classes=4, pool_kernel=1)
+    save_model_bundle(tmp_path, DeepcvModule((32, 32, 3), hp, device="cpu"))
+    np.save(tmp_path / "x.npy", np.zeros((2, 32, 32, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["predict", "--bundle", str(tmp_path), "--input", str(tmp_path / "x.npy"),
+              "--output", str(tmp_path / "y.npy")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["serve", "--bundle", str(tmp_path), "--port", "0", "--quantize", "int8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model_bundle(tmp_path, quantize="int8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeepcvModule((32, 32, 3), hp, quantize="int8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeepcvClassifier().fit(np.zeros((4, 8, 8, 3), np.uint8), np.array([0, 1, 0, 1]))

@@ -142,10 +142,13 @@ def test_inference_server_answers_npy_json_health_and_stats(model):
 
 
 def test_cli_serve_refuses_quantize_and_non_bundles(model, tmp_path, capsys):
+    """``--quantize int8`` serves (tests/test_torch_port_serving.py); any
+    other mode is refused, as are directories that are not bundles."""
     save_model_bundle(tmp_path, model)
-    assert cli_main(["serve", "--bundle", str(tmp_path), "--quantize", "int8",
-                     "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        cli_main(["serve", "--bundle", str(tmp_path), "--quantize", "int4",
+                  "--device", "cpu"])
+    assert e.value.code == 2 and "invalid choice: 'int4'" in capsys.readouterr().err
     assert cli_main(["serve", "--bundle", str(tmp_path / "nope"), "--device", "cpu"]) == 2
     assert cli_main(["serve", "--bundle", str(tmp_path), "--normalize", "1,2",
                      "--device", "cpu"]) == 2
