@@ -7,7 +7,10 @@ Phases, each printing one JSON line:
 
 0. device — the card (``nvidia-smi`` name and power limit), torch and CUDA.
 1. build — the port's CUDA kernels (K1, K2, K3-K5 in one library, and
-   ``int8_conv``: 16 instantiations, none spilling)
+   ``int8_conv``: 8 tensor-core instantiations, channel block 128 or 64 x
+   16-byte or byte-by-byte A x f32 or bf16 out, each with its registers,
+   dynamic shared memory and ``IMMA`` count, none without IMMA; 16 dp4a
+   ones; none of the 24 spilling)
    compiled by ``nvcc`` from ``csrc/``, all at once, with the build times
    and ``ptxas``'s registers, shared memory and spills; for the K2 and flash
    libraries also their tensor-core kernels (K2 in bf16 and in f32 by
@@ -71,22 +74,28 @@ Phases, each printing one JSON line:
    on the same weights; K2 must have launched 46 times per forward, all on
    float32 inputs, so all on ``fused_conv2d_bias_act_f32tc_kernel``.
 4b. int8_kernel — ``int8_conv`` (``csrc/int8_conv.cu``, the port-only w8a8
-   conv) against its plain version at the shapes bench.py config 8 serves:
-   the wide classifier's six 3x3 convs at batch 4096, 32x32, and
-   ResNet-50's 23 distinct convs at batch 256, 224x224 (read from an int8
-   forward on the meta device), a depthwise and a ragged shape: int32 sums
-   bit-equal and the bf16 output equal to the plain version's, the
-   kernel's time (CUDA events, median), the plain version's, the bound
-   (int8 operations at 1,979 TOP/s or bytes at 3.35 TB/s) and the bf16
-   ``F.conv2d`` at the same shape (no PyTorch call computes an int8 conv
-   on CUDA); per-forward sums by count.
+   conv: ungrouped convs on the tensor cores, grouped ones on ``__dp4a``)
+   against its plain version at the shapes bench.py config 8 serves: the
+   wide classifier's six 3x3 convs at batch 4096, 32x32, and ResNet-50's
+   23 distinct convs at batch 256, 224x224 (read from an int8 forward on
+   the meta device), then a depthwise and a ragged shape and the
+   tensor-core route's edge shapes (``INT8_EXTRA_CONVS``): int32 sums and
+   the bf16 output bit-equal to the plain version's, the route each took
+   (counted by ``launches_by_route``) and its tile, the kernel's time
+   (CUDA events, median, bf16 out and ``return_acc``), the plain
+   version's, the bound (int8 operations at 1,979 TOP/s or bytes at 3.35
+   TB/s) and the bf16 ``F.conv*d`` at the same shape; at every 1x1,
+   stride-1, ungrouped shape ``torch._int_mm`` on the same codes (its
+   int32 sums equal to the kernel's; no PyTorch call computes any other
+   int8 conv on CUDA); per-forward sums by count.
 4c. int8_serve — bench.py config 8 (``bench_serving_int8``) for ``wide``
    (batch 4096) and ``resnet50`` (batch 256, 224x224): the bf16 model from
    the seed, static scales calibrated on its first 256 and 64 images, the
    int8 build; 5 alternating draws of bf16 and int8 (3 calls each, cut
    from bench.py's 40), the median ratio, img/s, the top-1 agreement on
    min(512, B) rows; ``int8_conv`` counted from 0 over those calls (6 and
-   53 a forward) and one counted forward with K2 at 0; one float32 int8
+   53 a forward, every one on the tensor cores) and one counted forward
+   with K2 at 0; one float32 int8
    forward on the card against the CPU path (``int8_cpu_check``: every
    int8 op on the CPU path's own input equal to the CPU op; in the first
    op whose activation codes differ between the paths, every difference
@@ -371,7 +380,9 @@ from deepcv_tpu_torch.ops.kernels.flash_attention import (
 from deepcv_tpu_torch.ops.kernels.fused_layer import (
     fused_conv2d_bias_act, plain_conv2d_bias_act)
 from deepcv_tpu_torch.ops.kernels import fused_layer
-from deepcv_tpu_torch.ops.kernels.int8_conv import int8_conv, plain_int8_conv
+from deepcv_tpu_torch.ops.kernels.int8_conv import (
+    ROUTES as INT8_ROUTES, TC_BN as INT8_TC_BN, conv_output_shape, int8_conv, launch_args,
+    pack_weight_for, plain_int8_conv, tc_smem_bytes)
 from deepcv_tpu_torch.ops.moe import MoEMlp
 from deepcv_tpu_torch.ops.nn import FusedConv2d
 from deepcv_tpu_torch.pipelines import detection as det_pipeline
@@ -833,10 +844,11 @@ def _tc_kernel_stats(log, kernels=TC_KERNELS):
     return stats
 
 
-def _hmma_counts(path, kind=""):
+def _hmma_counts(path, kind="", op="HMMA"):
     """HMMA (tensor-core) instructions per kernel in a library's SASS, for
     every kernel it holds (0 where there is none); with ``kind`` (as "TF32")
-    only the HMMA instructions whose line names it."""
+    only the HMMA instructions whose line names it; ``op`` "IMMA" counts the
+    integer ones instead."""
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
@@ -845,7 +857,7 @@ def _hmma_counts(path, kind=""):
         if "Function :" in ln:
             fn = ln.split("Function :", 1)[1].strip()
             counts[fn] += 0
-        elif "HMMA" in ln and kind in ln:
+        elif op in ln and kind in ln:
             counts[fn] += 1
     return counts
 
@@ -876,29 +888,57 @@ def _k1_kernel_stats(log):
     return stats
 
 
-#: int8_conv's instantiations: load width, output tile, output type
+#: int8_conv's instantiations. The tensor-core route (groups 1): channel
+#: block BN, A by 16-byte copies or byte by byte, output type; the dp4a
+#: route (grouped convs): load width, output tile, output type
+INT8_TC_KERNEL = "int8_conv_tc_kernel"
 INT8_KERNEL = "int8_conv_kernel"
 INT8_OUT_TYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+INT8_A_LOADS = {"1": "vec16", "0": "bytes"}
+INT8_TC_INSTANTIATIONS = len(INT8_TC_BN) * len(INT8_A_LOADS) * len(INT8_OUT_TYPES)
 INT8_INSTANTIATIONS = (3 * 3 - 1) * len(INT8_OUT_TYPES)     # no 16-byte loads at 1 channel
+INT8_PATTERNS = {
+    "tensor_core": re.compile(INT8_TC_KERNEL + r"ILi(\d+)ELb([01])E(f|13__nv_bfloat16)E"),
+    "dp4a": re.compile(INT8_KERNEL + r"ILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E")}
 
 
-def _int8_kernel_stats(log):
+def _int8_key(name):
+    """(route, instantiation key) of a mangled int8_conv kernel name, or
+    None: "bn128_vec16_float32" (tensor cores), "vec16_oct8_bfloat16" (dp4a)."""
+    for route, pat in INT8_PATTERNS.items():
+        m = pat.search(name)
+        if m and route == "tensor_core":
+            return route, f"bn{m.group(1)}_{INT8_A_LOADS[m.group(2)]}_{INT8_OUT_TYPES[m.group(3)]}"
+        if m:
+            return route, f"vec{m.group(1)}_oct{m.group(2)}_{INT8_OUT_TYPES[m.group(3)]}"
+    return None
+
+
+def _int8_kernel_stats(log, path):
     """Registers, shared memory and spills of each int8_conv instantiation,
-    from ptxas's -v log: {"vec16_oct8_bfloat16": {...}}."""
-    stats, key = {}, None
-    pat = re.compile(INT8_KERNEL + r"ILi(\d+)ELi(\d+)E(f|13__nv_bfloat16)E")
+    from ptxas's -v log, by route; the tensor-core ones also with their
+    dynamic shared memory (the launcher's) and the IMMA instructions in
+    their SASS: {"tensor_core": {"bn128_vec16_float32": {...}}, "dp4a":
+    {"vec16_oct8_bfloat16": {...}}}."""
+    stats, key = {route: {} for route in INT8_PATTERNS}, None
     for ln in log.splitlines():
         if "Compiling entry" in ln or "Function properties" in ln:
-            m = pat.search(ln)
-            key = f"vec{m.group(1)}_oct{m.group(2)}_{INT8_OUT_TYPES[m.group(3)]}" if m else None
+            key = _int8_key(ln)
         elif key is not None and "spill" in ln:
             st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
-            stats.setdefault(key, {}).update(spill_store_bytes=int(st), spill_load_bytes=int(ld))
+            stats[key[0]].setdefault(key[1], {}).update(spill_store_bytes=int(st),
+                                                         spill_load_bytes=int(ld))
         elif key is not None and "registers" in ln:
             smem = re.search(r"(\d+) bytes smem", ln)
-            stats.setdefault(key, {}).update(
+            stats[key[0]].setdefault(key[1], {}).update(
                 registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
                 static_smem_bytes=int(smem.group(1)) if smem else 0)
+    for fn, n in _hmma_counts(path, op="IMMA").items():
+        key = _int8_key(fn)
+        if key is not None and key[0] == "tensor_core":
+            st = stats["tensor_core"].setdefault(key[1], {})
+            st["imma"] = n
+            st["dynamic_smem_bytes"] = tc_smem_bytes(int(key[1][2:key[1].index("_")]))
     return stats
 
 
@@ -974,14 +1014,21 @@ def phase_build(libraries=KERNEL_LIBRARIES):
                                      f"HMMA ({dict(hmma)}); CUDA-core kernels that must not "
                                      f"be compiled: {cuda_core}; f32 backward spills {spills}")
         if name == "int8_conv":
-            # every (load width, output tile, output type) instantiation, none
-            # spilling (log is empty only when the library was built before)
-            row["kernel_stats"] = st = _int8_kernel_stats(log)
-            spills = {k: v for k, v in st.items()
+            # every instantiation of both routes, none spilling (log is empty
+            # only when the library was built before); IMMA in every
+            # tensor-core one
+            row["kernel_stats"] = st = _int8_kernel_stats(log, path)
+            spills = {(r, k): v for r, by in st.items() for k, v in by.items()
                       if v.get("spill_store_bytes") or v.get("spill_load_bytes")}
-            if (log and len(st) != INT8_INSTANTIATIONS) or spills:
-                raise AssertionError(f"int8_conv ptxas stats {st}: {len(st)} instantiations "
-                                     f"(expected {INT8_INSTANTIATIONS}), spills {spills}")
+            no_imma = [k for k, v in st["tensor_core"].items() if not v.get("imma")]
+            counts = {r: len(by) for r, by in st.items()}
+            want = {"tensor_core": INT8_TC_INSTANTIATIONS, "dp4a": INT8_INSTANTIATIONS}
+            row["imma"] = {k: v.get("imma", 0) for k, v in st["tensor_core"].items()}
+            if (log and counts != want) or len(st["tensor_core"]) != want["tensor_core"] \
+                    or spills or no_imma:
+                raise AssertionError(f"int8_conv ptxas stats {st}: instantiations {counts} "
+                                     f"(expected {want}), spills {spills}, tensor-core "
+                                     f"instantiations without IMMA {no_imma}")
         if name == "fused_conv2d_bias_act":
             tc = _tc_kernel_stats(log, {K2_TC_KERNEL: _k2_tc_smem,
                                         K2_F32_KERNEL: lambda bn: _k2_tc_smem(bn, 4)})
@@ -3650,10 +3697,27 @@ INT8_TIMER_ITERS = 3                                # cut from bench.py's 40
 INT8_AGREE = 512                                    # bench.py's agreement rows, min(512, B)
 INT8_CPU_CHECK = {"wide": 64, "resnet50": 8}        # rows of the f32 card-vs-CPU check
 INT8_TIE_TOL = 2e-2        # int8 forwards past a rounding tie (the CPU tests' bound)
-#: (N, H, W, Cin, Cout, k, stride, padding, groups) beyond the two models': a
-#: depthwise 3x3 (MobileNet's) and a ragged one (odd sizes, 5 -> 7 channels)
+#: beyond the two models' convs: a depthwise 3x3 (MobileNet's, the dp4a
+#: route) and a ragged one (odd sizes, 5 -> 7 channels); then edge shapes of
+#: the tensor-core route: pixels not a multiple of the 128-pixel tile, 72
+#: and 8 output channels, 3 input channels at 7x7 and at 3x3 (A byte by
+#: byte), dilation 2, a 1-d and a 3-d conv, and K = 3 x 3 x 512 = 4,608
+#: with every code at -127 (the largest int32 sum, 127^2 x 4,608)
 INT8_EXTRA_CONVS = {"depthwise": (256, 56, 56, 144, 144, 3, 1, 1, 144),
-                    "ragged": (7, 13, 29, 5, 7, 3, 2, 1, 1)}
+                    "ragged": (7, 13, 29, 5, 7, 3, 2, 1, 1),
+                    "pixels_ragged": (3, 13, 17, 64, 128, 3, 1, 1, 1),
+                    "cout_72": (4, 28, 28, 64, 72, 3, 1, 1, 1),
+                    "cout_8": (4, 28, 28, 64, 8, 3, 1, 1, 1),
+                    "cin_3_7x7": (8, 224, 224, 3, 64, 7, 2, 3, 1),
+                    "cin_3_3x3": (64, 32, 32, 3, 64, 3, 1, 1, 1),
+                    "dilation_2": dict(n=8, spatial=(28, 28), cin=64, cout=64, k=(3, 3),
+                                       stride=1, pad=2, dil=2),
+                    "conv1d": dict(n=16, spatial=(100,), cin=64, cout=96, k=(5,), stride=2,
+                                   pad=2),
+                    "conv3d": dict(n=4, spatial=(8, 14, 14), cin=32, cout=64, k=(3, 3, 3),
+                                   stride=1, pad=1),
+                    "k4608_all_min": dict(n=4, spatial=(7, 7), cin=512, cout=512, k=(3, 3),
+                                          stride=1, pad=1, fill=-127)}
 QAT_PARAMS = ("wide_classifier_model.quantize:int8_qat", "train_wide_classifier.epochs:1",
               "train_wide_classifier.validate_every_epochs:2",
               "cifar10_preprocessing.split_dataset.validset_ratio:0.6")
@@ -3663,15 +3727,39 @@ ENSEMBLE_TOL = 1e-5
 STACK_TOL = 1e-4           # stacker weights after 300 Adam steps, card vs CPU
 
 
-def int8_conv_bound(n, h, w, cin, cout, k, stride, pad, groups, out_bytes=2):
+def _int8_case(case):
+    """A conv of the int8 tables as a dict: n, spatial, cin, cout, k, stride,
+    pad, dil, groups and fill (None: random codes); a 9-tuple (N, H, W, Cin,
+    Cout, k, stride, padding, groups) is a square 2-d conv."""
+    if isinstance(case, dict):
+        return {"stride": 1, "pad": 0, "dil": 1, "groups": 1, "fill": None, **case}
+    n, h, w, cin, cout, k, stride, pad, groups = case
+    return {"n": n, "spatial": (h, w), "cin": cin, "cout": cout, "k": (k, k),
+            "stride": stride, "pad": pad, "dil": 1, "groups": groups, "fill": None}
+
+
+def _int8_out_spatial(c):
+    rank = len(c["spatial"])
+    return conv_output_shape(c["spatial"], c["k"], (c["stride"],) * rank, (c["pad"],) * rank,
+                             (c["dil"],) * rank)
+
+
+def _int8_ops(case):
+    c = _int8_case(case)
+    return 2.0 * c["n"] * math.prod(_int8_out_spatial(c)) * c["cout"] \
+        * (c["cin"] // c["groups"]) * math.prod(c["k"])
+
+
+def int8_conv_bound(case, out_bytes=2):
     """Least time of one int8 conv on an H100 SXM: int8 operations at the
     tensor cores' dense peak, or the bytes (int8 in, ``out_bytes`` out, the
     scales) at the memory rate. Returns (ms, bound_by)."""
-    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
-    ops = 2.0 * n * ho * wo * cout * (cin // groups) * k * k
-    nbytes = n * h * w * cin + cout * (cin // groups) * k * k + n * ho * wo * cout * out_bytes \
-        + 4 * (cout + 1)
-    t_ops, t_bytes = ops / INT8_TOP_S, nbytes / HBM_BYTES_PER_S
+    c = _int8_case(case)
+    pix_out = c["n"] * math.prod(_int8_out_spatial(c))
+    nbytes = c["n"] * math.prod(c["spatial"]) * c["cin"] \
+        + c["cout"] * (c["cin"] // c["groups"]) * math.prod(c["k"]) \
+        + pix_out * c["cout"] * out_bytes + 4 * (c["cout"] + 1)
+    t_ops, t_bytes = _int8_ops(c) / INT8_TOP_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -3708,66 +3796,108 @@ def int8_model_convs(name):
 
 def _int8_row(gen, case, count=1):
     """One int8_conv shape: the kernel against its plain version (int32 sums
-    bit-equal, the bf16 output's error), CUDA-event times of the kernel, of
-    the plain version and of the bf16 ``F.conv2d`` at the same shape, and
-    the bound."""
-    n, h, w, cin, cout, k, stride, pad, groups = case
-    xq = torch.randint(-127, 128, (n, cin, h, w), generator=gen, device=DEVICE,
-                       dtype=torch.int8).contiguous(memory_format=torch.channels_last)
-    wq = torch.randint(-127, 128, (cout, cin // groups, k, k), generator=gen, device=DEVICE,
+    and the bf16 output bit-equal), the route it took and its tile, CUDA-event
+    times of the kernel (bf16 out, and its ``return_acc`` launch), of the
+    plain version and of the bf16 ``F.conv*d`` at the same shape, and the
+    bound; at a 1x1, stride-1, ungrouped conv also ``torch._int_mm`` on the
+    same codes, (N H W, C) against (C, O), whose int32 sums must equal the
+    kernel's."""
+    c = _int8_case(case)
+    n, sp, cin, cout, k, groups = c["n"], c["spatial"], c["cin"], c["cout"], c["k"], c["groups"]
+    rank = len(sp)
+    xq = torch.randint(-127, 128, (n, cin, *sp), generator=gen, device=DEVICE, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, cin // groups, *k), generator=gen, device=DEVICE,
                        dtype=torch.int8)
+    if c["fill"] is not None:
+        xq.fill_(c["fill"])
+        wq.fill_(c["fill"])
+    if rank > 1:
+        xq = xq.contiguous(memory_format=torch.channels_last if rank == 2
+                           else torch.channels_last_3d)
     s_act = torch.rand((), generator=gen, device=DEVICE) * 0.05
     s_w = torch.rand((cout,), generator=gen, device=DEVICE) * 0.01
-    args = (xq, wq, s_act, s_w, stride, pad, 1, groups)
+    args = (xq, wq, s_act, s_w, c["stride"], c["pad"], c["dil"], groups)
+    route, _, _, ints = launch_args(xq.shape, wq.shape, (c["stride"],) * rank,
+                                    (c["pad"],) * rank, (c["dil"],) * rank, groups)
+    by_route = dict(int8_conv.launches_by_route)
     acc = int8_conv(*args, return_acc=True)
     ref_acc = plain_int8_conv(*args, return_acc=True)
     if not torch.equal(acc, ref_acc):
-        raise AssertionError(f"int8_conv {case}: int32 sums differ from the plain version in "
+        raise AssertionError(f"int8_conv {c}: int32 sums differ from the plain version in "
                              f"{int((acc != ref_acc).sum())} places")
+    acc_max = int(acc.abs().max())
+    one_by_one = k == (1,) * rank and c["stride"] == 1 and c["pad"] == 0 and groups == 1
+    int_mm = {}
+    if one_by_one:
+        a2 = xq.movedim(1, -1).reshape(-1, cin)
+        b2 = wq.reshape(cout, cin).contiguous().t()
+        if not torch.equal(torch._int_mm(a2, b2), acc.movedim(1, -1).reshape(-1, cout)):
+            raise AssertionError(f"int8_conv {c}: torch._int_mm's int32 sums differ")
+        int_mm = {"int_mm_ms": cuda_ms(lambda: torch._int_mm(a2, b2), iters=5, warmup=2)}
     del acc, ref_acc
     y = int8_conv(*args, out_dtype=torch.bfloat16)
     ref = plain_int8_conv(*args, out_dtype=torch.bfloat16)
     err = float((y.float() - ref.float()).abs().max())
-    if err != 0.0:
-        raise AssertionError(f"int8_conv {case}: bf16 output differs by {err}")
+    if err != 0.0 or not torch.equal(y, ref):
+        raise AssertionError(f"int8_conv {c}: bf16 output differs by {err}")
     del y, ref
+    want = {r: by_route[r] + 2 * (r == route) for r in by_route}
+    if int8_conv.launches_by_route != want:
+        raise AssertionError(f"int8_conv {c}: launches by route {int8_conv.launches_by_route}, "
+                             f"expected {want}")
     xb = xq.to(torch.bfloat16)
     wb = wq.to(torch.bfloat16)
-    ms = cuda_ms(lambda: int8_conv(*args, out_dtype=torch.bfloat16), iters=5, warmup=1)
+    conv = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}[rank]
+    # timed with the weight packed once, as a layer keeps it
+    packed = pack_weight_for(wq, groups)
+    ms = cuda_ms(lambda: int8_conv(*args, out_dtype=torch.bfloat16, w_packed=packed),
+                 iters=5, warmup=1)
+    acc_ms = cuda_ms(lambda: int8_conv(*args, return_acc=True, w_packed=packed),
+                     iters=5, warmup=1)
     plain_ms = cuda_ms(lambda: plain_int8_conv(*args, out_dtype=torch.bfloat16),
                        iters=1, warmup=0)
-    bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, None, stride, pad, 1, groups), iters=5, warmup=2)
-    bound_ms, bound_by = int8_conv_bound(*case)
-    del xq, wq, xb, wb
-    return {"shape_nhwc_cin_cout_k_stride_pad_groups": list(case), "count": count,
-            "acc_equal": True, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bf16_conv2d_ms": bf16_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "top_s": _int8_ops(case) / (ms * 1e-3) / 1e12}
-
-
-def _int8_ops(case):
-    n, h, w, cin, cout, k, stride, pad, groups = case
-    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
-    return 2.0 * n * ho * wo * cout * (cin // groups) * k * k
+    bf16_ms = cuda_ms(lambda: conv(xb, wb, None, c["stride"], c["pad"], c["dil"], groups),
+                      iters=5, warmup=2)
+    bound_ms, bound_by = int8_conv_bound(c)
+    del xq, wq, xb, wb, packed
+    row = {"case": {key: c[key] for key in ("n", "spatial", "cin", "cout", "k", "stride",
+                                            "pad", "dil", "groups")},
+           "count": count, "route": route, "acc_equal": True, "max_abs_err": err,
+           "ms": ms, "acc_ms": acc_ms, **int_mm, "plain_ms": plain_ms,
+           "bf16_conv_ms": bf16_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "top_s": _int8_ops(c) / (ms * 1e-3) / 1e12}
+    if route == "tensor_core":
+        row.update(kpad=ints[0], bn=ints[1])
+    if c["fill"] is not None:
+        row.update(fill=c["fill"], max_abs_acc=acc_max)
+    return row
 
 
 def phase_int8_kernel(card):
     """int8_conv against its plain version at the shapes config 8 serves:
     the wide classifier's six 3x3 convs at batch 4096 and ResNet-50's
     distinct convs at batch 256 (both read from a meta-device int8
-    forward), a depthwise and a ragged shape; per-forward sums by count."""
+    forward), then INT8_EXTRA_CONVS; per-forward sums by count, and at
+    ResNet-50's 1x1 stride-1 shapes ``torch._int_mm`` against the kernel's
+    ``return_acc`` launch."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
     out = {}
     for name in ("wide", "resnet50"):
         rows = [_int8_row(gen, case, count) for case, count in int8_model_convs(name).items()]
         tot = {key: sum(r["count"] * r[key] for r in rows)
-               for key in ("ms", "plain_ms", "bf16_conv2d_ms", "bound_ms")}
+               for key in ("ms", "acc_ms", "plain_ms", "bf16_conv_ms", "bound_ms")}
         by_ops = sum(r["count"] * r["bound_ms"] for r in rows if r["bound_by"] == "operations")
         tot["bound_by"] = "operations" if by_ops >= tot["bound_ms"] / 2 else "bytes"
         tot["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         tot["launches"] = sum(r["count"] for r in rows)
-        tot["top_s"] = sum(r["count"] * _int8_ops(r["shape_nhwc_cin_cout_k_stride_pad_groups"])
-                           for r in rows) / (tot["ms"] * 1e-3) / 1e12
+        tot["launches_by_route"] = {r: sum(row["count"] for row in rows if row["route"] == r)
+                                    for r in int8_conv.launches_by_route}
+        tot["top_s"] = sum(r["count"] * _int8_ops(r["case"]) for r in rows) \
+            / (tot["ms"] * 1e-3) / 1e12
+        mm = [r for r in rows if "int_mm_ms" in r]
+        tot["one_by_one"] = {"shapes": len(mm), "convs": sum(r["count"] for r in mm),
+                             **{key: sum(r["count"] * r[key] for r in mm)
+                                for key in ("int_mm_ms", "acc_ms", "ms", "bound_ms")}}
         out[name] = tot
         emit({"phase": "int8_kernel", "model": name, "batch": INT8_BATCH[name],
               "out_dtype": "bfloat16", "signatures": rows, "per_forward": tot, "card": card})
@@ -3853,6 +3983,11 @@ def int8_cpu_check(gpu_model, cpu_model, x):
             "top1_agreement": agree, "tol": tol}
 
 
+def _route_delta(before):
+    """int8_conv's launches by route since the counts were ``before``."""
+    return {r: int8_conv.launches_by_route[r] - before[r] for r in before}
+
+
 def _timer(fn, x):
     """bench.py's timer: one call, a host sync, then ``INT8_TIMER_ITERS``
     calls and a sync; seconds a call."""
@@ -3874,8 +4009,10 @@ def phase_int8_serve(card, data):
     agreement on min(512, B) rows; int8_conv counted from 0 over those calls
     (6 and 53 a forward) and one counted forward with K2 at 0; one float32
     int8 forward on the card against the CPU path. Then a short QAT
-    fine-tune of the wide classifier, calibrated and served int8."""
-    launches = {}
+    fine-tune of the wide classifier, calibrated and served int8. Returns
+    the launches counted on each path and their sum by route, every one on
+    the tensor cores."""
+    launches, by_route = {}, dict.fromkeys(INT8_ROUTES, 0)
     for name in ("wide", "resnet50"):
         shape, batch = INT8_SHAPE[name], INT8_BATCH[name]
         hp = _int8_serve_hp(name)
@@ -3888,11 +4025,14 @@ def phase_int8_serve(card, data):
         calib_s = time.perf_counter() - t0
         ms = mf.with_options(quantize="int8", quantize_scales=scales)
         int8_conv.launches, fused_conv2d_bias_act.launches = 0, 0
+        before = dict(int8_conv.launches_by_route)
         with torch.inference_mode():
             ms(x)
         torch.cuda.synchronize()
-        one = {"int8_conv": int8_conv.launches, "K2": fused_conv2d_bias_act.launches}
-        if one != {"int8_conv": INT8_PER_FORWARD[name], "K2": 0}:
+        one = {"int8_conv": int8_conv.launches, "K2": fused_conv2d_bias_act.launches,
+               "int8_conv_by_route": _route_delta(before)}
+        if one != {"int8_conv": INT8_PER_FORWARD[name], "K2": 0,
+                   "int8_conv_by_route": {"tensor_core": INT8_PER_FORWARD[name], "dp4a": 0}}:
             raise AssertionError(f"int8 {name} forward launched {one}")
         int8_conv.launches = 0
         ratios, t_bf, t_i8 = [], [], []
@@ -3911,6 +4051,11 @@ def phase_int8_serve(card, data):
             raise AssertionError(f"int8 {name}: {int8_conv.launches} launches for "
                                  f"{int8_forwards} forwards, finite {bool(torch.isfinite(ys.float()).all())}")
         launches[name] = int8_conv.launches + one["int8_conv"]
+        routes = _route_delta(before)
+        if routes != {"tensor_core": launches[name], "dp4a": 0}:
+            raise AssertionError(f"int8 {name}: {launches[name]} launches, by route {routes}")
+        for r in by_route:
+            by_route[r] += routes[r]
         # float32 on the card against the CPU path, the same weights and scales
         n_cpu = INT8_CPU_CHECK[name]
         g32 = ms.with_options(dtype=None)
@@ -3936,7 +4081,8 @@ def phase_int8_serve(card, data):
         del mf, ms, g32, c32, x, yf, ys
         torch.cuda.empty_cache()
     launches["qat"] = _qat_fine_tune(card, data)
-    return launches
+    by_route["tensor_core"] += launches["qat"]
+    return launches, by_route
 
 
 def _qat_fine_tune(card, data):
@@ -3959,13 +4105,17 @@ def _qat_fine_tune(card, data):
     served = model.with_options(quantize="int8", quantize_scales=scales)
     with torch.inference_mode():
         int8_conv.launches = 0
+        tc_before = int8_conv.launches_by_route["tensor_core"]
         y8 = served(xs)
         launches = int8_conv.launches
+        tc_launches = int8_conv.launches_by_route["tensor_core"] - tc_before
         yq = model(xs)
     labels = torch.as_tensor(np.asarray(valid.dataset.targets[:1024]), device=DEVICE)
     agree = float((y8.argmax(-1) == yq.argmax(-1)).float().mean())
-    if launches != INT8_PER_FORWARD["wide"] or not torch.isfinite(y8.float()).all():
-        raise AssertionError(f"QAT int8 serve: {launches} launches")
+    if launches != INT8_PER_FORWARD["wide"] or tc_launches != launches \
+            or not torch.isfinite(y8.float()).all():
+        raise AssertionError(f"QAT int8 serve: {launches} launches, {tc_launches} on the "
+                             "tensor cores")
     emit({"phase": "int8_serve", "model": "wide_qat",
           "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
           "cut": {"epochs": "10 -> 1", "train_images": "50,000 -> 20,000 (validset_ratio 0.6)",
@@ -4022,6 +4172,7 @@ def phase_serve_extras(card, serve_models):
                                                      str(SERVE_BATCH)])):
             out = Path(d) / f"{mode}.npy"
             int8_conv.launches, fused_conv2d_bias_act.launches = 0, 0
+            before = dict(int8_conv.launches_by_route)
             t0 = time.perf_counter()
             rc = cli.main(["predict", "--bundle", d, "--input", str(Path(d) / "x.npy"),
                            "--output", str(out), "--batch-size", str(SERVE_BATCH),
@@ -4031,11 +4182,15 @@ def phase_serve_extras(card, serve_models):
             rel = float(np.linalg.norm(got - refs[mode]) / np.linalg.norm(refs[mode]))
             want = INT8_PER_FORWARD["resnet50"] if mode == "int8" else 0
             k2 = fused_conv2d_bias_act.launches
+            routes = _route_delta(before)
             if rc != 0 or not rel <= 1e-5 or int8_conv.launches != want \
+                    or routes != {"tensor_core": want, "dp4a": 0} \
                     or k2 != LAUNCHES_PER_FORWARD:
                 raise AssertionError(f"predict {mode}: rc {rc}, rel {rel:.3e}, "
-                                     f"{int8_conv.launches} int8_conv and {k2} K2 launches")
+                                     f"{int8_conv.launches} int8_conv ({routes}) and {k2} "
+                                     "K2 launches")
             rows[mode] = {"rel_l2_vs_predictor": rel, "int8_conv_launches": int8_conv.launches,
+                          "int8_conv_by_route": routes,
                           "K2_launches": k2, "wall_s": wall,
                           "top1_agreement_vs_float": float(
                               (got.argmax(-1) == refs["float"].argmax(-1)).mean())}
@@ -4091,27 +4246,49 @@ def phase_serve_extras(card, serve_models):
           "K2_launches": ens_k2, "card": card})
     del model, members, cpu_members, stacked, cpu_stacked
     torch.cuda.empty_cache()
-    return {"int8_conv": predict_launches, "K2_predict": predict_k2, "K2_mc_dropout": k2,
+    return {"int8_conv": predict_launches,
+            "int8_conv_by_route": rows["int8"]["int8_conv_by_route"],
+            "K2_predict": predict_k2, "K2_mc_dropout": k2,
             "K2_ensemble": ens_k2}
 
 
-def int8_kernel_line(rows, launches_by_path, card):
+def int8_kernel_line(rows, launches_by_path, launches_by_route, card):
+    """``int8_conv``'s entry: launches on the main path (config 8's serving,
+    the QAT serve, ``predict --quantize int8``) in all and by route, every
+    one on the tensor cores; times per wide and per ResNet-50 forward; no
+    PyTorch call computes an int8 conv on CUDA, but at a 1x1, stride-1,
+    ungrouped one ``torch._int_mm`` computes the same int32 sums, timed
+    against the kernel's ``return_acc`` launch at ResNet-50's 33 (the wide
+    classifier has none)."""
     wide, res = rows["wide"], rows["resnet50"]
+    launches = sum(launches_by_path.values())
+    if launches_by_route != {"tensor_core": launches, "dp4a": 0}:
+        raise AssertionError(f"int8_conv main path: {launches} launches, by route "
+                             f"{launches_by_route}")
     return {"name": "int8_conv", "route": "cuda", "source": "deepcv_tpu_torch/csrc/int8_conv.cu",
             "replaces": "deepcv_tpu/compression.py:184 (port-only: XLA's int8 conv in the JAX "
                         "package, no TPU kernel)",
-            "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+            "launches": launches, "launches_by_path": launches_by_path,
+            "launches_by_route": launches_by_route,
             "max_abs_err": max(wide["max_abs_err"], res["max_abs_err"]),
             "ms": wide["ms"], "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
             "bound_by": wide["bound_by"], "library_ms": None,
-            "bf16_conv2d_ms": wide["bf16_conv2d_ms"], "top_s": wide["top_s"],
+            "bf16_conv2d_ms": wide["bf16_conv_ms"], "top_s": wide["top_s"],
             "per": "one wide classifier int8 forward's 6 convs at batch 4096, 32x32, bf16 "
-                   "out (int8_kernel); library_ms null: no PyTorch call computes an int8 "
-                   "conv on CUDA, bf16_conv2d_ms is the bf16 F.conv2d at the same shapes",
-            "resnet50": {k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "bf16_conv2d_ms", "top_s", "launches")},
+                   "out (int8_kernel), all on int8_conv_tc_kernel; library_ms null: no "
+                   "PyTorch call computes an int8 conv on CUDA and the wide classifier has "
+                   "no 1x1; bf16_conv2d_ms is the bf16 F.conv2d at the same shapes",
+            "resnet50": {**{k: res[k] for k in ("ms", "acc_ms", "plain_ms", "bound_ms",
+                                                "bound_by", "top_s", "launches",
+                                                "launches_by_route")},
+                         "bf16_conv2d_ms": res["bf16_conv_ms"],
+                         "library_ms_1x1": res["one_by_one"]["int_mm_ms"],
+                         "acc_ms_1x1": res["one_by_one"]["acc_ms"],
+                         "one_by_one": res["one_by_one"]},
             "resnet50_per": "one resnet_spec(50) int8 forward's 53 convs at batch 256, "
-                            "224x224, bf16 out",
+                            "224x224, bf16 out; library_ms_1x1: torch._int_mm at its 33 1x1 "
+                            "stride-1 convs (12 shapes) against acc_ms_1x1, the kernel's "
+                            "return_acc launches at the same shapes (both int32 out)",
             "card": card}
 
 
@@ -4308,8 +4485,9 @@ def main() -> int:
     flash_rows = walls("flash_kernels", phase_flash_kernels, card)
     k2_line, serve_models = walls("serve", phase_serve, card)
     int8_rows = walls("int8_kernel", phase_int8_kernel, card)
-    int8_launches = walls("int8_serve", phase_int8_serve, card, data)
+    int8_launches, int8_by_route = walls("int8_serve", phase_int8_serve, card, data)
     extras = walls("serve_extras", phase_serve_extras, card, serve_models)
+    int8_by_route = {r: n + extras["int8_conv_by_route"][r] for r, n in int8_by_route.items()}
     del serve_models
     serve_launches = walls("vit_serve", phase_vit_serve, card)
     train_launches, vit_step_ms, vit_median_ms = walls("vit_train", phase_vit_train, card)
@@ -4373,7 +4551,7 @@ def main() -> int:
                                           f32_train_launches, vmoe_launches, card),
                       int8_kernel_line(int8_rows, {
                           **{f"int8_serve:{k}": n for k, n in int8_launches.items()},
-                          "serve_extras:predict": extras["int8_conv"]}, card)]})
+                          "serve_extras:predict": extras["int8_conv"]}, int8_by_route, card)]})
     faulthandler.cancel_dump_traceback_later()
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

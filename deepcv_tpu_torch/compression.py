@@ -262,7 +262,7 @@ def int8_conv_nd(x: torch.Tensor, weight: torch.Tensor, stride=1, padding=0, dil
     or static at ``act_scale``), per-output-channel weight codes, int32
     sums, the float rescale; the output takes x's dtype. ``w_quant``
     (:func:`quantize_weight` of ``weight``) and ``w_packed`` (its codes
-    through ``pack_weight``) reuse a layer's cached codes."""
+    through ``pack_weight_for``) reuse a layer's cached codes."""
     xq, sa = activation_codes(x, act_scale)
     wq, sw = quantize_weight(weight) if w_quant is None else w_quant
     return _k.int8_conv(xq, wq, sa, sw, stride, padding, dilation, groups,

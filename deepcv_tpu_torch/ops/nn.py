@@ -22,6 +22,7 @@ pads channels for the TPU (``pad_channels_for_tpu`` is not carried over).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Union
 
@@ -525,11 +526,11 @@ class _WeightOp(nn.Module):
         return weight_norm(self.weight, self.scale, self.weight_norm_eps)
 
 
-def _conv_codes(w: torch.Tensor):
-    """A conv weight's int8 codes, scales and the kernel's packing of the
-    codes (on a card)."""
+def _conv_codes(w: torch.Tensor, groups: int):
+    """A conv weight's int8 codes, scales and, on a card, the packing of the
+    codes that the conv's kernel reads (``int8_kernel.route``)."""
     wq, sw = compression.quantize_weight(w)
-    return wq, sw, int8_kernel.pack_weight(wq) if w.device.type == "cuda" else None
+    return wq, sw, int8_kernel.pack_weight_for(wq, groups) if w.device.type == "cuda" else None
 
 
 class Conv2d(_WeightOp):
@@ -559,7 +560,8 @@ class Conv2d(_WeightOp):
         q = self.quant
         with no_autocast(x.device):
             if q.real_int8:
-                wq, sw, packed = self._per_version(w, _conv_codes)
+                wq, sw, packed = self._per_version(
+                    w, functools.partial(_conv_codes, groups=self.groups))
                 y = compression.int8_conv_nd(x, w, self.stride, self.padding, self.dilation,
                                              self.groups, q.act_scale, w_quant=(wq, sw),
                                              w_packed=packed)

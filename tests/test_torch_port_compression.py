@@ -62,7 +62,11 @@ def _numpy(tree):
 # The int8 conv and dense ops against JAX's
 # --------------------------------------------------------------------------- #
 
-#: (spatial, channels, out, kernel, stride, padding, dilation, groups)
+#: (spatial, channels, out, kernel, stride, padding, dilation, groups[,
+#: label]); the labelled ones are edge shapes of the tensor-core route
+#: (groups 1): a 3-channel 3x3 (byte-by-byte A), 72 channels out on 3 x 9 x
+#: 13 pixels (neither a multiple of its tile), a 1x1 at 64 -> 128 (16-byte
+#: A, one stage of K), dilation 2 at 16 channels (four taps a stage), 3-d
 CONV_CASES = [
     ((9, 11), 8, 16, (3, 3), 1, 1, 1, 1),
     ((9, 11), 8, 16, (3, 3), 2, 1, 1, 1),
@@ -73,13 +77,22 @@ CONV_CASES = [
     ((8, 8), 16, 32, (1, 1), 2, 0, 1, 1),           # a downsample 1x1
     ((13,), 6, 10, (5,), 2, 2, 1, 1),               # 1-d
     ((4, 6, 5), 4, 6, (3, 3, 3), (1, 2, 2), 1, 1, 2),  # 3-d, grouped
+    ((9, 11), 3, 16, (3, 3), 1, 1, 1, 1, "c3"),
+    ((9, 13), 16, 72, (3, 3), 1, 1, 1, 1, "o72"),
+    ((8, 8), 64, 128, (1, 1), 1, 0, 1, 1, "1x1"),
+    ((10, 9), 16, 24, (3, 3), 1, 2, 2, 1, "c16"),
+    ((4, 6, 5), 16, 8, (3, 3, 3), 1, 1, 1, 1, "tc"),
 ]
+
+
+def _case_id(c):
+    return f"{len(c[0])}d-s{c[4]}-d{c[6]}-g{c[7]}" + (f"-{c[8]}" if len(c) > 8 else "")
 _DN = {1: ("NWC", "WIO", "NWC"), 2: ("NHWC", "HWIO", "NHWC"), 3: ("NDHWC", "DHWIO", "NDHWC")}
 
 
 def _conv_operands(case, dtype, seed=0):
     spatial, cin, cout, ks, *_ = case
-    groups = case[-1]
+    groups = case[7]
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(3, *spatial, cin)).astype(np.float32)
     w = (rng.normal(size=(*ks, cin // groups, cout)) * 0.2).astype(np.float32)
@@ -103,9 +116,9 @@ def _port_layout(x, w):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CONV_CASES, ids=lambda c: f"{len(c[0])}d-s{c[4]}-d{c[6]}-g{c[7]}")
+@pytest.mark.parametrize("case", CONV_CASES, ids=_case_id)
 def test_plain_int8_conv_matches_jax(case, dtype):
-    spatial, cin, cout, ks, stride, pad, dil, groups = case
+    spatial, cin, cout, ks, stride, pad, dil, groups = case[:8]
     rank = len(spatial)
     stride = (stride,) * rank if isinstance(stride, int) else stride
     x, w = _conv_operands(case, dtype)
@@ -205,6 +218,188 @@ def test_int8_conv_wrapper_checks_its_operands():
     assert k8.launch_plan(1, 1) == (1, 1) and k8.launch_plan(12, 12) == (4, 4)
     assert k8.launch_plan(32, 3) == (4, 1)        # no 16-byte loads at one channel
     assert k8.pack_weight(wq).shape == (8, 3, 3, 4)
+
+
+# --------------------------------------------------------------------------- #
+# The tensor-core route's packing, tiling and index arithmetic
+# --------------------------------------------------------------------------- #
+
+def _kpos(k, c, kh, kw):
+    """csrc KPos.decode: K position -> (channel, kx, ky, kz)."""
+    tap, cc = divmod(k, c)
+    return cc, tap % kw, (tap // kw) % kh, tap // (kw * kh)
+
+
+def _kpos_advance(pos, c, kh, kw):
+    """csrc KPos.advance: 64 channels on, across taps."""
+    cc, kx, ky, kz = pos
+    cc += k8.TC_BK
+    while cc >= c:
+        cc -= c
+        kx += 1
+        if kx == kw:
+            kx, ky = 0, ky + 1
+            if ky == kh:
+                ky, kz = 0, kz + 1
+    return cc, kx, ky, kz
+
+
+def _emulate_tc_acc(xq, wq, stride, padding, dilation):
+    """The tensor-core kernel's int32 sums by its own index arithmetic (csrc
+    RowPos, KPos, the loader's 16-byte chunks with zero fill, the K tail):
+    A (pixels, kpad) gathered from the channels-last codes, times
+    pack_weight_tc's rows. A channel count that is a multiple of 16 walks
+    each chunk's K position by KPos.advance, as the 16-byte loader does,
+    and it must equal the decode of the position."""
+    route, osp, dims, (kpad, bn) = k8.launch_args(xq.shape, wq.shape, stride, padding,
+                                                  dilation, 1)
+    assert route == "tensor_core" and kpad % k8.TC_BK == 0
+    n, d, h, w, c, o, od, oh, ow, kd, kh, kw, sd, sh, sw, pd, ph, pw, dd, dh, dw, _ = dims
+    x = xq.movedim(1, -1).reshape(-1).numpy().astype(np.int64)
+    m = np.arange(n * od * oh * ow)
+    ox, r = m % ow, m // ow
+    oy, r = r % oh, r // oh
+    oz, nb = r % od, r // od
+    iz0, iy0, ix0 = oz * sd - pd, oy * sh - ph, ox * sw - pw
+    base = (((nb * d + iz0) * h + iy0) * w + ix0) * c
+    kdim = c * kd * kh * kw
+    a = np.zeros((len(m), kpad), np.int64)
+    for chunk in range(4):                         # the loader's 16-byte column
+        pos = _kpos(16 * chunk, c, kh, kw)
+        for k0 in range(16 * chunk, kpad, k8.TC_BK):
+            for b in range(16):
+                k = k0 + b
+                if k >= kdim:
+                    continue
+                cc, kx, ky, kz = _kpos(k, c, kh, kw)
+                if c % 16 == 0 and b == 0:
+                    assert pos == (cc, kx, ky, kz), (k, pos)
+                dz, dy, dx = kz * dd, ky * dh, kx * dw
+                inside = ((0 <= iz0 + dz) & (iz0 + dz < d) & (0 <= iy0 + dy) & (iy0 + dy < h)
+                          & (0 <= ix0 + dx) & (ix0 + dx < w))
+                off = base + ((dz * h + dy) * w + dx) * c + cc
+                a[inside, k] = x[off[inside]]
+            if c % 16 == 0:
+                pos = _kpos_advance(pos, c, kh, kw)
+    wt = k8.pack_weight_tc(wq).numpy().astype(np.int64)
+    acc = a @ wt.T
+    return torch.from_numpy(acc.reshape(n, *osp, o)).movedim(-1, 1).to(torch.int32)
+
+
+@pytest.mark.parametrize("case", [c for c in CONV_CASES if c[7] == 1], ids=_case_id)
+def test_tc_route_arithmetic_equals_plain(case):
+    """The kernel's gather, K order and packing give the plain version's
+    int32 sums, codes at both ends of the range."""
+    spatial, cin, cout, ks, stride, pad, dil, _ = case[:8]
+    rank = len(spatial)
+    stride = (stride,) * rank if isinstance(stride, int) else stride
+    rng = np.random.default_rng(5)
+    xq = torch.from_numpy(rng.integers(-127, 128, (2, cin, *spatial)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (cout, cin, *ks)).astype(np.int8))
+    xq.view(-1)[:7] = -127
+    s = torch.ones(()), torch.ones(cout)
+    args = (stride, (pad,) * rank, (dil,) * rank)
+    ref = k8.plain_int8_conv(xq, wq, *s, stride, pad, dil, 1, return_acc=True)
+    assert torch.equal(_emulate_tc_acc(xq, wq, *args), ref)
+
+
+def test_tc_packing():
+    """pack_weight_tc: (O, kpad), K in pack_weight's order, zeros in the K
+    tail; equal to pack_weight's rows where taps x C is a multiple of the
+    stage depth; pack_weight_for follows the route."""
+    rng = np.random.default_rng(6)
+    for shape in ((8, 3, 7, 7), (72, 16, 3, 3), (16, 64, 1, 1), (8, 16, 3, 3, 3), (10, 6, 5),
+                  (4, 512, 3, 3)):
+        wq = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+        o, kdim = shape[0], int(np.prod(shape[1:]))
+        packed = k8.pack_weight_tc(wq)
+        kpad = -(-kdim // k8.TC_BK) * k8.TC_BK
+        assert packed.shape == (o, kpad) and packed.dtype == torch.int8
+        assert packed.is_contiguous() and kpad - kdim < k8.TC_BK
+        assert torch.equal(packed[:, :kdim], k8.pack_weight(wq).reshape(o, kdim))
+        assert not packed[:, kdim:].any()
+        if kdim % k8.TC_BK == 0:
+            assert torch.equal(packed, k8.pack_weight(wq).reshape(o, kdim))
+        assert torch.equal(k8.pack_weight_for(wq, 1), packed)
+    dw = torch.zeros((16, 1, 3, 3), dtype=torch.int8)
+    assert torch.equal(k8.pack_weight_for(dw, 16), k8.pack_weight(dw))
+    assert k8.pack_weight_for(dw, 16).shape == (16, 3, 3, 1)
+
+
+def test_tc_plan_fits_the_channel_block():
+    """BN pads O the least, 128 on a tie: the 64-channel layers take 64; K
+    pads to whole 64-byte stages; the shared memory is the ring or the
+    staged int32 tile, whichever is larger."""
+    assert k8.tc_plan(64, 27) == (64, 64) and k8.tc_plan(64, 147) == (64, 192)
+    assert k8.tc_plan(128, 576) == (128, 576) and k8.tc_plan(512, 4608) == (128, 4608)
+    assert k8.tc_plan(72, 144).bn == 128                      # 128 padded either way
+    assert k8.tc_plan(8, 64).bn == 64 and k8.tc_plan(192, 64).bn == 64
+    assert k8.tc_plan(256, 64).bn == 128 and k8.tc_plan(2048, 64).bn == 128
+    assert {bn: k8.tc_smem_bytes(bn) for bn in k8.TC_BN} == {128: 69632, 64: 49152}
+
+
+def _config8_convs(name):
+    """(input shape, weight shape, stride, padding, dilation, groups) of each
+    int8 conv of one config 8 forward, from the meta device, as
+    chip_smoke.int8_model_convs reads them."""
+    if name == "wide":
+        hp = copy.deepcopy(dict(load_yaml(os.path.join(REPO, "conf/base/parameters.yml"))
+                                ["wide_classifier_model"]))
+        hp["architecture"][-1]["fully_connected"]["out_features"] = 10
+        shape, batch = (32, 32, 3), 4096
+    else:
+        hp, shape, batch = resnet_spec(50, num_classes=1000, pool_kernel=7), (224, 224, 3), 256
+    model = DeepcvModule(shape, hp, device="meta", quantize="int8")
+    convs = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, a: convs.append((tuple(a[0].shape), tuple(mod.weight.shape), mod.stride,
+                                     mod.padding, mod.dilation, mod.groups)))
+        for m in model.modules() if isinstance(m, dnn.Conv2d) and m.quant is not None]
+    with torch.no_grad():
+        model(torch.empty((batch, *shape), device="meta"))
+    for hk in hooks:
+        hk.remove()
+    return convs
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+@pytest.mark.parametrize("name,count,bn64", [("wide", 6, 2), ("resnet50", 53, 7)])
+def test_config8_convs_take_the_tensor_cores(name, count, bn64):
+    """Every conv of config 8's two int8 forwards is ungrouped and takes the
+    tensor-core route, BN 64 exactly where O is 64 (the wide's first two,
+    ResNet-50's stem and its six 64-channel convs), kpad the taps x C
+    rounded up to 64 (the stems' 27 and 147 -> 64 and 192)."""
+    convs = _config8_convs(name)
+    assert len(convs) == count
+    bns = []
+    for xs, ws, stride, pad, dil, groups in convs:
+        r, osp, dims, (kpad, bn) = k8.launch_args(xs, ws, _pair(stride), _pair(pad),
+                                                  _pair(dil), groups)
+        kdim = int(np.prod(ws[1:]))
+        assert r == "tensor_core" and groups == 1
+        assert kpad == -(-kdim // 64) * 64 and bn == (64 if ws[0] == 64 else 128)
+        assert dims[21] == 1 and dims[1] == dims[9] == 1         # 2-d: D = KD = 1
+        bns.append(bn)
+    assert bns.count(64) == bn64
+    stem = k8.launch_args(*convs[0][:2], _pair(convs[0][2]), _pair(convs[0][3]),
+                          _pair(convs[0][4]), 1)[3]
+    assert stem == ((64, 64) if name == "wide" else (192, 64))
+
+
+def test_grouped_convs_take_dp4a():
+    """A grouped or depthwise conv keeps the __dp4a kernel and its plan."""
+    for xs, ws, groups, plan in (((2, 144, 56, 56), (144, 1, 3, 3), 144, (1, 1)),
+                                 ((2, 32, 8, 9), (32, 16, 3, 3), 2, (16, 8)),
+                                 ((2, 8, 4, 6, 5), (12, 4, 3, 3, 3), 2, (4, 1))):
+        rank = len(xs) - 2
+        r, _, dims, ints = k8.launch_args(xs, ws, (1,) * rank, (1,) * rank, (1,) * rank, groups)
+        assert (r, ints, dims[21]) == ("dp4a", plan, groups)
+    assert k8.route(1) == "tensor_core" and k8.route(2) == "dp4a"
+    assert k8.ROUTES == ("tensor_core", "dp4a")
+    assert k8.int8_conv.launches_by_route == {"tensor_core": 0, "dp4a": 0}
 
 
 # --------------------------------------------------------------------------- #

@@ -1233,7 +1233,15 @@ INT8_SHAPES = [(2, 64, (9, 11), 64, (3, 3), 1, 1, 1, 1), (2, 64, (9, 11), 128, (
                (2, 32, (8, 9), 32, (3, 3), 1, 1, 1, 2), (2, 24, (8, 9), 24, (3, 3), 2, 1, 1, 24),
                (2, 256, (7, 7), 512, (1, 1), 2, 0, 1, 1), (2, 5, (6, 6), 7, (3, 3), 1, 1, 1, 1),
                (3, 6, (13,), 10, (5,), 2, 2, 1, 1), (2, 8, (4, 6, 5), 12, (3, 3, 3), 1, 1, 1, 2),
-               (2, 32, (5, 7), 3, (3, 3), 1, 1, 1, 1)]
+               (2, 32, (5, 7), 3, (3, 3), 1, 1, 1, 1),
+               # the tensor-core route's edges: pixels not a multiple of the
+               # 128-pixel tile, 72 and 8 channels out, 3 in at 7x7 and 3x3,
+               # dilation 2, 1-d and 3-d, a 1x1 over several K stages
+               (3, 64, (13, 17), 128, (3, 3), 1, 1, 1, 1), (2, 64, (9, 13), 72, (3, 3), 1, 1, 1, 1),
+               (2, 64, (9, 11), 8, (3, 3), 1, 1, 1, 1), (3, 3, (29, 31), 64, (7, 7), 2, 3, 1, 1),
+               (4, 3, (32, 32), 64, (3, 3), 1, 1, 1, 1), (2, 64, (10, 9), 64, (3, 3), 1, 2, 2, 1),
+               (3, 16, (37,), 40, (5,), 2, 2, 1, 1), (2, 16, (4, 6, 5), 8, (3, 3, 3), 1, 1, 1, 1),
+               (2, 1024, (7, 7), 256, (1, 1), 1, 0, 1, 1)]
 
 
 def _int8_operands(dev, n, cin, spatial, cout, ks, groups, seed=0):
@@ -1269,6 +1277,113 @@ def test_int8_conv_kernel_equals_plain(cuda, shape, out_dtype):
     ref = plain_int8_conv(xq, wq, s_act, s_w, stride, pad, dil, groups, out_dtype=out_dtype)
     assert acc.dtype == torch.int32 and torch.equal(acc, ref_acc)
     assert y.dtype == out_dtype and y.shape == ref.shape and torch.equal(y, ref)
+
+
+def test_int8_conv_largest_sums(cuda):
+    """K = 3 x 3 x 512 = 4,608 with every code at -127: the interior sums are
+    127^2 x 4,608 = 74,322,432, the largest config 8 reaches, bit-equal."""
+    from deepcv_tpu_torch.ops.kernels.int8_conv import int8_conv, plain_int8_conv
+
+    xq = torch.full((2, 512, 7, 7), -127, dtype=torch.int8, device=cuda)
+    xq = xq.contiguous(memory_format=torch.channels_last)
+    wq = torch.full((512, 512, 3, 3), -127, dtype=torch.int8, device=cuda)
+    s_act, s_w = torch.full((), 0.01, device=cuda), torch.full((512,), 0.02, device=cuda)
+    acc = int8_conv(xq, wq, s_act, s_w, 1, 1, return_acc=True)
+    assert int(acc.max()) == 127 ** 2 * 4608
+    assert torch.equal(acc, plain_int8_conv(xq, wq, s_act, s_w, 1, 1, return_acc=True))
+    for dtype in (torch.float32, torch.bfloat16):
+        assert torch.equal(int8_conv(xq, wq, s_act, s_w, 1, 1, out_dtype=dtype),
+                           plain_int8_conv(xq, wq, s_act, s_w, 1, 1, out_dtype=dtype))
+
+
+def test_int8_conv_routes_and_unaligned_views(cuda):
+    """groups 1 launches the tensor-core kernel, groups > 1 the dp4a one, each
+    counted in launches_by_route; codes that are a view starting off a
+    16-byte boundary are copied, not read misaligned; a w_packed of the
+    other route's layout is refused."""
+    from deepcv_tpu_torch.ops.kernels.int8_conv import (int8_conv, pack_weight,
+                                                         pack_weight_tc, plain_int8_conv)
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    flat = torch.randint(-127, 128, (1 + 2 * 6 * 7 * 32,), generator=g, device=cuda,
+                         dtype=torch.int8)
+    xq = flat[1:].view(2, 6, 7, 32).permute(0, 3, 1, 2)         # channels last, offset 1
+    assert xq.data_ptr() % 16 and xq.is_contiguous(memory_format=torch.channels_last)
+    s_act = torch.full((), 0.03, device=cuda)
+    for groups in (1, 2):
+        wq = torch.randint(-127, 128, (16, 32 // groups, 3, 3), generator=g, device=cuda,
+                           dtype=torch.int8)
+        s_w = torch.rand((16,), generator=g, device=cuda)
+        before = dict(int8_conv.launches_by_route)
+        acc = int8_conv(xq, wq, s_act, s_w, 1, 1, 1, groups, return_acc=True)
+        route = "tensor_core" if groups == 1 else "dp4a"
+        assert {r: int8_conv.launches_by_route[r] - before[r] for r in before} == \
+            {r: int(r == route) for r in before}
+        assert torch.equal(acc, plain_int8_conv(xq, wq, s_act, s_w, 1, 1, 1, groups,
+                                                return_acc=True))
+        wrong = pack_weight(wq) if groups == 1 else pack_weight_tc(wq)
+        with pytest.raises(ValueError, match="w_packed must be"):
+            int8_conv(xq, wq, s_act, s_w, 1, 1, 1, groups, w_packed=wrong)
+
+
+def _config8_model(name, dev, dtype):
+    from deepcv_tpu_torch.config import load_yaml
+    from deepcv_tpu_torch.spec import DeepcvModule
+    from deepcv_tpu_torch.spec.zoo import resnet_spec
+
+    if name == "wide":
+        hp = dict(load_yaml("conf/base/parameters.yml")["wide_classifier_model"])
+        hp["architecture"][-1]["fully_connected"]["out_features"] = 10
+        shape = (32, 32, 3)
+    else:
+        hp, shape = resnet_spec(50, num_classes=1000, pool_kernel=7), (224, 224, 3)
+    m = DeepcvModule(shape, hp, device=dev, dtype=dtype,
+                     generator=torch.Generator().manual_seed(3)).eval()
+    return m, shape
+
+
+@pytest.mark.parametrize("name,convs", [("wide", 6), ("resnet50", 53)])
+def test_int8_config8_forward_runs_on_the_tensor_cores(cuda, name, convs):
+    """One bf16 int8 forward of each config 8 model (static scales): 6 and 53
+    int8_conv launches, every one on the tensor cores, no K2, finite."""
+    from deepcv_tpu_torch.compression import calibrate_int8_scales
+    from deepcv_tpu_torch.ops.kernels.int8_conv import int8_conv
+
+    model, shape = _config8_model(name, cuda, torch.bfloat16)
+    x = torch.randn((4, *shape), generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).to(torch.bfloat16)
+    scales = calibrate_int8_scales(model, [x.float()])
+    served = model.with_options(quantize="int8", quantize_scales=scales)
+    before, k2 = dict(int8_conv.launches_by_route), fused_conv2d_bias_act.launches
+    with torch.inference_mode():
+        y = served(x)
+    torch.cuda.synchronize()
+    assert {r: int8_conv.launches_by_route[r] - before[r] for r in before} == \
+        {"tensor_core": convs, "dp4a": 0}
+    assert fused_conv2d_bias_act.launches == k2
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+
+
+def test_int8_wide_bf16_ops_on_card_equal_cpu(cuda):
+    """config 8's bf16 wide classifier, static scales: each int8 op (codes,
+    the tensor-core conv's int32 sums and rescale, the bias in bf16; the
+    dense on torch._int_mm) on the CPU path's own input to it gives the CPU
+    op's output to the bit."""
+    from deepcv_tpu_torch.compression import calibrate_int8_scales
+
+    cpu, _ = _config8_model("wide", "cpu", torch.bfloat16)
+    x = torch.randn(32, 32, 32, 3, generator=torch.Generator().manual_seed(6))
+    scales = calibrate_int8_scales(cpu, [x])
+    cpu8 = cpu.with_options(quantize="int8", quantize_scales=scales)
+    _, ref_inputs = _int8_op_inputs(cpu8, x.to(torch.bfloat16))
+    gpu8 = _config8_model("wide", "cpu", torch.bfloat16)[0].to(cuda).with_options(
+        quantize="int8", quantize_scales=scales)
+    assert len(ref_inputs) == 7
+    with torch.no_grad():
+        for q, (op, xin) in ref_inputs.items():
+            got = dict(gpu8.named_modules())[q](xin.to(cuda)).cpu()
+            ref = op(xin)
+            assert got.dtype == ref.dtype == torch.bfloat16 and torch.equal(got, ref), q
 
 
 def _wide_int8(dev, dtype=None):
