@@ -164,7 +164,8 @@ Phases, each printing one JSON line:
    the bound.
 8. classifier_train — ``run --pipeline=train_image_classifier`` in this
    process with the conf's hp (batch 32, float32, ``deterministic: true``)
-   on CIFAR-10 (the synthetic stand-in), cut to 1 epoch, no checkpoints: a
+   on CIFAR-10 (the synthetic stand-in), cut to 1 epoch and a quarter of
+   the training images (validset_ratio 0.8), no checkpoints: a
    finite loss, 5 K2 launches per forward, cuDNN's deterministic flags set
    during the run and restored after it, no K1 launch (no recipe).
 9. augment_train — the same pipeline with bench.py config 1's settings
@@ -255,7 +256,8 @@ Phases, each printing one JSON line:
    backward, the FPN's cuDNN convs, the nearest resize, the focal loss,
    AdamW, copies, and the idle share.
 17. keypoints_train — ``run --pipeline=train_keypoint_detector`` with the
-   conf's hp (batch 32, AdamW lr 1e-3), cut to 1 epoch, on CIFAR-10 (the
+   conf's hp (batch 32, AdamW lr 1e-3), cut to 1 epoch and a quarter of the
+   training images (validset_ratio 0.8), on CIFAR-10 (the
    line names which pixels), twice: in bf16 (passed as ``--params``) and in
    the conf's own float32: 3,267 parameters, 3 K2 launches a forward in the
    run's dtype (relu, relu, and none before the sigmoid), finite
@@ -268,12 +270,13 @@ Phases, each printing one JSON line:
    first pair (its surviving share); then the chain in float32 on the card
    and on the CPU (8 pairs, the same weights, inputs and Gumbel draws):
    matches and AdaLAM masks agree for at least 99 % of the keypoints.
-   Config 4's classical baseline is not ported (P12) and is left out.
-19. video_train — ``run --pipeline=train_optical_flow`` (40 epochs),
+   Config 4's classical half is ``classical_match`` (23).
+19. video_train — ``run --pipeline=train_optical_flow`` (cut from 40 to 10
+   epochs),
    ``train_video_classifier`` (12), ``train_temporal_classifier`` with the
    conf's ``gru`` and with ``temporal_classifier_model.temporal:transformer``
    (20 each) in this process with the conf's models and hp (batch 64,
-   AdamW, float32, TF32 off), epochs not cut, on the catalog's synthetic
+   AdamW, float32, TF32 off), the others' epochs not cut, on the catalog's synthetic
    flow pairs (32x32) and clips (6 frames of 12x12): 14,754, 15,396, 13,668
    and 16,196 parameters, finite losses, a finite ``valid_epe`` and
    ``valid_accuracy`` in [0, 1], no K1, K2 or flash launch (no TPU kernel
@@ -291,6 +294,25 @@ Phases, each printing one JSON line:
    shuffled order, ``max_tracks`` 128, on the card and on the CPU: the ids
    equal on every row (else the first frame where they part), the counts
    equal and MOTA within 1e-6; frames/s on the card and on the CPU.
+22. augment_ops — the 13 AugMix ops, the float and PIL-exact transforms,
+   AugMix, RandAugment, TrivialAugment, random erasing, mixup and CutMix at
+   4096x32x32x3 on the card against the CPU on the same images and draws
+   (made on the CPU): PIL-exact ops at most one u8 level apart on 0.1 % of
+   the values, float ones within 1e-5; each op's ms by CUDA events.
+   ``augment_full_train`` then runs ``train_image_classifier`` at bench.py
+   config 1's settings (batch 4096, bf16, 4 steps) with the conf's
+   ``basic_augmentation`` and ``augmix_augmentation`` plus ``augmix_jsd``
+   (the eager route, 5 and 15 K2 launches a step) and with config 1's
+   recipe plus mixup and CutMix (K1 each step): routes, K1 and K2 launches,
+   step ms.
+23. classical_match — config 4's classical half: Harris, ORB and Hamming
+   matching of the same 64 pairs, pairs/s beside keypoints_match's, and 8
+   pairs against the CPU (keypoints and matches 99 %, a descriptor bit
+   flipped only where the CPU's samples are within 1e-5). ``geometry``:
+   ``stitch_pair``, ``ransac_homography``, ``stabilize_video`` and
+   ``remove_watermark`` against the CPU on the same RANSAC sets.
+   ``video_predict``: a .y4m clip through ``predict`` and ``process_video``
+   on the card against the CPU (5 f32 K2 launches a forward).
 
 Then the wall seconds of every phase (``walls``), the kernels line and,
 last, the contract line
@@ -551,16 +573,21 @@ FPN_PROFILE_PROCESS_S = 300
 #: AdamW lr 1e-3, its warm-up schedule, deterministic), cut to 1 epoch, on
 #: CIFAR-10: in bf16 (passed as --params) and in the conf's own float32
 KEYPOINT_BATCH = 32
+#: cut to a quarter of the conf's training images (1,250 -> 312 steps)
+KEYPOINT_VALID_RATIO = "cifar10_preprocessing.split_dataset.validset_ratio:0.8"
+KEYPOINT_IMAGES_CUT = "40,000 -> 10,000 (validset_ratio 0.2 -> 0.8)"
 KEYPOINT_RUNS = (
     PipelineRun("autoencoder", "train_keypoint_detector",
-                ("train_keypoint_detector.epochs:1", "train_keypoint_detector.dtype:bfloat16"),
-                1, 3_267, {"relu": 2, "none": 1}, "bfloat16",
+                ("train_keypoint_detector.epochs:1", "train_keypoint_detector.dtype:bfloat16",
+                 KEYPOINT_VALID_RATIO), 1, 3_267, {"relu": 2, "none": 1}, "bfloat16",
                 {"valid_reconstruction_mse": math.inf},
                 {"epochs": "2 -> 1", "dtype": "the conf trains in float32; bfloat16 "
-                                              "passed as --params"}),
+                                              "passed as --params",
+                 "train_images": KEYPOINT_IMAGES_CUT}),
     PipelineRun("autoencoder_f32", "train_keypoint_detector",
-                ("train_keypoint_detector.epochs:1",), 1, 3_267, {"relu": 2, "none": 1},
-                "float32", {"valid_reconstruction_mse": math.inf}, {"epochs": "2 -> 1"}))
+                ("train_keypoint_detector.epochs:1", KEYPOINT_VALID_RATIO), 1, 3_267,
+                {"relu": 2, "none": 1}, "float32", {"valid_reconstruction_mse": math.inf},
+                {"epochs": "2 -> 1", "train_images": KEYPOINT_IMAGES_CUT}))
 #: keypoints_match: bench.py config 4 (bench.py:256-341): the conf's encoder
 #: at 64x64 in bf16 eval, 64 pairs, K = 256 keypoints, 20 timed iterations
 MATCH_PAIRS, MATCH_SIZE, MATCH_K, MATCH_ITERS = 64, 64, 256, 20
@@ -579,8 +606,8 @@ DETECT_KERNEL_CASES = [((64, 32, 32, 3, 16, 3), ("float32",)),
 #: 64, AdamW, float32), epochs not cut, on the catalog's synthetic flow
 #: pairs and clips; no TPU kernel lies on these paths, so no K2 launch
 VIDEO_RUNS = (
-    PipelineRun("flow", "train_optical_flow", (), 40, 14_754, {}, "float32",
-                {"valid_epe": math.inf}, {}),
+    PipelineRun("flow", "train_optical_flow", ("train_optical_flow.epochs:10",), 10, 14_754,
+                {}, "float32", {"valid_epe": math.inf}, {"epochs": "40 -> 10"}),
     PipelineRun("conv3d", "train_video_classifier", (), 12, 15_396, {}, "float32",
                 {"valid_accuracy": 1}, {}),
     PipelineRun("gru", "train_temporal_classifier", (), 20, 13_668, {}, "float32",
@@ -2243,7 +2270,8 @@ def phase_classifier_train(card):
     cudnn = torch.backends.cudnn
     before = (cudnn.deterministic, cudnn.benchmark)
     store, argv, wall, counts, flags, _ = _run_classifier(
-        "classifier_train", ["train_image_classifier.epochs:1"])
+        "classifier_train", ["train_image_classifier.epochs:1",
+                             "cifar10_preprocessing.split_dataset.validset_ratio:0.8"])
     after = (cudnn.deterministic, cudnn.benchmark)
     h = store["train_results"]["history"]
     steps = h["steps"]
@@ -2265,7 +2293,8 @@ def phase_classifier_train(card):
     tput = h["throughput_img_s"]
     emit({"phase": "classifier_train",
           "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
-          "cut": {"epochs": "2 -> 1", "checkpoints": "off (save_every_iters 0)"},
+          "cut": {"epochs": "2 -> 1", "checkpoints": "off (save_every_iters 0)",
+                  "train_images": "40,000 -> 10,000 (validset_ratio 0.2 -> 0.8)"},
           "batch": batch, "steps": steps,
           "data": store["datasets"]["trainset"].dataset.provenance,
           "train_images": len(store["datasets"]["trainset"]), "valid_images": n_valid,
@@ -3476,8 +3505,8 @@ def phase_keypoints_match(card):
     and on the CPU (same weights and inputs): the keypoints, and the matched
     indices and validity, agree for at least 99 %, and so do the AdaLAM
     masks of every pair given the same Gumbel draws. Config 4's classical
-    baseline (``pipelines/classical_features.py``) is not ported yet and is
-    left out. Returns the bf16 K2 launches."""
+    half is ``classical_match``. Returns the bf16 K2 launches and the
+    pairs/s."""
     hp = conf_hp("keypoints_encoder_model")
     shape = (MATCH_SIZE, MATCH_SIZE, 3)
     encoder = DeepcvModule(shape, hp, device=DEVICE, dtype="bfloat16").eval()
@@ -3541,14 +3570,13 @@ def phase_keypoints_match(card):
             "cpu_check": {"pairs": len(xa), "dtype": "float32", "tf32": False,
                           "keypoints_agree": same_kp, "matches_agree": same_match,
                           "adalam_masks_agree": same_mask, "bound": MATCH_AGREE},
-            "left_out": "config 4's classical baseline (pipelines/classical_features.py, "
-                        "not ported yet)", "card": card}
+            "card": card}
     emit(line)
     if not min(same_kp, same_match, same_mask) >= MATCH_AGREE:
         raise AssertionError(f"keypoints_match CPU check failed: {line}")
     del encoder, cpu_enc, gpu_enc
     torch.cuda.empty_cache()
-    return launches
+    return launches, line["pairs_per_s"]
 
 
 def phase_video_cpu_check(card, models):
@@ -4411,6 +4439,443 @@ def k2_routes(line, forward_bf16, forward_f32, bf16_launches, dense_head):
                                      "and no bias, the 1x1 head with bias (unet_train)"}}}
 
 
+# --------------------------------------------------------------------------- #
+# The rest of augmentation and the classical-vision modules
+# --------------------------------------------------------------------------- #
+
+AUG_OPS_SHAPE = (4096, 32, 32, 3)      # bench.py config 2's batch
+#: PIL-exact ops, card vs CPU: one u8 level on at most this share of pixels
+AUG_FLIP_SHARE = 1e-3
+FULL_TRAIN_VALID_RATIO = 0.6           # 20,000 training images: 4 steps at 4096
+#: ``augment_full_train``'s runs: (label, recipe from the conf or None for
+#: bench.py config 1's, extra training hp, route, training forwards a step)
+FULL_TRAIN_RUNS = (
+    ("basic", "basic_augmentation", (), "eager", 1),
+    ("augmix_jsd", "augmix_augmentation",
+     ("train_image_classifier.augmix_jsd:{weight: 12.0, views: 2}",), "eager", 3),
+    ("mixing", None, ("train_image_classifier.mixup_alpha:0.2",
+                      "train_image_classifier.cutmix_alpha:1.0"), "K1", 1))
+GEOMETRY_TOL = 1e-4                    # frames and panoramas, card vs CPU
+#: homographies, card vs CPU: the largest distance between the two
+#: projections of the points, in pixels (the RANSAC threshold is 2)
+GEOMETRY_PX = 0.05
+#: the panorama's seam: values whose blend weight flips with a homography
+#: GEOMETRY_PX apart
+GEOMETRY_SEAM_SHARE = 1e-2
+VIDEO_FRAMES, VIDEO_BATCH = 96, 32
+
+
+def _level_flips(got, ref):
+    """Card against CPU on the u8 grid: the most levels apart, and the share
+    of values one level or more apart."""
+    d = (got.float().cpu() - ref.float()).abs() * 255.0
+    return float(d.max()), float((d > 0.5).float().mean())
+
+
+def _aug_op_row(name, kind, gpu_fn, cpu_fn):
+    """One op on the card (median of CUDA events) and on the CPU (one call)
+    on the same inputs and draws, held to its bound: PIL-exact ops at most
+    one u8 level on ``AUG_FLIP_SHARE`` of the values, float ones within
+    ``AUG_TOL``, mixes of PIL-exact chains within a level's weight."""
+    got = gpu_fn()
+    t0 = time.perf_counter()
+    ref = cpu_fn()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if isinstance(got, tuple):
+        got, ref = got[0], ref[0]
+    row = {"op": name, "kind": kind, "ms": cuda_ms(gpu_fn, iters=10, warmup=2),
+           "cpu_ms": cpu_ms, "shape": list(got.shape)}
+    if kind == "pil":
+        row["max_levels"], row["flip_share"] = _level_flips(got, ref)
+        ok = row["max_levels"] <= 1.0 + 1e-3 and row["flip_share"] <= AUG_FLIP_SHARE
+    else:
+        d = (got.float().cpu() - ref.float()).abs()
+        row["max_abs_err"] = float(d.max())
+        row["share_over_tol"] = float((d > AUG_TOL).float().mean())
+        bound = 1.0 / 255 + AUG_TOL if kind == "pil_mix" else AUG_TOL
+        ok = row["max_abs_err"] <= bound and (kind != "pil_mix"
+                                              or row["share_over_tol"] <= AUG_FLIP_SHARE)
+        if kind == "mask":            # box edges from exp/sqrt: whole pixels may move
+            ok = row["share_over_tol"] <= AUG_FLIP_SHARE
+    row["ok"] = bool(ok)
+    return row
+
+
+def phase_augment_ops(card):
+    """Every AugMix op, the geometric and colour transforms, AugMix,
+    RandAugment, random erasing, mixup and CutMix at 4096x32x32x3 on the
+    card against the CPU on the same images and the same draws (made on the
+    CPU), with the u8-level flips counted and each op's ms by CUDA events."""
+    from deepcv_tpu_torch.data import augmentation as aug
+    from deepcv_tpu_torch.data import transforms as T
+    n, h, w, c = AUG_OPS_SHAPE
+    rng = np.random.default_rng(SEED + 20)
+    x_cpu = torch.from_numpy(rng.integers(0, 256, AUG_OPS_SHAPE, dtype=np.uint8)) \
+        .float().div_(255.0)
+    x_gpu = x_cpu.to(DEVICE)
+    g = torch.Generator().manual_seed(SEED + 21)
+
+    def both(fn, *args):
+        gargs = [a.to(DEVICE) if isinstance(a, torch.Tensor) else a for a in args]
+        return (lambda: fn(x_gpu, *gargs)), (lambda: fn(x_cpu, *args))
+
+    rows = []
+    for name, op in aug.OPS.items():
+        values = op.param(aug._levels(n, g, 7.0), aug._signs(n, g), h, w)
+        rows.append(_aug_op_row(name, "pil", *both(op.apply, values)))
+    m = torch.from_numpy(rng.normal(0, 0.3, (n, 2, 3)).astype(np.float32))
+    m[:, 0, 0] += 1
+    m[:, 1, 1] += 1
+    m[:, :, 2] *= 8
+    theta = T.draw_rotate(n, g, 45.0)
+    tx, ty = T.draw_translate(n, g, 0.2, h, w)
+    top, left = T.draw_crop(n, g, h + 6, w + 6, (h, w))
+    chosen = T.draw_flip(n, g, 0.5)
+    jitter = T.draw_color_jitter(n, g, 0.4, 0.3, 0.2, 0.1)
+    float_ops = [
+        ("resize_24", lambda x: T.resize(x, 24)),
+        ("center_crop_24", lambda x: T.center_crop(x, 24)),
+        ("pad_4_reflect", lambda x: T.pad(x, 4, "reflect")),
+        ("adjust_hue", lambda x, f: T.adjust_hue(x, f), T.uniform(n, g, -0.5, 0.5)),
+        ("color_jitter", lambda x: T.apply_color_jitter(
+            x, {k: v.to(x.device) for k, v in jitter.items()})),
+        ("affine_transform", lambda x, mm: T.affine_transform(x, mm), m),
+        ("random_rotate", lambda x, t: T.affine_transform(x, T.rotate_matrices(t, h, w)),
+         theta),
+        ("random_translate", lambda x, a, b: T.affine_transform(
+            x, T.translate_matrices(a, b, h, w)), tx, ty),
+        ("random_scale", lambda x, s: T.affine_transform(x, T.scale_matrices(s, h, w)),
+         T.uniform(n, g, 0.8, 1.2)),
+        ("random_crop_pad3", lambda x, a, b: T.crop(T.pad(x, 3), a, b, (h, w)), top, left),
+        ("random_horizontal_flip", lambda x, f: T.flip(x, f, 2), chosen)]
+    for name, fn, *args in float_ops:
+        rows.append(_aug_op_row(name, "float", *both(fn, *args)))
+    rows.append(_aug_op_row("affine_transform_pil_exact", "pil", *both(
+        lambda x, mm: T.affine_transform(x, mm, pil_exact_u8=True), m)))
+    mix = aug.draw_augment_and_mix(n, h, w, g, severity=3, width=3, depth=-1, alpha=1.0)
+    rows.append(_aug_op_row("augment_and_mix", "pil_mix", *both(
+        lambda x, *d: aug.augment_and_mix_apply(x, *d), mix["ws"], mix["m"],
+        mix["depths"], mix["op_idx"], mix["values"])))
+    choice, values = aug.draw_rand_augment(n, h, w, g, 2, 5.0)
+    rows.append(_aug_op_row("rand_augment", "pil", *both(aug.rand_augment_apply, choice,
+                                                         values)))
+    choice, values = aug.draw_rand_augment(n, h, w, g, 1, 10.0)
+    rows.append(_aug_op_row("trivial_augment", "pil", *both(aug.rand_augment_apply, choice,
+                                                            values)))
+    er = aug.draw_random_erasing(AUG_OPS_SHAPE, g)
+    rows.append(_aug_op_row("random_erasing", "mask", *both(
+        lambda x, *d: aug.random_erasing_apply(x, *d), er["gate"], er["area"], er["log_r"],
+        er["uy"], er["ux"], er["fill"])))
+    rows.append(_aug_op_row("mixup", "float", *both(aug.mixup_apply,
+                                                    *aug.draw_mixup(n, g, 0.2))))
+    rows.append(_aug_op_row("cutmix", "float", *both(aug.cutmix_apply,
+                                                     *aug.draw_cutmix(n, h, w, g, 1.0))))
+    bad = [r for r in rows if not r["ok"]]
+    emit({"phase": "augment_ops", "shape": list(AUG_OPS_SHAPE),
+          "bounds": {"pil": f"<= 1 u8 level on <= {AUG_FLIP_SHARE} of values",
+                     "float": AUG_TOL, "pil_mix": f"<= 1/255 + {AUG_TOL}",
+                     "mask": f"<= {AUG_FLIP_SHARE} of values over {AUG_TOL}"},
+          "draws": "on the CPU, the same for both", "tf32": False, "rows": rows,
+          "card": card})
+    if bad:
+        raise AssertionError(f"augment_ops: card and CPU disagree on {bad}")
+    torch.cuda.empty_cache()
+
+
+def _recipe_param(name):
+    """``cifar10_preprocessing.augmentation_recipe`` set to the conf's recipe
+    ``name`` (JSON is flow YAML), or to bench.py config 1's."""
+    if name is None:
+        return f"cifar10_preprocessing.augmentation_recipe:{BENCH_RECIPE}"
+    recipes = {k: v for d in conf_hp("augmentations_recipes") for k, v in d.items()}
+    return f"cifar10_preprocessing.augmentation_recipe:{json.dumps(recipes[name])}"
+
+
+def phase_augment_full_train(card):
+    """``train_image_classifier`` at bench.py config 1's settings (batch
+    4096, bf16) with the conf's ``basic_augmentation`` (eager route:
+    posterize and the geometric steps), with ``augmix_augmentation`` plus
+    ``augmix_jsd`` (two AugMix views a step, each a forward), and with
+    config 1's recipe plus mixup and CutMix (K1 route, one Bernoulli draw a
+    batch between them): one epoch of 4 steps each. Each run's routes and
+    K1 and K2 launches must be the path's. Returns K2's launches by run."""
+    launches = {}
+    for label, recipe, extra, route, forwards in FULL_TRAIN_RUNS:
+        params = [p for p in _augment_params(1) if "augmentation_recipe" not in p
+                  and "validset_ratio" not in p]
+        params += [_recipe_param(recipe),
+                   f"cifar10_preprocessing.split_dataset.validset_ratio:"
+                   f"{FULL_TRAIN_VALID_RATIO}", *extra]
+        store, argv, wall, counts, _, step_ends = _run_classifier(
+            f"augment_full_train_{label}", params)
+        h = store["train_results"]["history"]
+        steps = h["steps"]
+        last = h["train"][-1]
+        bf16 = "bfloat16/bfloat16/bfloat16"
+        want_k2 = CLASSIFIER_CONVS_PER_FORWARD * steps * forwards
+        want_routes = {"K1": steps if route == "K1" else 0,
+                       "eager": steps if route == "eager" else 0}
+        ok = (steps > 0 and not h["valid"] and np.isfinite(last["main_loss"])
+              and counts["routes"] == want_routes and counts["K1"] == want_routes["K1"]
+              and counts["K2"] == want_k2 and counts["K2_dtypes"].get(bf16, 0) == want_k2
+              and sum(counts["K2_dtypes"].values()) == want_k2
+              and (label != "augmix_jsd" or np.isfinite(last.get("jsd_consistency", np.nan))))
+        step_ms = [a.elapsed_time(b) for a, b in zip(step_ends, step_ends[1:])]
+        line = {"phase": "augment_full_train", "run": label,
+                "argv": ["python", "-m", "deepcv_tpu_torch", "run", *argv],
+                "recipe": recipe or "bench.py config 1", "extra_hp": list(extra),
+                "batch": AUGMENT_BATCH, "steps": steps,
+                "cut": {"epochs": "-> 1", "train_images": f"validset_ratio "
+                        f"{FULL_TRAIN_VALID_RATIO}", "validation": "off",
+                        "checkpoints": "off"},
+                "train_images": len(store["datasets"]["trainset"]),
+                "losses": {k: v for k, v in last.items() if k != "step"},
+                "step_ms": step_ms, "median_step_ms": statistics.median(step_ms)
+                if step_ms else None, "wall_s": wall, "launches": counts,
+                "k2_launches_per_step": counts["K2"] / steps,
+                "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "card": card}
+        emit(line)
+        if not ok:
+            raise AssertionError(f"augment_full_train {label}: want routes {want_routes}, "
+                                 f"K2 {want_k2} bf16: {line}")
+        launches[label] = counts["K2"]
+        del store
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_classical_match(card, learned_pairs_s):
+    """bench.py config 4's classical half (bench.py:306-338) in the port:
+    Harris, NMS top-k (K 256), orientations, 256 BRIEF tests and Hamming
+    matching by one ``bmm`` for 64 pairs of 64x64 images at once (the
+    learned half's inputs), pairs/s over 20 iterations by CUDA events beside
+    ``keypoints_match``'s learned pairs/s. Then 8 pairs on the card against
+    the CPU: keypoints and matches agree for at least ``MATCH_AGREE``, and a
+    descriptor bit differs only where the CPU's two samples are within 1e-5."""
+    from deepcv_tpu_torch.pipelines import classical_features as cf
+    shape = (MATCH_SIZE, MATCH_SIZE, 3)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    img_a = torch.rand((MATCH_PAIRS, *shape), generator=gen, device=DEVICE)
+    img_b = img_a + 0.02 * torch.randn(img_a.shape, generator=gen, device=DEVICE)
+    matcher = cf.orb_matcher(k=MATCH_K, n_tests=256)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    matcher(img_a, img_a)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(MATCH_ITERS):
+        out = matcher(img_a, img_b + i * 1e-3)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    pairs_s = MATCH_PAIRS * MATCH_ITERS / ms * 1e3
+
+    xa, xb = img_a[:8].cpu(), img_b[:8].cpu()
+    got = [t.cpu() for t in matcher(xa.to(DEVICE), xb.to(DEVICE))]
+    ref = matcher(xa, xb)
+    same_kp = ((got[0] == ref[0]).all(-1) & (got[1] == ref[1]).all(-1))
+    same_match = float(((got[2] == ref[2]) & (got[3] == ref[3])).float().mean())
+    gray = xa.mean(-1)
+    ca, da, _ = cf.detect_and_describe(xa, k=MATCH_K)
+    gca, gda, _ = cf.detect_and_describe(xa.to(DEVICE), k=MATCH_K)
+    theta = cf.intensity_orientations(gray, ca)
+    vals = cf.orb_test_values(gray, ca, theta)
+    rows = (gca.cpu() == ca).all(-1)
+    flipped = (gda.cpu() != da) & rows[..., None]
+    gap = (vals[..., 0] - vals[..., 1]).abs()
+    flips = int(flipped.sum())
+    wide_flips = int((flipped & (gap >= 1e-5)).sum())
+    line = {"phase": "classical_match", "config": "bench.py config 4, classical half "
+            "(bench.py:306-338)", "pairs": MATCH_PAIRS, "image_shape": list(shape),
+            "keypoints_per_image": MATCH_K, "tests": 256, "iterations": MATCH_ITERS,
+            "ms_per_iteration": ms / MATCH_ITERS, "pairs_per_s": pairs_s,
+            "learned_pairs_per_s": learned_pairs_s,
+            "learned_vs_classical": learned_pairs_s / pairs_s,
+            "mutual_matches_share": float(out[3].float().mean()),
+            "cpu_check": {"pairs": len(xa), "keypoints_agree": float(same_kp.float().mean()),
+                          "matches_agree": same_match, "bound": MATCH_AGREE,
+                          "descriptor_bits_compared": int(rows.sum()) * 256,
+                          "bits_flipped": flips, "bits_flipped_with_gap_over_1e-5": wide_flips},
+            "launches": "none (no kernel on this path)", "card": card}
+    emit(line)
+    if not (float(same_kp.float().mean()) >= MATCH_AGREE and same_match >= MATCH_AGREE
+            and wide_flips == 0):
+        raise AssertionError(f"classical_match CPU check failed: {line}")
+
+
+def _texture(gen, shape, blur=5):
+    """A smooth random texture (H, W, 3) in [0, 1] on ``gen``'s device."""
+    x = torch.rand((1, 3, shape[0] + blur - 1, shape[1] + blur - 1), generator=gen,
+                   device=gen.device)
+    return F.avg_pool2d(x, blur, stride=1)[0].permute(1, 2, 0).contiguous()
+
+
+def _reproj_px(h_got, h_ref, pts):
+    """The largest distance, in pixels, between the projections of (N, 2)
+    (x, y) points by two homographies."""
+    p = torch.cat([pts.double().cpu(), torch.ones(len(pts), 1, dtype=torch.float64)], 1)
+
+    def proj(h):
+        q = p @ h.double().cpu().T
+        return q[:, :2] / q[:, 2:]
+    return float((proj(h_got) - proj(h_ref)).norm(dim=-1).max())
+
+
+def phase_geometry(card):
+    """``stitch_pair`` (two 128x128 views, 64 pixels of overlap, K 128),
+    ``ransac_homography`` (4,096 correspondences, a quarter outliers, 128
+    hypotheses of 6), ``stabilize_video`` (64 jittered 128x128 frames) and
+    ``remove_watermark`` (64 frames) on the card against the CPU, the RANSAC
+    point sets drawn once on the CPU for both: the homographies' projections
+    within ``GEOMETRY_PX`` pixels, the inliers equal, the frames within
+    ``GEOMETRY_TOL``, the panoramas too but for the seam, where the blend
+    weight flips (``GEOMETRY_SEAM_SHARE``); ms by CUDA events."""
+    from deepcv_tpu_torch.pipelines import geometry as geo
+    gen = torch.Generator().manual_seed(SEED + 30)
+    rows = {}
+
+    def timed(name, gpu_fn, cpu_fn, check):
+        got = gpu_fn()
+        t0 = time.perf_counter()
+        ref = cpu_fn()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        rows[name] = {"ms": cuda_ms(gpu_fn, iters=5, warmup=1), "cpu_ms": cpu_ms,
+                      **check(got, ref)}
+
+    base = _texture(gen, (128, 192))
+    a, b = base[:, :128], base[:, 64:]
+    sets = geo.ransac_sets(128, None, gen)
+
+    corners = torch.tensor([[0.0, 0.0], [127.0, 0.0], [0.0, 127.0], [127.0, 127.0]])
+
+    def stitch_check(got, ref):
+        d = (got[0].cpu() - ref[0]).abs()
+        return {"reproj_px": _reproj_px(got[1], ref[1], corners),
+                "inliers_equal": bool(torch.equal(got[2].cpu(), ref[2])),
+                "inliers": int(ref[2].sum()), "pano_max_err": float(d.max()),
+                "pano_share_over_tol": float((d > GEOMETRY_TOL).float().mean())}
+    timed("stitch_pair", lambda: geo.stitch_pair(a.to(DEVICE), b.to(DEVICE), k=128, sets=sets),
+          lambda: geo.stitch_pair(a, b, k=128, sets=sets), stitch_check)
+
+    n = 4096
+    pa = torch.rand((n, 2), generator=gen) * 512
+    hm = torch.tensor([[1.05, 0.02, 3.0], [0.01, 0.98, -2.0], [1e-4, 2e-4, 1.0]])
+    ph = torch.cat([pa, torch.ones(n, 1)], 1) @ hm.T
+    pb = ph[:, :2] / ph[:, 2:]
+    pb[3 * n // 4:] += (torch.rand((n // 4, 2), generator=gen) - 0.5) * 80
+    rsets = geo.ransac_sets(n, None, gen)
+
+    def ransac_check(got, ref):
+        return {"reproj_px": _reproj_px(got[0], ref[0], pa),
+                "inliers_equal": bool(torch.equal(got[1].cpu(), ref[1])),
+                "inliers": int(ref[1].sum())}
+    timed("ransac_homography", lambda: geo.ransac_homography(
+        pa.to(DEVICE), pb.to(DEVICE), sets=rsets), lambda: geo.ransac_homography(
+        pa, pb, sets=rsets), ransac_check)
+
+    big = _texture(gen, (160, 160))
+    shifts = torch.randint(-4, 5, (64, 2), generator=gen).tolist()
+    clip = torch.stack([torch.roll(big, s, (0, 1))[16:144, 16:144] for s in shifts])
+
+    def stab_check(got, ref):
+        return {"trajectory_equal": bool(torch.equal(got[1].cpu(), ref[1])),
+                "frames_max_err": float((got[0].cpu() - ref[0]).abs().max())}
+    timed("stabilize_video", lambda: geo.stabilize_video(clip.to(DEVICE)),
+          lambda: geo.stabilize_video(clip), stab_check)
+
+    frames = torch.rand((64, 128, 128, 3), generator=gen)
+    alpha = torch.zeros(128, 128)
+    alpha[20:60, 30:100] = 0.5
+    frames = (1 - alpha[..., None]) * frames + alpha[..., None] * torch.tensor([0.9, 0.2, 0.4])
+
+    def wm_check(got, ref):
+        return {"max_err": max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref)),
+                "matte_pixels": int((ref[1] > 0).sum())}
+    timed("remove_watermark", lambda: geo.remove_watermark(frames.to(DEVICE)),
+          lambda: geo.remove_watermark(frames), wm_check)
+    ok = (rows["stitch_pair"]["reproj_px"] <= GEOMETRY_PX
+          and rows["stitch_pair"]["inliers_equal"]
+          and rows["stitch_pair"]["pano_share_over_tol"] <= GEOMETRY_SEAM_SHARE
+          and rows["ransac_homography"]["reproj_px"] <= GEOMETRY_PX
+          and rows["ransac_homography"]["inliers_equal"]
+          and rows["stabilize_video"]["trajectory_equal"]
+          and rows["stabilize_video"]["frames_max_err"] <= GEOMETRY_TOL
+          and rows["remove_watermark"]["max_err"] <= GEOMETRY_TOL)
+    emit({"phase": "geometry", "rows": rows, "bounds": {
+        "reproj_px": GEOMETRY_PX, "frames": GEOMETRY_TOL, "pano_seam_share": GEOMETRY_SEAM_SHARE},
+        "tf32": False,
+          "launches": "none (no kernel on this path)", "card": card})
+    if not ok:
+        raise AssertionError(f"geometry: card and CPU disagree: {rows}")
+
+
+def phase_video_predict(card):
+    """A 96-frame 32x32 clip written as .y4m (C420jpeg), then ``python -m
+    deepcv_tpu_torch predict --input clip.y4m`` on the card and on the CPU
+    (the conf's image_classifier, random weights, as a bundle; batch 32,
+    float32, 5 K2 launches a forward), and ``process_video`` over the
+    clip's frames streamed from the file, on the card and on the CPU: all
+    within ``SERVE_REL_L2``. Returns K2's launches on the card."""
+    from deepcv_tpu_torch.data.video_io import iter_y4m, process_video, write_y4m
+    hp = conf_hp("image_classifier_model")
+    hp["architecture"][-1]["fully_connected"]["out_features"] = 10
+    torch.manual_seed(SEED + 40)
+    cpu_model = DeepcvModule((32, 32, 3), hp, device="cpu").eval()
+    gpu_model = DeepcvModule((32, 32, 3), hp, device=DEVICE).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(SEED + 41)
+    clip = rng.integers(0, 256, (VIDEO_FRAMES, 32, 32, 3), dtype=np.uint8)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        d = Path(d)
+        path = d / "clip.y4m"
+        write_y4m(path, clip)
+        save_model_bundle(d / "bundle", cpu_model)
+        outs, walls = {}, {}
+        for dev in (DEVICE, "cpu"):
+            argv = ["predict", "--bundle", str(d / "bundle"), "--input", str(path),
+                    "--output", str(d / f"{dev}.npy"), "--to-tensor",
+                    "--batch-size", str(VIDEO_BATCH), "--device", dev]
+            rc, wall, counts, _, _ = _counted(lambda: cli.main(argv))
+            if rc != 0:
+                raise AssertionError(f"video_predict: predict on {dev} exited {rc}")
+            outs[dev], walls[dev] = np.load(d / f"{dev}.npy"), wall
+            if dev == DEVICE:
+                predict_counts = counts
+
+        def stream(model, dev):
+            def fn(x):
+                with torch.no_grad():
+                    return model(to_tensor(x))
+            return process_video(iter_y4m(path)[1], fn, batch_size=VIDEO_BATCH, device=dev)
+
+        pv_gpu, pv_wall, pv_counts, _, _ = _counted(lambda: stream(gpu_model, DEVICE))
+        pv_cpu = stream(cpu_model, "cpu")
+
+    def rel(got, ref):
+        return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+    forwards = math.ceil(VIDEO_FRAMES / VIDEO_BATCH)
+    want = CLASSIFIER_CONVS_PER_FORWARD * forwards
+    line = {"phase": "video_predict", "frames": VIDEO_FRAMES, "frame_shape": [32, 32, 3],
+            "chroma": "420jpeg", "batch": VIDEO_BATCH,
+            "model": "conf image_classifier_model, 10 classes, random weights, float32",
+            "predict": {"rel_l2_card_vs_cpu": rel(outs[DEVICE], outs["cpu"]),
+                        "wall_s": walls, "launches": predict_counts},
+            "process_video": {"rel_l2_card_vs_cpu": rel(pv_gpu, pv_cpu),
+                              "rel_l2_vs_predict": rel(pv_gpu, outs[DEVICE]),
+                              "wall_s": pv_wall, "frames_per_s": VIDEO_FRAMES / pv_wall,
+                              "launches": pv_counts},
+            "bound_rel_l2": SERVE_REL_L2, "tf32": False, "card": card}
+    emit(line)
+    if not (line["predict"]["rel_l2_card_vs_cpu"] <= SERVE_REL_L2
+            and line["process_video"]["rel_l2_card_vs_cpu"] <= SERVE_REL_L2
+            and line["process_video"]["rel_l2_vs_predict"] <= SERVE_REL_L2
+            and predict_counts["K2"] == want and pv_counts["K2"] == want
+            and predict_counts["K2_by_dtype"]["float32"] == want):
+        raise AssertionError(f"video_predict failed (want {want} f32 K2 launches each): {line}")
+    return predict_counts["K2"] + pv_counts["K2"]
+
+
 class _Walls:
     """Wall seconds of each phase of a run, by the phase's name."""
 
@@ -4517,12 +4982,17 @@ def main() -> int:
     walls("fpn_train_profile", phase_fpn_train_profile, card, fpn_step_ms)
     keypoint_launches = walls("keypoints_train", phase_pipeline_runs, card,
                               "keypoints_train", KEYPOINT_RUNS, data)[0]
-    match_launches = walls("keypoints_match", phase_keypoints_match, card)
+    match_launches, learned_pairs_s = walls("keypoints_match", phase_keypoints_match, card)
     video_models = {}
     video_launches = walls("video_train", phase_pipeline_runs, card, "video_train",
                            VIDEO_RUNS, None, video_models)[0]
     walls("video_cpu_check", phase_video_cpu_check, card, video_models)
     walls("tracking", phase_tracking, card)
+    walls("augment_ops", phase_augment_ops, card)
+    full_launches = walls("augment_full_train", phase_augment_full_train, card)
+    walls("classical_match", phase_classical_match, card, learned_pairs_s)
+    walls("geometry", phase_geometry, card)
+    video_launches_f32 = walls("video_predict", phase_video_predict, card)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
@@ -4538,12 +5008,15 @@ def main() -> int:
                                    **{f"video_train:{k}": n for k, n in video_launches.items()},
                                    "serve_extras:predict": extras["K2_predict"],
                                    "serve_extras:mc_dropout": extras["K2_mc_dropout"],
-                                   "serve_extras:ensemble": extras["K2_ensemble"]}
+                                   "serve_extras:ensemble": extras["K2_ensemble"],
+                                   **{f"augment_full_train:{k}": n
+                                      for k, n in full_launches.items()},
+                                   "video_predict": video_launches_f32}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
               augment_counts["K2"] + wide_launches + sum(zoo_launches.values())
               + unet_launches + fpn_launches + keypoint_launches["autoencoder"]
-              + match_launches,
+              + match_launches + sum(full_launches.values()),
               k2_rows[(DENSE_KERNEL_CASES[0][0], "float32")])
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,

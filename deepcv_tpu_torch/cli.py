@@ -26,7 +26,7 @@ argmax masks with ``--decode segmentation``; an ``.npz`` of boxes, scores
 and classes with ``--decode detection``) and prints one JSON line;
 ``--quantize int8`` serves the float bundle in w8a8 with dynamic activation
 scales, or static ones recorded on the first ``--calibrate N`` inputs. A
-``.y4m`` video input waits for ``data/video_io.py``.
+``.y4m`` input is read as its (T, H, W, 3) uint8 RGB frames.
 """
 from __future__ import annotations
 
@@ -193,11 +193,6 @@ def _cmd_predict(args) -> int:
 
     if _not_a_bundle(args.bundle):
         return 2
-    if str(args.input).lower().endswith(".y4m"):
-        print(f"error: --input {args.input!r}: .y4m video input needs the port of "
-              "data/video_io.py, which is not ported yet; pass an .npy of NHWC frames",
-              file=sys.stderr)
-        return 2
     if not Path(args.input).exists():
         print(f"error: --input file not found: {args.input!r}", file=sys.stderr)
         return 2
@@ -212,7 +207,12 @@ def _cmd_predict(args) -> int:
     ok, preprocess = _preprocess_from_args(args)
     if not ok:
         return 2
-    images = np.load(args.input)
+    if str(args.input).lower().endswith(".y4m"):
+        from deepcv_tpu_torch.data.video_io import read_y4m
+
+        images, _ = read_y4m(args.input)
+    else:
+        images = np.load(args.input)
     if preprocess is None and images.dtype == np.uint8:
         print("note: uint8 input without --to-tensor/--normalize — the model receives "
               "raw 0-255 values; pass the transforms training used", file=sys.stderr)
@@ -286,8 +286,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_pred.add_argument("--bundle", required=True,
                         help="directory from serve.save_model_bundle")
     p_pred.add_argument("--input", required=True,
-                        help=".npy file of NHWC images (uint8 or float); .y4m video "
-                             "waits for the port of data/video_io.py")
+                        help=".npy file of NHWC images (uint8 or float), or a .y4m "
+                             "video (its RGB frames)")
     p_pred.add_argument("--output", default="predictions.npy")
     p_pred.add_argument("--batch-size", type=int, default=256)
     p_pred.add_argument("--dtype", default=None, choices=["float32", "bfloat16"],

@@ -3,9 +3,11 @@
 Counterpart of ``deepcv_tpu/data/preprocess.py`` (``preprocess``,
 ``parse_transforms_specification``, ``PreprocessedDataset``): transforms
 compile to one batched function applied on the device to each batch of raw
-uint8 NHWC images. Ported transforms: ``to_tensor`` and ``normalize``
-(with given statistics, or the trainset's per-channel mean and std).
-``augmentation_recipe`` (or the reference's spelling
+uint8 NHWC images. The transform list names any entry of
+:data:`~deepcv_tpu_torch.data.transforms.TRANSFORM_REGISTRY` (``normalize``
+with given statistics, or the trainset's per-channel mean and std); its
+random entries draw from the batch's generator, as the JAX package's take
+the batch's key. ``augmentation_recipe`` (or the reference's spelling
 ``augmentation_reciepe``) compiles through
 :func:`~deepcv_tpu_torch.data.augmentation.apply_augmentation_recipe` and
 augments the trainset's batches; target transforms are not ported yet and
@@ -14,18 +16,21 @@ raise.
 A recipe runs one of two routes, counted in
 ``PreprocessedDataset.batch_transform.routes``:
 
-* ``K1``: a uint8 batch with three channels whose recipe steps are a
-  subsequence of K1's order goes through one
+* ``K1``: a uint8 batch with three channels whose recipe
+  :meth:`~deepcv_tpu_torch.data.augmentation.AugmentationRecipe.fits_k1`
+  (no section, steps a subsequence of K1's order) goes through one
   :func:`~deepcv_tpu_torch.ops.kernels.fused_augment.fused_augment_normalize`
   call (the kernel on a card, its plain version on the CPU), which also
   normalizes when the transform list is ``to_tensor`` and at most one
   ``normalize``;
-* ``eager``: any other batch runs ``to_tensor``, the recipe's ported
-  transforms one by one, then the transform list.
+* ``eager``: any other batch (the conf's ``basic_augmentation`` and
+  ``augmix_augmentation`` among them: posterize and the geometric steps
+  are not in K1's body) runs ``to_tensor``, the recipe, then the transform
+  list.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +44,7 @@ from deepcv_tpu_torch.hyperparams import to_hyperparameters
 from deepcv_tpu_torch.utils import set_seeds
 
 __all__ = ["preprocess", "PreprocessedDataset", "Compose",
-           "parse_transforms_specification", "dataset_stats", "PREPROCESS_DEFAULTS",
-           "TRANSFORMS"]
+           "parse_transforms_specification", "dataset_stats", "PREPROCESS_DEFAULTS"]
 
 PREPROCESS_DEFAULTS = {
     "seed": 434546,
@@ -52,8 +56,7 @@ PREPROCESS_DEFAULTS = {
     "augmentation_reciepe": None,
 }
 
-#: transform name -> function of an NHWC batch
-TRANSFORMS: Dict[str, Callable] = {"to_tensor": T.to_tensor, "normalize": T.normalize}
+Compose = T.Compose
 
 
 def dataset_stats(trainset: ArrayDataset) -> Tuple[np.ndarray, np.ndarray]:
@@ -73,21 +76,6 @@ def dataset_stats(trainset: ArrayDataset) -> Tuple[np.ndarray, np.ndarray]:
     return mean.astype(np.float32), np.sqrt(np.maximum(sq / count - mean ** 2, 0)).astype(np.float32)
 
 
-class Compose:
-    """Apply ``(fn, kwargs)`` steps in order to a batch."""
-
-    def __init__(self, steps: Sequence[Tuple[Callable, Mapping[str, Any]]]):
-        self.steps = [(fn, dict(kw)) for fn, kw in steps]
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        for fn, kw in self.steps:
-            x = fn(x, **kw)
-        return x
-
-    def __repr__(self):
-        return f"Compose({[getattr(fn, '__name__', fn) for fn, _ in self.steps]})"
-
-
 def _resolve(entry: Any, trainset: Optional[ArrayDataset]):
     kwargs: Dict[str, Any] = {}
     if isinstance(entry, Mapping) and len(entry) == 1:
@@ -97,13 +85,12 @@ def _resolve(entry: Any, trainset: Optional[ArrayDataset]):
         kwargs = {**getattr(entry, "kwargs", {}), **kwargs}
         entry = entry.resolve()
     if isinstance(entry, str):
-        if entry not in TRANSFORMS:
-            raise NotImplementedError(f"transform '{entry}' is not ported yet "
-                                      f"(ported: {sorted(TRANSFORMS)})")
-        entry = TRANSFORMS[entry]
-    if entry not in TRANSFORMS.values():
-        raise NotImplementedError(f"transform {entry!r} is not ported yet "
-                                  f"(ported: {sorted(TRANSFORMS)})")
+        if entry not in T.TRANSFORM_REGISTRY:
+            raise ValueError(f"Unknown transform '{entry}'; known: "
+                             f"{sorted(T.TRANSFORM_REGISTRY)}")
+        entry = T.TRANSFORM_REGISTRY[entry]
+    if not callable(entry):
+        raise ValueError(f"Cannot parse transform spec entry: {entry!r}")
     if entry is T.normalize and ("mean" not in kwargs or "std" not in kwargs):
         if trainset is None:
             raise ValueError("normalize without mean/std needs a trainset to compute them")
@@ -142,14 +129,22 @@ class PreprocessedDataset:
 
     @property
     def image_shape(self):
-        """Post-transform image shape (the transforms keep NHWC shapes)."""
-        return self.dataset.image_shape
+        """Post-transform image shape: the dataset's, or, when the transform
+        list resizes, crops or pads, that of one image through it on the
+        CPU."""
+        steps = self.transform.steps if self.transform is not None else []
+        if not any(fn in T.RESHAPING for fn, _, _ in steps):
+            return self.dataset.image_shape
+        raw = torch.zeros((1, *self.dataset.image_shape),
+                          dtype=torch.from_numpy(self.dataset.images[:1]).dtype)
+        return tuple(self.transform(raw, torch.Generator().manual_seed(0)).shape[1:])
 
     def _k1_normalize(self) -> Optional[Tuple[Sequence[float], Sequence[float]]]:
         """K1's normalize constants when the transform list is ``to_tensor``
         and at most one ``normalize`` (mean 0, std 1 for no normalize); None
         when other transforms must run after K1."""
-        steps = self.transform.steps if self.transform is not None else []
+        steps = [(fn, kw) for fn, kw, _ in self.transform.steps] \
+            if self.transform is not None else []
         if not steps or steps[0][0] is not T.to_tensor:
             return None
         if len(steps) == 1:
@@ -164,8 +159,8 @@ class PreprocessedDataset:
         """Raw (uint8) batch -> transformed float batch, on its device:
         ``to_tensor``, the augmentation recipe (when ``augment`` and the
         dataset has one), then the transform list. ``generator`` (on the
-        batch's device) feeds the recipe's draws; augmenting without one
-        raises."""
+        batch's device) feeds the recipe's draws and then the transform
+        list's random entries; augmenting without one raises."""
         x = images
         if self.augmentation is not None and augment:
             if generator is None:
@@ -184,7 +179,7 @@ class PreprocessedDataset:
             else:
                 _ROUTES["eager"] += 1
                 x = self.augmentation(T.to_tensor(images), generator)
-        return self.transform(x) if self.transform is not None else x
+        return self.transform(x, generator) if self.transform is not None else x
 
     def __repr__(self):
         return (f"PreprocessedDataset({self.dataset!r}, transform={self.transform}, "

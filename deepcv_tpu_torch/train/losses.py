@@ -2,8 +2,8 @@
 
 Counterpart of ``deepcv_tpu/train/losses.py`` (``cross_entropy_loss``,
 ``mse_loss``, ``distillation_loss``, ``distill_accuracy``,
-``WeightedLosses``); the other losses (JSD consistency, triplet, label
-smoothing by name) are not ported yet.
+``jensen_shannon_divergence_consistency_loss``, ``WeightedLosses``); the
+other losses (triplet, label smoothing by name) are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["cross_entropy_loss", "mse_loss", "distillation_loss", "distill_accuracy",
-           "WeightedLosses", "LOSS_FNS"]
+           "jensen_shannon_divergence_consistency_loss", "WeightedLosses", "LOSS_FNS"]
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -68,8 +68,27 @@ def distill_accuracy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tenso
     return (logits.argmax(-1) == targets[..., 0].to(torch.int64)).float().mean()
 
 
+def jensen_shannon_divergence_consistency_loss(logits_clean: torch.Tensor,
+                                               *logits_augmented: torch.Tensor
+                                               ) -> torch.Tensor:
+    """AugMix's JSD consistency (arXiv:1912.02781 eq. 4): the mean over
+    {clean, augmented...} of KL(p || M), M their mean distribution, with
+    the probabilities clipped to [1e-7, 1] inside the logs and no gradient
+    through the clean branch; float32."""
+    p_clean = F.softmax(logits_clean.float(), dim=-1).detach()
+    ps = [p_clean] + [F.softmax(lg.float(), dim=-1) for lg in logits_augmented]
+    m = sum(ps) / len(ps)
+    log_m = torch.log(torch.clamp(m, 1e-7, 1.0))
+
+    def kl(p):
+        return (p * (torch.log(torch.clamp(p, 1e-7, 1.0)) - log_m)).sum(-1)
+
+    return (sum(kl(p) for p in ps) / len(ps)).mean()
+
+
 LOSS_FNS: Dict[str, Callable] = {"cross_entropy": cross_entropy_loss,
-                                 "distillation": distillation_loss}
+                                 "distillation": distillation_loss,
+                                 "jsd_consistency": jensen_shannon_divergence_consistency_loss}
 
 
 class WeightedLosses:

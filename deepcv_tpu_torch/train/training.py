@@ -26,6 +26,16 @@ card:
 * ``self_supervised_target: input`` trains against the batch itself (an
   autoencoder's reconstruction): the target is the transformed batch, cast
   to ``dtype`` as the JAX loop casts it, in training and in validation;
+* ``mixup_alpha`` and ``cutmix_alpha`` mix each transformed batch with a
+  permutation of itself (when both are set, one Bernoulli(0.5) draw a batch
+  picks CutMix or mixup), and the loss is ``lam * loss(y) + (1 - lam) *
+  loss(y[perm])``, term by term; ``augmix_jsd: {weight, views, severity,
+  width, depth, ops}`` adds ``weight`` times AugMix's JSD consistency
+  between the batch's logits and those of ``views`` AugMix views of the raw
+  batch (each through the trainset's transform list); the views leave the
+  model's buffers (BatchNorm's running statistics) as the clean forward
+  left them, as the JAX loop keeps only that forward's state. The two
+  cannot combine, as in the JAX package;
 * validation after every ``validate_every_epochs`` epochs, periodic and
   best-k checkpoints, exact resume, SIGTERM preemption and injected crashes;
   ``eval_metrics`` are computed in the validation pass only, after
@@ -50,22 +60,26 @@ import signal
 import threading
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
+from deepcv_tpu_torch.data import augmentation as aug
+from deepcv_tpu_torch.data.transforms import to_tensor, uniform
 from deepcv_tpu_torch.hyperparams import to_hyperparameters
 from deepcv_tpu_torch.ops.moe import MoEMlp
 from deepcv_tpu_torch.ops.nn import Dropout
 from deepcv_tpu_torch.train.checkpoint import CheckpointManager, resume_from_path
-from deepcv_tpu_torch.train.losses import WeightedLosses
+from deepcv_tpu_torch.train.losses import (WeightedLosses,
+                                           jensen_shannon_divergence_consistency_loss)
 from deepcv_tpu_torch.train.metrics import MetricAccumulator, accuracy
 from deepcv_tpu_torch.train.schedules import build_schedules
 
 __all__ = ["TRAINING_HP_DEFAULTS", "UNPORTED_HP", "TrainState", "train", "train_step",
            "build_optimizer", "apply_schedules", "epoch_permutation", "step_generator",
-           "cudnn_deterministic",
+           "cudnn_deterministic", "mix_batch", "mixed_losses", "jsd_views",
            "CrashIteration", "Preempted", "request_preemption"]
 
 _logger = logging.getLogger(__name__)
@@ -139,11 +153,8 @@ UNPORTED_HP: Dict[str, Any] = {
     "gradient_clip_norm": None,
     "freeze_params": None,
     "lr_scales": None,
-    "mixup_alpha": 0.0,
-    "cutmix_alpha": 0.0,
     "uda": None,
     "backend_conf": None,
-    "augmix_jsd": None,
 }
 
 _PORTED_OPTIMIZERS = ("adamw", "adam", "sgd")
@@ -255,25 +266,81 @@ def _autocast(device: torch.device, dtype: Optional[torch.dtype]):
     return torch.autocast(device.type, dtype=dtype)
 
 
+def mix_batch(x: torch.Tensor, generator: torch.Generator, mixup_alpha: float,
+              cutmix_alpha: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """mixup or CutMix on a transformed batch: (x_mixed, perm, lam). With
+    both alphas set, one Bernoulli(0.5) draw picks CutMix (true) or mixup."""
+    if mixup_alpha > 0 and cutmix_alpha > 0:
+        pick = bool(uniform((), generator) < 0.5)
+        return aug.cutmix_batch(x, generator, cutmix_alpha) if pick \
+            else aug.mixup_batch(x, generator, mixup_alpha)
+    if cutmix_alpha > 0:
+        return aug.cutmix_batch(x, generator, cutmix_alpha)
+    return aug.mixup_batch(x, generator, mixup_alpha)
+
+
+def mixed_losses(losses: Callable, logits: torch.Tensor, y: torch.Tensor,
+                 perm: torch.Tensor, lam: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The convex combination ``lam * loss(y) + (1 - lam) * loss(y[perm])``
+    of every term, the main loss included."""
+    _, terms_a = losses(logits, y)
+    _, terms_b = losses(logits, y.index_select(0, perm.to(y.device)))
+    terms = {k: lam * terms_a[k] + (1.0 - lam) * terms_b[k] for k in terms_a}
+    return terms[WeightedLosses.MAIN], terms
+
+
+def jsd_views(raw: torch.Tensor, trainset, generator: torch.Generator,
+              cfg: Mapping[str, Any]) -> List[torch.Tensor]:
+    """The ``augmix_jsd`` views of a raw batch: ``to_tensor``, AugMix at the
+    config's severity, width, depth and ops, then the trainset's transform
+    list."""
+    base = to_tensor(raw)
+    out = []
+    for _ in range(int(cfg.get("views", 2))):
+        xa = aug.augment_and_mix(base, generator, severity=int(cfg.get("severity", 3)),
+                                 width=int(cfg.get("width", 3)),
+                                 depth=int(cfg.get("depth", -1)),
+                                 ops=tuple(cfg["ops"]) if cfg.get("ops") else None)
+        if trainset.transform is not None:
+            xa = trainset.transform(xa, generator)
+        out.append(xa)
+    return out
+
+
 def train_step(state: TrainState, losses: Callable, metrics: Mapping[str, Callable],
                x: torch.Tensor, y: torch.Tensor, *, dtype: Optional[torch.dtype] = None,
                schedules: Optional[Mapping[str, Callable[[int], float]]] = None,
-               log_grad_norm: bool = True,
-               moe_aux_weight: float = 0.0) -> Dict[str, torch.Tensor]:
+               log_grad_norm: bool = True, moe_aux_weight: float = 0.0,
+               mix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               views: Sequence[torch.Tensor] = (), jsd_weight: float = 0.0
+               ) -> Dict[str, torch.Tensor]:
     """One update on a transformed batch ``x`` (NHWC float) with targets
     ``y``; returns the step's metrics as device scalars. With
     ``moe_aux_weight``, the mean load-balance loss of the model's MoE
     layers (their ``aux`` after this forward), times the weight, joins the
-    objective as the JAX package's ``train()`` adds it."""
+    objective as the JAX package's ``train()`` adds it. ``mix`` (perm, lam)
+    mixes the loss (:func:`mixed_losses`); ``views`` add ``jsd_weight``
+    times the JSD consistency of their logits with the batch's."""
     model, opt = state.model, state.optimizer
     apply_schedules(opt, schedules or {}, state.step)
     with _autocast(x.device, dtype):
         logits = model(x)
-    main, terms = losses(logits, y)
+    main, terms = losses(logits, y) if mix is None else mixed_losses(losses, logits, y, *mix)
     if moe_aux_weight:
         aux = torch.stack([m.aux for m in model.modules() if isinstance(m, MoEMlp)]).mean()
         main = main + moe_aux_weight * aux
         terms = {**terms, "moe_aux": aux, WeightedLosses.MAIN: main}
+    if views:
+        kept = [b.detach().clone() for b in model.buffers()]
+        with _autocast(x.device, dtype):
+            view_logits = [model(xa) for xa in views]
+        with torch.no_grad():
+            for b, saved in zip(model.buffers(), kept):
+                b.copy_(saved)
+        consistency = jensen_shannon_divergence_consistency_loss(logits, *view_logits)
+        main = main + jsd_weight * consistency
+        terms = {**terms, "jsd_consistency": consistency, WeightedLosses.MAIN: main}
     opt.zero_grad(set_to_none=True)
     main.backward()
     out = {k: v.detach() for k, v in terms.items()}
@@ -416,6 +483,14 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
     step_kw = dict(dtype=dtype, schedules=schedules,
                    log_grad_norm=bool(hp.get("log_grad_norm", True)),
                    moe_aux_weight=float(hp["moe_aux_weight"] or 0.0) if has_moe else 0.0)
+    mixup_a = float(hp.get("mixup_alpha") or 0.0)
+    cutmix_a = float(hp.get("cutmix_alpha") or 0.0)
+    mixing = (mixup_a > 0 or cutmix_a > 0) and not self_target
+    jsd_cfg = dict(hp.get("augmix_jsd") or {})
+    if mixing and jsd_cfg:
+        raise ValueError("mixup/cutmix cannot combine with augmix_jsd: the JSD anchor must "
+                         "be the clean batch (disable one)")
+    jsd_weight = float(jsd_cfg.get("weight", 12.0)) if jsd_cfg else 0.0
 
     run_dir = hp.get("run_dir") or \
         f"run_{datetime.datetime.now().strftime('%Y%m%d-%H%M%S')}_{os.getpid()}"
@@ -487,10 +562,16 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
                             where = f" (checkpoint {ckpt.save(state.step, state.checkpoint())})"
                         raise Preempted(f"SIGTERM: training stopped at step {state.step}{where}")
                     idx = perm[i * batch_size:(i + 1) * batch_size]
-                    x = trainset.batch_transform(
-                        images[idx], generator=step_generator(seed, state.step, device))
+                    gen = step_generator(seed, state.step, device)
+                    raw = images[idx]
+                    x = trainset.batch_transform(raw, generator=gen)
                     y = _batch_target(x, dtype) if self_target else targets[idx]
-                    m = train_step(state, losses, metrics, x, y, **step_kw)
+                    mix = None
+                    if mixing:
+                        x, *mix = mix_batch(x, gen, mixup_a, cutmix_a)
+                    views = jsd_views(raw, trainset, gen, jsd_cfg) if jsd_cfg else ()
+                    m = train_step(state, losses, metrics, x, y, mix=mix, views=views,
+                                   jsd_weight=jsd_weight, **step_kw)
                     train_acc.update(m)
                     seen += batch_size
                     if state.step % log_every == 0:

@@ -372,8 +372,16 @@ def test_recipe_steps_and_gate_match_jax(recipe):
     ({"transforms": [{"brightness": 0.2}], "random_erasing": {"p": 0.5}}, "random_erasing"),
 ])
 def test_unported_recipe_entries_raise_naming_them(recipe, match):
-    with pytest.raises(NotImplementedError, match=match):
-        A.apply_augmentation_recipe(recipe)
+    """These entries were refused until the rest of augmentation was ported;
+    now each compiles to the JAX package's steps, gate and sections, and
+    leaves K1's route."""
+    ours, ref = A.apply_augmentation_recipe(recipe), JA.apply_augmentation_recipe(recipe)
+    assert ours.steps == ref.steps
+    assert ours.gate_p == pytest.approx(ref.gate_p, abs=0)
+    assert (ours.augmix_spec, ours.rand_augment, ours.random_erasing) == \
+        (ref.augmix_spec, ref.rand_augment, ref.random_erasing)
+    assert match in ours.steps or getattr(ours, {"augmix": "augmix_spec"}.get(match, match))
+    assert not ours.fits_k1()
 
 
 def test_unknown_recipe_entries_are_value_errors_in_both_packages():

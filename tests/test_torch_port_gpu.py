@@ -1478,3 +1478,135 @@ def test_int8_dense_on_card_equals_cpu(cuda):
     x = torch.randn(7, 33, generator=g)
     w = torch.randn(12, 33, generator=g)
     assert torch.equal(int8_dense(x.to(cuda), w.to(cuda)).cpu(), int8_dense(x, w))
+
+
+# --------------------------------------------------------------------------- #
+# The rest of augmentation, the classical-vision modules, Y4M predict
+# --------------------------------------------------------------------------- #
+
+AUG_SHAPE = (256, 32, 32, 3)
+
+
+def _aug_batch():
+    g = torch.Generator().manual_seed(20)
+    return torch.randint(0, 256, AUG_SHAPE, generator=g, dtype=torch.uint8).float() / 255
+
+
+def _levels_apart(got, ref):
+    d = (got.cpu().float() - ref.float()).abs() * 255
+    return float(d.max()), float((d > 0.5).float().mean())
+
+
+@pytest.mark.parametrize("name", ["autocontrast", "equalize", "posterize", "rotate",
+                                  "solarize", "shear_x", "shear_y", "translate_x",
+                                  "translate_y", "color", "contrast", "brightness",
+                                  "sharpness"])
+def test_augmix_op_on_card_matches_cpu(cuda, name):
+    """Each of the 13 ops on the same images and draws: at most one u8
+    level apart, on at most 0.1 % of the values."""
+    from deepcv_tpu_torch.data import augmentation as A
+
+    x = _aug_batch()
+    g = torch.Generator().manual_seed(21)
+    n, h, w, _ = AUG_SHAPE
+    op = A.OPS[name]
+    values = op.param(A._levels(n, g, 8.0), A._signs(n, g), h, w)
+    most, share = _levels_apart(op.apply(x.to(cuda), values.to(cuda)), op.apply(x, values))
+    assert most <= 1.0 and share <= 1e-3, (most, share)
+
+
+def test_augmentation_draws_and_batches_on_card_match_cpu(cuda):
+    """AugMix, RandAugment, random erasing, mixup, CutMix and the float
+    transforms with the same draws; the draws themselves on the card's
+    generator have the right shapes and devices."""
+    from deepcv_tpu_torch.data import augmentation as A
+    from deepcv_tpu_torch.data import transforms as T
+
+    x = _aug_batch()
+    n, h, w, _ = AUG_SHAPE
+    g = torch.Generator().manual_seed(22)
+    d = A.draw_augment_and_mix(n, h, w, g)
+    got = A.augment_and_mix_apply(x.to(cuda), **{k: v.to(cuda) for k, v in d.items()})
+    diff = (got.cpu() - A.augment_and_mix_apply(x, **d)).abs()
+    assert float(diff.max()) <= 1 / 255 + 1e-5 and float((diff > 1e-5).float().mean()) <= 1e-3
+    choice, values = A.draw_rand_augment(n, h, w, g, 2, 5.0)
+    assert _levels_apart(A.rand_augment_apply(x.to(cuda), choice.to(cuda), values.to(cuda)),
+                         A.rand_augment_apply(x, choice, values))[1] <= 1e-3
+    m = torch.eye(2, 3).repeat(n, 1, 1) + 0.1 * torch.randn(n, 2, 3, generator=g)
+    for fn in (lambda t: T.affine_transform(t, m.to(t.device)),
+               lambda t: T.resize(t, 24), lambda t: T.adjust_hue(t, 0.2),
+               lambda t: A.mixup_apply(t, *[v.to(t.device) for v in A.draw_mixup(
+                   n, torch.Generator().manual_seed(3))])[0],
+               lambda t: A.cutmix_apply(t, *[v.to(t.device) for v in A.draw_cutmix(
+                   n, h, w, torch.Generator().manual_seed(4))])[0]):
+        torch.testing.assert_close(fn(x.to(cuda)).cpu(), fn(x), rtol=0, atol=1e-5)
+    gc = torch.Generator(device=cuda).manual_seed(5)
+    draws = A.draw_augment_and_mix(n, h, w, gc)
+    assert all(v.device.type == "cuda" for v in draws.values())
+    lam = A.beta(0.2, 0.2, (4096,), gc)
+    assert lam.device.type == "cuda" and abs(float(lam.mean()) - 0.5) < 0.03
+    recipe = A.apply_augmentation_recipe({"transforms": [{"rotate": [-0.4, 0.4]},
+                                                         {"posterize": 0.05}],
+                                          "augmix": {"augmentation_chains_count": 2},
+                                          "random_erasing": {}})
+    out = recipe(x.to(cuda), gc)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
+def test_classical_match_and_geometry_on_card_match_cpu(cuda):
+    from deepcv_tpu_torch.pipelines import classical_features as C
+    from deepcv_tpu_torch.pipelines import geometry as G
+
+    g = torch.Generator().manual_seed(30)
+    img = F.avg_pool2d(torch.rand(4, 3, 68, 68, generator=g), 5, stride=1).permute(0, 2, 3, 1)
+    c, d, v = C.detect_and_describe(img.to(cuda), k=64)
+    rc, rd, rv = C.detect_and_describe(img, k=64)
+    assert (c.cpu() == rc).all(-1).float().mean() >= 0.99
+    same = (c.cpu() == rc).all(-1)
+    assert (d.cpu() != rd)[same].float().mean() <= 1e-3
+    pa = torch.rand(256, 2, generator=g) * 200
+    pb = pa + torch.tensor([5.0, -3.0])
+    pb[200:] += torch.rand(56, 2, generator=g) * 50
+    sets = G.ransac_sets(256, None, g)
+    h, inl = G.ransac_homography(pa.to(cuda), pb.to(cuda), sets=sets)
+    rh, rinl = G.ransac_homography(pa, pb, sets=sets)
+    assert torch.equal(inl.cpu(), rinl)
+    torch.testing.assert_close(h.cpu() / h[2, 2].cpu(), rh / rh[2, 2], rtol=0, atol=1e-4)
+    frames = torch.rand(16, 32, 32, 3, generator=g)
+    for got, ref in zip(G.remove_watermark(frames.to(cuda)), G.remove_watermark(frames)):
+        torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+    base = F.avg_pool2d(torch.rand(1, 3, 44, 44, generator=g), 5, stride=1)[0].permute(1, 2, 0)
+    clip = torch.stack([torch.roll(base, (s, -s), (0, 1))[4:36, 4:36] for s in range(6)])
+    got, traj = G.stabilize_video(clip.to(cuda))
+    ref, rtraj = G.stabilize_video(clip)
+    assert torch.equal(traj.cpu(), rtraj)
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-4)
+
+
+def test_predict_on_a_y4m_clip_on_card_matches_cpu(cuda, tmp_path, capsys):
+    import json
+
+    import numpy as np
+
+    from deepcv_tpu_torch import cli
+    from deepcv_tpu_torch.data.video_io import write_y4m
+    from deepcv_tpu_torch.serve import save_model_bundle
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    hp = {"act_fn": "relu", "architecture": [
+        {"conv2d": {"kernel_size": [3, 3], "out_channels": 8}},
+        {"avg_pooling": {"kernel_size": [2, 2], "stride": [2, 2]}}, {"flatten": {}},
+        {"fully_connected": {"out_features": 5}}]}
+    save_model_bundle(tmp_path / "bundle", DeepcvModule((16, 16, 3), hp, device="cpu"))
+    rng = np.random.default_rng(6)
+    write_y4m(tmp_path / "clip.y4m", rng.integers(0, 256, (12, 16, 16, 3), dtype=np.uint8))
+    k2 = fused_conv2d_bias_act.launches
+    for dev in ("cuda", "cpu"):
+        assert cli.main(["predict", "--bundle", str(tmp_path / "bundle"), "--input",
+                         str(tmp_path / "clip.y4m"), "--output", str(tmp_path / f"{dev}.npy"),
+                         "--to-tensor", "--batch-size", "4", "--device", dev]) == 0
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["inputs"] == 12
+        if dev == "cuda":
+            assert fused_conv2d_bias_act.launches - k2 == 3
+    got, ref = np.load(tmp_path / "cuda.npy"), np.load(tmp_path / "cpu.npy")
+    assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-4

@@ -363,13 +363,31 @@ def test_cli_predict_decodes_segmentation_and_detection_as_jax(in_tmp, capfd):
             np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-5, err_msg=k)
 
 
+def test_cli_predict_y4m_matches_jax(in_tmp, capfd):
+    """``predict --input clip.y4m``: both CLIs read the clip's RGB frames (4
+    frames of 8x8, written by the JAX package's writer) and predict them
+    within 1e-4 of each other."""
+    from deepcv_tpu.data.video_io import write_y4m
+
+    tmp_path = in_tmp
+    jdir, tdir = _bundles(tmp_path, _conv_hp(), "cls")
+    write_y4m(tmp_path / "clip.y4m", _images(4, seed=10), chroma="444")
+    outs = []
+    for main, bundle, out in ((jcli.main, jdir, "jax"), (tcli.main, tdir, "port")):
+        argv = ["predict", "--bundle", str(bundle), "--input", str(tmp_path / "clip.y4m"),
+                "--output", str(tmp_path / f"{out}.npy"), "--to-tensor"]
+        assert main(argv + (["--device", "cpu"] if out == "port" else [])) == 0
+        outs.append(json.loads(capfd.readouterr().out.strip().splitlines()[-1]))
+    assert outs[0]["inputs"] == outs[1]["inputs"] == 4
+    assert outs[1]["output_shape"] == [4, 6]
+    assert _rel(np.load(tmp_path / "port.npy"), np.load(tmp_path / "jax.npy")) <= FWD_TOL
+
+
 def test_cli_predict_refusals(in_tmp, capfd):
     tmp_path = in_tmp
     _, tdir = _bundles(tmp_path, _conv_hp(), "cls")
     np.save(tmp_path / "x.npy", _images(2))
     base = ["predict", "--bundle", str(tdir), "--device", "cpu"]
-    assert tcli.main(base + ["--input", str(tmp_path / "clip.y4m")]) == 2
-    assert "data/video_io.py" in capfd.readouterr().err
     assert tcli.main(base + ["--input", str(tmp_path / "missing.npy")]) == 2
     assert tcli.main(base + ["--input", str(tmp_path / "x.npy"), "--decode", "boxes"]) == 2
     assert tcli.main(base + ["--input", str(tmp_path / "x.npy"), "--batch-size", "0"]) == 2

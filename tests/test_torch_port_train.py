@@ -93,15 +93,16 @@ def test_preprocess_matches_jax(tmp_path):
         got = ours[k].batch_transform(torch.from_numpy(x)).numpy()
         ref = np.asarray(theirs[k].batch_transform(jnp.asarray(x), augment=False))
         np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="posterize"):
-        preprocess({"trainset": load_dataset(entry)},
-                   dict(params, augmentation_recipe={"transforms": [{"posterize": 0.05}]}))
+    augmented = preprocess({"trainset": load_dataset(entry)},
+                           dict(params, augmentation_recipe={"transforms": [{"posterize": 0.05}]}))
+    assert augmented["trainset"].augmentation.steps == ["posterize"]
+    assert augmented["validset"].augmentation is None
     with pytest.raises(NotImplementedError, match="target_transforms"):
         preprocess({"trainset": load_dataset(entry)},
                    dict(params, target_transforms=["to_tensor"]))
-    with pytest.raises(NotImplementedError, match="random_crop"):
-        preprocess({"trainset": load_dataset(entry)},
-                   dict(params, transforms=["random_crop"]))
+    for prep, load in ((preprocess, load_dataset), (jax_preprocess, jax_load_dataset)):
+        with pytest.raises(ValueError, match="no_such_transform"):
+            prep({"trainset": load(entry)}, dict(params, transforms=["no_such_transform"]))
 
 
 # --------------------------------------------------------------------------- #
@@ -251,8 +252,7 @@ _ON = {"nni_compression": {"sparsity": 0.5}, "log_param_histograms": True,
        "max_epochs_per_dispatch": 2, "sync_every_dispatches": 2, "runtime_lr": True,
        "flatten_optimizer": True, "flat_params": True, "wire_compression": True,
        "train_arch_params": False, "ema_decay": 0.999, "gradient_clip_norm": 1.0, "freeze_params": "embed", "lr_scales": {".*": 0.1},
-       "mixup_alpha": 0.2, "cutmix_alpha": 1.0, "uda": {"weight": 1.0},
-       "backend_conf": {"n_devices": 2}, "augmix_jsd": {"weight": 12.0}}
+       "uda": {"weight": 1.0}, "backend_conf": {"n_devices": 2}}
 
 
 @pytest.mark.parametrize("key", sorted(UNPORTED_HP))
