@@ -371,6 +371,7 @@ import json
 import math
 import platform
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -421,6 +422,7 @@ from deepcv_tpu_torch.spec.creators import ForwardCallback, MaxPool
 from deepcv_tpu_torch.spec.zoo import (densenet_spec, mobilenet_v2_spec, mobilenet_v3_spec,
                                        resnet_spec, unet_spec, vit_spec)
 from deepcv_tpu_torch.train import training
+from deepcv_tpu_torch.train.losses import cross_entropy_loss
 
 REPO = Path(__file__).resolve().parent
 HANG_LIMIT_S = 1000
@@ -712,6 +714,17 @@ def _profile_calls(fn, calls: int, margin_s: float = 0.05):
     return prof
 
 
+def _kernel_records(prof):
+    """The profiler's device kernel records (by name, with counts), less its
+    device copies of host ranges: a ``torch.library`` op such as K2's
+    launch is one, a span over the kernels it launched, and counting it
+    would count those kernels twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and (getattr(e, "self_device_time_total", 0) or 0) > 0]
+
+
 def device_ms(fn, launches: Optional[int], iters: int = 20, tries: int = 6) -> float:
     """Device time of one call: every kernel's time under torch.profiler over
     ``iters`` calls, summed and divided (no host gaps, unlike ``cuda_ms`` at
@@ -727,8 +740,7 @@ def device_ms(fn, launches: Optional[int], iters: int = 20, tries: int = 6) -> f
     torch.cuda.synchronize()
     seen = None
     for _ in range(tries):
-        events = [e for e in _profile_calls(fn, iters).key_averages()
-                  if (getattr(e, "self_device_time_total", 0) or 0) > 0]
+        events = _kernel_records(_profile_calls(fn, iters))
         recorded = sum(e.count for e in events)
         want = iters * launches if launches is not None else seen
         if recorded == want and recorded % iters == 0:
@@ -1675,8 +1687,7 @@ def _device_kernels(fn) -> collections.Counter:
     lose a launch)."""
     fn()
     torch.cuda.synchronize()
-    return collections.Counter({e.key: e.count for e in _profile_calls(fn, 1).key_averages()
-                                if (getattr(e, "self_device_time_total", 0) or 0) > 0})
+    return collections.Counter({e.key: e.count for e in _kernel_records(_profile_calls(fn, 1))})
 
 
 def _library_fwd_bwd(q, k, v, do):
@@ -1813,7 +1824,7 @@ def _run_train_vit(label, epochs, *extra):
     cut = {"train_resnet50.epochs": epochs, "train_resnet50.save_every_iters": 0,
            "train_resnet50.log_progress_every_iters": 1,
            "train_resnet50.output_path": str(_build.BUILD_DIR / label)}
-    argv = ["--pipeline=train_vit", "--project-path", str(REPO),
+    argv = ["--pipeline=train_vit", "--project-path", str(REPO), "--no-persist",
             "--params", ",".join(["vit_model.attn_impl:flash", *extra]
                                  + [f"{k}:{v}" for k, v in cut.items()])]
     for c in FLASH_COUNTERS:
@@ -2229,7 +2240,7 @@ def _run_classifier(label, params, pipeline="train_image_classifier",
     seen at every step, and a CUDA event recorded after every step."""
     out_dir = _build.BUILD_DIR / label
     params = [*params, f"{hp_key}.save_every_iters:0", f"{hp_key}.output_path:{out_dir}"]
-    argv = [f"--pipeline={pipeline}", "--project-path", str(REPO),
+    argv = [f"--pipeline={pipeline}", "--project-path", str(REPO), "--no-persist",
             "--params", ",".join(params)]
     store, wall, counts, flags, step_ends = _counted(lambda: cli.run(argv))
     return store, argv, wall, counts, flags, step_ends
@@ -2349,15 +2360,7 @@ def _profile_groups(prof, table=PROFILE_GROUPS):
     """Device time (ms) of every kernel in a torch.profiler run, summed by
     the groups of ``table`` (the first group a name matches), and the ten
     largest kernels."""
-    kernels = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) is None or "CUDA" not in str(e.device_type):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            kernels.append((e.key, us / 1e3, e.count))
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in _kernel_records(prof)]
     groups = collections.Counter()
     for name, ms, _ in kernels:
         group = next((g for g, frags in table if any(f in name for f in frags)), "other")
@@ -2559,19 +2562,21 @@ def phase_wide_train(card, data):
 #: modules and functions :func:`_annotated_modules` puts in one) or the
 #: backward of an op launched inside one (by autograd sequence number);
 #: then, by the name of an event above the kernel, K2's backward
-#: (``_FusedConvFn``'s: the plain version again in float32, cuDNN's dgrad
-#: and wgrad) and the optimizer's step. The wide steps put the norms and the
+#: (:data:`K2_BACKWARD_NODE`: the plain version again in float32, cuDNN's
+#: dgrad and wgrad) and the optimizer's step. The wide steps put the norms and the
 #: weight-norm function in ranges, the zoo steps BatchNorm and every conv
 #: that K2 does not take (depthwise, strided, the stems)
 PROFILE_RANGE = "range::"
+#: the autograd node of K2's launch (``fused_layer._FusedConvFn``)
+K2_BACKWARD_NODE = "_FusedConvFnBackward"
 WIDE_RANGES = ((port_nn.BatchNorm, "forward", "batch_norm"),
                (port_nn.GroupNorm, "forward", "group_norm"),
                (port_nn, "weight_norm", "weight_norm"))
-WIDE_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
+WIDE_BACKWARD_GROUPS = (("K2_backward", K2_BACKWARD_NODE),
                         ("adamw", "Optimizer.step#AdamW.step"))
 ZOO_RANGES = ((port_nn.BatchNorm, "forward", "batch_norm"),
               (port_nn.Conv2d, "forward", "depthwise_and_stem_convs"))
-ZOO_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
+ZOO_BACKWARD_GROUPS = (("K2_backward", K2_BACKWARD_NODE),
                        ("sgd", "Optimizer.step#SGD.step"))
 #: by kernel name, for the kernels launched from none of those
 NAME_GROUPS = (("K2_forward", ("fused_conv2d_bias_act",)),
@@ -3182,7 +3187,7 @@ UNET_RANGES = ((port_nn.GroupNorm, "forward", "group_norm"),
                (seg_pipeline, "segmentation_loss", "loss"),
                (seg_pipeline, "pixel_accuracy", "metrics"),
                (seg_pipeline, "mean_iou", "metrics"))
-UNET_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
+UNET_BACKWARD_GROUPS = (("K2_backward", K2_BACKWARD_NODE),
                         ("adamw", "Optimizer.step#AdamW.step"))
 
 
@@ -3401,7 +3406,7 @@ FPN_RANGES = ((port_nn.Conv2d, "forward", "fpn_convs"),
               (port_nn, "interpolate", "nearest_resize"),
               (det_pipeline, "detection_loss_focal", "focal_loss"),
               (det_pipeline, "objectness_accuracy", "metrics"))
-FPN_BACKWARD_GROUPS = (("K2_backward", "_FusedConvFnBackward"),
+FPN_BACKWARD_GROUPS = (("K2_backward", K2_BACKWARD_NODE),
                        ("adamw", "Optimizer.step#AdamW.step"))
 
 
@@ -4876,6 +4881,499 @@ def phase_video_predict(card):
     return predict_counts["K2"] + pv_counts["K2"]
 
 
+# --------------------------------------------------------------------------- #
+# The training runtime: the streaming input path, the optimizers, the update
+# chain, remat, UDA and partial runs
+# --------------------------------------------------------------------------- #
+
+#: bench.py config 7 (``bench_streaming``): 131,072 random-walk 32x32x3
+#: images in a memmap, validset_ratio 0.03, batch 4096, bfloat16, 2 epochs,
+#: AdamW lr 1e-3, no validation, no checkpoints, wire compression off
+STREAM_IMAGES, STREAM_BATCH = 131_072, 4096
+STREAM_HP = {"epochs": 2, "batch_size": STREAM_BATCH, "optimizer_opts": {"lr": 1e-3},
+             "save_every_iters": 0, "log_progress_every_iters": 1_000_000,
+             "validate_every_epochs": 1000, "seed": 0, "dtype": "bfloat16",
+             "handle_preemption": False, "wire_compression": False,
+             "device_resident_dataset": False}
+STREAM_CPU_STEPS = 2          # first steps held against the CPU path
+#: the runtime runs' trainset: 4 steps of 4,096 (config 1's batch)
+RUNTIME_VALID_RATIO = 0.67
+RUNTIME_BASE = {"epochs": 1, "batch_size": AUGMENT_BATCH, "dtype": "bfloat16",
+                "optimizer": "adamw", "save_every_iters": 0, "log_progress_every_iters": 1,
+                "optimizer_opts": {"lr": 1e-3, "betas": [0.9, 0.999], "weight_decay": 1e-2},
+                "validate_every_epochs": 1000, "handle_preemption": False, "seed": SEED}
+#: (label, hp overrides, K2 launches a training step)
+RUNTIME_RUNS = (
+    ("opt_adamw", {}, 5),
+    ("opt_adam", {"optimizer": "adam", "optimizer_opts": {"lr": 1e-3}}, 5),
+    ("opt_sgd", {"optimizer": "sgd", "optimizer_opts": {"lr": 0.05, "momentum": 0.9,
+                                                         "nesterov": True}}, 5),
+    ("opt_rmsprop", {"optimizer": "rmsprop", "optimizer_opts": {"lr": 1e-3}}, 5),
+    ("opt_lamb", {"optimizer": "lamb", "optimizer_opts": {"lr": 1e-3, "weight_decay": 1e-2}}, 5),
+    ("opt_lars", {"optimizer": "lars", "optimizer_opts": {"lr": 0.1}}, 5),
+    ("opt_adafactor", {"optimizer": "adafactor", "optimizer_opts": {"lr": 1e-2}}, 5),
+    ("opt_lion", {"optimizer": "lion", "optimizer_opts": {"lr": 1e-4, "weight_decay": 0.1}}, 5),
+    ("opt_muon", {"optimizer": "muon", "optimizer_opts": {"lr": 0.02, "weight_decay": 1e-2}}, 5),
+    ("opt_schedule_free_adamw", {"optimizer": "schedule_free_adamw", "validate_every_epochs": 1,
+                                 "optimizer_opts": {"lr": 1e-3, "warmup_steps": 2}}, 5),
+    ("clip", {"gradient_clip_norm": 1.0}, 5),
+    ("accumulation", {"grad_accumulation_steps": 4}, 5),
+    ("ema", {"ema_decay": 0.999, "ema_eval": True, "validate_every_epochs": 1,
+             "log_param_histograms": True}, 5),
+    ("freeze_lr_scales", {"freeze_params": "_submodule_0_conv2d",
+                          "lr_scales": {"fully_connected": 1.0, ".*": 0.1}}, 5),
+    ("remat_true", {"remat": True}, 10),
+    ("remat_dots", {"remat": "dots"}, 5),
+    ("with_replacement", {"sampling": "with_replacement"}, 5),
+    ("uda", {"uda": {"weight": 1.0, "ops": ["autocontrast", "equalize", "posterize",
+                                             "solarize"]}}, 10),
+    ("sched_constant", {"scheduler": {"type": "constant", "kwargs": {"value": 1e-3}}}, 5),
+    ("sched_cosine", {"scheduler": {"type": "cosine",
+                                    "kwargs": {"init_value": 1e-3, "decay_steps": 4}}}, 5),
+    ("sched_warmup_cosine", {"scheduler": {"type": "warmup_cosine", "kwargs": {
+        "peak_value": 1e-3, "warmup_steps": 1, "decay_steps": 4}}}, 5),
+    ("sched_exponential", {"scheduler": {"type": "exponential", "kwargs": {
+        "init_value": 1e-3, "transition_steps": 2, "decay_rate": 0.5}}}, 5))
+#: each optimizer's one step on the card against the CPU's on the same
+#: gradients, float32 with TF32 off: the largest difference of the updated
+#: parameters relative to max|update|; for torch's own Adam and AdamW
+#: (:data:`FMA_ROUNDED`) the difference past one float32 ulp of the parameter
+OPT_UPDATE_TOL = 1e-5
+#: the optimizers whose card kernel rounds the parameter otherwise (an FMA)
+#: than the CPU's: a parameter near 1 holds a 1e-3 step only to 6e-8, 6e-5
+#: of it
+FMA_ROUNDED = ("adam", "adamw")
+#: the runs runtime_train traces in a process of its own (remat's two modes
+#: and the same run without remat): device ms a step by group, image_classifier's
+#: group norms in a range, the model's forward inside
+#: ``range::remat_recompute`` where the backward pass recomputes it
+REMAT_PROFILED = ("opt_adamw", "remat_true", "remat_dots")
+REMAT_RANGES = ((port_nn.GroupNorm, "forward", "group_norm"),)
+REMAT_BACKWARD_GROUPS = (("K2_backward", K2_BACKWARD_NODE),
+                         ("adamw", "Optimizer.step#AdamW.step"))
+RUNTIME_RUNS_BY_LABEL = {label: extra for label, extra, _ in RUNTIME_RUNS}
+RUNTIME_OPTIMIZERS = {label[4:]: extra.get("optimizer_opts", RUNTIME_BASE["optimizer_opts"])
+                      for label, extra, _ in RUNTIME_RUNS if label.startswith("opt_")}
+
+
+class _StopAfter(Exception):
+    pass
+
+
+class _HistogramSink:
+    """A logger that keeps the names ``log_param_histograms`` hands it."""
+
+    def __init__(self):
+        self.names = []
+
+    def log_metrics(self, *_a, **_k):
+        pass
+
+    def log_histogram(self, name, values, step):
+        self.names.append(name)
+
+
+def _classifier(data, device, dtype="bfloat16", state=None):
+    from deepcv_tpu_torch.pipelines.classification import create_model
+
+    model = create_model(data, {**conf_hp("image_classifier_model"), "dtype": dtype},
+                         device=device)
+    if state is not None:
+        model.load_state_dict(state)
+    return model
+
+
+def _stream_memmap(d: Path, n: int):
+    """bench.py config 7's images: random walks (steps U[-3, 3]) snaking
+    across each image's 1,024 pixels per channel, reflected into [0, 255],
+    written in chunks of 16,384 into ``x.npy``; labels U[0, 10) in
+    ``y.npy``; both from ``default_rng(0)``."""
+    from numpy.lib.format import open_memmap
+
+    imgs = open_memmap(d / "x.npy", mode="w+", dtype=np.uint8, shape=(n, 32, 32, 3))
+    rng = np.random.default_rng(0)
+    for s in range(0, n, 16384):
+        k = min(n, s + 16384) - s
+        steps = rng.integers(-3, 4, (k, 32 * 32, 3)).astype(np.int16)
+        walk = np.cumsum(steps, axis=1) + rng.integers(0, 256, (k, 1, 3))
+        imgs[s:s + k] = np.abs(walk % 510 - 255).astype(np.uint8).reshape(k, 32, 32, 3)
+    imgs.flush()
+    np.save(d / "y.npy", rng.integers(0, 10, (n,)).astype(np.int32))
+
+
+def _first_losses(hp, data, device, state, steps):
+    """The main losses of the first ``steps`` steps of ``train(hp)`` from
+    the weights ``state``."""
+    events, losses = training.TrainingEvents(), []
+
+    def on_step(state, metrics):
+        losses.append(float(metrics["main_loss"]))
+        if len(losses) >= steps:
+            raise _StopAfter
+
+    events.on(training.TrainingEvents.ITERATION_COMPLETED, on_step)
+    try:
+        training.train(hp, _classifier(data, device, state=state), cross_entropy_loss, data,
+                       events=events)
+    except _StopAfter:
+        pass
+    return losses
+
+
+def _h2d_probe(batch: np.ndarray):
+    """One batch's host-to-device copy, median of 10 CUDA-event timed
+    copies: from pinned memory (``non_blocking``) and from pageable memory."""
+    pinned = torch.from_numpy(batch).pin_memory()
+    pageable = torch.from_numpy(batch.copy())
+    dev = torch.empty(pinned.shape, dtype=pinned.dtype, device=DEVICE)
+    out = {}
+    for label, src in (("pinned", pinned), ("pageable", pageable)):
+        ms = cuda_ms(lambda: dev.copy_(src, non_blocking=True), iters=10, warmup=2)
+        out[label] = {"ms": ms, "mb_s": batch.nbytes / ms / 1e3,
+                      "img_s_allowed": len(batch) / ms * 1e3}
+    if not torch.equal(dev.cpu(), pageable):
+        raise AssertionError("stream_train: the copied batch differs from the host's")
+    return out
+
+
+def phase_stream_train(card):
+    from deepcv_tpu_torch.data.datasets import load_dataset
+    from deepcv_tpu_torch.data.pipeline import BatchIterator
+
+    d = _build.BUILD_DIR / "stream_train_data"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    _stream_memmap(d, STREAM_IMAGES)
+    gen_s = time.perf_counter() - t0
+    raw = load_dataset({"type": "memmap", "images_path": str(d / "x.npy"),
+                        "targets_path": str(d / "y.npy")})
+    data = preprocess({"trainset": raw}, {"seed": 0, "split_dataset": {"validset_ratio": 0.03},
+                                          "transforms": ["to_tensor"]})
+    train_images = len(data["trainset"])
+    if not isinstance(data["trainset"].dataset.images, np.memmap):
+        raise AssertionError("stream_train: the split is no memmap view")
+    init = {k: v.clone() for k, v in _classifier(data, DEVICE).state_dict().items()}
+    _, h_auto = training.train(dict(STREAM_HP, epochs=0, device_resident_dataset="auto"),
+                               _classifier(data, DEVICE, state=init), cross_entropy_loss, data)
+    if h_auto["input_path"] != "streaming":
+        raise AssertionError(f"stream_train: auto took the {h_auto['input_path']} path")
+
+    # the host gather of a batch from the memmap, and the copy of one
+    it = BatchIterator(data["trainset"], STREAM_BATCH, shuffle=True, seed=0).epoch(0)
+    gathers = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        xb, _ = next(it)
+        gathers.append((time.perf_counter() - t0) * 1e3)
+    h2d = _h2d_probe(np.ascontiguousarray(xb))
+
+    runs = {}
+    for label, resident in (("streaming", False), ("resident", True)):
+        model = _classifier(data, DEVICE, state=init)
+        (_, h), wall, counts, _, _ = _counted(lambda: training.train(
+            dict(STREAM_HP, device_resident_dataset=resident), model, cross_entropy_loss, data))
+        steps = h["steps"]
+        losses = [e["main_loss"] for e in h["train"]]
+        bf16 = "bfloat16/bfloat16/bfloat16"
+        if h["input_path"] != label or steps != 2 * (train_images // STREAM_BATCH) \
+                or not np.isfinite(losses).all() or h["valid"] \
+                or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * steps \
+                or any(k != bf16 for k in counts["K2_dtypes"]):
+            raise AssertionError(f"stream_train {label}: path {h['input_path']}, {steps} steps, "
+                                 f"losses {losses}, counts {counts}")
+        runs[label] = {"steps": steps, "throughput_img_s": h["throughput_img_s"],
+                       "steady_img_s": _steady(h["throughput_img_s"]), "wall_s": wall,
+                       "loss": losses[-1], "launches": counts,
+                       "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del model
+        torch.cuda.empty_cache()
+
+    # the first steps on the card against the CPU path, on the same batches
+    cpu_hp = dict(STREAM_HP)
+    gpu = _first_losses(cpu_hp, data, DEVICE, init, STREAM_CPU_STEPS)
+    cpu = _first_losses(cpu_hp, data, "cpu", {k: v.cpu() for k, v in init.items()},
+                        STREAM_CPU_STEPS)
+    rel = [abs(g - c) / max(1.0, abs(c)) for g, c in zip(gpu, cpu)]
+    if len(rel) != STREAM_CPU_STEPS or max(rel) > BF16_TOL:
+        raise AssertionError(f"stream_train: card losses {gpu} vs CPU {cpu}")
+    s, r = runs["streaming"], runs["resident"]
+    emit({"phase": "stream_train",
+          "settings": "bench.py config 7: memmap of 131,072 random-walk 32x32x3 images, "
+                      "validset_ratio 0.03, transforms [to_tensor], image_classifier bf16, "
+                      "batch 4096, 2 epochs, AdamW lr 1e-3, device_resident_dataset false, "
+                      "no validation, no wire compression",
+          "data_bytes": STREAM_IMAGES * 3072, "data_gen_s": gen_s, "train_images": train_images,
+          "auto_path_on_memmap": h_auto["input_path"],
+          "steps": s["steps"], "throughput_img_s": s["throughput_img_s"],
+          "steady_img_s": s["steady_img_s"], "step_ms": STREAM_BATCH / s["steady_img_s"] * 1e3,
+          "resident": {k: r[k] for k in ("throughput_img_s", "steady_img_s", "wall_s",
+                                         "peak_memory_gib")},
+          "streaming_over_resident": s["steady_img_s"] / r["steady_img_s"],
+          "host_gather_ms_per_batch": statistics.median(gathers), "host_gather_ms": gathers,
+          "h2d_copy_per_batch": h2d, "batch_mb": STREAM_BATCH * 3072 / 1e6,
+          "wall_s": s["wall_s"], "loss": s["loss"], "launches": s["launches"],
+          "launches_resident": r["launches"],
+          "launches_per_step": {"K2": s["launches"]["K2"] / s["steps"]},
+          "validation_forwards": 0,
+          "first_losses": {"card": gpu, "cpu": cpu, "max_rel": max(rel), "tol": BF16_TOL},
+          "peak_memory_gib": s["peak_memory_gib"], "card": card})
+    for p in d.iterdir():
+        p.unlink()
+    d.rmdir()
+    return {"streaming": s["launches"]["K2"], "resident": r["launches"]["K2"]}
+
+
+def _optimizer_update_check(name, opts, model):
+    """One step of optimizer ``name`` on the card and on the CPU from the
+    same float32 parameters and gradients. Returns (max |u_card - u_cpu| /
+    max |u_cpu|, the same past one float32 ulp of the parameter)."""
+    gen = torch.Generator().manual_seed(SEED)
+    named = [(n, p.detach().float().cpu()) for n, p in model.named_parameters()]
+    grads = [torch.randn(p.shape, generator=gen) * 0.01 for _, p in named]
+    after = []
+    for dev in ("cpu", DEVICE):
+        params = [(n, torch.nn.Parameter(p.to(dev).clone())) for n, p in named]
+        opt = training.build_optimizer(name, opts, params)
+        for (_, p), g in zip(params, grads):
+            p.grad = g.to(dev).clone()
+        opt.step()
+        after.append([p.detach().cpu() for _, p in params])
+    top = max(float((a - p0).abs().max()) for a, (_, p0) in zip(after[0], named))
+    diff = [(b - a).abs() for a, b in zip(*after)]
+    ulp = [torch.nextafter(a.abs(), torch.tensor(float("inf"))) - a.abs() for a in after[0]]
+    raw = max(float(d.max()) for d in diff)
+    past_ulp = max(float((d - u).clamp(min=0).max()) for d, u in zip(diff, ulp))
+    return raw / top, past_ulp / top
+
+
+@contextlib.contextmanager
+def _recompute_range():
+    """The model's forward inside ``range::remat_recompute`` where the
+    backward pass runs it (remat's recomputation)."""
+    from torch.profiler import record_function
+    forward = DeepcvModule.forward
+
+    def ranged(self, *a, **kw):
+        if torch._C._current_graph_task_id() == -1:
+            return forward(self, *a, **kw)
+        with record_function(PROFILE_RANGE + "remat_recompute"):
+            return forward(self, *a, **kw)
+    with mock.patch.object(DeepcvModule, "forward", ranged):
+        yield
+
+
+REMAT_PROFILE_PROCESS_S = 300
+
+
+def phase_remat_profile(card):
+    """:func:`remat_train_profile` in a process of its own
+    (``chip_smoke.py --remat-profile CARD``), its lines passed on: in this
+    process, after the earlier phases' profiles, the profiler has lost one
+    of a run's 20 K2 records (twice in a row), as it lost U-Net's."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--remat-profile",
+                           card], capture_output=True, text=True,
+                          timeout=REMAT_PROFILE_PROCESS_S, cwd=REPO)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    sys.stderr.write(proc.stderr)
+    sys.stderr.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"remat_train_profile: its process exited {proc.returncode}")
+
+
+def remat_train_profile(card, tries=3, margin_s=0.5):
+    """Each run of :data:`REMAT_PROFILED` once unprofiled (its step ms;
+    cuDNN's plans) and once under torch.profiler, with ``margin_s`` of idle
+    time at each end of the window (:func:`_profile_calls` says why):
+    device ms a step by group, K2's launches recorded against the count,
+    and the device's idle share of the unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    _, run = _runtime_runs()
+    out = {}
+    for label in REMAT_PROFILED:
+        extra = RUNTIME_RUNS_BY_LABEL[label]
+        _, _, _, _, _, ends = run(label, extra, _HistogramSink())
+        step_ms = statistics.median(s.elapsed_time(e) for s, e in zip(ends, ends[1:]))
+        for _ in range(tries):
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            with _annotated_modules(REMAT_RANGES), _recompute_range(), \
+                    profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(margin_s)
+                model, (_, h), _, counts, _, _ = run(label, extra, _HistogramSink())
+                torch.cuda.synchronize()
+                time.sleep(margin_s)
+            groups, kernels, _, k2 = _range_profile_groups(prof, REMAT_BACKWARD_GROUPS)
+            if k2 == counts["K2"]:
+                break
+        else:
+            raise AssertionError(f"runtime_train {label} profile: {k2} K2 launches recorded "
+                                 f"of {counts['K2']} in each of {tries} tries")
+        steps = h["steps"]
+        upload = groups.pop("upload", 0.0)
+        busy = sum(groups.values()) / steps
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+        out[label] = {
+            "steps": steps, "device_ms_per_step": {g: v / steps for g, v in groups.most_common()},
+            "upload_ms_per_run": upload, "device_busy_ms_per_step": busy,
+            "step_ms_unprofiled": step_ms, "device_idle_share": 1.0 - busy / step_ms,
+            "top_kernels_ms_per_step": [[n[:90], v / steps, c] for n, (v, c) in top],
+            "k2_launches_recorded": k2, "k2_launches": counts["K2"]}
+        del model, prof
+    emit({"phase": "runtime_train_profile", "profiles": out, "card": card})
+
+
+def _runtime_runs():
+    """The runtime runs' data and ``run(label, extra, sink)``: a fresh
+    image_classifier from one seeded init trained under ``_counted``;
+    returns the model and ``_counted``'s result."""
+    from deepcv_tpu_torch.data.datasets import load_dataset
+
+    raw = load_dataset({"type": "cifar10", "train": True})
+    data = preprocess({"trainset": raw, "testset": load_dataset({"type": "cifar10",
+                                                                 "train": False})},
+                      {"seed": 0, "split_dataset": {"validset_ratio": RUNTIME_VALID_RATIO},
+                       "transforms": ["to_tensor"]})
+    unlabeled = np.asarray(data["validset"].dataset.images[:AUGMENT_BATCH])
+    init = {k: v.clone() for k, v in _classifier(data, DEVICE).state_dict().items()}
+
+    def run(label, extra, sink):
+        hp = {**RUNTIME_BASE, **extra,
+              "output_path": str(_build.BUILD_DIR / "runtime_train"), "run_dir": label}
+        datasets = dict(data)
+        if "uda" in extra:
+            datasets["unlabeledset"] = ArrayDataset(unlabeled, np.zeros(len(unlabeled), np.int64))
+        model = _classifier(data, DEVICE, state=init)
+        out = _counted(lambda: training.train(hp, model, cross_entropy_loss, datasets,
+                                              loggers=[sink]))
+        return (model, *out)
+    return data, run
+
+
+def phase_runtime_train(card):
+    data, run = _runtime_runs()
+    rows, launches = {}, {}
+    for label, extra, k2_per_step in RUNTIME_RUNS:
+        sink = _HistogramSink()
+        model, (state, h), wall, counts, _, ends = run(label, extra, sink)
+        n_params = len(list(model.parameters()))
+        if len(sink.names) != (n_params * len(h["valid"]) if "log_param_histograms" in extra
+                               else 0):
+            raise AssertionError(f"runtime_train {label}: {len(sink.names)} histograms for "
+                                 f"{n_params} parameters and {len(h['valid'])} validations")
+        steps = h["steps"]
+        n_valid = len(data["validset"])
+        val_forwards = len(h["valid"]) * math.ceil(n_valid / min(32 * AUGMENT_BATCH, n_valid))
+        losses = [e["main_loss"] for e in h["train"]]
+        if steps == 0 or not np.isfinite(losses).all() \
+                or counts["K2"] != k2_per_step * steps + CLASSIFIER_CONVS_PER_FORWARD * val_forwards:
+            raise AssertionError(f"runtime_train {label}: {steps} steps, losses {losses}, "
+                                 f"{val_forwards} validation forwards, counts {counts}")
+        step_ms = [s.elapsed_time(e) for s, e in zip(ends, ends[1:])]
+        rows[label] = {"steps": steps, "losses": losses, "wall_s": wall,
+                       "step_ms": statistics.median(step_ms) if step_ms else None,
+                       "k2_per_step": (counts["K2"] - CLASSIFIER_CONVS_PER_FORWARD
+                                       * val_forwards) / steps,
+                       "validation_forwards": val_forwards,
+                       "valid": h["valid"][-1] if h["valid"] else None,
+                       "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if label == "accumulation":
+            rows[label]["optimizer_updates"] = state.updates
+        if label == "ema":
+            rows[label]["param_histograms"] = len(sink.names)
+            rows[label]["ema_minus_params_max"] = max(
+                float((state.ema[n] - p.detach()).abs().max())
+                for n, p in model.named_parameters())
+        launches[label] = counts["K2"]
+        del model, state
+        torch.cuda.empty_cache()
+    model = _classifier(data, "cpu", dtype="float32")
+    checks = {name: _optimizer_update_check(name, opts, model)
+              for name, opts in RUNTIME_OPTIMIZERS.items()}
+    updates = {k: v[0] for k, v in checks.items()}
+    past_ulp = {k: v[1] for k, v in checks.items()}
+    held = {k: past_ulp[k] if k in FMA_ROUNDED else updates[k] for k in updates}
+    if not all(v <= OPT_UPDATE_TOL for v in held.values()) or len(updates) != 10:
+        raise AssertionError(f"runtime_train: card updates off the CPU's {updates} "
+                             f"(past one ulp {past_ulp})")
+    emit({"phase": "runtime_train",
+          "settings": f"image_classifier bf16 at bench.py config 1's batch {AUGMENT_BATCH} on "
+                      f"the CIFAR-10 stand-in, validset_ratio {RUNTIME_VALID_RATIO} (4 steps "
+                      "an epoch), 1 epoch a run, config 1's AdamW unless the run says "
+                      "otherwise; validation only where the run needs it (ema_eval, the "
+                      "schedule-free evaluation point)",
+          "runs": rows, "optimizer_update_rel_err": updates,
+          "optimizer_update_rel_err_past_one_ulp": past_ulp, "tol": OPT_UPDATE_TOL,
+          "past_one_ulp_held_for": list(FMA_ROUNDED),
+          "card": card})
+    phase_remat_profile(card)
+    return launches
+
+
+def phase_partial_run(card):
+    """``run --to-nodes preprocess``, ``--only-nodes create_model`` (the
+    datasets from the cache) and ``--from-nodes train`` (both from the
+    cache) of train_image_classifier, in a project whose conf is the
+    repository's; the first loss equals a full run's."""
+    project = _build.BUILD_DIR / "partial_project"
+    shutil.rmtree(project, ignore_errors=True)
+    (project / "conf").mkdir(parents=True)
+    (project / "conf" / "base").symlink_to(REPO / "conf" / "base")
+    params = ",".join(["train_image_classifier.epochs:1", "train_image_classifier.batch_size:256",
+                       "cifar10_preprocessing.split_dataset.validset_ratio:0.9",
+                       "train_image_classifier.save_every_iters:0",
+                       "train_image_classifier.log_progress_every_iters:1",
+                       f"train_image_classifier.output_path:{_build.BUILD_DIR / 'partial_run'}"])
+    base = ["--pipeline=train_image_classifier", "--project-path", str(project),
+            "--device", DEVICE, "--params", params]
+    t0 = time.perf_counter()
+    full = cli.run([*base, "--no-persist"])
+    full_s = time.perf_counter() - t0
+    walls = {}
+    stores = {}
+    for label, flags in (("to_preprocess", ["--to-nodes", "preprocess"]),
+                         ("only_create_model", ["--only-nodes", "create_model"]),
+                         ("from_train", ["--from-nodes", "train"])):
+        t0 = time.perf_counter()
+        if label == "from_train":
+            stores[label], walls[label], counts, _, _ = _counted(lambda: cli.run([*base, *flags]))
+        else:
+            stores[label] = cli.run([*base, *flags])
+            walls[label] = time.perf_counter() - t0
+    cache = project / "data" / "02_intermediate" / "train_image_classifier"
+    cached = sorted(p.name for p in cache.iterdir())
+    hf = full["train_results"]["history"]
+    hr = stores["from_train"]["train_results"]["history"]
+    lf, lr = ([e["main_loss"] for e in h["train"]] for h in (hf, hr))
+    n_valid = len(full["datasets"]["validset"])
+    val_forwards = len(hr["valid"]) * math.ceil(n_valid / min(32 * 256, n_valid))
+    if "train_results" in stores["to_preprocess"] or "model" in stores["to_preprocess"] \
+            or cached != ["datasets.pkl", "model.pkl"] or len(lr) != len(lf) \
+            or abs(lr[0] - lf[0]) > 1e-6 * max(1.0, abs(lf[0])) or not np.isfinite(lr).all() \
+            or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * (hr["steps"] + val_forwards):
+        raise AssertionError(f"partial_run: cache {cached}, losses {lr[:3]} vs {lf[:3]}, "
+                             f"counts {counts}")
+    runs = sorted((Path.cwd() / "data" / "04_training" / "experiments" /
+                   "train_image_classifier").iterdir(), key=lambda p: p.stat().st_mtime)
+    meta = json.loads((runs[-1] / "meta.json").read_text())
+    logged = (runs[-1] / "metrics.jsonl").read_text().splitlines()
+    if meta.get("status") != "FINISHED" or meta["tags"].get("pipeline") != \
+            "train_image_classifier" or len(logged) < len(lr):
+        raise AssertionError(f"partial_run: tracker {runs[-1]}: {meta}, {len(logged)} records")
+    emit({"phase": "partial_run",
+          "argv": ["python", "-m", "deepcv_tpu_torch", "run", *base],
+          "flags": ["--to-nodes preprocess", "--only-nodes create_model",
+                    "--from-nodes train"],
+          "cached": cached, "walls_s": walls, "full_run_s": full_s, "steps": hr["steps"],
+          "first_loss": {"from_cache": lr[0], "full": lf[0]},
+          "last_loss": {"from_cache": lr[-1], "full": lf[-1]},
+          "tracker": {"dir": str(runs[-1].relative_to(Path.cwd())), "status": meta["status"],
+                      "metrics_records": len(logged), "tags": sorted(meta["tags"])},
+          "launches": counts, "card": card})
+    shutil.rmtree(project, ignore_errors=True)
+    return counts["K2"]
+
+
 class _Walls:
     """Wall seconds of each phase of a run, by the phase's name."""
 
@@ -4931,6 +5429,11 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         fpn_train_profile(sys.argv[3], float(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--remat-profile"] and len(sys.argv) == 3:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        remat_train_profile(sys.argv[2])
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -4993,6 +5496,9 @@ def main() -> int:
     walls("classical_match", phase_classical_match, card, learned_pairs_s)
     walls("geometry", phase_geometry, card)
     video_launches_f32 = walls("video_predict", phase_video_predict, card)
+    stream_launches = walls("stream_train", phase_stream_train, card)
+    runtime_launches = walls("runtime_train", phase_runtime_train, card)
+    partial_launches = walls("partial_run", phase_partial_run, card)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
@@ -5011,12 +5517,18 @@ def main() -> int:
                                    "serve_extras:ensemble": extras["K2_ensemble"],
                                    **{f"augment_full_train:{k}": n
                                       for k, n in full_launches.items()},
-                                   "video_predict": video_launches_f32}
+                                   "video_predict": video_launches_f32,
+                                   "stream_train": stream_launches["streaming"],
+                                   "stream_train:resident": stream_launches["resident"],
+                                   **{f"runtime_train:{k}": n
+                                      for k, n in runtime_launches.items()},
+                                   "partial_run": partial_launches}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
               augment_counts["K2"] + wide_launches + sum(zoo_launches.values())
               + unet_launches + fpn_launches + keypoint_launches["autoencoder"]
-              + match_launches + sum(full_launches.values()),
+              + match_launches + sum(full_launches.values()) + sum(stream_launches.values())
+              + sum(runtime_launches.values()),
               k2_rows[(DENSE_KERNEL_CASES[0][0], "float32")])
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,

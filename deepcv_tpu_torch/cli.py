@@ -7,7 +7,8 @@ slices. Usage::
 
     python -m deepcv_tpu_torch run --pipeline=train_vit \\
         --params vit_model.attn_impl:flash,train_resnet50.epochs:1 \\
-        [--device cuda] [--export DIR]
+        [--from-nodes N1,N2] [--to-nodes N1,N2] [--only-nodes N1,N2] \\
+        [--tags T1,T2] [--no-persist] [--device cuda] [--export DIR]
     python -m deepcv_tpu_torch list
     python -m deepcv_tpu_torch describe --pipeline=train_vit
     python -m deepcv_tpu_torch serve --bundle DIR [--port 8000] \\
@@ -19,7 +20,10 @@ slices. Usage::
         [--decode segmentation|detection[:g1,g2,...] [--top-k 16] [--nms-iou 0.5]] \\
         [--device cuda]
 
-``run`` prints one JSON line summing up the training run; typed config
+``run`` prints one JSON line summing up the training run (a partial run
+reads the outputs of the nodes it leaves out from the intermediate cache
+that earlier runs wrote; ``--export`` bundles the EMA weights, or the
+schedule-free averaged iterate, where training kept them); typed config
 faults (a bad ``--params`` override, a malformed spec) exit with code 2 and
 a one-line message. ``predict`` writes its predictions (an ``.npy``; int32
 argmax masks with ``--decode segmentation``; an ``.npz`` of boxes, scores
@@ -31,6 +35,7 @@ scales, or static ones recorded on the first ``--calibrate N`` inputs. A
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import sys
@@ -93,14 +98,22 @@ def run(argv: List[str]) -> Dict[str, Any]:
     the pipeline's data store; ``--export DIR`` saves the trained model as a
     serving bundle."""
     args = build_parser().parse_args(["run", *argv])
-    store = _context(args).run(args.pipeline)
+
+    def csv(v):
+        return tuple(s.strip() for s in v.split(",")) if v else ()
+
+    store = _context(args).run(args.pipeline, from_nodes=csv(args.from_nodes),
+                               to_nodes=csv(args.to_nodes), only_nodes=csv(args.only_nodes),
+                               tags=csv(args.tags), persist_intermediates=not args.no_persist)
     if args.export:
         from deepcv_tpu_torch.serve import save_model_bundle
 
         results = store.get("train_results") or {}
         if "model" not in results:
             raise SystemExit("--export: the pipeline produced no trained model to bundle")
-        store["bundle"] = save_model_bundle(args.export, results["model"])
+        state = results.get("state")
+        with state.eval_weights() if hasattr(state, "eval_weights") else contextlib.nullcontext():
+            store["bundle"] = save_model_bundle(args.export, results["model"])
     return store
 
 
@@ -275,6 +288,17 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument("--project-path", default=".")
     p_run.add_argument("--device", default="cuda",
                        help="'cuda' (default) or 'cpu' for the plain path")
+    p_run.add_argument("--from-nodes", default=None, metavar="N1,N2",
+                       help="start at the first of these nodes (earlier nodes' outputs "
+                            "load from the intermediate cache)")
+    p_run.add_argument("--to-nodes", default=None, metavar="N1,N2",
+                       help="stop after the last of these nodes")
+    p_run.add_argument("--only-nodes", "--node", dest="only_nodes", default=None,
+                       metavar="N1,N2", help="run exactly these nodes")
+    p_run.add_argument("--tags", "--tag", dest="tags", default=None, metavar="T1,T2",
+                       help="run only nodes with any of these tags")
+    p_run.add_argument("--no-persist", action="store_true",
+                       help="do not write (or read) pipeline intermediates")
     p_run.add_argument("--export", default=None, metavar="DIR",
                        help="after the run, save the trained model as a serving bundle")
     p_list = sub.add_parser("list", help="list registered pipelines")

@@ -12,8 +12,16 @@ root; the canonical on-disk files (CIFAR python pickles, MNIST idx),
 parsed with the standard library and cached; the cached synthetic
 stand-in ``<name>_<split>_synthetic.npz``; or that stand-in generated by
 :func:`_synthetic_like` and cached. Nothing is downloaded: the JAX
-package's torchvision step is left out. Other catalog types (image
-folders, tar shards, torchvision datasets) are not ported yet and raise.
+package's torchvision step is left out, and a torchvision catalog type
+raises.
+
+The other loaders: ``memmap`` opens ``images.npy`` and ``targets.npy`` as
+memory maps (only the pages a batch touches are read; the training loop
+streams such a dataset), ``tar_shards`` reads the webdataset-style shards
+:func:`write_tar_shards` writes, and ``image_folder`` decodes
+``root/<class>/*.jpg`` with PIL, which is imported only when called.
+:func:`tar_shards_to_memmap` and :func:`materialize_image_folder_to_memmap`
+convert once to the memmap format, one image in memory at a time.
 """
 from __future__ import annotations
 
@@ -26,8 +34,9 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Unio
 
 import numpy as np
 
-__all__ = ["ArrayDataset", "load_dataset", "split_dataset", "DATASET_LOADERS",
-           "DEFAULT_DATA_ROOT"]
+__all__ = ["ArrayDataset", "load_dataset", "split_dataset", "get_random_subset",
+           "DATASET_LOADERS", "DEFAULT_DATA_ROOT", "write_tar_shards", "tar_shards_to_memmap",
+           "materialize_image_folder_to_memmap"]
 
 _logger = logging.getLogger(__name__)
 
@@ -219,8 +228,234 @@ def _load_builtin(name: str, root: Path, train: bool) -> ArrayDataset:
     return ds
 
 
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("the image_folder loaders decode with PIL (the 'pillow' "
+                          "package), which is not installed") from e
+    return Image
+
+
+def _decode(image_cls, path: Path, image_size: int) -> np.ndarray:
+    img = image_cls.open(path).convert("RGB").resize((image_size, image_size),
+                                                     image_cls.BILINEAR)
+    return np.asarray(img, np.uint8)
+
+
+def _image_files(root: Path, extensions):
+    classes = sorted(p.name for p in root.iterdir() if p.is_dir())
+    files = [(f, ci) for ci, cname in enumerate(classes)
+             for f in sorted((root / cname).iterdir()) if f.suffix.lower() in extensions]
+    return classes, files
+
+
+def _image_folder(root=None, train=True, image_size: int = 224,
+                  extensions=(".png", ".jpg", ".jpeg", ".bmp"), **kw) -> ArrayDataset:
+    """``root/<class_name>/*.jpg``: decoded with PIL, resized (bilinear) to
+    ``image_size`` squares, NHWC uint8; classes in sorted order."""
+    image_cls = _pil_image()
+    root = Path(root or DEFAULT_DATA_ROOT)
+    if not root.exists():
+        raise FileNotFoundError(f"image_folder root not found: {root}")
+    classes, files = _image_files(root, extensions)
+    if not classes:
+        raise ValueError(f"image_folder root has no class subdirectories: {root}")
+    if not files:
+        raise ValueError(f"no images found under {root}")
+    return ArrayDataset(np.stack([_decode(image_cls, f, image_size) for f, _ in files]),
+                        np.asarray([ci for _, ci in files], np.int64), classes=classes,
+                        name=f"image_folder_{root.name}")
+
+
+def _memmap_dataset(root=None, train=True, images_path=None, targets_path=None,
+                    classes=None, **kw) -> ArrayDataset:
+    """``images.npy`` and ``targets.npy`` (under ``root``, or at the given
+    paths) opened as ``np.memmap`` views."""
+    root = Path(root) if root else None
+    images_path = Path(images_path) if images_path else (root / "images.npy")
+    targets_path = Path(targets_path) if targets_path else (root / "targets.npy")
+    return ArrayDataset(np.load(images_path, mmap_mode="r"),
+                        np.load(targets_path, mmap_mode="r"), classes=classes,
+                        name=f"memmap_{images_path.stem}")
+
+
+def materialize_image_folder_to_memmap(root, out_dir, image_size: int = 224,
+                                       extensions=(".png", ".jpg", ".jpeg", ".bmp"),
+                                       shuffle_seed: int = 0) -> ArrayDataset:
+    """Convert an ``image_folder`` tree once into memmap ``.npy`` files, one
+    decoded image in memory at a time, rows in the order of
+    ``default_rng(shuffle_seed).permutation`` (a memmap splits by contiguous
+    ranges, so a class-sorted file would put whole classes into the
+    validset). Returns the opened memmap dataset."""
+    from numpy.lib.format import open_memmap
+
+    image_cls = _pil_image()
+    root, out_dir = Path(root), Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    classes, files = _image_files(root, extensions)
+    if not files:
+        raise ValueError(f"no images found under {root}")
+    files = [files[i] for i in np.random.default_rng(shuffle_seed).permutation(len(files))]
+    images = open_memmap(out_dir / "images.npy", mode="w+", dtype=np.uint8,
+                         shape=(len(files), image_size, image_size, 3))
+    targets = open_memmap(out_dir / "targets.npy", mode="w+", dtype=np.int64,
+                          shape=(len(files),))
+    for i, (f, ci) in enumerate(files):
+        images[i] = _decode(image_cls, f, image_size)
+        targets[i] = ci
+    images.flush()
+    targets.flush()
+    (out_dir / "classes.txt").write_text("\n".join(classes))
+    return _memmap_dataset(root=out_dir, classes=classes)
+
+
+def write_tar_shards(dataset, out_dir, shard_size: int = 1024) -> list:
+    """Write ``dataset`` (raw uint8 images) as ``shard-%05d.tar`` files
+    whose members pair ``{idx:08d}.img.npy`` with ``{idx:08d}.cls`` (the
+    label in ASCII), and ``classes.txt``; earlier shards in ``out_dir`` are
+    removed first. Returns the shard paths."""
+    import io
+    import tarfile
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for stale in list(out_dir.glob("shard-*.tar")) + [out_dir / "classes.txt"]:
+        stale.unlink(missing_ok=True)
+    if np.asarray(dataset[0][0]).dtype != np.uint8:
+        raise ValueError("write_tar_shards stores uint8 raw pixels; got dtype "
+                         f"{np.asarray(dataset[0][0]).dtype}: export the raw dataset "
+                         "(before to_tensor/normalize)")
+    paths = []
+    n = len(dataset)
+    for s0 in range(0, n, int(shard_size)):
+        p = out_dir / f"shard-{len(paths):05d}.tar"
+        with tarfile.open(p, "w") as tf:
+            for i in range(s0, min(n, s0 + int(shard_size))):
+                img, tgt = dataset[i]
+                buf = io.BytesIO()
+                np.save(buf, np.asarray(img, np.uint8))
+                info = tarfile.TarInfo(f"{i:08d}.img.npy")
+                info.size = buf.getbuffer().nbytes
+                buf.seek(0)
+                tf.addfile(info, buf)
+                cls = str(int(np.asarray(tgt).reshape(-1)[0])).encode()
+                info = tarfile.TarInfo(f"{i:08d}.cls")
+                info.size = len(cls)
+                tf.addfile(info, io.BytesIO(cls))
+        paths.append(p)
+    if getattr(dataset, "classes", None):
+        (out_dir / "classes.txt").write_text("\n".join(dataset.classes))
+    return paths
+
+
+def _sorted_shards(shard_dir) -> list:
+    """The shard files in numeric order."""
+    shards = sorted(Path(shard_dir).glob("shard-*.tar"),
+                    key=lambda p: int(p.stem.split("-", 1)[1]))
+    if not shards:
+        raise ValueError(f"no shard-*.tar files under {shard_dir}")
+    return shards
+
+
+def _count_shard_pairs(shards) -> int:
+    """Image/label pairs in the shards, from their indexes alone; an
+    unpaired member raises."""
+    import tarfile
+
+    total = 0
+    for sp in shards:
+        stems_img, stems_cls = set(), set()
+        with tarfile.open(sp, "r") as tf:
+            for m in tf:
+                stem, _, kind = m.name.partition(".")
+                (stems_img if kind == "img.npy" else stems_cls).add(stem)
+        orphans = stems_img ^ stems_cls
+        if orphans:
+            raise ValueError(f"{sp}: {len(orphans)} unpaired member(s) (e.g. "
+                             f"{sorted(orphans)[:3]}): truncated or hand-built shard")
+        total += len(stems_img)
+    return total
+
+
+def _iter_tar_shards(shard_dir):
+    """(image, label) pairs, shard by shard, one pair in memory at a time."""
+    import io
+    import tarfile
+
+    for sp in _sorted_shards(shard_dir):
+        with tarfile.open(sp, "r") as tf:
+            pending: Dict[str, Dict[str, bytes]] = {}
+            for m in tf:
+                stem, _, kind = m.name.partition(".")
+                entry = pending.setdefault(stem, {})
+                entry[kind] = tf.extractfile(m).read()
+                if "img.npy" in entry and "cls" in entry:
+                    yield np.load(io.BytesIO(entry["img.npy"])), int(entry["cls"].decode())
+                    del pending[stem]
+
+
+def _fill_from_shards(shard_dir, alloc):
+    """Stream the shards' pairs into the arrays ``alloc(n, image_shape)``
+    returns; rows must share one image shape."""
+    n = _count_shard_pairs(_sorted_shards(shard_dir))
+    it = _iter_tar_shards(shard_dir)
+    first_img, first_cls = next(it)
+    images, targets = alloc(n, first_img.shape)
+    images[0], targets[0] = first_img, first_cls
+    for i, (img, cls) in enumerate(it, start=1):
+        if img.shape != first_img.shape:
+            raise ValueError(f"shard row {i}: image shape {img.shape} != "
+                             f"{first_img.shape} (row 0)")
+        images[i], targets[i] = img, cls
+    return images, targets
+
+
+def _shard_classes(shard_dir: Path) -> Optional[list]:
+    p = shard_dir / "classes.txt"
+    return p.read_text().splitlines() if p.exists() else None
+
+
+def _tar_shards_dataset(root=None, train=True, **kw) -> ArrayDataset:
+    """Tar shards (:func:`write_tar_shards`) read into one in-memory array."""
+    if root is None:
+        raise ValueError("the 'tar_shards' loader needs root=<shard dir> "
+                         "(the directory write_tar_shards produced)")
+    root = Path(root)
+    images, targets = _fill_from_shards(
+        root, lambda n, shape: (np.empty((n, *shape), np.uint8), np.empty((n,), np.int64)))
+    return ArrayDataset(images, targets, classes=_shard_classes(root),
+                        name=f"tar_shards_{root.name}")
+
+
+def tar_shards_to_memmap(shard_dir, out_dir) -> ArrayDataset:
+    """Convert tar shards once into ``images.npy`` and ``targets.npy`` (the
+    ``memmap`` format); a failure removes the partial files."""
+    from numpy.lib.format import open_memmap
+
+    shard_dir, out_dir = Path(shard_dir), Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    img_path, tgt_path = out_dir / "images.npy", out_dir / "targets.npy"
+    try:
+        images, targets = _fill_from_shards(shard_dir, lambda n, shape: (
+            open_memmap(img_path, mode="w+", dtype=np.uint8, shape=(n, *shape)),
+            open_memmap(tgt_path, mode="w+", dtype=np.int64, shape=(n,))))
+        images.flush()
+        targets.flush()
+    except Exception:
+        img_path.unlink(missing_ok=True)
+        tgt_path.unlink(missing_ok=True)
+        raise
+    classes = _shard_classes(shard_dir)
+    if classes is not None:
+        (out_dir / "classes.txt").write_text("\n".join(classes))
+    return _memmap_dataset(root=out_dir, classes=classes)
+
+
 #: catalog ``type`` -> loader
-DATASET_LOADERS: Dict[str, Callable[..., ArrayDataset]] = {"synthetic": _synthetic}
+DATASET_LOADERS: Dict[str, Callable[..., ArrayDataset]] = {
+    "synthetic": _synthetic, "image_folder": _image_folder, "memmap": _memmap_dataset,
+    "tar_shards": _tar_shards_dataset}
 for _n in _KNOWN_SHAPES:
     DATASET_LOADERS[_n] = (lambda root=None, train=True, _n=_n, **kw:
                            _load_builtin(_n, Path(root or DEFAULT_DATA_ROOT), train))
@@ -250,18 +485,32 @@ def split_dataset(trainset: ArrayDataset, testset: Optional[ArrayDataset] = None
                   seed: int = 434546) -> Dict[str, ArrayDataset]:
     """Deterministic train/valid[/test] split by ratios from one
     ``numpy.random.default_rng(seed).permutation``; ``testset_ratio`` is
-    ignored when a testset exists. Memory-mapped datasets are not ported."""
-    if isinstance(trainset.images, np.memmap):
-        raise NotImplementedError("splitting memory-mapped datasets is not ported yet")
+    ignored when a testset exists. A memory-mapped dataset splits by
+    contiguous ranges instead, so that each split stays a memmap view."""
     n = len(trainset)
-    perm = np.random.default_rng(seed).permutation(n)
+    mmap = isinstance(trainset.images, np.memmap)
     n_valid = int(round(validset_ratio * n))
     n_test = 0 if testset is not None else int(round(testset_ratio * n))
+    perm = None if mmap else np.random.default_rng(seed).permutation(n)
+
+    def take(lo, hi):
+        return slice(lo, hi) if mmap else perm[lo:hi]
+
     out: Dict[str, ArrayDataset] = {}
     if n_test:
-        out["testset"] = trainset.subset(perm[:n_test], name="testset")
+        out["testset"] = trainset.subset(take(0, n_test), name="testset")
     if testset is not None:
         out["testset"] = testset
-    out["validset"] = trainset.subset(perm[n_test:n_test + n_valid], name="validset")
-    out["trainset"] = trainset.subset(perm[n_test + n_valid:], name="trainset")
+    out["validset"] = trainset.subset(take(n_test, n_test + n_valid), name="validset")
+    out["trainset"] = trainset.subset(take(n_test + n_valid, n), name="trainset")
     return out
+
+
+def get_random_subset(dataset: ArrayDataset, size: Union[int, float],
+                      seed: int = 0) -> ArrayDataset:
+    """``size`` rows (a share of the dataset when a float <= 1) drawn by
+    ``numpy.random.default_rng(seed).permutation``."""
+    n = len(dataset)
+    k = int(round(size * n)) if isinstance(size, float) and size <= 1.0 else int(size)
+    return dataset.subset(np.random.default_rng(seed).permutation(n)[:k],
+                          name=f"{dataset.name}_sub{k}")

@@ -10,8 +10,10 @@ random entries draw from the batch's generator, as the JAX package's take
 the batch's key. ``augmentation_recipe`` (or the reference's spelling
 ``augmentation_reciepe``) compiles through
 :func:`~deepcv_tpu_torch.data.augmentation.apply_augmentation_recipe` and
-augments the trainset's batches; target transforms are not ported yet and
-raise.
+augments the trainset's batches. ``target_transforms`` parse the same way
+into ``PreprocessedDataset.target_transform``, which
+:meth:`PreprocessedDataset.transform_targets` applies to a batch of
+targets.
 
 A recipe runs one of two routes, counted in
 ``PreprocessedDataset.batch_transform.routes``:
@@ -111,10 +113,12 @@ class PreprocessedDataset:
     for a trainset, the augmentation recipe run before it."""
 
     def __init__(self, dataset: ArrayDataset, transform: Optional[Compose] = None,
-                 augmentation: Optional[AugmentationRecipe] = None):
+                 augmentation: Optional[AugmentationRecipe] = None,
+                 target_transform: Optional[Compose] = None):
         self.dataset = dataset
         self.transform = transform
         self.augmentation = augmentation
+        self.target_transform = target_transform
 
     def __len__(self):
         return len(self.dataset)
@@ -181,6 +185,11 @@ class PreprocessedDataset:
                 x = self.augmentation(T.to_tensor(images), generator)
         return self.transform(x, generator) if self.transform is not None else x
 
+    def transform_targets(self, targets: torch.Tensor) -> torch.Tensor:
+        """A batch of targets through ``target_transform`` (unchanged without
+        one)."""
+        return self.target_transform(targets) if self.target_transform else targets
+
     def __repr__(self):
         return (f"PreprocessedDataset({self.dataset!r}, transform={self.transform}, "
                 f"augmentation={self.augmentation})")
@@ -195,8 +204,6 @@ def preprocess(datasets: Mapping[str, ArrayDataset], params: Mapping[str, Any]
     """The preprocess pipeline node: seed -> split -> parse the transform
     list -> wrap. ``datasets`` holds 'trainset' and optionally 'testset'."""
     hp, _ = to_hyperparameters(dict(params), PREPROCESS_DEFAULTS)
-    if hp.get("target_transforms"):
-        raise NotImplementedError("preprocessing 'target_transforms' is not ported yet")
     set_seeds(int(hp["seed"]))
     split_cfg = dict(hp["split_dataset"])
     splits = split_dataset(datasets["trainset"], datasets.get("testset"),
@@ -204,8 +211,10 @@ def preprocess(datasets: Mapping[str, ArrayDataset], params: Mapping[str, Any]
                            testset_ratio=float(split_cfg.get("testset_ratio", 0.0)),
                            seed=int(hp["seed"]))
     transform = parse_transforms_specification(hp["transforms"], trainset=splits["trainset"])
+    target_tf = parse_transforms_specification(hp["target_transforms"]) \
+        if hp.get("target_transforms") else None
     recipe = hp.get("augmentation_recipe") or hp.get("augmentation_reciepe")
     augmentation = apply_augmentation_recipe(recipe) if recipe else None
     return {name: PreprocessedDataset(
-        ds, transform, augmentation if name == "trainset" else None)
+        ds, transform, augmentation if name == "trainset" else None, target_tf)
         for name, ds in splits.items()}

@@ -78,7 +78,7 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["jax_to_torch_state_dict", "load_jax_variables"]
+__all__ = ["jax_to_torch_state_dict", "load_jax_variables", "jax_param_paths"]
 
 #: the JAX package pads conv input channels up to this count
 TPU_MIN_CHANNELS = 8
@@ -259,3 +259,71 @@ def load_jax_variables(model: torch.nn.Module, variables_np: Mapping[str, Any]):
     """Load JAX variables into ``model`` in place; returns the model."""
     model.load_state_dict(jax_to_torch_state_dict(variables_np, model))
     return model
+
+
+_NORM_TYPES = (torch.nn.LayerNorm, torch.nn.GroupNorm, torch.nn.modules.batchnorm._NormBase)
+
+
+def _is_norm(module: torch.nn.Module) -> bool:
+    return isinstance(module, _NORM_TYPES) or "Norm" in type(module).__name__
+
+
+def _jax_path(name: str, model: torch.nn.Module) -> str:
+    """The JAX path of one parameter of a spec-engine model, checked by
+    mapping it back with :func:`_torch_key`."""
+    parts = name.split(".")
+    path, i = [], 1     # parts[0] is 'module'
+    while i + 1 < len(parts) and parts[i] == "nodes":
+        path.append(f"node_impls_{parts[i + 1]}")
+        i += 2
+    base, rest = ".".join(parts[:i]), parts[i:]
+    owner = model.get_submodule(".".join(parts[:-1]))
+    names = getattr(model.get_submodule(base), "jax_names", None) or {}
+    by_value = {v: k for k, v in names.items()}
+    leaf = rest[-1]
+    if ".".join(rest[:-1]) in by_value and len(rest) >= 2:
+        jax_leaf = {"weight": "scale" if _is_norm(owner) else "kernel"}.get(leaf, leaf)
+        if leaf in ("running_mean", "running_var"):
+            raise KeyError(name)
+        path += [by_value[".".join(rest[:-1])], jax_leaf]
+    elif rest[0] == "op":
+        weight_norm = hasattr(owner, "scale") and isinstance(owner.scale, torch.nn.Parameter)
+        inner = ["inner"] if getattr(owner, "flatten_input", False) else []
+        body = {"weight": ["kernel"], "bias": ["bias"], "scale": ["kernel", "scale"]}[leaf]
+        path += ["op", *(["layer_instance"] if weight_norm else inner), *body]
+    elif rest[0] == "norms":
+        path += [f"norms_{rest[1]}", {"weight": "scale"}.get(leaf, leaf)]
+    elif len(rest) == 1 or leaf in _KEPT_LAYOUT:
+        path += rest
+    else:
+        path += [*rest[:-1], {"weight": "scale" if _is_norm(owner) else "kernel"}.get(leaf, leaf)]
+    back = _torch_key("params", tuple(p for r in path for p in r.split("/")), model)
+    if back != name:
+        raise KeyError(f"parameter '{name}': JAX path {'/'.join(path)} maps back to '{back}'")
+    return "/".join(path)
+
+
+def jax_param_paths(model: torch.nn.Module) -> Dict[str, str]:
+    """Each trainable parameter's name -> its '/'-joined path in the JAX
+    package's ``variables['params']`` for the same model (the inverse of the
+    mapping :func:`jax_to_torch_state_dict` applies), the paths that
+    ``freeze_params`` and ``lr_scales`` match. A model of parts
+    (``jax_parts``) prefixes each part's paths with its name; a model named
+    by its JAX paths (``jax_flat``) maps ``a.b.weight`` to ``a/b/kernel``
+    (``scale`` for a norm); any other model joins its names by '/'."""
+    named = dict(model.named_parameters())
+    parts = getattr(model, "jax_parts", None)
+    if parts:
+        return {f"{part}.{k}": f"{part}/{v}" for part in parts
+                for k, v in jax_param_paths(getattr(model, part)).items()}
+    if getattr(model, "jax_flat", False) or not any(n.startswith("module.nodes.")
+                                                    for n in named):
+        out = {}
+        for n in named:
+            *mods, leaf = n.split(".")
+            owner = model.get_submodule(".".join(mods))
+            if leaf == "weight":
+                leaf = "scale" if _is_norm(owner) else "kernel"
+            out[n] = "/".join([*mods, leaf])
+        return out
+    return {n: _jax_path(n, model) for n in named}

@@ -21,7 +21,12 @@ say.
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or raises);
 a CPU tensor takes :func:`plain_conv2d_bias_act`; a meta tensor (shape
 inference at model build) takes the plain version too, which computes no
-values there.
+values there. Where a gradient is recorded the launch is the dispatcher op
+``torch.ops.deepcv.fused_conv2d_bias_act`` (``torch.library``), called
+from the autograd Function that gives it its backward, so that selective
+activation checkpointing (``remat: dots``) sees it and keeps its output
+instead of launching it again in the backward pass; a call that records
+no gradient launches the kernel directly.
 """
 from __future__ import annotations
 
@@ -254,15 +259,33 @@ def _run_kernel(x: torch.Tensor, w: torch.Tensor, w_packed: torch.Tensor,
     return y
 
 
+@torch.library.custom_op("deepcv::fused_conv2d_bias_act", mutates_args=(), device_types="cuda")
+def _kernel_op(x: torch.Tensor, w: torch.Tensor, w_packed: torch.Tensor,
+               b: Optional[torch.Tensor], act_code: int) -> torch.Tensor:
+    """The kernel's launch as a dispatcher op, so that selective activation
+    checkpointing (``remat: dots``) sees it and keeps its output."""
+    return _run_kernel(x, w, w_packed, b, act_code)
+
+
+@_kernel_op.register_fake
+def _(x, w, w_packed, b, act_code):
+    n, _, h, wd = x.shape
+    return torch.empty((n, w.shape[0], h, wd), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
 class _FusedConvFn(torch.autograd.Function):
-    """Kernel forward; the backward is autograd of the plain version, as the
-    TPU kernel's custom VJP (``_bwd``) differentiates the XLA conv."""
+    """The kernel's op forward; the backward is autograd of the plain
+    version, as the TPU kernel's custom VJP (``_bwd``) differentiates the
+    XLA conv. (On an H100, a backward registered on the op itself took
+    twice the host time a call and 15 % of bench.py config 7's streaming
+    throughput.)"""
 
     @staticmethod
     def forward(ctx, x, w, b, w_packed, act_code):
         ctx.save_for_backward(x, w, b)
         ctx.act_code = act_code
-        return _run_kernel(x, w, w_packed, b, act_code)
+        return _kernel_op(x, w, w_packed, b, act_code)
 
     @staticmethod
     def backward(ctx, g):
@@ -308,7 +331,11 @@ def fused_conv2d_bias_act(x: torch.Tensor, w: torch.Tensor,
         if w_packed is None:
             with torch.no_grad():
                 w_packed = pack_weight(w)
-        y = _FusedConvFn.apply(x, w, b, w_packed, EPILOGUE_ACTS[fused])
+        code = EPILOGUE_ACTS[fused]
+        if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, w, b)):
+            y = _FusedConvFn.apply(x, w, b, w_packed, code)
+        else:
+            y = _run_kernel(x, w, w_packed, b, code)
         return y if fused is not None or act is None else act(y)
     if x.device.type in ("cpu", "meta"):
         return plain_conv2d_bias_act(x, w, b, act)

@@ -5,12 +5,21 @@ Counterpart of ``deepcv_tpu/pipelines/framework.py`` (``Node``,
 ``append_dense_head``): conf loading from
 ``conf/base`` and ``conf/local``, ``params:<dotted.path>`` inputs with
 ``--params`` overrides, catalog entries loaded by ``load_dataset``, nodes
-run in order. Not ported yet: experiment trackers, partial runs and the
-intermediate cache.
+run in order. A partial run (``from_nodes``, ``to_nodes``, ``only_nodes``,
+``tags``; :meth:`Pipeline.filter`) reads the inputs whose producing node
+it leaves out from the intermediate cache, the pickled outputs that earlier
+runs wrote under ``data/02_intermediate/<pipeline>/`` (the outputs some node
+of the pipeline consumes; ``persist_intermediates=False`` neither writes
+nor reads them). A pipeline tagged ``train`` runs with an
+:class:`~deepcv_tpu_torch.train.loggers.ExperimentTracker` (git and
+pipeline tags, the node list as params), passed to its nodes as
+``trackers`` and closed with the run's status.
 """
 from __future__ import annotations
 
 import logging
+import os
+import pickle
 import time
 from pathlib import Path
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
@@ -20,11 +29,34 @@ import torch
 from deepcv_tpu_torch.config import ConfigLoader
 from deepcv_tpu_torch.data.datasets import load_dataset
 from deepcv_tpu_torch.hyperparams import apply_dotted_overrides
+from deepcv_tpu_torch.train.loggers import ExperimentTracker, git_metadata
 from deepcv_tpu_torch.utils import resolve_device
 
 __all__ = ["Node", "Pipeline", "ProjectContext", "preprocess_node", "append_dense_head"]
 
 _logger = logging.getLogger(__name__)
+
+
+class _CacheUnpickler(pickle.Unpickler):
+    """Loads an intermediate only from this package's, torch's and numpy's
+    classes. The JAX package keeps its intermediates at the same path of a
+    project, and loading one of those would import it (and JAX) here."""
+
+    _MODULES = ("deepcv_tpu_torch", "torch", "numpy", "collections", "copyreg", "_codecs")
+    _BUILTINS = {"set", "frozenset", "slice", "complex", "range", "bytearray", "object"}
+
+    def __init__(self, f, path: Path):
+        super().__init__(f)
+        self.path = path
+
+    def find_class(self, module: str, name: str):
+        root = module.split(".", 1)[0]
+        if root in self._MODULES or (module == "builtins" and name in self._BUILTINS):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"the intermediate cache {self.path} holds {module}.{name}, which is not of "
+            "deepcv_tpu_torch, torch or numpy (a file another package wrote?): run the "
+            "producing node again with this package, or pass --no-persist")
 
 
 def append_dense_head(hp: dict, name: str, out_channels: int, size) -> dict:
@@ -79,6 +111,33 @@ class Pipeline:
         lines += [f"  {n.name}: {n.inputs} -> {n.outputs}" for n in self.nodes]
         return "\n".join(lines)
 
+    def filter(self, from_nodes: Sequence[str] = (), to_nodes: Sequence[str] = (),
+               only_nodes: Sequence[str] = (), tags: Sequence[str] = ()) -> "Pipeline":
+        """The nodes a partial run keeps: from the first of ``from_nodes``,
+        up to the last of ``to_nodes``, only ``only_nodes``, only nodes
+        carrying one of ``tags``; the filters compose. An unknown node name
+        or an empty selection raises."""
+        names = [n.name for n in self.nodes]
+        for ref in (*from_nodes, *to_nodes, *only_nodes):
+            if ref not in names:
+                raise KeyError(f"Pipeline '{self.name}' has no node '{ref}'; nodes: {names}")
+        keep = self.nodes
+        if from_nodes:
+            start = min(names.index(r) for r in from_nodes)
+            keep = [n for n in keep if names.index(n.name) >= start]
+        if to_nodes:
+            stop = max(names.index(r) for r in to_nodes)
+            keep = [n for n in keep if names.index(n.name) <= stop]
+        if only_nodes:
+            keep = [n for n in keep if n.name in only_nodes]
+        if tags:
+            keep = [n for n in keep if n.tags & set(tags)]
+        if not keep:
+            raise ValueError(f"Node selection left pipeline '{self.name}' empty "
+                             f"(from={list(from_nodes)}, to={list(to_nodes)}, "
+                             f"only={list(only_nodes)}, tags={list(tags)})")
+        return Pipeline(keep, name=self.name, tags=self.tags)
+
 
 class ProjectContext:
     """Loads the conf, resolves the catalog and runs a pipeline on ``device``
@@ -95,6 +154,8 @@ class ProjectContext:
         self._extra_params = dict(extra_params or {})
         self.device = resolve_device(device)
         self._pipelines = None
+        self._persist_dir: Optional[Path] = None
+        self._persist_names: set = set()
 
     @property
     def pipelines(self):
@@ -133,22 +194,80 @@ class ProjectContext:
             return v
         if name in self.config.catalog:
             return self.load_catalog_entry(name)
-        raise KeyError(f"Input '{name}' is neither a prior node output, a catalog "
-                       "entry nor a parameter")
+        if self._persist_dir is not None and (self._persist_dir / f"{name}.pkl").exists():
+            path = self._persist_dir / f"{name}.pkl"
+            _logger.info("input '%s' loaded from the intermediate cache %s", name, path)
+            with open(path, "rb") as f:
+                return _CacheUnpickler(f, path).load()
+        raise KeyError(
+            f"Input '{name}' is neither a prior node output, a catalog entry, nor a "
+            "persisted intermediate"
+            + ("" if self._persist_dir is None else f" (looked in {self._persist_dir})")
+            + " — run the producing node first (partial runs reuse data/02_intermediate/)")
 
-    def run(self, pipeline_name: str) -> Dict[str, Any]:
-        """Run a pipeline's nodes in order; returns the data store."""
+    def intermediate_dir(self, pipeline_name: str) -> Path:
+        return self.project_path / "data" / "02_intermediate" / pipeline_name
+
+    def _persist_output(self, name: str, value: Any) -> None:
+        if self._persist_dir is None or name not in self._persist_names:
+            return
+        path = self._persist_dir / f"{name}.pkl"
+        tmp = path.with_suffix(f".pkl.{os.getpid()}.tmp")
+        try:
+            self._persist_dir.mkdir(parents=True, exist_ok=True)
+            with open(tmp, "wb") as f:
+                pickle.dump(value, f)
+            tmp.replace(path)
+        except Exception as e:  # unpicklable outputs, a read-only data dir, ...
+            _logger.debug("intermediate '%s' not persisted (%s)", name, e)
+            tmp.unlink(missing_ok=True)
+
+    @staticmethod
+    def _search_trial_run_name() -> Optional[str]:
+        """The run name of the active search trial: none until search is
+        ported (ROADMAP P13)."""
+        return None
+
+    def run(self, pipeline_name: str, loggers: Sequence[Any] = (),
+            from_nodes: Sequence[str] = (), to_nodes: Sequence[str] = (),
+            only_nodes: Sequence[str] = (), tags: Sequence[str] = (),
+            persist_intermediates: bool = True) -> Dict[str, Any]:
+        """Run a pipeline's nodes (or a selection of them) in order; returns
+        the data store."""
         if pipeline_name not in self.pipelines:
             raise KeyError(f"Unknown pipeline '{pipeline_name}'; known: "
                            f"{sorted(self.pipelines)}")
-        store: Dict[str, Any] = {"context": self, "device": self.device, "trackers": []}
-        for node in self.pipelines[pipeline_name].nodes:
-            args = [self._resolve_input(i, store) for i in node.inputs]
-            t0 = time.perf_counter()
-            out = node.fn(*args)
-            _logger.info("node %s took %.2fs", node.name, time.perf_counter() - t0)
-            if len(node.outputs) == 1:
-                store[node.outputs[0]] = out
-            else:
-                store.update(zip(node.outputs, out))
-        return store
+        pipeline = self.pipelines[pipeline_name]
+        self._persist_names = {i for n in pipeline.nodes for i in n.inputs}
+        if from_nodes or to_nodes or only_nodes or tags:
+            pipeline = pipeline.filter(from_nodes=from_nodes, to_nodes=to_nodes,
+                                       only_nodes=only_nodes, tags=tags)
+            _logger.info("partial run: nodes %s", [n.name for n in pipeline.nodes])
+        self._persist_dir = self.intermediate_dir(pipeline_name) if persist_intermediates \
+            else None
+        tracker = None
+        if "train" in pipeline.tags:
+            tracker = ExperimentTracker(experiment=pipeline.name,
+                                        run_name=self._search_trial_run_name() or pipeline.name)
+            tracker.set_tags({**git_metadata(str(self.project_path)), "pipeline": pipeline.name})
+            tracker.log_params({"pipeline_nodes": [n.name for n in pipeline.nodes]})
+        store: Dict[str, Any] = {"context": self, "device": self.device,
+                                 "trackers": [tracker, *loggers] if tracker else list(loggers)}
+        status = "FINISHED"
+        try:
+            for node in pipeline.nodes:
+                args = [self._resolve_input(i, store) for i in node.inputs]
+                t0 = time.perf_counter()
+                out = node.fn(*args)
+                _logger.info("node %s took %.2fs", node.name, time.perf_counter() - t0)
+                outs = [out] if len(node.outputs) == 1 else list(out) if node.outputs else []
+                for name, value in zip(node.outputs, outs):
+                    store[name] = value
+                    self._persist_output(name, value)
+            return store
+        except Exception:
+            status = "FAILED"
+            raise
+        finally:
+            if tracker:
+                tracker.end_run(status)

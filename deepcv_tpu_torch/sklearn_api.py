@@ -8,8 +8,8 @@ pipelines, cross-validation and grid search where sklearn is installed and
 works standalone where it is not. It trains with the port's ``train()``
 and predicts through its ``Predictor``, on the card unless ``device``
 says otherwise. ``fine_tune`` continues training the fitted model (whose
-weights it holds) on a small dataset; freezing parameters
-(``freeze_params``) waits for the training loop's port of that hp.
+weights it holds) on a small dataset, the parameters whose JAX path
+matches ``freeze_params`` frozen.
 """
 from __future__ import annotations
 

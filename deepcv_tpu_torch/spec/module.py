@@ -51,6 +51,12 @@ from deepcv_tpu_torch.utils import resolve_device
 __all__ = ["DeepcvModule", "DeepcvModuleDescriptor"]
 
 
+def _rebuild(cls, input_shape, hp, kw, state, training):
+    model = cls(input_shape, hp, device="meta", **kw)
+    model.load_state_dict(state, strict=True, assign=True)
+    return model if model.inference_only else model.train(training)
+
+
 class DeepcvModule(nn.Module):
     """A compiled YAML-spec model.
 
@@ -138,6 +144,14 @@ class DeepcvModule(nn.Module):
         new = type(self)(self.input_shape, self._hp.to_dict(), device="meta", **kw)
         new.load_state_dict(self.state_dict(keep_vars=True), strict=True, assign=True)
         return new if new.inference_only else new.train(self.training)
+
+    def __reduce__(self):
+        """Pickled as its spec, its constructor options and its tensors (the
+        nodes hold closures, which pickle cannot take): how the intermediate
+        cache of partial runs keeps a model."""
+        kw = dict(dtype=self.dtype, quantize=self.quantize, quantize_scales=self.quantize_scales)
+        return (_rebuild, (type(self), self.input_shape, self._hp.to_dict(), kw,
+                           self.state_dict(), self.training))
 
     @property
     def hp(self) -> Hyperparameters:

@@ -1,9 +1,11 @@
 """Losses and their weighting.
 
 Counterpart of ``deepcv_tpu/train/losses.py`` (``cross_entropy_loss``,
-``mse_loss``, ``distillation_loss``, ``distill_accuracy``,
-``jensen_shannon_divergence_consistency_loss``, ``WeightedLosses``); the
-other losses (triplet, label smoothing by name) are not ported yet.
+``label_smoothing_xentropy_loss``, ``mse_loss``, ``l1_loss``,
+``distillation_loss``, ``distill_accuracy``,
+``jensen_shannon_divergence_consistency_loss``, ``triplet_margin_loss``,
+``WeightedLosses``), each registered in :data:`LOSS_FNS` under the JAX
+package's name.
 """
 from __future__ import annotations
 
@@ -12,8 +14,9 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-__all__ = ["cross_entropy_loss", "mse_loss", "distillation_loss", "distill_accuracy",
-           "jensen_shannon_divergence_consistency_loss", "WeightedLosses", "LOSS_FNS"]
+__all__ = ["cross_entropy_loss", "label_smoothing_xentropy_loss", "mse_loss", "l1_loss",
+           "distillation_loss", "distill_accuracy", "jensen_shannon_divergence_consistency_loss",
+           "triplet_margin_loss", "WeightedLosses", "LOSS_FNS"]
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -37,9 +40,33 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return -(y * logp).sum(-1).mean()
 
 
+def label_smoothing_xentropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                                  smoothing: float = 0.1) -> torch.Tensor:
+    """Cross-entropy against labels smoothed by ``smoothing``."""
+    return cross_entropy_loss(logits, labels, label_smoothing=smoothing)
+
+
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean squared error in float32."""
     return (pred.float() - target.float()).square().mean()
+
+
+def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean absolute error in float32."""
+    return (pred.float() - target.float()).abs().mean()
+
+
+def triplet_margin_loss(anchor: torch.Tensor, positive: torch.Tensor, negative: torch.Tensor,
+                        margin: float = 1.0, p: int = 2) -> torch.Tensor:
+    """``mean(max(d(a, p) - d(a, n) + margin, 0))`` in float32, with the
+    L2 distance ``sqrt(sum(d^2) + 1e-12)`` (the Lp one for other ``p``)."""
+    def dist(a, b):
+        d = a.float() - b.float()
+        if p == 2:
+            return torch.sqrt((d * d).sum(-1) + 1e-12)
+        return (d.abs() ** p).sum(-1) ** (1.0 / p)
+
+    return torch.clamp(dist(anchor, positive) - dist(anchor, negative) + margin, min=0.0).mean()
 
 
 def distillation_loss(student_logits: torch.Tensor, targets: torch.Tensor,
@@ -88,7 +115,11 @@ def jensen_shannon_divergence_consistency_loss(logits_clean: torch.Tensor,
 
 LOSS_FNS: Dict[str, Callable] = {"cross_entropy": cross_entropy_loss,
                                  "distillation": distillation_loss,
-                                 "jsd_consistency": jensen_shannon_divergence_consistency_loss}
+                                 "label_smoothing_xentropy": label_smoothing_xentropy_loss,
+                                 "mse": mse_loss,
+                                 "l1": l1_loss,
+                                 "jsd_consistency": jensen_shannon_divergence_consistency_loss,
+                                 "triplet_margin": triplet_margin_loss}
 
 
 class WeightedLosses:

@@ -1,12 +1,15 @@
 """Schedules of optimizer hyperparameters, as functions of the step.
 
 Counterpart of ``deepcv_tpu/train/schedules.py``: ``piecewise_linear``,
-``one_cycle``, ``safe_eval_milestones`` and ``build_schedules`` (no
-scheduler gives no schedule). A schedule is a plain function of the number
+``one_cycle``, ``safe_eval_milestones``, ``build_schedules`` (no
+scheduler gives no schedule) and the types ``constant``, ``cosine``,
+``warmup_cosine`` and ``exponential`` with optax's formulas
+(``constant_schedule``, ``cosine_decay_schedule``,
+``warmup_cosine_decay_schedule``, whose ``decay_steps`` count the warmup,
+and ``exponential_decay``). A schedule is a plain function of the number
 of updates already applied, returning the value for the next one; the
 training loop writes it into the optimizer's parameter groups before each
-step, as optax reads its schedules. The other schedule types (constant,
-cosine, warmup_cosine, exponential) are not ported yet and raise.
+step, as optax reads its schedules.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["piecewise_linear", "one_cycle", "safe_eval_milestones",
+__all__ = ["piecewise_linear", "one_cycle", "constant", "cosine_decay", "linear",
+           "warmup_cosine_decay", "exponential_decay", "safe_eval_milestones",
            "build_schedules", "SCHEDULES", "SCHEDULABLE"]
 
 Schedule = Callable[[int], float]
@@ -66,6 +70,60 @@ def one_cycle(max_lr: float, total_steps: int, base_lr: Optional[float] = None,
                 else interp(t_down, base_momentum, max_momentum))
 
     return lr_schedule, momentum_schedule
+
+
+def constant(value: float = 1e-3, **_) -> Schedule:
+    """``value`` at every step (optax ``constant_schedule``)."""
+    return lambda count: float(value)
+
+
+def cosine_decay(init_value: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
+    """optax ``cosine_decay_schedule``: ``init_value * ((1 - alpha) * 0.5 *
+    (1 + cos(pi * min(count, decay_steps) / decay_steps)) + alpha)``."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine decay needs positive decay_steps, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        c = min(float(count), float(decay_steps))
+        return float(init_value) * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps))
+                                    + alpha)
+
+    return schedule
+
+
+def linear(init_value: float, end_value: float, transition_steps: int) -> Schedule:
+    """optax ``linear_schedule``: from ``init_value`` to ``end_value`` over
+    ``transition_steps``, then constant (constant ``init_value`` when
+    ``transition_steps`` <= 0)."""
+    if transition_steps <= 0:
+        return lambda count: float(init_value)
+
+    def schedule(count: int) -> float:
+        frac = 1 - min(max(float(count), 0.0), float(transition_steps)) / transition_steps
+        return (init_value - end_value) * frac + end_value
+
+    return schedule
+
+
+def warmup_cosine_decay(init_value: float, peak_value: float, warmup_steps: int,
+                        decay_steps: int, end_value: float = 0.0) -> Schedule:
+    """optax ``warmup_cosine_decay_schedule``: linear from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then a cosine decay over
+    ``decay_steps - warmup_steps`` (the warmup counts in ``decay_steps``)."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    warm = linear(init_value, peak_value, warmup_steps)
+    decay = cosine_decay(peak_value, decay_steps - warmup_steps, alpha)
+    return lambda count: warm(count) if count < warmup_steps else decay(count - warmup_steps)
+
+
+def exponential_decay(init_value: float, transition_steps: int, decay_rate: float) -> Schedule:
+    """optax ``exponential_decay``: ``init_value * decay_rate ** (count /
+    transition_steps)`` (constant for transition_steps <= 0 or a zero
+    rate)."""
+    if transition_steps <= 0 or decay_rate == 0:
+        return lambda count: float(init_value)
+    return lambda count: float(init_value) if count <= 0 else \
+        float(init_value) * float(decay_rate) ** (count / transition_steps)
 
 
 _ALLOWED_NODES = (ast.Expression, ast.BinOp, ast.UnaryOp, ast.Constant, ast.List,
@@ -119,8 +177,18 @@ def safe_eval_milestones(expr: str, env: Mapping[str, Any]) -> Any:
     return ev(tree)
 
 
-SCHEDULES: Dict[str, Callable] = {"piecewise_linear": piecewise_linear,
-                                  "one_cycle": one_cycle}
+SCHEDULES: Dict[str, Callable] = {
+    "piecewise_linear": piecewise_linear,
+    "one_cycle": one_cycle,
+    "constant": constant,
+    "cosine": lambda init_value, decay_steps, alpha=0.0, **_:
+        cosine_decay(float(init_value), int(decay_steps), float(alpha)),
+    "warmup_cosine": lambda peak_value, warmup_steps, decay_steps, init_value=0.0, **_:
+        warmup_cosine_decay(float(init_value), float(peak_value), int(warmup_steps),
+                            int(decay_steps)),
+    "exponential": lambda init_value, transition_steps, decay_rate, **_:
+        exponential_decay(float(init_value), int(transition_steps), float(decay_rate)),
+}
 #: optimizer hyperparameters that may carry their own schedule
 SCHEDULABLE = ("lr", "momentum", "weight_decay")
 
@@ -131,8 +199,7 @@ def _build_one(spec: Mapping[str, Any], hp: Mapping[str, Any], iterations_per_ep
     name = str(getattr(t, "identifier", t)).rsplit(".", 1)[-1]
     name = {"PiecewiseLinear": "piecewise_linear", "OneCyclePolicy": "one_cycle"}.get(name, name)
     if name not in SCHEDULES:
-        raise NotImplementedError(f"scheduler '{name}' is not ported yet "
-                                  f"(ported: {sorted(SCHEDULES)})")
+        raise ValueError(f"Unknown scheduler '{name}'; known: {sorted(SCHEDULES)}")
     kwargs = dict(spec.get("kwargs", {}))
     kwargs.pop("param_name", None)
     env = {"hp": dict(hp), "iterations": int(iterations_per_epoch)}

@@ -1,7 +1,8 @@
 """Generic utilities: seeding, the safe identifier registry, device choice.
 
 Counterpart of ``deepcv_tpu/utils.py`` (``set_seeds``, ``Registry``,
-``register``, ``get_by_identifier``, ``identifier_to_str``), copied rather
+``register``, ``get_by_identifier``, ``identifier_to_str``,
+``EventsHandler``), copied rather
 than imported so that the port never loads the JAX package.
 
 ``get_by_identifier`` resolves YAML strings through a registry first and
@@ -21,7 +22,7 @@ import torch
 
 __all__ = ["set_seeds", "get_by_identifier", "identifier_to_str",
            "recursive_getattr", "Registry", "GLOBAL_REGISTRY", "register",
-           "resolve_device"]
+           "resolve_device", "EventsHandler"]
 
 _logger = logging.getLogger(__name__)
 
@@ -140,3 +141,27 @@ def identifier_to_str(obj: Any) -> str:
 def recursive_getattr(obj: Any, dotted: str) -> Any:
     """``recursive_getattr(m, "a.b.c") == m.a.b.c``."""
     return reduce(getattr, dotted.split("."), obj)
+
+
+class EventsHandler:
+    """A small publish/subscribe dispatcher of named events: ``on(event,
+    fn, every=k)`` attaches ``fn``, called with the context keywords of
+    every ``fire(event, count)`` whose count divides by ``k``."""
+
+    def __init__(self, *event_names: str):
+        self._handlers: Dict[str, list] = {n: [] for n in event_names}
+
+    def on(self, event: str, fn=None, *, every: int = 1):
+        if event not in self._handlers:
+            raise KeyError(f"Unknown event '{event}'. Known: {list(self._handlers)}")
+
+        def _wrap(f):
+            self._handlers[event].append((every, f))
+            return f
+
+        return _wrap if fn is None else _wrap(fn)
+
+    def fire(self, event: str, count: int = 1, **ctx):
+        for every, f in self._handlers.get(event, ()):
+            if count % max(1, every) == 0:
+                f(**ctx)

@@ -360,7 +360,8 @@ def test_train_image_classifier_runs_on_cpu(monkeypatch, tmp_path):
     entries of the repository's catalog, with the conf's own model."""
     monkeypatch.chdir(REPO)
     routes = dict(PreprocessedDataset.batch_transform.routes)
-    store = cli_run(["--pipeline=train_image_classifier", "--device", "cpu", "--params",
+    store = cli_run(["--pipeline=train_image_classifier", "--device", "cpu", "--no-persist",
+                     "--params",
                      "train_image_classifier.epochs:1,train_image_classifier.batch_size:1024,"
                      f"train_image_classifier.output_path:{tmp_path}"])
     h = store["train_results"]["history"]
@@ -389,7 +390,7 @@ def test_augment_train_takes_the_k1_route_every_step(monkeypatch, tmp_path):
               "train_image_classifier.save_every_iters:0",
               f"train_image_classifier.output_path:{tmp_path}"]
     before = fused_augment_normalize.launches
-    store = cli_run(["--pipeline=train_image_classifier", "--device", "cpu",
+    store = cli_run(["--pipeline=train_image_classifier", "--device", "cpu", "--no-persist",
                      "--params", ",".join(params)])
     h = store["train_results"]["history"]
     assert store["datasets"]["trainset"].augmentation.steps == \
@@ -405,7 +406,8 @@ def test_preprocess_pipelines_run_on_cpu(monkeypatch, tmp_path):
     """preprocess_cifar10 on the repository's catalog; preprocess_mnist on a
     catalog whose root is empty, so the synthetic stand-in is generated."""
     monkeypatch.chdir(REPO)
-    sets = cli_run(["--pipeline=preprocess_cifar10", "--device", "cpu"])["datasets"]
+    sets = cli_run(["--pipeline=preprocess_cifar10", "--device", "cpu",
+                    "--no-persist"])["datasets"]
     assert {k: len(v) for k, v in sets.items()} == \
         {"trainset": 40000, "validset": 10000, "testset": 10000}
     x = sets["validset"].batch_transform(torch.from_numpy(sets["validset"].dataset.images[:4]))

@@ -1,4 +1,6 @@
-"""GPU tests of the port's CUDA kernel and of the model on the card.
+"""GPU tests of the port's CUDA kernel and of the model on the card, and of
+the training runtime there (each optimizer's step against the CPU's, the
+pinned prefetch, K2's launches under remat, the streaming path's losses).
 
 They need a CUDA card and skip without one. This file imports no JAX, so on
 a machine without it run it apart from the suite's conftest:
@@ -1610,3 +1612,136 @@ def test_predict_on_a_y4m_clip_on_card_matches_cpu(cuda, tmp_path, capsys):
             assert fused_conv2d_bias_act.launches - k2 == 3
     got, ref = np.load(tmp_path / "cuda.npy"), np.load(tmp_path / "cpu.npy")
     assert np.linalg.norm(got - ref) / np.linalg.norm(ref) <= 1e-4
+
+
+# --------------------------------------------------------------------------- #
+# The training runtime: optimizers, the streaming input path, remat
+# --------------------------------------------------------------------------- #
+
+#: each optimizer's one step, card vs CPU on the same float32 gradients
+#: (TF32 off): the largest difference relative to max|update|
+RUNTIME_OPT_TOL = 1e-5
+#: torch's Adam and AdamW, whose card kernel rounds the parameter otherwise
+#: (an FMA) than the CPU's: held past one float32 ulp of the parameter
+FMA_ROUNDED = ("adam", "adamw")
+RUNTIME_OPTS = {"adamw": {"lr": 1e-3}, "adam": {"lr": 1e-3},
+                "sgd": {"lr": 0.05, "momentum": 0.9, "nesterov": True},
+                "rmsprop": {"lr": 1e-3}, "lamb": {"lr": 1e-3, "weight_decay": 1e-2},
+                "lars": {"lr": 0.1}, "adafactor": {"lr": 1e-2},
+                "lion": {"lr": 1e-4, "weight_decay": 0.1},
+                "muon": {"lr": 0.02, "weight_decay": 1e-2},
+                "schedule_free_adamw": {"lr": 1e-3, "warmup_steps": 2}}
+_TINY_CLASSIFIER = {
+    "act_fn": "leaky_relu", "dropout_prob": 0.0,
+    "batch_norm": {"affine": True, "eps": 1e-5, "momentum": 0.1},
+    "architecture": [{"conv2d": {"kernel_size": [3, 3], "out_channels": 8, "padding": 1}},
+                     {"conv2d": {"kernel_size": [3, 3], "out_channels": 8, "padding": 1}},
+                     {"avg_pooling": {"kernel_size": [2, 2], "stride": [2, 2]}},
+                     {"flatten": {}},
+                     {"fully_connected": {"out_features": 130, "act_fn": None,
+                                          "batch_norm": None}}]}
+
+
+@pytest.mark.parametrize("name", sorted(RUNTIME_OPTS))
+def test_optimizer_step_on_card_matches_cpu(cuda, name):
+    """One step on the card and on the CPU from the same parameters and
+    gradients: the parameters equal within RUNTIME_OPT_TOL of max|update|;
+    for FMA_ROUNDED past one float32 ulp of the parameter (a parameter near
+    1 holds a 1e-3 update only to 6e-8)."""
+    from deepcv_tpu_torch.spec import DeepcvModule
+    from deepcv_tpu_torch.train.optimizers import build_optimizer
+
+    model = DeepcvModule((16, 16, 3), _TINY_CLASSIFIER, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    named = [(n, p.detach().clone()) for n, p in model.named_parameters()]
+    grads = [torch.randn(p.shape, generator=gen) * 0.01 for _, p in named]
+    after = []
+    for dev in ("cpu", cuda):
+        params = [(n, torch.nn.Parameter(p.to(dev).clone())) for n, p in named]
+        opt = build_optimizer(name, RUNTIME_OPTS[name], params)
+        for (_, p), g in zip(params, grads):
+            p.grad = g.to(dev).clone()
+        opt.step()
+        after.append([p.detach().cpu() for _, p in params])
+    top = max(float((a - p0).abs().max()) for a, (_, p0) in zip(after[0], named))
+    inf = torch.tensor(float("inf"))
+    for a, b in zip(*after):
+        ulp = torch.nextafter(a.abs(), inf) - a.abs() if name in FMA_ROUNDED else 0.0
+        assert float(((b - a).abs() - ulp).clamp(min=0).max()) <= RUNTIME_OPT_TOL * top
+
+
+def test_prefetch_to_device_yields_the_host_batches(cuda):
+    from deepcv_tpu_torch.data.pipeline import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, (64, 8, 8, 3), dtype=np.uint8),
+                rng.integers(0, 10, 64).astype(np.int32)) for _ in range(7)]
+    got = []
+    for x, y in prefetch_to_device(iter(batches), size=2, device=cuda):
+        assert x.device.type == "cuda"
+        torch.cuda._sleep(2_000_000)        # the consumer busy while copies queue
+        got.append((x.cpu().numpy(), y.cpu().numpy()))
+    assert len(got) == len(batches)
+    for (a, b), (c, d) in zip(got, batches):
+        assert a.tobytes() == c.tobytes() and b.tobytes() == d.tobytes()
+
+
+@pytest.mark.parametrize("mode,per_step", [(False, 5), (True, 10), ("dots", 5)])
+def test_k2_launches_per_step_under_remat(cuda, tmp_path, mode, per_step):
+    """image_classifier in bf16: 5 K2 launches a training step, 10 when the
+    backward recomputes the forward, 5 when remat keeps the convs' outputs."""
+    from deepcv_tpu_torch.config import load_yaml
+    from deepcv_tpu_torch.data.datasets import ArrayDataset
+    from deepcv_tpu_torch.data.preprocess import preprocess
+    from deepcv_tpu_torch.pipelines.classification import create_model
+    from deepcv_tpu_torch.train.losses import cross_entropy_loss
+    from deepcv_tpu_torch.train.training import train
+
+    rng = np.random.default_rng(0)
+    data = preprocess({"trainset": ArrayDataset(
+        rng.integers(0, 256, (80, 32, 32, 3), dtype=np.uint8),
+        rng.integers(0, 10, 80).astype(np.int64), classes=[str(i) for i in range(10)])},
+        {"seed": 0, "split_dataset": {"validset_ratio": 0.2}, "transforms": ["to_tensor"]})
+    hp = load_yaml("conf/base/parameters.yml")["image_classifier_model"]
+    model = create_model(data, {**hp, "dtype": "bfloat16"}, device=cuda)
+    before = fused_conv2d_bias_act.launches
+    _, h = train({"epochs": 1, "batch_size": 16, "optimizer_opts": {"lr": 1e-3},
+                  "save_every_iters": 0, "validate_every_epochs": 1000, "remat": mode,
+                  "output_path": str(tmp_path), "handle_preemption": False},
+                 model, cross_entropy_loss, data)
+    assert h["steps"] == 4
+    assert fused_conv2d_bias_act.launches - before == per_step * h["steps"]
+
+
+def test_streaming_train_first_losses_on_card_match_cpu(cuda, tmp_path):
+    from deepcv_tpu_torch.config import load_yaml
+    from deepcv_tpu_torch.data.datasets import load_dataset
+    from deepcv_tpu_torch.data.preprocess import preprocess
+    from deepcv_tpu_torch.pipelines.classification import create_model
+    from deepcv_tpu_torch.train.losses import cross_entropy_loss
+    from deepcv_tpu_torch.train.training import TrainingEvents, train
+
+    rng = np.random.default_rng(1)
+    np.save(tmp_path / "images.npy", rng.integers(0, 256, (600, 32, 32, 3), dtype=np.uint8))
+    np.save(tmp_path / "targets.npy", rng.integers(0, 10, 600).astype(np.int32))
+    data = preprocess({"trainset": load_dataset({"type": "memmap", "root": str(tmp_path),
+                                                 "classes": [str(i) for i in range(10)]})},
+                      {"seed": 0, "split_dataset": {"validset_ratio": 0.03},
+                       "transforms": ["to_tensor"]})
+    hp = load_yaml("conf/base/parameters.yml")["image_classifier_model"]
+    init = create_model(data, hp, device="cpu").state_dict()
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = create_model(data, {**hp, "dtype": "bfloat16"}, device=dev)
+        model.load_state_dict(init)
+        events, seen = TrainingEvents(), []
+        events.on("iteration_completed", lambda state, metrics, _s=seen:
+                  _s.append(float(metrics["main_loss"])))
+        _, h = train({"epochs": 1, "batch_size": 128, "optimizer_opts": {"lr": 1e-3},
+                      "save_every_iters": 0, "validate_every_epochs": 1000,
+                      "dtype": "bfloat16", "output_path": str(tmp_path),
+                      "handle_preemption": False}, model, cross_entropy_loss, data,
+                     events=events)
+        assert h["input_path"] == "streaming"
+        losses[str(dev)] = seen
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=BF16_TOL)
