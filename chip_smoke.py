@@ -313,6 +313,36 @@ Phases, each printing one JSON line:
    ``remove_watermark`` against the CPU on the same RANSAC sets.
    ``video_predict``: a .y4m clip through ``predict`` and ``process_video``
    on the card against the CPU (5 f32 K2 launches a forward).
+24. stream_train — bench.py config 7: a 403 MB memmap written under
+   ``_build/``, streamed and resident; ``runtime_train``: 22 runs of 4
+   steps over the optimizers, schedules and the update chain (the AdamW,
+   ``remat: true`` and ``dots`` runs traced in a process of its own,
+   ``--remat-profile``); ``partial_run``: ``run --to-nodes``,
+   ``--only-nodes`` and ``--from-nodes`` against a full run.
+25. search — ``python -m deepcv_tpu_torch search --pipeline
+   train_image_classifier`` in this process: TPE over a space written by the
+   phase (the conf's ``model:dropout_prob``, ``model:batch_norm.momentum``
+   and ``training:optimizer_opts.lr`` domains, config 1's batch of 4096 and
+   one epoch as one-value choices), 4 trials, each the whole pipeline with
+   config 1's recipe and settings: each trial's value, seconds and step ms,
+   K1 (one a step) and K2 (5 bf16 a forward) launches, the best params held
+   to ``summary.json``. ``hp_search``: bench.py config 5's runner (4 random
+   trials, 1,024 synthetic 16x16 images, batch 128, bf16, ``runtime_lr:
+   true``): the trial seconds and their first-to-fastest ratio (here no
+   compile: the first trial's first-call costs). ``nas``: on CIFAR-10 32x32,
+   bf16, 10,000 training images, classic NAS over the conf's
+   ``larger_backbone`` classifier (3 ``SearchRunner`` trials of
+   ``sample_architecture`` -> ``apply_fixed_architecture`` -> 1 epoch at
+   batch 512, 11 K2 launches a forward) and single-shot NAS (darts, spos,
+   proxylessnas, enas; 13 K2 launches a forward, every candidate) on the same
+   classifier with ``mutable_layer_1``'s candidates at a common 32 channels
+   (the conf's 32, 16 and 8 cannot be summed); then, in float32, the
+   supernet against the CPU path and the forced-arch supernet against the
+   fixed model of its export on the chosen weights, within SERVE_REL_L2,
+   and the export saved as a NAS bundle, loaded and served once.
+   ``lr_find``: ``lr-find --pipeline train_image_classifier --steps 100
+   --batch-size 4096``: the suggested LRs and the CSV curve, 5 K2 launches a
+   step.
 
 Then the wall seconds of every phase (``walls``), the kernels line and,
 last, the contract line
@@ -752,7 +782,8 @@ def device_ms(fn, launches: Optional[int], iters: int = 20, tries: int = 6) -> f
         time.sleep(0.2)
     raise AssertionError(f"the profiler recorded {recorded} launches for {iters} calls, "
                          f"expected {iters * launches if launches is not None else 'two equal counts'}, "
-                         f"in {tries} tries")
+                         f"in {tries} tries; the last window's kernels: "
+                         f"{ {e.key: e.count for e in events} }")
 
 
 def conv_bound(n, h, w, cin, cout, k, dtype: str, bias: bool, tf32x3=False):
@@ -4325,12 +4356,12 @@ def int8_kernel_line(rows, launches_by_path, launches_by_route, card):
             "card": card}
 
 
-def k1_kernel_line(aug_rows, launches, card):
+def k1_kernel_line(aug_rows, launches_by_path, card):
     row = aug_rows[(AUGMENT_BATCH, 32, 32, 3)]
     return {"name": "fused_augment_normalize", "route": "cuda",
             "source": "deepcv_tpu_torch/csrc/fused_augment.cu",
             "replaces": "deepcv_tpu/ops/pallas/fused_augment.py:40",
-            "launches": launches, "launches_by_path": {"augment_train": launches},
+            "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
             "max_abs_err": row["max_abs_err"]["random"],
             "ms": row["ms_noise"], "device_ms": row["device_ms_noise"],
             "device_ms_noise_off": row["device_ms"], "plain_ms": row["plain_ms_noise"],
@@ -5374,6 +5405,402 @@ def phase_partial_run(card):
     return counts["K2"]
 
 
+# --------------------------------------------------------------------------- #
+# Search: the CLI's search, bench.py config 5's runner, NAS, the LR finder
+# --------------------------------------------------------------------------- #
+
+SEARCH_TRIALS = 4
+#: the conf's image_classifier space's three domains (model:dropout_prob,
+#: model:batch_norm.momentum, training:optimizer_opts.lr) and bench.py
+#: config 1's batch and one epoch as one-value choices
+SEARCH_DOMAINS = ("model:dropout_prob", "model:batch_norm.momentum",
+                  "training:optimizer_opts.lr")
+SEARCH_VALID_RATIO = 0.05              # config 1's split (_augment_params)
+HP_SEARCH_TRIALS = 4                   # bench.py config 5 (bench_hp_search)
+CONFIG5_SPEC = {"act_fn": "relu", "batch_norm": {"affine": True, "eps": 1e-5, "momentum": 0.1},
+                "architecture": [
+                    {"conv2d": {"kernel_size": [3, 3], "out_channels": 16, "padding": 1}},
+                    {"avg_pooling": {"kernel_size": [2, 2], "stride": [2, 2]}},
+                    {"conv2d": {"kernel_size": [3, 3], "out_channels": 32, "padding": 1}},
+                    {"flatten": {}},
+                    {"fully_connected": {"out_features": 10, "act_fn": None,
+                                         "batch_norm": None}}]}
+CONFIG5_CONVS_PER_FORWARD = 2
+NAS_VALID_RATIO = 0.8                  # 10,000 of CIFAR-10's 50,000 to train on
+NAS_BATCH = 512
+NAS_CLASSIC_TRIALS = 3
+NAS_ALGORITHMS = ("darts", "spos", "proxylessnas", "enas")
+#: K2 convs a forward: the fixed classifier's 11, the supernet's 13 (every
+#: candidate of mutable_layer_1 runs)
+NAS_FIXED_CONVS, NAS_SUPERNET_CONVS = 11, 13
+NAS_MUTABLE = "_submodule_0_nested/mutable_layer_1"
+NAS_CHECK_BATCH = 64
+LR_FIND_STEPS, LR_FIND_BATCH = 100, 4096
+
+
+def nas_classifier_hp(common_width=None):
+    """The conf's ``larger_backbone`` nested in a classifier with
+    ``image_classifier_model``'s act_fn and batch_norm and a 10-class head.
+    ``common_width`` puts ``mutable_layer_1``'s three candidates (3x3, 5x5,
+    7x7) at one width: the conf's 32, 16 and 8 channels cannot be summed by
+    a supernet's mixture, in either package."""
+    models = {k: v for entry in load_yaml(REPO / "conf" / "base" / "parameters.yml")["models"]
+              for k, v in entry.items()}
+    backbone = copy.deepcopy(models["larger_backbone"])
+    if common_width:
+        for entry in backbone["architecture"]:
+            for cand in entry.get("_nas_layer_choice", {}).get("_candidates", []):
+                cand["conv2d"]["out_channels"] = common_width
+    clf = conf_hp("image_classifier_model")
+    return {"act_fn": clf["act_fn"], "batch_norm": dict(clf["batch_norm"]),
+            "architecture": [{"_nested_deepcvmodule": backbone}, {"flatten": {}},
+                             {"fully_connected": {"out_features": 10}}]}
+
+
+class _Histories:
+    """The histories of every ``train()`` the classification pipeline runs
+    inside the block."""
+
+    def __init__(self):
+        from deepcv_tpu_torch.pipelines import classification
+        self._mod, self.runs = classification, []
+
+    def __enter__(self):
+        real = self._mod.train_fn
+
+        def spy(*args, **kwargs):
+            state, h = real(*args, **kwargs)
+            self.runs.append(h)
+            return state, h
+        self._real, self._mod.train_fn = real, spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.train_fn = self._real
+
+
+def _val_forwards(h, n_valid, batch):
+    return len(h["valid"]) * math.ceil(n_valid / min(32 * batch, n_valid))
+
+
+def phase_search(card):
+    """``python -m deepcv_tpu_torch search --pipeline train_image_classifier``
+    in this process: TPE over the conf's three domains with config 1's batch
+    and one epoch as one-value choices, 4 trials, each a whole pipeline run
+    with bench.py config 1's recipe and settings (K1 each step, 5 bf16 K2
+    launches a forward)."""
+    d = _build.BUILD_DIR / "search"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    conf_space = json.loads((REPO / "conf" / "base" / "hp_search_spaces" /
+                             "image_classifier_hp_search_space.json").read_text())
+    space = {**{k: conf_space[k] for k in SEARCH_DOMAINS},
+             "training:batch_size": {"_type": "choice", "_value": [AUGMENT_BATCH]},
+             "training:epochs": {"_type": "choice", "_value": [1]}}
+    (d / "space.json").write_text(json.dumps(space, indent=1))
+    # config 1's settings but its epochs and batch (the space's) and with a
+    # validation pass (the trial's value)
+    params = [p for p in _augment_params(1)
+              if not p.startswith(("train_image_classifier.epochs:",
+                                   "train_image_classifier.batch_size:",
+                                   "train_image_classifier.validate_every_epochs:"))]
+    params.append(f"train_image_classifier.output_path:{d / 'runs'}")
+    argv = ["search", "--pipeline=train_image_classifier", "--space", str(d / "space.json"),
+            "--trials", str(SEARCH_TRIALS), "--tuner", "tpe", "--project-path", str(REPO),
+            "--output-dir", str(d / "hp_search"), "--device", DEVICE,
+            "--params", ",".join(params)]
+    out = io.StringIO()
+    with _Histories() as hists, contextlib.redirect_stdout(out):
+        rc, wall, counts, _, _ = _counted(lambda: cli.main(argv))
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    summary = json.loads((d / "hp_search" / "summary.json").read_text())
+    trials = summary["trials"]
+    n_valid = round(SEARCH_VALID_RATIO * 50000)
+    steps = sum(h["steps"] for h in hists.runs)
+    forwards = steps + sum(_val_forwards(h, n_valid, AUGMENT_BATCH) for h in hists.runs)
+    bf16 = "bfloat16/bfloat16/bfloat16"
+    values = [t["value"] for t in trials]
+    if rc != 0 or len(trials) != SEARCH_TRIALS or len(hists.runs) != SEARCH_TRIALS \
+            or any(v is None or not 0.0 <= v <= 1.0 for v in values) \
+            or any(not np.isfinite([e["main_loss"] for e in h["train"]]).all()
+                   for h in hists.runs) \
+            or summary["best"]["params"] != line["best_params"] \
+            or any(t["params"]["training:batch_size"] != AUGMENT_BATCH for t in trials):
+        raise AssertionError(f"search: rc {rc}, trials {trials}, printed {line}")
+    if counts["K1"] != steps or counts["routes"] != {"K1": steps, "eager": 0} \
+            or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * forwards \
+            or counts["K2_dtypes"] != {bf16: counts["K2"]}:
+        raise AssertionError(f"search counts {counts} for {steps} steps, {forwards} forwards")
+    emit({"phase": "search",
+          "argv": ["python", "-m", "deepcv_tpu_torch", *argv], "space": space,
+          "data": _cifar_data(),
+          "trials": [{"trial": t["trial"], "params": t["params"], "value": t["value"],
+                      "seconds": t["seconds"], "steps": h["steps"],
+                      "step_ms": AUGMENT_BATCH / h["throughput_img_s"][-1] * 1e3,
+                      "first_loss": h["train"][0]["main_loss"] if h["train"] else None}
+                     for t, h in zip(trials, hists.runs)],
+          "best": {"trial": summary["best"]["trial"], "value": summary["best"]["value"],
+                   "params": summary["best"]["params"]},
+          "summary_json": str((d / "hp_search" / "summary.json").relative_to(REPO)),
+          "total_seconds": summary["total_seconds"], "wall_s": wall,
+          "launches": {"K1": counts["K1"], "K2": counts["K2"]},
+          "launches_per_forward": {"K2": counts["K2"] / forwards}, "steps": steps,
+          "card": card})
+    return counts
+
+
+def phase_hp_search(card):
+    """bench.py config 5 (``bench_hp_search``) on the port: 4 random trials
+    of its spec-built CNN, 1,024 synthetic 16x16 images, batch 128, bf16,
+    ``runtime_lr: true``; the trial seconds and first-to-fastest ratio."""
+    from deepcv_tpu_torch.data.datasets import load_dataset
+    from deepcv_tpu_torch.hyperparams import HyperparameterSpace
+    from deepcv_tpu_torch.search import SearchRunner, sample_search_space
+
+    raw = load_dataset("synthetic", n=1024, image_shape=(16, 16, 3), seed=0)
+    data = preprocess({"trainset": raw}, {"seed": 0, "split_dataset": {"validset_ratio": 0.1},
+                                          "transforms": ["to_tensor"]})
+    d = _build.BUILD_DIR / "hp_search"
+    shutil.rmtree(d, ignore_errors=True)
+    base_hp = {"epochs": 1, "batch_size": 128, "optimizer_opts": {"lr": 1e-3},
+               "save_every_iters": 0, "log_progress_every_iters": 1_000_000,
+               "eval_batch_multiplier": 1, "output_path": str(d / "runs"),
+               "dtype": "bfloat16", "handle_preemption": False, "runtime_lr": True}
+    space = HyperparameterSpace.from_nni_json({
+        "training:optimizer_opts.lr": {"_type": "loguniform", "_value": [1e-4, 1e-2]}})
+    times, hists = [], []
+
+    def trial_fn(params, trial):
+        m_hp, t_hp = sample_search_space(params, CONFIG5_SPEC, base_hp)
+        model = DeepcvModule((16, 16, 3), m_hp, dtype="bfloat16", device=DEVICE)
+        t0 = time.perf_counter()
+        _, h = training.train(t_hp, model, cross_entropy_loss, data)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        hists.append(h)
+        trial.report_final_result(h["valid"][-1]["valid_accuracy"])
+
+    summary, wall, counts, _, _ = _counted(lambda: SearchRunner(
+        space, trial_fn, tuner="random", max_trials=HP_SEARCH_TRIALS,
+        output_dir=d / "bench_hp_search", seed=0).run())
+    n_valid = len(data["validset"])
+    eval_bs = min(base_hp["batch_size"] * base_hp["eval_batch_multiplier"], n_valid)
+    forwards = sum(h["steps"] + len(h["valid"]) * math.ceil(n_valid / eval_bs) for h in hists)
+    if len(times) != HP_SEARCH_TRIALS or any(t["value"] is None for t in summary["trials"]) \
+            or counts["K2"] != CONFIG5_CONVS_PER_FORWARD * forwards \
+            or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": counts["K2"]}:
+        raise AssertionError(f"hp_search: times {times}, trials {summary['trials']}, "
+                             f"counts {counts} for {forwards} forwards")
+    emit({"phase": "hp_search", "config": "bench.py config 5 (bench_hp_search)",
+          "trials": HP_SEARCH_TRIALS, "lrs": [t["params"]["training:optimizer_opts.lr"]
+                                              for t in summary["trials"]],
+          "values": [t["value"] for t in summary["trials"]], "trial_s": times,
+          "first_to_fastest": times[0] / min(times[1:]),
+          "ratio_measures": "no XLA compile exists here: the first trial's extra time is "
+                            "its first-call costs at these shapes (allocator growth, the "
+                            "cuBLAS and cuDNN heuristics of new shapes) in a process that "
+                            "already loaded CUDA and built K2; cudnn.benchmark is off, so "
+                            "no autotuning",
+          "steps": [h["steps"] for h in hists], "wall_s": wall,
+          "launches": {"K2": counts["K2"]}, "data": "synthetic (1,024 16x16 images)",
+          "card": card})
+    return counts
+
+
+def _nas_data():
+    """CIFAR-10 at 32x32 with the conf's transforms, 10,000 images to train
+    on (validset_ratio 0.2 -> 0.8, as classifier_train cuts it)."""
+    from deepcv_tpu_torch.pipelines import ProjectContext
+
+    ctx = ProjectContext(REPO, device=DEVICE)
+    pp = copy.deepcopy(ctx.params("cifar10_preprocessing"))
+    pp["split_dataset"] = {**pp.get("split_dataset", {}), "validset_ratio": NAS_VALID_RATIO}
+    return preprocess({"trainset": ctx.load_catalog_entry("cifar10_train"),
+                       "testset": ctx.load_catalog_entry("cifar10_test")}, pp)
+
+
+def _nas_hp(d, label, **kw):
+    return {"epochs": 1, "batch_size": NAS_BATCH, "optimizer": "adamw",
+            "optimizer_opts": {"lr": 1e-3, "weight_decay": 1e-2}, "dtype": "bfloat16",
+            "save_every_iters": 0, "log_progress_every_iters": 1_000_000,
+            "handle_preemption": False, "seed": SEED, "output_path": str(d / label), **kw}
+
+
+def _rel_l2(got, ref):
+    return float(torch.linalg.vector_norm(got.float() - ref.float())
+                 / torch.linalg.vector_norm(ref.float()))
+
+
+def _fixed_from_supernet(supernet, hp, arch):
+    """The fixed model of ``arch`` on the supernet's weights."""
+    from deepcv_tpu_torch.search.nas import apply_fixed_architecture, fixed_state_dict
+
+    fixed = apply_fixed_architecture((32, 32, 3), hp, arch, device=DEVICE)
+    fixed.load_state_dict(fixed_state_dict(supernet, arch))
+    return fixed.eval()
+
+
+def phase_nas(card):
+    """Classic NAS over the conf's larger_backbone classifier (3 sampled
+    fixed architectures through SearchRunner, 1 epoch each at batch 512) and
+    single-shot NAS (darts, spos, proxylessnas, enas) on the same classifier
+    with mutable_layer_1's candidates at a common 32 channels, CIFAR-10
+    32x32, bf16, 10,000 training images; then the card checks: the supernet's
+    f32 forward against the CPU path, the forced-arch supernet against the
+    fixed model of its export on the chosen candidate's weights, and the
+    exported architecture as a NAS bundle served once."""
+    from deepcv_tpu_torch.hyperparams import HyperparameterSpace
+    from deepcv_tpu_torch.search import SearchRunner
+    from deepcv_tpu_torch.search.nas import (apply_fixed_architecture, candidate_costs,
+                                             list_mutables, sample_architecture,
+                                             single_shot_neural_architecture_search)
+
+    d = _build.BUILD_DIR / "nas"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = _nas_data()
+    data_s = time.perf_counter() - t0
+    n_valid = len(data["validset"])
+    hp_fixed, hp_super = nas_classifier_hp(), nas_classifier_hp(common_width=32)
+    rng = np.random.default_rng(SEED)
+    classic = []
+
+    def trial_fn(params, trial):
+        arch = sample_architecture(hp_fixed, rng=rng)
+        model = apply_fixed_architecture((32, 32, 3), hp_fixed, arch, dtype="bfloat16",
+                                         device=DEVICE)
+        _, h = training.train(_nas_hp(d, f"classic{trial.trial_id}"), model,
+                              cross_entropy_loss, data)
+        classic.append({"arch": arch, "capacity": model.capacity(), "steps": h["steps"],
+                        "step_ms": NAS_BATCH / h["throughput_img_s"][-1] * 1e3,
+                        "valid_accuracy": h["valid"][-1]["valid_accuracy"],
+                        "forwards": h["steps"] + _val_forwards(h, n_valid, NAS_BATCH)})
+        trial.report_final_result(h["valid"][-1]["valid_accuracy"])
+
+    space = HyperparameterSpace.from_nni_json(
+        {"training:optimizer_opts.lr": {"_type": "choice", "_value": [1e-3]}})
+    summary, classic_wall, classic_counts, _, _ = _counted(lambda: SearchRunner(
+        space, trial_fn, tuner="random", max_trials=NAS_CLASSIC_TRIALS,
+        output_dir=d / "classic", seed=SEED).run())
+    want = NAS_FIXED_CONVS * sum(c["forwards"] for c in classic)
+    if len(classic) != NAS_CLASSIC_TRIALS or classic_counts["K2"] != want \
+            or classic_counts["K2_by_dtype"] != {"float32": 0, "bfloat16": want} \
+            or any(t["value"] is None for t in summary["trials"]):
+        raise AssertionError(f"nas classic: {summary['trials']}, counts {classic_counts}, "
+                             f"want {want} K2 launches")
+    launches = {"classic": classic_counts["K2"]}
+    single = {}
+    supernets = {}
+    evals = {"darts": 0, "spos": 3 * 2, "proxylessnas": 0, "enas": 8}
+    for algorithm in NAS_ALGORITHMS:
+        (arch, state, h), wall, counts, _, _ = _counted(
+            lambda: single_shot_neural_architecture_search(
+                (32, 32, 3), hp_super, _nas_hp(d, algorithm), cross_entropy_loss, data,
+                algorithm=algorithm, arch_export_path=d / f"{algorithm}.json",
+                dtype="bfloat16", device=DEVICE))
+        forwards = h["steps"] + _val_forwards(h, n_valid, NAS_BATCH) + evals[algorithm]
+        logits = {k: v.detach().float().cpu().tolist()
+                  for k, v in state.model.arch_parameters().items()}
+        if set(arch) != set(list_mutables(hp_super)) or counts["K2"] != \
+                NAS_SUPERNET_CONVS * forwards or \
+                counts["K2_by_dtype"] != {"float32": 0, "bfloat16": counts["K2"]} or \
+                not np.isfinite([e["main_loss"] for e in h["train"]]).all() \
+                or json.loads((d / f"{algorithm}.json").read_text()) != arch:
+            raise AssertionError(f"nas {algorithm}: arch {arch}, counts {counts} for "
+                                 f"{forwards} forwards, history {h['train'][-1:]}")
+        single[algorithm] = {"arch": arch, "steps": h["steps"],
+                             "step_ms": NAS_BATCH / h["throughput_img_s"][-1] * 1e3,
+                             "valid_accuracy": h["valid"][-1]["valid_accuracy"],
+                             "arch_logits": logits, "wall_s": wall, "forwards": forwards,
+                             **({"controller": h["controller"]} if "controller" in h else {})}
+        launches[algorithm] = counts["K2"]
+        supernets[algorithm] = (arch, state.model)
+
+    # the card checks, float32, TF32 off
+    arch, supernet = supernets["darts"]
+    supernet = supernet.with_options(dtype=None).eval()
+    cpu = DeepcvModule((32, 32, 3), hp_super, nas_mode="supernet", device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in supernet.state_dict().items()})
+    x = data["validset"].batch_transform(torch.from_numpy(
+        data["validset"].dataset.images[:NAS_CHECK_BATCH]).to(DEVICE), augment=False)
+    (vs_cpu, vs_fixed, bundle_err), check_wall, check_counts, _, _ = _counted(
+        lambda: _nas_checks(supernet, cpu, hp_super, arch, x, d))
+    if vs_cpu > SERVE_REL_L2 or vs_fixed > SERVE_REL_L2 or bundle_err > SERVE_REL_L2 \
+            or check_counts["K2"] != 2 * NAS_SUPERNET_CONVS + 2 * NAS_FIXED_CONVS \
+            or check_counts["K2_by_dtype"] != {
+                "float32": 2 * NAS_SUPERNET_CONVS + 2 * NAS_FIXED_CONVS, "bfloat16": 0}:
+        raise AssertionError(f"nas checks: supernet vs CPU {vs_cpu}, forced vs fixed "
+                             f"{vs_fixed}, bundle {bundle_err}, counts {check_counts}")
+    launches["checks"] = check_counts["K2"]
+    costs = candidate_costs(supernet)
+    emit({"phase": "nas", "data": _cifar_data(), "data_s": data_s,
+          "train_images": len(data["trainset"]), "valid_images": n_valid,
+          "batch": NAS_BATCH, "dtype": "bfloat16",
+          "cut": {"train_images": "40,000 -> 10,000 (validset_ratio 0.2 -> 0.8)",
+                  "epochs": "1 per trial and per supernet"},
+          "supernet_widths": "mutable_layer_1's candidates at a common 32 channels (3x3, "
+                             "5x5, 7x7): the conf's 32, 16 and 8 cannot be summed by a "
+                             "mixture (both packages refuse that supernet)",
+          "classic": {"trials": classic, "wall_s": classic_wall,
+                      "best": summary["best"]["trial"]},
+          "single_shot": single, "candidate_costs": costs,
+          "checks": {"supernet_f32_vs_cpu_rel_l2": vs_cpu,
+                     "forced_vs_fixed_rel_l2": vs_fixed, "bundle_rel_l2": bundle_err,
+                     "bound": SERVE_REL_L2, "arch": arch, "batch": NAS_CHECK_BATCH,
+                     "wall_s": check_wall},
+          "launches": launches,
+          "launches_per_forward": {"fixed": NAS_FIXED_CONVS, "supernet": NAS_SUPERNET_CONVS},
+          "card": card})
+    return launches
+
+
+def _nas_checks(supernet, cpu, hp_super, arch, x, d):
+    """(supernet f32 on the card vs the CPU, forced-arch supernet vs the fixed
+    model, the NAS bundle's served output vs the fixed model), each a rel L2."""
+    with torch.no_grad():
+        got = supernet(x)
+        ref = cpu(x.cpu())
+        forced = supernet.with_forced_arch(arch)(x)
+        fixed = _fixed_from_supernet(supernet, hp_super, arch)
+        want = fixed(x)
+        bundle = save_model_bundle(d / "bundle", fixed)
+        served = Predictor(load_model_bundle(bundle, device=DEVICE), batch_size=len(x),
+                           device=DEVICE)(x.cpu().numpy())
+    return _rel_l2(got.cpu(), ref), _rel_l2(forced, want), \
+        _rel_l2(torch.from_numpy(served), want.cpu())
+
+
+def phase_lr_find(card):
+    """``python -m deepcv_tpu_torch lr-find --pipeline train_image_classifier
+    --steps 100 --batch-size 4096`` in this process: the suggested LRs, the
+    CSV (the card's machine has no matplotlib), 5 K2 launches a step."""
+    d = _build.BUILD_DIR / "lr_find"
+    shutil.rmtree(d, ignore_errors=True)
+    argv = ["lr-find", "--pipeline", "train_image_classifier", "--steps", str(LR_FIND_STEPS),
+            "--batch-size", str(LR_FIND_BATCH), "--project-path", str(REPO),
+            "--out", str(d / "lr_range_test.png"), "--device", DEVICE]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, wall, counts, _, _ = _counted(lambda: cli.main(argv))
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    curve = Path(res["curve"])
+    rows = curve.read_text().splitlines() if curve.suffix == ".csv" else []
+    steps = res["steps"]
+    if rc != 0 or not curve.exists() or not 0 < res["best_lr"] < 10 \
+            or (rows and len(rows) != steps + 1) \
+            or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * steps or counts["K1"] != 0 \
+            or counts["K2_by_dtype"] != {"float32": counts["K2"], "bfloat16": 0}:
+        raise AssertionError(f"lr_find: rc {rc}, {res}, {len(rows)} csv rows, counts {counts}")
+    emit({"phase": "lr_find", "argv": ["python", "-m", "deepcv_tpu_torch", *argv],
+          "best_lr": res["best_lr"], "suggested": res["suggested"], "steps": steps,
+          "stopped_early": steps < LR_FIND_STEPS, "curve": str(curve.relative_to(REPO)),
+          "curve_rows": len(rows) - 1 if rows else None, "wall_s": wall,
+          "step_ms": wall / max(1, steps) * 1e3, "data": _cifar_data(),
+          "launches": {"K2": counts["K2"], "K2_by_dtype": counts["K2_by_dtype"]},
+          "card": card})
+    return counts
+
+
 class _Walls:
     """Wall seconds of each phase of a run, by the phase's name."""
 
@@ -5499,6 +5926,10 @@ def main() -> int:
     stream_launches = walls("stream_train", phase_stream_train, card)
     runtime_launches = walls("runtime_train", phase_runtime_train, card)
     partial_launches = walls("partial_run", phase_partial_run, card)
+    search_counts = walls("search", phase_search, card)
+    hp_search_counts = walls("hp_search", phase_hp_search, card)
+    nas_launches = walls("nas", phase_nas, card)
+    lr_find_counts = walls("lr_find", phase_lr_find, card)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
@@ -5522,16 +5953,23 @@ def main() -> int:
                                    "stream_train:resident": stream_launches["resident"],
                                    **{f"runtime_train:{k}": n
                                       for k, n in runtime_launches.items()},
-                                   "partial_run": partial_launches}
+                                   "partial_run": partial_launches,
+                                   "search": search_counts["K2"],
+                                   "hp_search": hp_search_counts["K2"],
+                                   **{f"nas:{k}": n for k, n in nas_launches.items()},
+                                   "lr_find": lr_find_counts["K2"]}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
               augment_counts["K2"] + wide_launches + sum(zoo_launches.values())
               + unet_launches + fpn_launches + keypoint_launches["autoencoder"]
               + match_launches + sum(full_launches.values()) + sum(stream_launches.values())
-              + sum(runtime_launches.values()),
+              + sum(runtime_launches.values()) + search_counts["K2"]
+              + hp_search_counts["K2"]
+              + sum(n for k, n in nas_launches.items() if k != "checks"),
               k2_rows[(DENSE_KERNEL_CASES[0][0], "float32")])
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
-    emit({"kernels": [k1_kernel_line(aug_rows, augment_counts["K1"], card), k2_line,
+    emit({"kernels": [k1_kernel_line(aug_rows, {"augment_train": augment_counts["K1"],
+                                                "search": search_counts["K1"]}, card), k2_line,
                       *flash_kernel_lines(flash_rows, serve_launches, train_launches,
                                           f32_train_launches, vmoe_launches, card),
                       int8_kernel_line(int8_rows, {

@@ -1,9 +1,10 @@
 """Command-line interface of the port.
 
 Counterpart of ``deepcv_tpu/cli.py``'s ``run``, ``list``, ``describe``,
-``predict`` and ``serve`` subcommands (``_parse_extra_params``,
-``_cmd_predict``, ``_cmd_serve``); the other subcommands come with later
-slices. Usage::
+``predict``, ``serve``, ``search`` and ``lr-find`` subcommands
+(``_parse_extra_params``, ``_cmd_predict``, ``_cmd_serve``,
+``_cmd_search``, ``_default_space_path``, ``_cmd_lr_find``); the other
+subcommands come with later slices. Usage::
 
     python -m deepcv_tpu_torch run --pipeline=train_vit \\
         --params vit_model.attn_impl:flash,train_resnet50.epochs:1 \\
@@ -19,6 +20,25 @@ slices. Usage::
         [--quantize int8 [--calibrate N]] [--to-tensor] [--normalize ...] \\
         [--decode segmentation|detection[:g1,g2,...] [--top-k 16] [--nms-iou 0.5]] \\
         [--device cuda]
+    python -m deepcv_tpu_torch search --pipeline=train_image_classifier \
+        [--space space.json] [--trials 8] [--tuner tpe|random|grid] \
+        [--metric valid_accuracy] [--training-params-key K] [--model-params-key K] \
+        [--output-dir data/04_training/hp_search] [--params ...] [--device cuda]
+    python -m deepcv_tpu_torch lr-find --pipeline=train_image_classifier \
+        [--steps 100] [--batch-size 64] [--out data/04_training/lr_range_test.png] \
+        [--device cuda]
+
+``search`` runs the pipeline once per trial in this process, each trial's
+``model:``/``training:`` params set on the model and training hp keys (the
+pipeline's own name for the training hp, ``<task>_model`` for the model's),
+checkpoints off unless set, intermediates not persisted, ``--params`` under
+every trial's; the trials go to ``--output-dir`` (``trials.jsonl``,
+``summary.json``) and one JSON line sums the search up. The space defaults to
+``conf/base/hp_search_spaces/<pipeline>_hp_search_space.json``, or the file
+named after the pipeline without ``train_``. ``lr-find`` runs the LR range
+test on the classifier and data of ``train_image_classifier`` (CIFAR-100's
+for ``..._cifar100``), writes the curve (a CSV where matplotlib is missing)
+and prints the suggestion as one JSON line.
 
 ``run`` prints one JSON line summing up the training run (a partial run
 reads the outputs of the nodes it leaves out from the intermediate cache
@@ -278,6 +298,91 @@ def _cmd_predict(args) -> int:
     return 0
 
 
+#: the conf key of each search pipeline's model hp (others: image_classifier_model)
+SEARCH_MODEL_KEYS = {"train_image_classifier": "image_classifier_model",
+                     "train_image_classifier_cifar100": "image_classifier_model",
+                     "train_keypoint_detector": "keypoints_encoder_model"}
+
+
+def _default_space_path(project_path, pipeline: str) -> Path:
+    """The search space of ``pipeline``: ``<pipeline>_hp_search_space.json``
+    or the same without ``train_`` (the shipped spaces are named after the
+    model), under ``conf/base/hp_search_spaces``."""
+    space_dir = Path(project_path) / "conf" / "base" / "hp_search_spaces"
+    cands = [space_dir / f"{pipeline}_hp_search_space.json",
+             space_dir / (pipeline.removeprefix("train_") + "_hp_search_space.json")]
+    return next((p for p in cands if p.exists()), cands[0])
+
+
+def _cmd_search(args) -> int:
+    """Hyperparameter search driving the pipeline once per trial, in this
+    process."""
+    from deepcv_tpu_torch.hyperparams import HyperparameterSpace
+    from deepcv_tpu_torch.pipelines import ProjectContext
+    from deepcv_tpu_torch.search import SearchRunner
+
+    pipeline = args.pipeline
+    training_key = args.training_params_key or pipeline
+    model_key = args.model_params_key or SEARCH_MODEL_KEYS.get(pipeline,
+                                                                "image_classifier_model")
+    space_path = Path(args.space) if args.space else \
+        _default_space_path(args.project_path, pipeline)
+    if not space_path.exists():
+        print(f"error: search space not found: {space_path}", file=sys.stderr)
+        return 2
+    space = HyperparameterSpace.from_nni_json(str(space_path))
+    base = _parse_extra_params(args.params)
+
+    def trial_fn(params, trial):
+        extra = dict(base)
+        for name, v in params.items():
+            if name.startswith("model:"):
+                extra[f"{model_key}.{name[len('model:'):]}"] = v
+            elif name.startswith("training:"):
+                extra[f"{training_key}.{name[len('training:'):]}"] = v
+            else:
+                extra[f"{training_key}.{name}"] = v
+        extra.setdefault(f"{training_key}.save_every_iters", 0)
+        ctx = ProjectContext(args.project_path, extra_params=extra, device=args.device)
+        hist = ctx.run(pipeline, persist_intermediates=False)["train_results"]["history"]
+        for v in hist["valid"]:
+            trial.report_intermediate_result(v.get(args.metric, 0.0))
+        trial.report_final_result(hist["valid"][-1].get(args.metric, 0.0)
+                                  if hist["valid"] else 0.0)
+
+    summary = SearchRunner(space, trial_fn, tuner=args.tuner, max_trials=args.trials,
+                           output_dir=args.output_dir).run()
+    best = summary["best"]
+    print(json.dumps({"best_value": best["value"] if best else None,
+                      "best_params": best["params"] if best else None,
+                      "trials": len(summary["trials"]),
+                      "trial_values": [t["value"] for t in summary["trials"]],
+                      "trial_seconds": [t["seconds"] for t in summary["trials"]],
+                      "total_seconds": summary["total_seconds"],
+                      "output_dir": str(args.output_dir)}), flush=True)
+    return 0
+
+
+def _cmd_lr_find(args) -> int:
+    """The LR range test on the image classifier of the pipeline's conf."""
+    from deepcv_tpu_torch.pipelines.classification import create_model
+    from deepcv_tpu_torch.pipelines.framework import preprocess_node
+    from deepcv_tpu_torch.train.lr_finder import plot_search_curves, run_lr_range_test
+
+    ctx = _context(args)
+    ds = "cifar100" if "cifar100" in args.pipeline else "cifar10"
+    data = preprocess_node(ctx.load_catalog_entry(f"{ds}_train"),
+                           ctx.load_catalog_entry(f"{ds}_test"),
+                           ctx.params(f"{ds}_preprocessing"))
+    model = create_model(data, ctx.params("image_classifier_model"), device=ctx.device)
+    res = run_lr_range_test(model, "cross_entropy", data["trainset"],
+                            batch_size=args.batch_size, num_steps=args.steps)
+    out = plot_search_curves(res, args.out)
+    print(json.dumps({"best_lr": res["best_lr"], "suggested": res["suggested"],
+                      "steps": len(res["lrs"]), "curve": str(out)}), flush=True)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="deepcv_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -362,6 +467,34 @@ def build_parser() -> argparse.ArgumentParser:
                             "stats training used)")
     p_srv.add_argument("--device", default="cuda",
                        help="'cuda' (default) or 'cpu' for the plain path")
+    p_search = sub.add_parser("search", help="in-process hyperparameter search over a "
+                                             "pipeline")
+    p_search.add_argument("--pipeline", default="train_image_classifier")
+    p_search.add_argument("--space", default=None,
+                          help="NNI-format search-space JSON (default: conf/base/"
+                               "hp_search_spaces/<pipeline>_hp_search_space.json)")
+    p_search.add_argument("--trials", type=int, default=8)
+    p_search.add_argument("--tuner", default="tpe", choices=["tpe", "random", "grid"])
+    p_search.add_argument("--metric", default="valid_accuracy")
+    p_search.add_argument("--training-params-key", default=None,
+                          help="conf key of the training hp (default: the pipeline name)")
+    p_search.add_argument("--model-params-key", default=None,
+                          help="conf key of the model hp (default: <task>_model)")
+    p_search.add_argument("--output-dir", default="data/04_training/hp_search",
+                          help="where trials.jsonl and summary.json go")
+    p_search.add_argument("--params", action="append", default=[],
+                          help="params every trial takes: dotted.key:value[,...]")
+    p_search.add_argument("--project-path", default=".")
+    p_search.add_argument("--device", default="cuda",
+                          help="'cuda' (default) or 'cpu' for the plain path")
+    p_lr = sub.add_parser("lr-find", help="LR range test on a pipeline's model and data")
+    p_lr.add_argument("--pipeline", default="train_image_classifier")
+    p_lr.add_argument("--steps", type=int, default=100)
+    p_lr.add_argument("--batch-size", type=int, default=64)
+    p_lr.add_argument("--out", default="data/04_training/lr_range_test.png")
+    p_lr.add_argument("--project-path", default=".")
+    p_lr.add_argument("--device", default="cuda",
+                      help="'cuda' (default) or 'cpu' for the plain path")
     return parser
 
 
@@ -377,6 +510,12 @@ def main(argv=None) -> int:
         return _cmd_serve(args)
     if args.command == "predict":
         return _cmd_predict(args)
+    if args.command in ("search", "lr-find"):
+        try:
+            return _cmd_search(args) if args.command == "search" else _cmd_lr_find(args)
+        except (ConfigError, SpecError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     if args.command in ("list", "describe"):
         args.device = "cpu"  # reads the conf only
         pipes = _context(args).pipelines

@@ -1,18 +1,21 @@
 """Frozen hyperparameter mapping with required/default semantics.
 
 Counterpart of ``deepcv_tpu/hyperparams.py`` (``Hyperparameters``,
-``to_hyperparameters``, ``merge_hyperparameters``,
-``apply_dotted_overrides``), copied so that the port
-imports nothing of the JAX package. A default value of ``...`` (Ellipsis)
-marks a required key.
+``to_hyperparameters``, ``merge_hyperparameters``, ``HyperparamDomain``,
+``HyperparameterSpace``, ``apply_dotted_overrides``), copied so that the
+port imports nothing of the JAX package. A default value of ``...``
+(Ellipsis) marks a required key.
 """
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+import json
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
 
 __all__ = ["Hyperparameters", "to_hyperparameters", "merge_hyperparameters",
-           "apply_dotted_overrides"]
+           "HyperparamDomain", "HyperparameterSpace", "apply_dotted_overrides"]
 
 
 class Hyperparameters(Mapping):
@@ -99,15 +102,88 @@ def merge_hyperparameters(*dicts: Mapping[str, Any]) -> Hyperparameters:
     return Hyperparameters(acc)
 
 
-def apply_dotted_overrides(hp_tree: Dict[str, Any], flat: Mapping[str, Any]
+class HyperparamDomain:
+    """One searchable hyperparameter domain, as in NNI's search-space JSON:
+    ``choice``, ``uniform``, ``loguniform``, ``quniform`` or ``randint``."""
+
+    KINDS = ("choice", "uniform", "loguniform", "quniform", "randint")
+
+    def __init__(self, kind: str, values: Sequence[Any]):
+        if kind not in self.KINDS:
+            raise ValueError(f"Unknown domain kind '{kind}', expected one of {self.KINDS}")
+        self.kind = kind
+        self.values = list(values)
+
+    @classmethod
+    def from_nni(cls, spec: Mapping[str, Any]) -> "HyperparamDomain":
+        return cls(spec["_type"], spec["_value"])
+
+    def to_nni(self) -> Dict[str, Any]:
+        return {"_type": self.kind, "_value": self.values}
+
+    def sample(self, rng: np.random.Generator) -> Any:
+        """One value drawn with a numpy Generator (the JAX package's draws)."""
+        if self.kind == "choice":
+            return self.values[int(rng.integers(len(self.values)))]
+        lo, hi = float(self.values[0]), float(self.values[1])
+        if self.kind == "uniform":
+            return float(rng.uniform(lo, hi))
+        if self.kind == "loguniform":
+            return float(np.exp(rng.uniform(np.log(lo), np.log(hi))))
+        if self.kind == "quniform":
+            q = float(self.values[2]) if len(self.values) > 2 else 1.0
+            return float(np.round(rng.uniform(lo, hi) / q) * q)
+        return int(rng.integers(int(lo), int(hi)))
+
+    def __repr__(self):
+        return f"HyperparamDomain({self.kind}, {self.values})"
+
+
+class HyperparameterSpace:
+    """Named :class:`HyperparamDomain`\\ s over dotted hp paths (optionally
+    prefixed ``model:`` or ``training:``); reads and writes NNI search-space
+    JSON."""
+
+    def __init__(self, domains: Mapping[str, HyperparamDomain]):
+        self.domains = dict(domains)
+
+    @classmethod
+    def from_nni_json(cls, path_or_dict) -> "HyperparameterSpace":
+        if isinstance(path_or_dict, str):
+            with open(path_or_dict) as f:
+                d = json.load(f)
+        else:
+            d = dict(path_or_dict)
+        return cls({k: HyperparamDomain.from_nni(v) for k, v in d.items()})
+
+    def to_nni_json(self) -> Dict[str, Any]:
+        return {k: v.to_nni() for k, v in self.domains.items()}
+
+    def sample(self, rng: np.random.Generator) -> Dict[str, Any]:
+        return {k: d.sample(rng) for k, d in self.domains.items()}
+
+    def __len__(self):
+        return len(self.domains)
+
+    def __repr__(self):
+        return f"HyperparameterSpace({list(self.domains)})"
+
+
+def apply_dotted_overrides(hp_tree: Dict[str, Any], flat: Mapping[str, Any],
+                           strip_prefixes: Sequence[str] = ("model:", "training:"),
                            ) -> Dict[str, Any]:
     """Merge flat dotted-name params into a nested hp dict (in a copy):
-    ``"optimizer_opts.lr" -> hp['optimizer_opts']['lr']``. A path that
+    ``"training:optimizer_opts.lr" -> hp['optimizer_opts']['lr']`` (the first
+    of ``strip_prefixes`` a name starts with is taken off). A path that
     descends through a non-mapping raises ConfigError."""
     from deepcv_tpu_torch.config import ConfigError
 
     out = copy.deepcopy(hp_tree)
     for name, value in flat.items():
+        for p in strip_prefixes:
+            if name.startswith(p):
+                name = name[len(p):]
+                break
         node = out
         parts = name.split(".")
         for i, part in enumerate(parts[:-1]):

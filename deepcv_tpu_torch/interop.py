@@ -15,7 +15,12 @@ for the same spec.
 
 A nested module's variables sit under its node, each of its own nodes a
 level below (``node_impls_<nested>/node_impls_<local>/...`` ->
-``module.nodes.<nested>.nodes.<local>...``). A layer unit's variables sit
+``module.nodes.<nested>.nodes.<local>...``). A NAS supernet's candidates
+``node_impls_<choice>_<i>`` are the port's ``nodes.<choice>_cand<i>``, and
+its logits ``arch__<choice>`` keep their name and layout at the level of
+the module that holds the choice (``module.arch__<choice>``,
+``module.nodes.<nested>.arch__<choice>``); a fixed build's chosen
+candidate sits under the choice's own name in both. A layer unit's variables sit
 under ``op`` and ``norms_<i>``; a ViT node's
 under its submodules' names, which the port keeps: ``embed/proj``,
 ``embed/cls_token``, ``embed/pos_embedding``, ``enc<i>/ln_1``,
@@ -78,6 +83,9 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from deepcv_tpu_torch.spec.graph import (ARCH_PARAM_PREFIX, SpecModule, jax_scope_name,
+                                         node_key_of_jax_scope)
+
 __all__ = ["jax_to_torch_state_dict", "load_jax_variables", "jax_param_paths"]
 
 #: the JAX package pads conv input channels up to this count
@@ -113,8 +121,17 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 def _torch_key(collection: str, path: Tuple[str, ...], model: torch.nn.Module) -> str:
     base, rest = "module", path
     while rest and rest[0].startswith("node_impls_"):
-        base += f".nodes.{rest[0][len('node_impls_'):]}"
+        # a supernet candidate's scope 'node_impls_<choice>_<i>' is the node
+        # '<choice>_cand<i>'
+        try:
+            spec = model.get_submodule(base)
+        except AttributeError:
+            spec = None
+        key = node_key_of_jax_scope(spec, rest[0]) if isinstance(spec, SpecModule) else None
+        base += f".nodes.{key or rest[0][len('node_impls_'):]}"
         rest = rest[1:]
+    if collection == "params" and len(rest) == 1 and rest[0].startswith(ARCH_PARAM_PREFIX):
+        return f"{base}.{rest[0]}"
     if base == "module" or not rest:
         raise KeyError(f"unmapped JAX variable {collection}/{'/'.join(path)}")
     try:
@@ -274,7 +291,9 @@ def _jax_path(name: str, model: torch.nn.Module) -> str:
     parts = name.split(".")
     path, i = [], 1     # parts[0] is 'module'
     while i + 1 < len(parts) and parts[i] == "nodes":
-        path.append(f"node_impls_{parts[i + 1]}")
+        spec = model.get_submodule(".".join(parts[:i]))
+        path.append(jax_scope_name(spec, parts[i + 1]) if isinstance(spec, SpecModule)
+                    else f"node_impls_{parts[i + 1]}")
         i += 2
     base, rest = ".".join(parts[:i]), parts[i:]
     owner = model.get_submodule(".".join(parts[:-1]))

@@ -224,8 +224,13 @@ class ProjectContext:
 
     @staticmethod
     def _search_trial_run_name() -> Optional[str]:
-        """The run name of the active search trial: none until search is
-        ported (ROADMAP P13)."""
+        """The run name of the active search trial, ``<experiment>_<trial>``
+        (the in-process runner's ``DEEPCV_SEARCH_*`` variables, or NNI's),
+        or None outside a search."""
+        exp = os.environ.get("DEEPCV_SEARCH_EXPERIMENT") or os.environ.get("NNI_EXP_ID")
+        trial = os.environ.get("DEEPCV_SEARCH_TRIAL") or os.environ.get("NNI_TRIAL_JOB_ID")
+        if exp and exp != "STANDALONE":
+            return f"{exp}_{trial or 'trial'}"
         return None
 
     def run(self, pipeline_name: str, loggers: Sequence[Any] = (),

@@ -10,7 +10,8 @@ Counterpart of ``deepcv_tpu/serve.py`` (``save_model_bundle``,
 ``torch.export`` cannot trace the kernels' ``ctypes`` launches.
 
 A bundle is a directory with ``model.yaml`` in the JAX package's own format
-(input shape, hp, NAS options) and ``weights.npz``, the model's
+(input shape, hp, NAS options: ``nas_mode``, ``nas_arch``, ``nas_sampling``)
+and ``weights.npz``, the model's
 ``state_dict`` as numpy arrays. The JAX package writes its weights with
 orbax, which the port cannot read; carry such weights across with
 :mod:`deepcv_tpu_torch.interop`. A model of the port holds its weights, so
@@ -64,7 +65,9 @@ def save_model_bundle(directory: Union[str, Path], model: DeepcvModule) -> Path:
     d.mkdir(parents=True, exist_ok=True)
     meta = {"input_shape": list(model.input_shape),
             "hp": _yamlable(model.hp.to_dict()),
-            "nas_mode": "fixed", "nas_arch": {}}
+            "nas_mode": getattr(model, "nas_mode", "fixed"),
+            "nas_arch": _yamlable(dict(getattr(model, "nas_arch", {}))),
+            "nas_sampling": getattr(model, "nas_sampling", "softmax")}
     (d / "model.yaml").write_text(yaml.safe_dump(meta, sort_keys=False,
                                                  default_flow_style=False))
     arrays = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
@@ -81,16 +84,19 @@ def load_model_bundle(directory: Union[str, Path],
     """The bundle's model with its weights, in eval mode, on ``device``
     (CUDA unless given). ``quantize='int8'`` builds it in w8a8 (dynamic
     activation scales unless ``quantize_scales`` gives static ones); the
-    float weights load unchanged, since the quantization lives in the ops."""
+    float weights load unchanged, since the quantization lives in the ops.
+    A NAS bundle rebuilds the architecture its ``nas_mode``, ``nas_arch``
+    and ``nas_sampling`` name (a fixed export, or a supernet)."""
     import yaml
 
     dev = resolve_device(device)
     d = Path(directory)
     meta = yaml.safe_load((d / "model.yaml").read_text())
-    if meta.get("nas_mode", "fixed") != "fixed" or meta.get("nas_arch"):
-        raise NotImplementedError("NAS bundles are not ported yet")
     model = DeepcvModule(tuple(meta["input_shape"]), meta["hp"], device="meta",
-                         dtype=dtype, quantize=quantize, quantize_scales=quantize_scales)
+                         dtype=dtype, quantize=quantize, quantize_scales=quantize_scales,
+                         nas_mode=meta.get("nas_mode", "fixed"),
+                         nas_arch=meta.get("nas_arch") or {},
+                         nas_sampling=meta.get("nas_sampling", "softmax"))
     with np.load(d / WEIGHTS_FILE, allow_pickle=False) as z:
         state = {k: torch.from_numpy(z[k]) for k in z.files}
     model.load_state_dict(state, strict=True, assign=True)

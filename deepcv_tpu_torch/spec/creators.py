@@ -124,6 +124,10 @@ class CreatorContext:
     quantize_scales: Mapping[str, float] = dataclasses.field(default_factory=dict)
     #: nesting prefix ('<nested name>/'), so that scale keys are full paths
     scope: str = ""
+    #: 'fixed' (one candidate per NAS choice) or 'supernet' (all, mixed)
+    nas_mode: str = "fixed"
+    #: fixed mode's choices by mutable name (nested ones '<nested>/<local>')
+    nas_arch: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

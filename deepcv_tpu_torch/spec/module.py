@@ -34,9 +34,17 @@ trained ``state_dict`` loads unchanged and :meth:`with_options` rebuilds a
 model with another mode on the same tensors. A real-int8 build is
 inference-only: it starts in eval mode, and ``train()`` or a forward in
 training mode raise, as the JAX package's ``apply(train=True)`` does.
+
+``nas_mode``, ``nas_arch`` and ``nas_sampling`` are the JAX package's NAS
+options (``spec/graph.py``): ``fixed`` builds the choices ``nas_arch``
+names, ``supernet`` every candidate with its ``arch__*`` logits, mixed by
+``softmax``, ``sampled`` or ``uniform``. :meth:`with_options` and pickling
+keep them; :meth:`with_forced_arch` evaluates one architecture on a
+supernet's own weights.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Mapping, Optional, Sequence, Union
 
 import torch
@@ -45,7 +53,8 @@ import torch.nn as nn
 from deepcv_tpu_torch.compression import INFERENCE_ONLY_ERROR
 from deepcv_tpu_torch.hyperparams import Hyperparameters, to_hyperparameters
 from deepcv_tpu_torch.spec.creators import CreatorContext
-from deepcv_tpu_torch.spec.graph import SpecError, SpecModule, define_nn_architecture
+from deepcv_tpu_torch.spec.graph import (NAS_MODES, SpecError, SpecModule,
+                                         clone_with_forced_arch, define_nn_architecture)
 from deepcv_tpu_torch.utils import resolve_device
 
 __all__ = ["DeepcvModule", "DeepcvModuleDescriptor"]
@@ -87,8 +96,15 @@ class DeepcvModule(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  dtype: Union[None, str, torch.dtype] = None,
                  quantize: Optional[str] = None,
-                 quantize_scales: Optional[Mapping[str, float]] = None):
+                 quantize_scales: Optional[Mapping[str, float]] = None,
+                 nas_mode: str = "fixed", nas_arch: Optional[Mapping[str, Any]] = None,
+                 nas_sampling: str = "softmax"):
         super().__init__()
+        if nas_mode not in NAS_MODES:
+            raise SpecError(f"nas_mode must be one of {NAS_MODES}, got {nas_mode!r}")
+        self.nas_mode = nas_mode
+        self.nas_arch = dict(nas_arch or {})
+        self.nas_sampling = nas_sampling
         dev = resolve_device(device)
         dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
         #: compute dtype (None or float32: plain float32)
@@ -112,8 +128,9 @@ class DeepcvModule(nn.Module):
             self._hp["architecture"], self._hp,
             CreatorContext(hp=self._hp, weight_norm=wn or None,
                            signal_1d=self._map_dims == 3, quantize=self.quantize,
-                           quantize_scales=self.quantize_scales), nchw)
-        self.module = SpecModule(metas, impls, refd)
+                           quantize_scales=self.quantize_scales, nas_mode=nas_mode,
+                           nas_arch=self.nas_arch), nchw)
+        self.module = SpecModule(metas, impls, refd, shapes, sampling=nas_sampling)
         #: per-node output shapes at batch 1, channel-last like the JAX package's
         self.node_shapes = {k: _channel_last(s, self._map_dims) for k, s in shapes.items()}
         if dev.type != "meta":
@@ -133,13 +150,18 @@ class DeepcvModule(nn.Module):
             raise ValueError(INFERENCE_ONLY_ERROR.format(self.quantize))
         return super().train(mode)
 
+    def _ctor_options(self) -> Dict[str, Any]:
+        """The constructor options that rebuild this model."""
+        return dict(dtype=self.dtype, quantize=self.quantize,
+                    quantize_scales=self.quantize_scales, nas_mode=self.nas_mode,
+                    nas_arch=self.nas_arch, nas_sampling=self.nas_sampling)
+
     def with_options(self, **overrides) -> "DeepcvModule":
         """This architecture rebuilt with other constructor options
-        (``quantize``, ``quantize_scales``, ``dtype``) on the SAME parameter
-        and buffer tensors, on their device, in this model's mode (eval for a
-        real-int8 build)."""
-        kw = dict(dtype=self.dtype, quantize=self.quantize,
-                  quantize_scales=self.quantize_scales)
+        (``quantize``, ``quantize_scales``, ``dtype``; the NAS options are
+        kept unless given) on the SAME parameter and buffer tensors, on their
+        device, in this model's mode (eval for a real-int8 build)."""
+        kw = self._ctor_options()
         kw.update(overrides)
         new = type(self)(self.input_shape, self._hp.to_dict(), device="meta", **kw)
         new.load_state_dict(self.state_dict(keep_vars=True), strict=True, assign=True)
@@ -149,9 +171,38 @@ class DeepcvModule(nn.Module):
         """Pickled as its spec, its constructor options and its tensors (the
         nodes hold closures, which pickle cannot take): how the intermediate
         cache of partial runs keeps a model."""
-        kw = dict(dtype=self.dtype, quantize=self.quantize, quantize_scales=self.quantize_scales)
-        return (_rebuild, (type(self), self.input_shape, self._hp.to_dict(), kw,
-                           self.state_dict(), self.training))
+        return (_rebuild, (type(self), self.input_shape, self._hp.to_dict(),
+                           self._ctor_options(), self.state_dict(), self.training))
+
+    def with_forced_arch(self, arch: Mapping[str, Any]) -> "DeepcvModule":
+        """A shallow copy of this supernet that forces ``arch``'s choices
+        (one-hot weights; the mean multi-hot for a list) on the SAME
+        parameters and buffers: one architecture scored with the shared
+        weights. Its modules are this model's, so ``train()``/``eval()`` on
+        either moves both."""
+        forced = copy.copy(self)
+        forced.__dict__["_modules"] = dict(self._modules)
+        forced.module = clone_with_forced_arch(self.module, arch)
+        return forced
+
+    def spec_modules(self) -> Dict[str, SpecModule]:
+        """Every SpecModule of the model by its mutables' prefix ('' for the
+        top level, '<nested>/' for a nested module)."""
+        out: Dict[str, SpecModule] = {}
+
+        def walk(spec: SpecModule, prefix: str):
+            out[prefix] = spec
+            for name, node in spec.nodes.items():
+                if isinstance(node, SpecModule):
+                    walk(node, f"{prefix}{name}/")
+        walk(self.module, "")
+        return out
+
+    def arch_parameters(self) -> Dict[str, torch.nn.Parameter]:
+        """The supernet's choice logits by mutable name ('<nested>/<local>'
+        for a nested one)."""
+        return {prefix + k: p for prefix, spec in self.spec_modules().items()
+                for k, p in spec.arch_logits().items()}
 
     @property
     def hp(self) -> Hyperparameters:
@@ -211,9 +262,13 @@ class DeepcvModuleDescriptor:
         self.model = model
         self.features_shapes = dict(model.node_shapes)
         self.output_shape = model.output_shape
+        spec = model.module
         self.submodules_capacities = {
-            m.name: sum(p.numel() for p in model.module.nodes[m.name].parameters())
-            if m.kind == "module" else 0 for m in model.module.node_metas}
+            m.name: sum(p.numel() for p in spec.nodes[m.name].parameters())
+            if m.kind == "module" else
+            sum(p.numel() for i in range(m.n_candidates)
+                for p in spec.nodes[f"{m.name}_cand{i}"].parameters())
+            if m.kind == "choice" else 0 for m in spec.node_metas}
         self.capacity = model.capacity()
 
     def __str__(self) -> str:

@@ -1,15 +1,15 @@
 """Metrics and their running means.
 
 Counterpart of ``deepcv_tpu/train/metrics.py`` (``accuracy``,
-``MetricAccumulator``).
+``top_k_accuracy``, ``METRIC_FNS``, ``MetricAccumulator``).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Callable, Dict, Mapping
 
 import torch
 
-__all__ = ["accuracy", "MetricAccumulator"]
+__all__ = ["accuracy", "top_k_accuracy", "METRIC_FNS", "MetricAccumulator"]
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -18,6 +18,21 @@ def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     if labels.dim() > 1 and labels.shape[-1] == logits.shape[-1]:
         labels = labels.argmax(-1)
     return (logits.argmax(-1) == labels).float().mean()
+
+
+def top_k_accuracy(logits: torch.Tensor, labels: torch.Tensor, k: int = 5) -> torch.Tensor:
+    """Fraction of rows whose label is among the ``k`` largest logits."""
+    if labels.dim() > 1 and labels.shape[-1] == logits.shape[-1]:
+        labels = labels.argmax(-1)
+    topk = torch.argsort(logits, dim=-1)[..., -k:]
+    return (topk == labels[..., None]).any(-1).float().mean()
+
+
+#: metrics by name (NAS selection and rewards look them up here)
+METRIC_FNS: Dict[str, Callable] = {
+    "accuracy": accuracy,
+    "top_5_accuracy": lambda logits, labels: top_k_accuracy(logits, labels, 5),
+}
 
 
 class MetricAccumulator:

@@ -55,7 +55,15 @@ rule, ``TRAINING_HP_DEFAULTS``, ``TrainingEvents``, ``CrashIteration``,
   exact resume, SIGTERM preemption, injected crashes, ``events``
   (:class:`TrainingEvents`), loggers (``log_param_histograms`` adds the
   parameters' histograms at each validation) and
-  :func:`train_with_retries`.
+  :func:`train_with_retries`;
+* **search.** ``runtime_lr: true`` is accepted and trains bit-equal to
+  ``false``: the JAX package injects the learning rate into the optimizer's
+  state so that every trial of a search shares one XLA executable, and a
+  PyTorch optimizer already reads it from ``param_groups`` at each step.
+  ``train_arch_params: false`` leaves a NAS supernet's ``arch__*`` logits
+  out of the update chain, as ``freeze_params`` does (no update, no weight
+  decay, no momentum, outside the clip's norm). A supernet's ``sampled``
+  and ``uniform`` draws take the loop's generator, seeded from ``seed``.
 
 Every other hp key of the JAX list raises an error naming it when it is set
 to anything but its off value (:data:`UNPORTED_HP`), as do a multi-device
@@ -91,6 +99,7 @@ from deepcv_tpu_torch.hyperparams import to_hyperparameters
 from deepcv_tpu_torch.interop import jax_param_paths
 from deepcv_tpu_torch.ops.moe import MoEMlp
 from deepcv_tpu_torch.ops.nn import Dropout
+from deepcv_tpu_torch.spec.graph import ARCH_PARAM_PREFIX, SpecModule
 from deepcv_tpu_torch.train.backend import BackendConfig
 from deepcv_tpu_torch.train.checkpoint import CheckpointManager, resume_from_path
 from deepcv_tpu_torch.train.losses import (WeightedLosses,
@@ -159,9 +168,8 @@ TRAINING_HP_DEFAULTS: Dict[str, Any] = {
 }
 
 #: hp keys the JAX package reads that the port does not carry, each with
-#: its off value; any other value raises, naming the key. ``runtime_lr``
-#: and ``train_arch_params`` come with search (ROADMAP P13),
-#: ``wire_compression`` with the data plane (P14); ``flatten_optimizer``,
+#: its off value; any other value raises, naming the key.
+#: ``wire_compression`` comes with the data plane (P14); ``flatten_optimizer``,
 #: ``flat_params``, ``max_epochs_per_dispatch`` and ``sync_every_dispatches``
 #: are TPU dispatch workarounds; the JAX package reads ``nni_compression``
 #: nowhere.
@@ -169,11 +177,9 @@ UNPORTED_HP: Dict[str, Any] = {
     "nni_compression": None,
     "max_epochs_per_dispatch": 1,
     "sync_every_dispatches": 1,
-    "runtime_lr": False,
     "flatten_optimizer": False,
     "flat_params": False,
     "wire_compression": False,
-    "train_arch_params": True,
 }
 
 #: ``auto``: stream a trainset larger than this (or a memmap)
@@ -752,6 +758,8 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
     named = list(model.named_parameters())
     frozen = set(frozen_by_path(model, hp["freeze_params"])) if hp.get("freeze_params") \
         else set()
+    if not hp.get("train_arch_params", True):
+        frozen |= {n for n, _ in named if n.rsplit(".", 1)[-1].startswith(ARCH_PARAM_PREFIX)}
     trainable = [(n, p) for n, p in named if n not in frozen]
     schedules = build_schedules(hp.get("scheduler"), hp.to_dict(), steps_per_epoch)
     optimizer = build_optimizer(hp["optimizer"], hp["optimizer_opts"], trainable, schedules)
@@ -765,7 +773,7 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
     generator = torch.Generator(device=device).manual_seed(seed)
     has_moe = False
     for m in model.modules():
-        if isinstance(m, (Dropout, MoEMlp)):
+        if isinstance(m, (Dropout, MoEMlp, SpecModule)):
             m.generator = generator
         has_moe = has_moe or isinstance(m, MoEMlp)
     state = TrainState(model, optimizer, 0, generator,

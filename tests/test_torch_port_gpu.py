@@ -1745,3 +1745,64 @@ def test_streaming_train_first_losses_on_card_match_cpu(cuda, tmp_path):
         assert h["input_path"] == "streaming"
         losses[str(dev)] = seen
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("sampling", ["softmax", "sampled", "uniform"])
+def test_supernet_step_on_card_matches_cpu(cuda, sampling):
+    """One float32 SGD step of the NAS supernet on the card and on the CPU
+    from the same weights and draws (one CPU generator seeded alike): the
+    loss, every gradient (the arch__ logits' among them, but under uniform
+    sampling) and the updated parameters within F32_TOL of their largest."""
+    from chip_smoke import nas_classifier_hp
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    hp = nas_classifier_hp(32)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(16, 32, 32, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 16))
+    init = DeepcvModule((32, 32, 3), hp, nas_mode="supernet", nas_sampling=sampling,
+                        device="cpu").state_dict()
+    out = {}
+    for dev in ("cpu", cuda):
+        m = DeepcvModule((32, 32, 3), hp, nas_mode="supernet", nas_sampling=sampling,
+                         device=dev)
+        m.load_state_dict(init)
+        inner = m.module.nodes["_submodule_0_nested"]
+        inner.generator = torch.Generator().manual_seed(0)    # the same draws on both
+        loss = F.cross_entropy(m(x.to(dev)), y.to(dev))
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        with torch.no_grad():
+            for p in m.parameters():
+                if p.grad is not None:
+                    p -= 0.1 * p.grad
+        out[str(dev)] = (float(loss), grads, {k: v.cpu() for k, v in m.state_dict().items()})
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= F32_TOL * abs(lc)
+    assert set(gg) == set(gc)
+    # uniform (SPOS) paths give the logits no gradient; the other two do
+    assert any("arch__" in k for k in gc) == (sampling != "uniform")
+    for k, ref in gc.items():
+        assert _rel(gg[k], ref) <= F32_TOL or float(ref.abs().max()) == 0.0, k
+    for k, ref in sc.items():
+        if ref.is_floating_point() and float(ref.abs().max()) > 0:
+            assert _rel(sg[k], ref) <= F32_TOL, k
+
+
+def test_supernet_forward_launches_k2_once_per_candidate_conv(cuda):
+    """A supernet forward runs every candidate: one K2 launch per stride-1
+    odd conv of the spec, each mutable_layer_1 candidate included (13)."""
+    from chip_smoke import nas_classifier_hp
+    from deepcv_tpu_torch.ops.nn import FusedConv2d
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    for mode, convs in (("supernet", 13), ("fixed", 11)):
+        m = DeepcvModule((32, 32, 3), nas_classifier_hp(32), nas_mode=mode, device=cuda,
+                         dtype="bfloat16").eval()
+        assert sum(isinstance(mod, FusedConv2d) for mod in m.modules()) == convs
+        before = fused_conv2d_bias_act.launches
+        with torch.no_grad():
+            m(torch.zeros(8, 32, 32, 3, device=cuda))
+        torch.cuda.synchronize()
+        assert fused_conv2d_bias_act.launches - before == convs

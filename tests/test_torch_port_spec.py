@@ -139,7 +139,7 @@ def test_train_mode_batchnorm_updates_like_jax():
     ([{"conv2d": ["a", {"kernel_size": 3, "out_channels": 4}]},
       {"conv2d": ["a", {"kernel_size": 3, "out_channels": 4}]}], "Duplicate"),
     ([{"conv2d": {"kernel_size": 3, "out_channels": 4, "_from": "x"}}], "undefined"),
-    ([{"_nas_layer_choice": {"_candidates": [{"flatten": {}}]}}], "not ported"),
+    ([{"_nas_layer_choice": {"_candidates": []}}], "needs '_candidates'"),
     ([], "non-empty"),
     ([{"_nested_deepcvmodule": {"act_fn": "relu"}}], "no 'architecture'"),
 ])
