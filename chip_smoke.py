@@ -122,8 +122,8 @@ Phases, each printing one JSON line:
    on the synthetic ``imagenet224`` set (8,192 + 1,024 images), cut to 2
    epochs and no checkpoints: a finite loss, img/s, peak memory, and K3, K4
    and K5 launches of 12 per step (K3 also 12 per validation forward), all
-   on bfloat16 inputs, so all three on the tensor cores. Then one more
-   epoch, validation off, under ``torch.profiler`` (``vit_train_profile``):
+   on bfloat16 inputs, so all three on the tensor cores. Then 8 more
+   steps, validation off, under ``torch.profiler`` (``vit_train_profile``):
    device time per step by kernel group, the ten largest kernels, and the
    device's idle share of the unprofiled step.
 6b. vit_train_f32 — the same ``run --pipeline=train_vit`` in float32
@@ -185,8 +185,8 @@ Phases, each printing one JSON line:
    to 2 epochs, no checkpoints: finite losses, 6 K2 launches per training
    and validation forward, all on bfloat16 inputs; the median step of the
    last epoch (CUDA events after each step), img/s, peak memory. Then one
-   more epoch of each, validation off, under ``torch.profiler``
-   (``wide_train_profile``): device time per step by group (K2's forward;
+   more epoch of each on 10,000 training images (validset_ratio 0.8),
+   validation off, under ``torch.profiler`` (``wide_train_profile``): device time per step by group (K2's forward;
    K2's backward, the plain version again in float32 with cuDNN's dgrad
    and wgrad; batch or group norm and the weight-norm reparameterisation,
    forward and backward, found by profiler ranges around them; pools, the
@@ -288,8 +288,9 @@ Phases, each printing one JSON line:
    ``interpolate_frames`` on the flow set's 32x32 pairs with the trained
    flow model's flow, on the card against the CPU: within 1e-5.
 21. tracking — ``track_sequence`` and ``mot_metrics`` on a synthetic clip
-   at MOT17-04's length (1,050 frames, 1920x1080): 48 lanes, objects at
-   constant velocity (bouncing at the edges) with position jitter, births,
+   at half MOT17-04's length (525 of its 1,050 frames, 1920x1080): 48
+   lanes, objects at constant velocity (bouncing at the edges) with position
+   jitter, births,
    deaths and dropped detections, 64 padded detection rows a frame in a
    shuffled order, ``max_tracks`` 128, on the card and on the CPU: the ids
    equal on every row (else the first frame where they part), the counts
@@ -314,7 +315,13 @@ Phases, each printing one JSON line:
    ``video_predict``: a .y4m clip through ``predict`` and ``process_video``
    on the card against the CPU (5 f32 K2 launches a forward).
 24. stream_train — bench.py config 7: a 403 MB memmap written under
-   ``_build/``, streamed and resident; ``runtime_train``: 22 runs of 4
+   ``_build/``, streamed through the C++ loader (``native_loader: auto``;
+   the memmap reaches it without a copy), then with the wire codec
+   (``wire_compression: {bits: 3, axis: -2}``: every batch must go coded,
+   its first losses held to the raw run's), then resident; the numpy and
+   C++ gathers, the loader's hand-over, the host encode, a batch decoded on
+   the card bit-equal to the host's, and bench.py's wire-feed probe (raw
+   and coded images a second); ``runtime_train``: 22 runs of 4
    steps over the optimizers, schedules and the update chain (the AdamW,
    ``remat: true`` and ``dots`` runs traced in a process of its own,
    ``--remat-profile``); ``partial_run``: ``run --to-nodes``,
@@ -343,6 +350,26 @@ Phases, each printing one JSON line:
    ``lr_find``: ``lr-find --pipeline train_image_classifier --steps 100
    --batch-size 4096``: the suggested LRs and the CSV curve, 5 K2 launches a
    step.
+26. codec — bench.py config 14 (``bench_codec``) at its TPU settings: the
+   learned lossless codec fitted on 4,064 CIFAR-10 images (600 steps at
+   batch 64, hidden 48), the 32 held out encoded and decoded (all lossless,
+   the native range coder), the model and coded bits a subpixel, encode and
+   decode px/s, the ratio to raw and to PNG, the card's bits a subpixel
+   against the CPU path's on the same weights (rel 1e-4); then a video codec
+   fitted on moving-square clips, written to a ``.dvv`` container and read
+   back equal.
+27. data_gen — SinGAN at ``train_singan``'s defaults on one 64x64 image
+   (every scale's reconstruction loss falls; the fixed-noise reconstruction
+   against the CPU path's within SERVE_REL_L2), 8 variants in a viz grid,
+   16 WFC tilemaps of 32x32 (every one valid) and a texture from learned
+   tiles. These last two phases launch no kernel of the port: their device
+   work is PyTorch ops, as it is XLA in the JAX package.
+
+Host libraries: ``build`` also compiles the host runtime (``runtime/
+deepcv_io.cpp``, ``deepcv_rc.cpp``) with g++ beside the nvcc builds. Device
+times: where the profiler keeps too few records in every window of a
+main-path conv (``device_ms_or_events``), the call is timed by CUDA events
+and its row says ``device_ms_by: cuda_events``; the K2 line counts such rows.
 
 Then the wall seconds of every phase (``walls``), the kernels line and,
 last, the contract line
@@ -650,9 +677,10 @@ VIDEO_RUNS = (
                                                     "conf's is gru)"}))
 VIDEO_CHECK_BATCH = 8
 VIDEO_OP_TOL = 1e-5
-#: tracking: a clip at MOT17-04's length and frame size (1,050 frames,
-#: 1920x1080), 48 lanes, 64 detection rows a frame, 128 track slots
-TRACK_FRAMES, TRACK_OBJECTS, TRACK_ROWS, TRACK_SLOTS = 1050, 48, 64, 128
+#: tracking: a clip at MOT17-04's frame size (1920x1080) and half its length
+#: (cut from 1,050 frames to keep the whole run under 850 s), 48 lanes, 64
+#: detection rows a frame, 128 track slots
+TRACK_FRAMES, TRACK_OBJECTS, TRACK_ROWS, TRACK_SLOTS = 525, 48, 64, 128
 TRACK_FRAME_WH = (1920, 1080)
 MOTA_TOL = 1e-6
 DEVICE = "cuda"
@@ -662,6 +690,8 @@ REQUEST_SIZES = (1, 5, 17, 64)
 ROUNDS = 6
 LAUNCHES_PER_FORWARD = 46
 KERNEL_LIBRARIES = ("fused_augment", "fused_conv2d_bias_act", "flash_attention", "int8_conv")
+#: the host runtime (``runtime/*.cpp``): the C++ batch loader, the range coder
+HOST_LIBRARIES = ("deepcv_io", "deepcv_rc")
 #: ViT-B/16 at 224: 12 blocks, 12 heads, 197 tokens, head dim 64
 VIT_BLOCKS, VIT_HEADS, VIT_T, VIT_DH = 12, 12, 197, 64
 TRAIN_BATCH = 256          # train_resnet50's batch_size, which train_vit uses
@@ -784,6 +814,24 @@ def device_ms(fn, launches: Optional[int], iters: int = 20, tries: int = 6) -> f
                          f"expected {iters * launches if launches is not None else 'two equal counts'}, "
                          f"in {tries} tries; the last window's kernels: "
                          f"{ {e.key: e.count for e in events} }")
+
+
+#: how a device time was taken: from the profiler's records, or (the
+#: profiler having kept too few records in every window) by CUDA events
+BY_PROFILER, BY_EVENTS = "profiler", "cuda_events"
+
+
+def device_ms_or_events(fn, launches: Optional[int]):
+    """``(ms, how)``: :func:`device_ms` of ``fn``, or, where the profiler
+    kept too few of its records in every window (a main-path conv late in
+    the long run: 39 records for 20 calls, six windows in a row),
+    :func:`cuda_ms` of it, with ``how`` saying which (:data:`BY_EVENTS`)."""
+    try:
+        return device_ms(fn, launches), BY_PROFILER
+    except AssertionError as e:
+        print(f"chip_smoke: {e}; timing the call by CUDA events instead", file=sys.stderr,
+              flush=True)
+        return cuda_ms(fn), BY_EVENTS
 
 
 def conv_bound(n, h, w, cin, cout, k, dtype: str, bias: bool, tf32x3=False):
@@ -1012,18 +1060,21 @@ def _int8_kernel_stats(log, path):
     return stats
 
 
-def phase_build(libraries=KERNEL_LIBRARIES):
-    """Every kernel library built at once (one nvcc each), then loaded."""
+def phase_build(libraries=KERNEL_LIBRARIES, host_libraries=HOST_LIBRARIES):
+    """Every kernel library built at once (one nvcc each), beside the host
+    runtime's libraries (one g++ each), then loaded."""
     t0 = time.perf_counter()
     results, errors = {}, []
 
-    def build(name):
+    def build(name, build_fn):
         try:
-            results[name] = _build.build(name)
+            results[name] = build_fn(name)
         except Exception as e:  # re-raised below, after every build ended
             errors.append(f"{name}: {e}")
 
-    threads = [threading.Thread(target=build, args=(n,)) for n in libraries]
+    threads = [threading.Thread(target=build, args=(n, _build.build)) for n in libraries]
+    threads += [threading.Thread(target=build, args=(n, _build.build_host))
+                for n in host_libraries]
     for t in threads:
         t.start()
     for t in threads:
@@ -1031,6 +1082,12 @@ def phase_build(libraries=KERNEL_LIBRARIES):
     if errors:
         raise RuntimeError("kernel build failed: " + "\n".join(errors))
     wall = time.perf_counter() - t0
+    for name in host_libraries:
+        path, _, seconds = results[name]
+        _build.load_host(name)
+        emit({"phase": "build", "host_library": name, "cxx_s": round(seconds, 3),
+              "wall_s": round(wall, 3), "library": str(path.relative_to(REPO)),
+              "flags": " ".join(_build.CXX_FLAGS)})
     for name in libraries:
         path, log, seconds = results[name]
         _build.load(name)
@@ -1504,16 +1561,22 @@ def _main_path_kernels(model, card):
             max_abs = max(max_abs, err)
             kern = lambda: fused_conv2d_bias_act(x, wt, b, act)  # noqa: E731
             lib = _library_call(x, wt, b, act)
-            t = {"ms": cuda_ms(kern), "device_ms": device_ms(kern, None),
+            device, how = device_ms_or_events(kern, None)
+            library_device, library_how = device_ms_or_events(lib, None)
+            t = {"ms": cuda_ms(kern), "device_ms": device,
                  "plain_ms": cuda_ms(lambda: plain_conv2d_bias_act(x, wt, b, act)),
-                 "library_ms": cuda_ms(lib), "library_device_ms": device_ms(lib, None)}
+                 "library_ms": cuda_ms(lib), "library_device_ms": library_device}
             bounds = k2_bounds(n, h, w, cin, cout, k, "float32", has_b)
             for key, v in (*t.items(), ("bound_ms", bounds["bound_ms"]),
                            ("cuda_core_bound_ms", bounds["cuda_core_bound_ms"])):
                 tot[key] += count * v
             tot[bounds["bound_by"]] += count * bounds["bound_ms"]
+            for key, h_ in (("device_ms_by", how), ("library_device_ms_by", library_how)):
+                if h_ == BY_EVENTS:
+                    tot[f"{key}_{BY_EVENTS}"] += 1
             rows.append({"shape_nhwc_cin_cout_k": [n, h, w, cin, cout, k],
-                         "act": act, "count": count, "rel_err": rel, **t, **bounds})
+                         "act": act, "count": count, "rel_err": rel, **t,
+                         "device_ms_by": how, "library_device_ms_by": library_how, **bounds})
     emit({"phase": "main_path_kernels", "dtype": "float32", "batch": SERVE_BATCH,
           "signatures": rows, "per_forward": dict(tot), "card": card})
     return tot, max_abs
@@ -1677,6 +1740,9 @@ def phase_serve(card):
             "cuda_core_bound_ms": kern_tot["cuda_core_bound_ms"],
             "library_ms": kern_tot["library_ms"],
             "device_ms": kern_tot["device_ms"], "library_device_ms": kern_tot["library_device_ms"],
+            # signatures whose device time fell back to CUDA events
+            "device_ms_by_cuda_events": int(kern_tot[f"device_ms_by_{BY_EVENTS}"]),
+            "library_device_ms_by_cuda_events": int(kern_tot[f"library_device_ms_by_{BY_EVENTS}"]),
             "per": f"one forward of resnet_spec(50) at batch {SERVE_BATCH}, float32",
             "card": card}, (gpu_model, cpu_model)
 
@@ -2729,7 +2795,8 @@ def phase_wide_train_profile(card, step_ms, tries=2):
     the unprofiled step. The profiler must have recorded every K2 launch
     the wrapper counted, or the epoch is run again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
-    params = ["train_wide_classifier.epochs:1", "train_wide_classifier.validate_every_epochs:1000"]
+    params = ["train_wide_classifier.epochs:1", "train_wide_classifier.validate_every_epochs:1000",
+              KEYPOINT_VALID_RATIO]
     for pipeline in WIDE_PIPELINES:
         for _ in range(tries):
             torch.cuda.empty_cache()
@@ -4927,6 +4994,11 @@ STREAM_HP = {"epochs": 2, "batch_size": STREAM_BATCH, "optimizer_opts": {"lr": 1
              "handle_preemption": False, "wire_compression": False,
              "device_resident_dataset": False}
 STREAM_CPU_STEPS = 2          # first steps held against the CPU path
+#: bench.py config 7's wire codec (its ``run(codec)``): 3-bit codes, deltas
+#: along W
+STREAM_WIRE = {"bits": 3, "axis": -2}
+#: the wire-feed microbenchmark's timed draws (bench.py's ``feed``: 3)
+STREAM_FEED_REPS = 5
 #: the runtime runs' trainset: 4 steps of 4,096 (config 1's batch)
 RUNTIME_VALID_RATIO = 0.67
 RUNTIME_BASE = {"epochs": 1, "batch_size": AUGMENT_BATCH, "dtype": "bfloat16",
@@ -5067,9 +5139,35 @@ def _h2d_probe(batch: np.ndarray):
     return out
 
 
+def _feed_img_s(put, batch: int) -> float:
+    """bench.py config 7's wire-feed microbenchmark (bench.py:646-666): images
+    a second through ``put()`` (a batch to the card), each draw closed by a
+    reduction read back to the host; the median of STREAM_FEED_REPS draws
+    after two warm ones."""
+    ts = []
+    for i in range(2 + STREAM_FEED_REPS):
+        t0 = time.perf_counter()
+        float(put().to(torch.int32).sum())
+        if i >= 2:
+            ts.append(time.perf_counter() - t0)
+    return batch / statistics.median(ts)
+
+
+def _host_ms(fn, reps: int = 8):
+    """Median host milliseconds of ``fn()`` and every draw."""
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), ts
+
+
 def phase_stream_train(card):
     from deepcv_tpu_torch.data.datasets import load_dataset
-    from deepcv_tpu_torch.data.pipeline import BatchIterator
+    from deepcv_tpu_torch.data.pipeline import BatchIterator, unwrap_dataset, wire_stats
+    from deepcv_tpu_torch.data.wirecodec import device_decode, encode_u8, wire_bytes
+    from deepcv_tpu_torch.runtime import NativeBatchLoader, gather_batch
 
     d = _build.BUILD_DIR / "stream_train_data"
     d.mkdir(parents=True, exist_ok=True)
@@ -5081,7 +5179,8 @@ def phase_stream_train(card):
     data = preprocess({"trainset": raw}, {"seed": 0, "split_dataset": {"validset_ratio": 0.03},
                                           "transforms": ["to_tensor"]})
     train_images = len(data["trainset"])
-    if not isinstance(data["trainset"].dataset.images, np.memmap):
+    split = unwrap_dataset(data["trainset"])
+    if not isinstance(split.images, np.memmap):
         raise AssertionError("stream_train: the split is no memmap view")
     init = {k: v.clone() for k, v in _classifier(data, DEVICE).state_dict().items()}
     _, h_auto = training.train(dict(STREAM_HP, epochs=0, device_resident_dataset="auto"),
@@ -5089,69 +5188,129 @@ def phase_stream_train(card):
     if h_auto["input_path"] != "streaming":
         raise AssertionError(f"stream_train: auto took the {h_auto['input_path']} path")
 
-    # the host gather of a batch from the memmap, and the copy of one
+    # the host gather of a batch from the memmap (numpy's, and the C++
+    # library's threaded one on the same indices), the C++ loader's
+    # hand-over of a batch it gathered ahead, and the copy of one batch
     it = BatchIterator(data["trainset"], STREAM_BATCH, shuffle=True, seed=0).epoch(0)
     gathers = []
     for _ in range(8):
         t0 = time.perf_counter()
         xb, _ = next(it)
         gathers.append((time.perf_counter() - t0) * 1e3)
-    h2d = _h2d_probe(np.ascontiguousarray(xb))
+    order = np.random.default_rng(0).permutation(train_images)
+    idx = iter(order[i * STREAM_BATCH:(i + 1) * STREAM_BATCH] for i in range(8))
+    native_gather_ms, native_gathers = _host_ms(lambda: gather_batch(split.images, next(idx)))
+    loader = NativeBatchLoader(split.images, split.targets, STREAM_BATCH, depth=3, seed=0)
+    try:
+        if not np.shares_memory(loader.images, split.images):
+            raise AssertionError("stream_train: the C++ loader copied the memmap")
+        next(loader)
+        time.sleep(0.2)                          # the ring full again
+        handover_ms, _ = _host_ms(lambda: next(loader), reps=3)
+    finally:
+        loader.close()
+    xb = np.ascontiguousarray(xb)
+    h2d = _h2d_probe(xb)
+
+    # the wire codec on a batch: host encode, wire bytes, the decode on the
+    # card bit-equal to the host batch, and bench.py's feed microbenchmark
+    encode_ms, encodes = _host_ms(lambda: encode_u8(xb, **STREAM_WIRE))
+    payload = encode_u8(xb, **STREAM_WIRE)
+    if payload is None:
+        raise AssertionError("stream_train: the codec shipped config 7's batch raw")
+    decoded = device_decode(payload, DEVICE)
+    if decoded.device.type != torch.device(DEVICE).type \
+            or not torch.equal(decoded.cpu(), torch.from_numpy(xb)):
+        raise AssertionError("stream_train: the batch decoded on the card differs from the "
+                             "host's")
+    feed = {"raw": _feed_img_s(lambda: torch.from_numpy(xb).to(DEVICE), STREAM_BATCH),
+            "coded": _feed_img_s(lambda: device_decode(payload, DEVICE), STREAM_BATCH)}
 
     runs = {}
-    for label, resident in (("streaming", False), ("resident", True)):
+    for label, resident, extra in (("streaming", False, {}),
+                                   ("streaming_codec", False, {"wire_compression": STREAM_WIRE}),
+                                   ("resident", True, {})):
         model = _classifier(data, DEVICE, state=init)
+        wire_stats.clear()
         (_, h), wall, counts, _, _ = _counted(lambda: training.train(
-            dict(STREAM_HP, device_resident_dataset=resident), model, cross_entropy_loss, data))
+            dict(STREAM_HP, device_resident_dataset=resident, **extra), model,
+            cross_entropy_loss, data))
         steps = h["steps"]
         losses = [e["main_loss"] for e in h["train"]]
         bf16 = "bfloat16/bfloat16/bfloat16"
-        if h["input_path"] != label or steps != 2 * (train_images // STREAM_BATCH) \
-                or not np.isfinite(losses).all() or h["valid"] \
-                or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * steps \
+        path = "resident" if resident else "streaming"
+        loader_ok = resident or h.get("host_loader") == "native"
+        wire_ok = (wire_stats["coded"] == steps and wire_stats["raw"] == 0) if extra \
+            else not wire_stats
+        if h["input_path"] != path or steps != 2 * (train_images // STREAM_BATCH) \
+                or not np.isfinite(losses).all() or h["valid"] or not loader_ok \
+                or not wire_ok or counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * steps \
                 or any(k != bf16 for k in counts["K2_dtypes"]):
-            raise AssertionError(f"stream_train {label}: path {h['input_path']}, {steps} steps, "
-                                 f"losses {losses}, counts {counts}")
+            raise AssertionError(f"stream_train {label}: path {h['input_path']}, loader "
+                                 f"{h.get('host_loader')}, {steps} steps, losses {losses}, "
+                                 f"wire {dict(wire_stats)}, counts {counts}")
         runs[label] = {"steps": steps, "throughput_img_s": h["throughput_img_s"],
                        "steady_img_s": _steady(h["throughput_img_s"]), "wall_s": wall,
                        "loss": losses[-1], "launches": counts,
+                       "host_loader": h.get("host_loader"), "wire": collections.Counter(wire_stats),
                        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
         del model
         torch.cuda.empty_cache()
 
-    # the first steps on the card against the CPU path, on the same batches
-    cpu_hp = dict(STREAM_HP)
-    gpu = _first_losses(cpu_hp, data, DEVICE, init, STREAM_CPU_STEPS)
-    cpu = _first_losses(cpu_hp, data, "cpu", {k: v.cpu() for k, v in init.items()},
+    # the first steps on the card against the CPU path, on the same batches,
+    # and the codec run's against the raw run's
+    gpu = _first_losses(dict(STREAM_HP), data, DEVICE, init, STREAM_CPU_STEPS)
+    cpu = _first_losses(dict(STREAM_HP), data, "cpu", {k: v.cpu() for k, v in init.items()},
                         STREAM_CPU_STEPS)
+    coded = _first_losses(dict(STREAM_HP, wire_compression=STREAM_WIRE), data, DEVICE, init,
+                          STREAM_CPU_STEPS)
     rel = [abs(g - c) / max(1.0, abs(c)) for g, c in zip(gpu, cpu)]
-    if len(rel) != STREAM_CPU_STEPS or max(rel) > BF16_TOL:
-        raise AssertionError(f"stream_train: card losses {gpu} vs CPU {cpu}")
-    s, r = runs["streaming"], runs["resident"]
+    rel_codec = [abs(g - c) / max(1.0, abs(g)) for g, c in zip(gpu, coded)]
+    if len(rel) != STREAM_CPU_STEPS or max(rel) > BF16_TOL or \
+            len(rel_codec) != STREAM_CPU_STEPS or max(rel_codec) > BF16_TOL:
+        raise AssertionError(f"stream_train: card losses {gpu} vs CPU {cpu}, codec {coded}")
+    s, c, r = runs["streaming"], runs["streaming_codec"], runs["resident"]
+    wire_per_img = c["wire"]["wire_bytes"] / (c["wire"]["coded"] * STREAM_BATCH)
     emit({"phase": "stream_train",
           "settings": "bench.py config 7: memmap of 131,072 random-walk 32x32x3 images, "
                       "validset_ratio 0.03, transforms [to_tensor], image_classifier bf16, "
                       "batch 4096, 2 epochs, AdamW lr 1e-3, device_resident_dataset false, "
-                      "no validation, no wire compression",
+                      "no validation; native_loader auto (the C++ loader); raw, then wire "
+                      f"compression {STREAM_WIRE}; then resident",
           "data_bytes": STREAM_IMAGES * 3072, "data_gen_s": gen_s, "train_images": train_images,
-          "auto_path_on_memmap": h_auto["input_path"],
+          "auto_path_on_memmap": h_auto["input_path"], "host_loader": s["host_loader"],
           "steps": s["steps"], "throughput_img_s": s["throughput_img_s"],
           "steady_img_s": s["steady_img_s"], "step_ms": STREAM_BATCH / s["steady_img_s"] * 1e3,
+          "codec": {"steady_img_s": c["steady_img_s"],
+                    "throughput_img_s": c["throughput_img_s"], "wall_s": c["wall_s"],
+                    "over_raw": c["steady_img_s"] / s["steady_img_s"],
+                    "batches_coded": c["wire"]["coded"], "batches_raw": c["wire"]["raw"],
+                    "wire_bytes_per_img": wire_per_img, "wire_ratio": 3072.0 / wire_per_img,
+                    "host_encode_ms_per_batch": c["wire"]["encode_s"] * 1e3 / c["steps"],
+                    "launches": c["launches"]},
+          "wire_probe": {"host_encode_ms": encode_ms, "host_encode_ms_draws": encodes,
+                         "wire_bytes_per_img": wire_bytes(payload) / STREAM_BATCH,
+                         "decoded_equal": True, "feed_img_s": feed,
+                         "feed_coded_over_raw": feed["coded"] / feed["raw"]},
           "resident": {k: r[k] for k in ("throughput_img_s", "steady_img_s", "wall_s",
                                          "peak_memory_gib")},
           "streaming_over_resident": s["steady_img_s"] / r["steady_img_s"],
           "host_gather_ms_per_batch": statistics.median(gathers), "host_gather_ms": gathers,
+          "native_gather_ms_per_batch": native_gather_ms, "native_gather_ms": native_gathers,
+          "native_loader_handover_ms": handover_ms,
           "h2d_copy_per_batch": h2d, "batch_mb": STREAM_BATCH * 3072 / 1e6,
           "wall_s": s["wall_s"], "loss": s["loss"], "launches": s["launches"],
           "launches_resident": r["launches"],
           "launches_per_step": {"K2": s["launches"]["K2"] / s["steps"]},
           "validation_forwards": 0,
-          "first_losses": {"card": gpu, "cpu": cpu, "max_rel": max(rel), "tol": BF16_TOL},
+          "first_losses": {"card": gpu, "cpu": cpu, "max_rel": max(rel), "codec": coded,
+                           "codec_max_rel_to_raw": max(rel_codec), "tol": BF16_TOL},
           "peak_memory_gib": s["peak_memory_gib"], "card": card})
     for p in d.iterdir():
         p.unlink()
     d.rmdir()
-    return {"streaming": s["launches"]["K2"], "resident": r["launches"]["K2"]}
+    return {"streaming": s["launches"]["K2"], "codec": c["launches"]["K2"],
+            "resident": r["launches"]["K2"]}
 
 
 def _optimizer_update_check(name, opts, model):
@@ -5801,6 +5960,191 @@ def phase_lr_find(card):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# The data plane: the learned lossless codec, SinGAN, WFC, viz
+# --------------------------------------------------------------------------- #
+
+#: bench.py config 14 (``bench_codec``) at its TPU settings: the first 4,096
+#: CIFAR-10 training images, the last 32 held out and all 32 coded; hidden
+#: 48, 600 steps at batch 64, lr 3e-3, ``coding_batch`` 32
+CODEC_IMAGES, CODEC_HELD_OUT, CODEC_HIDDEN = 4096, 32, 48
+CODEC_STEPS, CODEC_BATCH, CODEC_LR = 600, 64, 3e-3
+#: the card's model bits per subpixel against the CPU path's, same weights
+CODEC_BPD_TOL = 1e-4
+#: the video codec written to and read from a .dvv container: clips of a
+#: square moving over a gradient, 32x32, fitted briefly
+DVV_CLIPS, DVV_FRAMES, DVV_HIDDEN, DVV_STEPS = 4, 8, 16, 100
+#: SinGAN at ``train_singan``'s defaults (3 scales, 300 steps a scale, 32
+#: features) on one 64x64 image; WFC's batch of tilemaps
+SINGAN_SIZE, SINGAN_VARIANTS = 64, 8
+SINGAN_STEPS = 300           # train_singan's steps_per_scale
+WFC_GRID, WFC_MAPS = (32, 32), 16
+#: the WFC exemplar: sea (0), coast (1) and land (2); land never touches sea
+WFC_EXEMPLAR = np.array([[0, 0, 1, 2, 2], [0, 1, 1, 2, 2], [1, 1, 2, 2, 2], [0, 1, 1, 1, 2],
+                         [0, 0, 1, 2, 2]], dtype=np.int32)
+
+
+def _moving_clips(n, t, size=32, seed=SEED):
+    """Clips of a bright 6x6 square moving one pixel a frame over a
+    horizontal gradient."""
+    rng = np.random.default_rng(seed)
+    base = np.broadcast_to(np.linspace(40, 120, size, dtype=np.float32)[None, :, None],
+                           (size, size, 3))
+    clips = np.empty((n, t, size, size, 3), np.uint8)
+    for i in range(n):
+        y, x = rng.integers(0, size - 6 - t, 2)
+        for f in range(t):
+            frame = base.copy()
+            frame[y + f:y + f + 6, x + f:x + f + 6] = 220
+            clips[i, f] = frame.astype(np.uint8)
+    return clips
+
+
+def phase_codec(card):
+    """bench.py config 14 on the card, then the video codec through .dvv."""
+    from deepcv_tpu_torch.codec import LosslessCodec, LosslessVideoCodec
+    from deepcv_tpu_torch.data.datasets import load_dataset
+    from deepcv_tpu_torch.data.video_io import read_dvv, write_dvv
+
+    raw = load_dataset("cifar10", root=str(REPO / "data" / "01_raw"), train=True)
+    imgs = np.asarray(raw.images[:CODEC_IMAGES], np.uint8)
+    train_imgs, test_imgs = imgs[:-CODEC_HELD_OUT], imgs[-CODEC_HELD_OUT:]
+    shape = tuple(imgs.shape[1:])
+    codec = LosslessCodec(shape, n_scales=2, hidden=CODEC_HIDDEN, seed=0,
+                          coding_batch=CODEC_HELD_OUT, device=DEVICE)
+    t0 = time.perf_counter()
+    history = codec.fit(train_imgs, steps=CODEC_STEPS, batch_size=CODEC_BATCH, lr=CODEC_LR,
+                        seed=0)
+    fit_s = time.perf_counter() - t0
+    codec.encode_batch(test_imgs)                           # warm
+    t0 = time.perf_counter()
+    blobs = codec.encode_batch(test_imgs)
+    t_enc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoded = codec.decode_batch(blobs)
+    t_dec = time.perf_counter() - t0
+    lossless = int((decoded == test_imgs).reshape(len(test_imgs), -1).all(1).sum())
+    report = codec.evaluate(test_imgs, n_code=CODEC_HELD_OUT)
+    # the same weights on the CPU path: its rate, and whether its streams are
+    # the card's (not promised: a stream decodes on the device kind that coded it)
+    cpu = LosslessCodec(shape, n_scales=2, hidden=CODEC_HIDDEN, seed=0,
+                        coding_batch=CODEC_HELD_OUT, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in codec.model.state_dict().items()})
+    bpd_card, bpd_cpu = codec.bits_per_dim(test_imgs), cpu.bits_per_dim(test_imgs)
+    rel = abs(bpd_card - bpd_cpu) / bpd_cpu
+    same_streams = sum(a == b for a, b in zip(cpu.encode_batch(test_imgs[:4]), blobs[:4]))
+
+    clips = _moving_clips(DVV_CLIPS, DVV_FRAMES)
+    video = LosslessVideoCodec(shape, n_scales=2, hidden=DVV_HIDDEN, seed=0,
+                               coding_batch=DVV_FRAMES, device=DEVICE)
+    t0 = time.perf_counter()
+    video.fit(clips[:-1], steps=DVV_STEPS, batch_size=16, seed=0)
+    path = _build.BUILD_DIR / "codec_clips.dvv"
+    written = write_dvv(path, clips, video)
+    back = read_dvv(path, video)
+    dvv_s = time.perf_counter() - t0
+    video_report = video.evaluate(clips[-1:], n_code=1)
+    dvv_bytes = path.stat().st_size
+    path.unlink()
+    px = CODEC_HELD_OUT * shape[0] * shape[1]
+    line = {"phase": "codec",
+            "settings": "bench.py config 14 (bench_codec), its TPU settings: 4,064 training "
+                        "and 32 held-out 32x32x3 images, n_scales 2, hidden 48, 600 steps at "
+                        "batch 64, lr 3e-3, coding_batch 32; TF32 off, cuDNN deterministic",
+            "data": _cifar_data(), "provenance": raw.provenance,
+            "fit_s": fit_s, "fit_steps_s": CODEC_STEPS / fit_s,
+            "loss_first": history[0], "loss_last": history[-1],
+            "model_bits_per_dim": report["bits_per_dim"],
+            "coded_bits_per_dim": report["coded_bits_per_dim"],
+            "vs_raw": 8.0 / report["coded_bits_per_dim"],
+            "coded_bytes_mean": report["coded_bytes_mean"],
+            "png_bytes_mean": report.get("png_bytes_mean"), "vs_png": report.get("vs_png"),
+            "png": "stdlib writer (zlib level 9, per-row least-sum filter)",
+            "encode_s": t_enc, "decode_s": t_dec, "encode_px_s": px / t_enc,
+            "decode_px_s": px / t_dec, "lossless": f"{lossless}/{CODEC_HELD_OUT}",
+            "native_coder": codec.native_coder,
+            "cpu_check": {"bits_per_dim_card": bpd_card, "bits_per_dim_cpu": bpd_cpu,
+                          "rel": rel, "tol": CODEC_BPD_TOL,
+                          "cpu_streams_equal_card": f"{same_streams}/4"},
+            "dvv": {"clips": written, "frames": DVV_FRAMES, "bytes": dvv_bytes,
+                    "raw_bytes": int(clips.nbytes), "roundtrip": bool(np.array_equal(back, clips)),
+                    "fit_write_read_s": dvv_s, **video_report},
+            "card": card}
+    emit(line)
+    if lossless != CODEC_HELD_OUT or not codec.native_coder or not rel <= CODEC_BPD_TOL \
+            or not line["dvv"]["roundtrip"] or not np.isfinite(history).all():
+        raise AssertionError(f"codec failed: {line}")
+
+
+def _structured_image(size=SINGAN_SIZE):
+    """A 64x64 image of gradients, stripes and a checker, as uint8."""
+    y, x = np.mgrid[0:size, 0:size] / (size - 1)
+    img = np.stack([x, 0.5 + 0.5 * np.sin(6 * np.pi * y),
+                    ((np.floor(x * 8) + np.floor(y * 8)) % 2) * 0.6 + 0.2], -1)
+    return (img * 255).astype(np.uint8)
+
+
+def phase_data_gen(card):
+    """SinGAN at ``train_singan``'s defaults, WFC's tilemaps and a texture,
+    and a viz grid, on the card."""
+    from deepcv_tpu_torch.data import wfc
+    from deepcv_tpu_torch.data.singan import SinGAN, train_singan
+    from deepcv_tpu_torch.data.viz import make_grid
+
+    img = _structured_image()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, hist = train_singan(img, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    singan_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t0 = time.perf_counter()
+    samples = model.sample(n=SINGAN_VARIANTS, start_scale=1, generator=gen)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    rec = model.reconstruct()
+    # the fixed-noise reconstruction on the CPU path, the same generators
+    cpu_model = SinGAN([copy.deepcopy(g).cpu() for g in model.generators], model.noise_amps,
+                       model.shapes, model.features, model.rec_z0.cpu(), model.channels)
+    rec_rel = float(torch.linalg.vector_norm(rec.cpu() - cpu_model.reconstruct())
+                    / torch.linalg.vector_norm(cpu_model.reconstruct()))
+    rec_rmse = float(torch.sqrt(((rec[0].cpu() - torch.from_numpy(img) / 255.0) ** 2).mean()))
+    grid = make_grid(samples, n_cols=4)
+
+    adj, weights = wfc.adjacency_from_exemplar(WFC_EXEMPLAR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = wfc.sample_tilemaps(adj, weights, WFC_GRID, WFC_MAPS, gen, device=DEVICE)
+    wfc_s = time.perf_counter() - t0
+    valid = sum(wfc.validate_tilemap(m, adj) for m in maps)
+    t0 = time.perf_counter()
+    texture = wfc.generate_texture(img.astype(np.float32) / 255.0, (16, 16), gen, tile_size=4,
+                                   max_tiles=12, seed=0, device=DEVICE)
+    texture_s = time.perf_counter() - t0
+    line = {"phase": "data_gen",
+            "singan": {"settings": "train_singan's defaults (3 scales, 300 steps a scale, 32 "
+                                   "features, lr 5e-4, rec_weight 10) on one 64x64 image",
+                       "shapes": model.shapes, "train_s": singan_s,
+                       "steps_s": len(model.shapes) * SINGAN_STEPS / singan_s,
+                       "scales": hist["scales"],
+                       "sample_s": sample_s, "variants": list(samples.shape),
+                       "recon_rmse": rec_rmse, "recon_card_vs_cpu_rel_l2": rec_rel,
+                       "bound_rel_l2": SERVE_REL_L2},
+            "wfc": {"grid": list(WFC_GRID), "maps": WFC_MAPS, "valid": valid,
+                    "distinct": len({m.tobytes() for m in maps}), "wall_s": wfc_s,
+                    "texture_shape": list(texture.shape), "texture_s": texture_s},
+            "viz_grid": list(grid.shape), "card": card}
+    emit(line)
+    ok_scales = all(np.isfinite([s["g_loss_last"], s["rec_last"]]).all()
+                    and s["rec_last"] < s["rec_first"] for s in hist["scales"])
+    if not ok_scales or not rec_rel <= SERVE_REL_L2 or valid != WFC_MAPS \
+            or tuple(samples.shape) != (SINGAN_VARIANTS, SINGAN_SIZE, SINGAN_SIZE, 3) \
+            or not bool(torch.isfinite(samples).all()) or texture.shape != (64, 64, 3) \
+            or grid.shape != (-(-SINGAN_VARIANTS // 4) * (SINGAN_SIZE + 2) + 2,
+                              min(4, SINGAN_VARIANTS) * (SINGAN_SIZE + 2) + 2, 3):
+        raise AssertionError(f"data_gen failed: {line}")
+
+
 class _Walls:
     """Wall seconds of each phase of a run, by the phase's name."""
 
@@ -5886,7 +6230,8 @@ def main() -> int:
     del serve_models
     serve_launches = walls("vit_serve", phase_vit_serve, card)
     train_launches, vit_step_ms, vit_median_ms = walls("vit_train", phase_vit_train, card)
-    walls("vit_train_profile", phase_vit_train_profile, card, vit_step_ms)
+    walls("vit_train_profile", phase_vit_train_profile, card, vit_step_ms,
+          "vit_train_profile", SHORT_TRAIN_PARAMS)
     vmoe_launches, vmoe_step_ms = walls("vmoe_train", phase_vmoe_train, card, vit_median_ms)
     walls("vmoe_train_profile", phase_vmoe_train_profile, card, vmoe_step_ms)
     walls("vmoe_cpu_check", phase_vmoe_cpu_check, card)
@@ -5930,6 +6275,8 @@ def main() -> int:
     hp_search_counts = walls("hp_search", phase_hp_search, card)
     nas_launches = walls("nas", phase_nas, card)
     lr_find_counts = walls("lr_find", phase_lr_find, card)
+    walls("codec", phase_codec, card)
+    walls("data_gen", phase_data_gen, card)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
@@ -5950,6 +6297,7 @@ def main() -> int:
                                       for k, n in full_launches.items()},
                                    "video_predict": video_launches_f32,
                                    "stream_train": stream_launches["streaming"],
+                                   "stream_train:codec": stream_launches["codec"],
                                    "stream_train:resident": stream_launches["resident"],
                                    **{f"runtime_train:{k}": n
                                       for k, n in runtime_launches.items()},

@@ -13,7 +13,12 @@ Counterpart of ``deepcv_tpu/data/pipeline.py`` (``BatchIterator``,
   each batch is copied into pinned host memory and from there by a
   ``non_blocking`` copy on a side CUDA stream; the consumer's stream waits
   on that copy's event, and a pinned buffer is written again only after the
-  copy out of it has finished;
+  copy out of it has finished. With ``wire_codec`` the image leaf (the
+  first, when it is a uint8 NHWC batch) is coded on the host
+  (:mod:`~deepcv_tpu_torch.data.wirecodec`), its payload copied and decoded
+  on the side stream; a batch the codec cannot shrink goes raw. Unlike the
+  JAX package, which tries the codec on every uint8 leaf of two or more
+  dimensions, no other leaf (a uint8 mask, say) is coded;
 * :class:`DeviceDataset` holds the whole dataset on the device and gathers
   each batch there (an epoch's permutation, or uniform draws with
   replacement from a ``torch.Generator``).
@@ -21,15 +26,24 @@ Counterpart of ``deepcv_tpu/data/pipeline.py`` (``BatchIterator``,
 from __future__ import annotations
 
 import collections
+import time
 from typing import Any, Iterator, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from deepcv_tpu_torch.data.datasets import ArrayDataset
+from deepcv_tpu_torch.data.wirecodec import decode_u8, encode_u8, wire_bytes
 from deepcv_tpu_torch.utils import resolve_device
 
-__all__ = ["BatchIterator", "prefetch_to_device", "DeviceDataset", "unwrap_dataset"]
+__all__ = ["BatchIterator", "prefetch_to_device", "DeviceDataset", "unwrap_dataset",
+           "wire_stats"]
+
+#: the wire codec's record, summed over :func:`prefetch_to_device` calls
+#: since the caller last cleared it: image batches shipped ``coded`` and
+#: ``raw`` (the codec could not shrink them), the image leaf's ``image_bytes``
+#: and the ``wire_bytes`` that went in its place, and the host's ``encode_s``
+wire_stats: collections.Counter = collections.Counter()
 
 
 def unwrap_dataset(ds) -> ArrayDataset:
@@ -112,6 +126,28 @@ class _PinnedSlot:
         return self.buffers
 
 
+def _wire_payload(arrays, wire_codec):
+    """The wire codec's payload of the image leaf, or None (raw)."""
+    images = arrays[0]
+    if wire_codec is None or images.dtype != np.uint8 or images.ndim != 4:
+        return None
+    t0 = time.perf_counter()
+    payload = encode_u8(images, **wire_codec)
+    wire_stats["encode_s"] += time.perf_counter() - t0
+    wire_stats["coded" if payload is not None else "raw"] += 1
+    wire_stats["image_bytes"] += images.nbytes
+    wire_stats["wire_bytes"] += wire_bytes(payload) if payload is not None else images.nbytes
+    return payload
+
+
+def _decoded(tensors, payload):
+    if payload is None:
+        return tuple(tensors)
+    images = decode_u8(tensors[0], tensors[1], payload["shape"], payload["bits"],
+                       payload["axis"])
+    return (images, *tensors[2:])
+
+
 def prefetch_to_device(iterator: Iterator, size: int = 2,
                        device: Union[None, str, torch.device] = None,
                        wire_codec: Optional[Mapping[str, Any]] = None) -> Iterator:
@@ -119,15 +155,20 @@ def prefetch_to_device(iterator: Iterator, size: int = 2,
     ``device`` (CUDA unless given), ``size`` of them in flight. On a card
     each copy runs from pinned memory on a side stream and the consumer's
     current stream waits on it; on the CPU the arrays are wrapped as they
-    are."""
-    if wire_codec is not None:
-        raise NotImplementedError("prefetch_to_device 'wire_codec': the wire codec comes "
-                                  "with the data plane slice (ROADMAP P14)")
+    are. ``wire_codec`` (``{"bits": 3, "axis": -2}``, the arguments of
+    :func:`~deepcv_tpu_torch.data.wirecodec.encode_u8`) ships a uint8 NHWC
+    image leaf coded and decodes it on ``device`` (:data:`wire_stats` counts
+    the batches)."""
+    wire_codec = dict(wire_codec) if wire_codec is not None else None
     device = resolve_device(device)
     size = max(1, int(size))
     if device.type != "cuda":
         for batch in iterator:
-            yield tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in batch)
+            arrays = [np.asarray(a) for a in batch]
+            payload = _wire_payload(arrays, wire_codec)
+            host = [payload["packed"], payload["overflow"], *arrays[1:]] if payload else arrays
+            yield _decoded([torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in host],
+                           payload)
         return
     stream = torch.cuda.Stream(device)
     slots = [_PinnedSlot() for _ in range(size + 1)]
@@ -139,13 +180,16 @@ def prefetch_to_device(iterator: Iterator, size: int = 2,
         current.wait_event(event)
         for t in tensors:
             t.record_stream(current)
-        return tuple(tensors)
+        return tensors
 
     for i, batch in enumerate(iterator):
         slot = slots[i % len(slots)]
-        pinned = slot.fill([np.asarray(a) for a in batch])
+        arrays = [np.asarray(a) for a in batch]
+        payload = _wire_payload(arrays, wire_codec)
+        pinned = slot.fill([payload["packed"], payload["overflow"], *arrays[1:]]
+                           if payload else arrays)
         with torch.cuda.stream(stream):
-            tensors = [p.to(device, non_blocking=True) for p in pinned]
+            tensors = _decoded([p.to(device, non_blocking=True) for p in pinned], payload)
             slot.event = torch.cuda.Event()
             slot.event.record(stream)
         queue.append((tensors, slot.event))

@@ -16,12 +16,16 @@ Counterpart of ``deepcv_tpu/data/video_io.py`` (``rgb_to_ycbcr``,
   buffer, copied without blocking, and launched; the result of batch k - 1
   is read back only after batch k is launched.
 
-The ``.dvv`` container (``write_dvv``, ``iter_dvv``, ``read_dvv``) needs
-the learned codec, which is not ported yet; a mesh (several devices) is
-not ported either.
+* The ``.dvv`` container (:func:`write_dvv`, :func:`iter_dvv`,
+  :func:`read_dvv`) holds clips coded by a fitted
+  :class:`~deepcv_tpu_torch.codec.LosslessVideoCodec`, in the JAX
+  package's layout (its header bytes are equal).
+
+A mesh (several devices) is not ported.
 """
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
@@ -32,7 +36,8 @@ import torch
 from deepcv_tpu_torch.utils import resolve_device
 
 __all__ = ["Y4MMeta", "iter_y4m", "read_y4m", "write_y4m", "rgb_to_ycbcr",
-           "ycbcr_to_rgb", "y4m_to_memmap", "process_video"]
+           "ycbcr_to_rgb", "y4m_to_memmap", "process_video", "write_dvv", "iter_dvv",
+           "read_dvv"]
 
 
 # --------------------------------------------------------------------------- #
@@ -323,3 +328,65 @@ def process_video(frames: Union[np.ndarray, Iterable[np.ndarray]], fn: Callable,
     y, real = pending
     outs.append(y.detach().cpu().numpy()[:real])
     return np.concatenate(outs)
+
+
+# --------------------------------------------------------------------------- #
+# The .dvv container
+# --------------------------------------------------------------------------- #
+
+_DVV_FILE_MAGIC = b"DCVF"
+
+
+def write_dvv(path: Union[str, Path], clips: Iterable[np.ndarray], codec,
+              ) -> int:
+    """Compress clips through a fitted
+    :class:`~deepcv_tpu_torch.codec.LosslessVideoCodec` into a container
+    file. Layout: magic | u8 n_scales | u16 H W | u8 C | per clip: u32
+    length + codec stream. Returns the number of clips written; one clip
+    is encoded and written at a time."""
+    h, w, c = codec.frame_shape
+    n = 0
+    with open(path, "wb") as f:
+        f.write(_DVV_FILE_MAGIC)
+        f.write(struct.pack("<BHHB", codec.intra.n_scales, h, w, c))
+        for clip in clips:
+            blob = codec.encode_clip(np.asarray(clip, np.uint8))
+            f.write(struct.pack("<I", len(blob)))
+            f.write(blob)
+            n += 1
+    return n
+
+
+def iter_dvv(path: Union[str, Path], codec) -> Iterator[np.ndarray]:
+    """Stream decoded (T, H, W, C) uint8 clips from a .dvv container."""
+    with open(path, "rb") as f:
+        if f.read(4) != _DVV_FILE_MAGIC:
+            raise ValueError("not a deepcv video container")
+        n_scales, h, w, c = struct.unpack("<BHHB", f.read(6))
+        if ((h, w, c) != tuple(codec.frame_shape)
+                or n_scales != codec.intra.n_scales):
+            raise ValueError(f"container is {h}x{w}x{c}/{n_scales} scales; "
+                             f"codec is {codec.frame_shape}/"
+                             f"{codec.intra.n_scales}")
+        while True:
+            head = f.read(4)
+            if not head:
+                return
+            if len(head) != 4:
+                raise ValueError("truncated .dvv container (cut inside a "
+                                 "clip length prefix)")
+            (ln,) = struct.unpack("<I", head)
+            blob = f.read(ln)
+            if len(blob) != ln:
+                raise ValueError(f"truncated .dvv container (clip needs "
+                                 f"{ln} bytes, {len(blob)} present)")
+            yield codec.decode_clip(blob)
+
+
+def read_dvv(path: Union[str, Path], codec) -> np.ndarray:
+    """Read a whole .dvv container -> (N, T, H, W, C) uint8 (clips must
+    share one length; use :func:`iter_dvv` for ragged clips)."""
+    clips = list(iter_dvv(path, codec))
+    if not clips:
+        raise ValueError(f"no clips in {path}")
+    return np.stack(clips)

@@ -73,7 +73,12 @@ their parameters by the JAX paths themselves (``jax_flat``): ``FlowModel``'s
 ``c1``, ``c2``, ``out``; ``TemporalVideoModel``'s ``enc_conv_<i>``,
 ``enc_gn_<i>``, ``embed``, ``pos_embedding``, ``block_<i>`` (a ViT
 encoder block's names), ``ln_final``, ``gru/{ir,iz,in,hr,hz,hn}`` and
-``head``.
+``head``. The learned codec's ``PyramidModel`` and SinGAN's ``ConvStack``
+(``deepcv_tpu_torch/codec.py``, ``data/singan.py``) name theirs the same
+way: the flax ``phase<i>/Conv_<j>`` and ``Conv_<i>``, ``GroupNorm_<i>``
+parameters become ``phase<i>.Conv_<j>.weight`` and ``.bias``,
+``Conv_<i>.weight``, ``GroupNorm_<i>.weight``; pass the codec's params as
+``{"params": codec.params}``.
 """
 from __future__ import annotations
 

@@ -12,13 +12,17 @@ rule, ``TRAINING_HP_DEFAULTS``, ``TrainingEvents``, ``CrashIteration``,
   sample once in the order of a permutation drawn from a generator keyed
   by (seed, epoch) alone, or, with ``sampling: with_replacement``, each
   step draws its batch uniformly from a generator keyed by (seed, step).
-  Otherwise the run streams: :class:`~deepcv_tpu_torch.data.pipeline.BatchIterator`
-  gathers each batch on the host in the JAX package's order and
-  :func:`~deepcv_tpu_torch.data.pipeline.prefetch_to_device` copies it from
-  pinned memory on a side stream, ``prefetch_batches`` (2 batches, or 1) in
-  flight. ``native_loader: auto`` takes the numpy iterator (the JAX
-  package's ``auto`` takes its C++ loader where that library loads, which
-  orders batches differently); ``true`` raises;
+  Otherwise the run streams, and the host gathers each batch in the JAX
+  package's order: ``native_loader: auto`` or ``true`` takes the C++
+  ring-buffer loader (:class:`~deepcv_tpu_torch.runtime.NativeBatchLoader`,
+  three batches gathered ahead, the order of ``seed + epoch``) where its
+  library builds, ``auto`` falls back to
+  :class:`~deepcv_tpu_torch.data.pipeline.BatchIterator` (the numpy order)
+  where it does not, ``true`` raises, ``false`` takes the numpy iterator.
+  :func:`~deepcv_tpu_torch.data.pipeline.prefetch_to_device` copies each
+  batch from pinned memory on a side stream, ``prefetch_batches`` (2
+  batches, or 1) in flight; ``wire_compression`` (``true`` is ``{bits: 3,
+  axis: -2}``) ships the images coded and decodes them on the device;
 * **the step.** Each step transforms its batch on the device (augmenting it
   from a generator keyed by (seed, step); validation batches are not
   augmented), runs the forward under ``torch.autocast`` when ``dtype`` is
@@ -66,8 +70,8 @@ rule, ``TRAINING_HP_DEFAULTS``, ``TrainingEvents``, ``CrashIteration``,
   and ``uniform`` draws take the loop's generator, seeded from ``seed``.
 
 Every other hp key of the JAX list raises an error naming it when it is set
-to anything but its off value (:data:`UNPORTED_HP`), as do a multi-device
-``backend_conf`` and ``native_loader: true``.
+to anything but its off value (:data:`UNPORTED_HP`), as does a multi-device
+``backend_conf``.
 """
 from __future__ import annotations
 
@@ -169,17 +173,15 @@ TRAINING_HP_DEFAULTS: Dict[str, Any] = {
 
 #: hp keys the JAX package reads that the port does not carry, each with
 #: its off value; any other value raises, naming the key.
-#: ``wire_compression`` comes with the data plane (P14); ``flatten_optimizer``,
-#: ``flat_params``, ``max_epochs_per_dispatch`` and ``sync_every_dispatches``
-#: are TPU dispatch workarounds; the JAX package reads ``nni_compression``
-#: nowhere.
+#: ``flatten_optimizer``, ``flat_params``, ``max_epochs_per_dispatch`` and
+#: ``sync_every_dispatches`` are TPU dispatch workarounds; the JAX package
+#: reads ``nni_compression`` nowhere.
 UNPORTED_HP: Dict[str, Any] = {
     "nni_compression": None,
     "max_epochs_per_dispatch": 1,
     "sync_every_dispatches": 1,
     "flatten_optimizer": False,
     "flat_params": False,
-    "wire_compression": False,
 }
 
 #: ``auto``: stream a trainset larger than this (or a memmap)
@@ -618,10 +620,49 @@ def _refuse_unported(hp: Mapping[str, Any]) -> None:
         if value != off and not (off is None and value in (False, {}, [])):
             raise NotImplementedError(
                 f"hp '{key}' = {value!r} is not ported (the port trains with {key}: {off!r})")
-    if hp.get("native_loader", "auto") is True:
-        raise NotImplementedError(
-            "hp 'native_loader' = True: the C++ batch loader comes with the data plane "
-            "slice (ROADMAP P14); 'auto' takes the numpy BatchIterator")
+
+
+def _wire_codec(hp: Mapping[str, Any]) -> Optional[Dict[str, Any]]:
+    """hp ``wire_compression`` as ``prefetch_to_device``'s ``wire_codec``."""
+    wire = hp.get("wire_compression", False)
+    if wire is True:
+        return {"bits": 3, "axis": -2}
+    return dict(wire) if wire else None
+
+
+def host_batches(iterator: BatchIterator, trainset, epoch: int, skip: int,
+                 hp: Mapping[str, Any], seed: int
+                 ) -> Tuple[str, Iterable[Tuple[np.ndarray, np.ndarray]]]:
+    """One epoch of host batches after the first ``skip`` (an exact resume),
+    and the loader's name (``native`` or ``numpy``): hp ``native_loader``
+    ``auto`` (the default) or ``true`` takes the C++ loader, seeded with
+    ``seed + epoch``, for ``iterator.num_batches`` batches; ``auto`` falls
+    back to ``iterator`` where the library cannot be built, ``true`` raises
+    there; ``false`` takes ``iterator``."""
+    from deepcv_tpu_torch.runtime import NativeBatchLoader, native_available
+
+    use_native = hp.get("native_loader", "auto")
+    if use_native not in ("auto", True, False):
+        raise ValueError(f"hp 'native_loader' must be auto, true or false, got {use_native!r}")
+    if use_native is not False and native_available():
+        data = unwrap_dataset(trainset)
+        loader = NativeBatchLoader(data.images, data.targets, iterator.batch_size, depth=3,
+                                   seed=seed + epoch)
+
+        def gen():
+            try:
+                for i in range(iterator.num_batches):
+                    batch = next(loader)
+                    if i >= skip:
+                        yield batch
+            finally:
+                loader.close()
+        return "native", gen()
+    if use_native is True:
+        raise RuntimeError("hp 'native_loader' = True, but the C++ loader's library cannot "
+                           "be built (no C++ compiler)")
+    batches = iterator.epoch(epoch)
+    return "numpy", itertools.islice(batches, skip, None) if skip else batches
 
 
 def _backend(hp: Mapping[str, Any], backend_conf, device: torch.device) -> BackendConfig:
@@ -883,11 +924,11 @@ def train(hp: Mapping[str, Any], model: torch.nn.Module, losses, datasets: Mappi
 
     def epoch_batches(epoch: int, skip: int):
         if not resident:
-            batches = iterator.epoch(epoch)
-            if skip:
-                batches = itertools.islice(batches, skip, None)
+            loader, batches = host_batches(iterator, trainset, epoch, skip, hp, seed)
+            history["host_loader"] = loader
             depth = 2 if hp.get("prefetch_batches", True) else 1
-            for raw, y in prefetch_to_device(batches, size=depth, device=device):
+            for raw, y in prefetch_to_device(batches, size=depth, device=device,
+                                             wire_codec=_wire_codec(hp)):
                 yield raw, _device_targets(y, device)
             return
         perm = epoch_permutation(seed, epoch, device_ds.n).to(device) \

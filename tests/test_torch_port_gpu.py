@@ -1806,3 +1806,127 @@ def test_supernet_forward_launches_k2_once_per_candidate_conv(cuda):
             m(torch.zeros(8, 32, 32, 3, device=cuda))
         torch.cuda.synchronize()
         assert fused_conv2d_bias_act.launches - before == convs
+
+
+# --------------------------------------------------------------------------- #
+# The data plane: the wire codec, the C++ loader, the codec, SinGAN, WFC
+# --------------------------------------------------------------------------- #
+
+def _walk_batch(n=64, seed=0):
+    rng = np.random.default_rng(seed)
+    steps = rng.integers(-3, 4, (n, 32, 32, 3)).astype(np.int16)
+    walk = np.cumsum(steps, axis=2) + rng.integers(0, 256, (n, 32, 1, 3))
+    x = np.abs(walk % 510 - 255).astype(np.uint8)
+    spikes = rng.random(x.shape) < 0.01
+    x[spikes] = 255 - x[spikes]
+    return x
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_wire_decode_on_card_equals_the_host_batch(cuda, bits):
+    from deepcv_tpu_torch.data.wirecodec import decode_u8, device_decode, encode_u8
+
+    x = _walk_batch(seed=bits)
+    payload = encode_u8(x, bits=bits, axis=-2)
+    assert payload is not None and np.count_nonzero(payload["overflow"])
+    got = device_decode(payload, cuda)
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), torch.from_numpy(x))
+    cpu = decode_u8(torch.from_numpy(payload["packed"]), torch.from_numpy(payload["overflow"]),
+                    payload["shape"], bits, payload["axis"])
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_prefetch_with_the_wire_codec_yields_the_host_batches(cuda):
+    from deepcv_tpu_torch.data.pipeline import prefetch_to_device, wire_stats
+
+    rng = np.random.default_rng(0)
+    batches = [(_walk_batch(seed=i), rng.integers(0, 10, 64).astype(np.int32))
+               for i in range(5)]
+    batches.append((rng.integers(0, 256, (64, 32, 32, 3), dtype=np.uint8),
+                    rng.integers(0, 10, 64).astype(np.int32)))     # noise: shipped raw
+    wire_stats.clear()
+    got = []
+    for x, y in prefetch_to_device(iter(batches), size=2, device=cuda,
+                                   wire_codec={"bits": 3, "axis": -2}):
+        torch.cuda._sleep(1_000_000)
+        got.append((x.cpu().numpy(), y.cpu().numpy()))
+    assert wire_stats["coded"] == 5 and wire_stats["raw"] == 1
+    for (a, b), (c, d) in zip(got, batches):
+        assert a.tobytes() == c.tobytes() and b.tobytes() == d.tobytes()
+
+
+def test_streaming_train_on_card_takes_the_cxx_loader_and_the_codec(cuda, tmp_path):
+    from deepcv_tpu_torch.config import load_yaml
+    from deepcv_tpu_torch.data.datasets import load_dataset
+    from deepcv_tpu_torch.data.pipeline import wire_stats
+    from deepcv_tpu_torch.data.preprocess import preprocess
+    from deepcv_tpu_torch.pipelines.classification import create_model
+    from deepcv_tpu_torch.train.losses import cross_entropy_loss
+    from deepcv_tpu_torch.train.training import train
+
+    np.save(tmp_path / "images.npy", _walk_batch(600))
+    np.save(tmp_path / "targets.npy", np.random.default_rng(1).integers(0, 10, 600)
+            .astype(np.int32))
+    data = preprocess({"trainset": load_dataset({"type": "memmap", "root": str(tmp_path),
+                                                 "classes": [str(i) for i in range(10)]})},
+                      {"seed": 0, "split_dataset": {"validset_ratio": 0.03},
+                       "transforms": ["to_tensor"]})
+    hp = load_yaml("conf/base/parameters.yml")["image_classifier_model"]
+    init = create_model(data, hp, device="cpu").state_dict()
+    runs = {}
+    for wire in (False, True):
+        model = create_model(data, {**hp, "dtype": "bfloat16"}, device=cuda)
+        model.load_state_dict(init)
+        wire_stats.clear()
+        _, h = train({"epochs": 1, "batch_size": 128, "optimizer_opts": {"lr": 1e-3},
+                      "save_every_iters": 0, "validate_every_epochs": 1000,
+                      "dtype": "bfloat16", "output_path": str(tmp_path),
+                      "handle_preemption": False, "wire_compression": wire},
+                     model, cross_entropy_loss, data)
+        assert h["input_path"] == "streaming" and h["host_loader"] == "native"
+        assert wire_stats["coded"] == (h["steps"] if wire else 0)
+        runs[wire] = [e["main_loss"] for e in h["train"]]
+    np.testing.assert_allclose(runs[True], runs[False], rtol=BF16_TOL)
+
+
+def test_codec_roundtrips_on_card_with_the_native_coder(cuda):
+    from deepcv_tpu_torch.codec import LosslessCodec
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:16, 0:16]
+    imgs = ((yy + xx)[None, ..., None] * rng.integers(2, 6, (12, 1, 1, 1)) % 64 + 96
+            + rng.integers(0, 4, (12, 16, 16, 3))).astype(np.uint8)
+    codec = LosslessCodec((16, 16, 3), n_scales=2, hidden=8, seed=0, coding_batch=4,
+                          device=cuda)
+    codec.fit(imgs[:8], steps=30, batch_size=8, seed=0)
+    assert codec.native_coder
+    blobs = codec.encode_batch(imgs[8:])
+    assert np.array_equal(codec.decode_batch(blobs), imgs[8:])
+    cpu = LosslessCodec((16, 16, 3), n_scales=2, hidden=8, seed=0, coding_batch=4,
+                        device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in codec.model.state_dict().items()})
+    assert codec.bits_per_dim(imgs[8:]) == pytest.approx(cpu.bits_per_dim(imgs[8:]), rel=1e-4)
+
+
+def test_singan_and_wfc_on_card(cuda):
+    from deepcv_tpu_torch.data import wfc
+    from deepcv_tpu_torch.data.singan import ConvStack, train_singan
+
+    stack = ConvStack(3, 8, 3, final_act="tanh")
+    stack.init_parameters(torch.Generator().manual_seed(0))
+    x = torch.randn((2, 12, 10, 3), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = stack(x)
+        got = stack.to(cuda)(x.to(cuda)).cpu()
+    assert _rel(got, ref) <= F32_TOL
+    img = (np.add.outer(np.arange(16), np.arange(16))[..., None] * [8, 4, 2] % 256
+           ).astype(np.uint8)
+    model, hist = train_singan(img, n_scales=2, steps_per_scale=20, features=8, device=cuda)
+    assert all(s["rec_last"] < s["rec_first"] for s in hist["scales"])
+    assert model.reconstruct().device.type == "cuda"
+    exemplar = np.array([[0, 0, 1, 2, 2], [0, 1, 1, 2, 2], [1, 1, 2, 2, 2]], np.int32)
+    adj, w = wfc.adjacency_from_exemplar(exemplar)
+    maps = wfc.sample_tilemaps(adj, w, (12, 12), 4, torch.Generator(device=cuda).manual_seed(0),
+                               device=cuda)
+    assert all(wfc.validate_tilemap(m, adj) for m in maps)

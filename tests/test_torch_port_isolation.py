@@ -4,6 +4,7 @@ unless the caller asks for the CPU (raising, never falling back, when there
 is no card)."""
 import ast
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -213,3 +214,80 @@ def test_predict_and_quantized_entry_points_raise_with_no_card(no_card, tmp_path
         DeepcvModule((32, 32, 3), hp, quantize="int8")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeepcvClassifier().fit(np.zeros((4, 8, 8, 3), np.uint8), np.array([0, 1, 0, 1]))
+
+
+#: a ``file:line`` citation of the JAX package (the ``kernels`` line's
+#: ``replaces``, error messages naming the reference), which loads nothing
+_CITATION = re.compile(r"deepcv_tpu/[\w/]+\.py:\d+")
+
+
+def _code_strings(path: Path):
+    """The string constants of a Python source that are not docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                and id(node) not in docs:
+            yield node.value, node.lineno
+
+
+def _c_code(text: str) -> str:
+    """C/C++ source without its comments."""
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+@pytest.mark.parametrize("rel", sorted(
+    [str(p.relative_to(REPO)) for p in PORT.rglob("*")
+     if p.suffix in (".py", ".cpp", ".cu") and "_build" not in p.parts] + ["chip_smoke.py"]))
+def test_source_names_no_path_of_the_jax_package(rel):
+    """No port source and not ``chip_smoke.py`` reaches into ``deepcv_tpu/``
+    (its modules, its built ``runtime/*.so``): no string of the code names a
+    path there, or the package's directory as a path part; citing a
+    ``file.py:line`` of it is allowed."""
+    path = REPO / rel
+    if path.suffix == ".py":
+        bad = [(s, ln) for s, ln in _code_strings(path)
+               if "deepcv_tpu/" in _CITATION.sub("", s) or s.strip("/") == "deepcv_tpu"]
+    else:
+        bad = [ln for ln in _c_code(path.read_text()).splitlines() if "deepcv_tpu/" in ln]
+    assert not bad, f"{rel} names a path of the JAX package: {bad}"
+
+
+def test_the_host_runtime_loads_only_the_port_libraries():
+    """The C++ loader and the range coder, built and used in a fresh
+    process: every shared object it maps from the repository lies under
+    ``deepcv_tpu_torch/_build/``, none under ``deepcv_tpu/``, and neither
+    JAX nor the JAX package is imported."""
+    code = """
+import json, sys
+import numpy as np
+from deepcv_tpu_torch.runtime import NativeBatchLoader
+from deepcv_tpu_torch.runtime.range_coder import rc_encode, rc_native_available
+from deepcv_tpu_torch.codec import quantize_cdf
+x = np.zeros((8, 2, 2, 3), np.uint8)
+loader = NativeBatchLoader(x, np.arange(8), 4)
+next(loader)
+loader.close()
+cdf = quantize_cdf(np.full((3, 4), 0.25))
+rc_encode(np.zeros(3, np.uint16), cdf)
+maps = sorted({ln.split()[-1] for ln in open("/proc/self/maps") if ln.rstrip().endswith(".so")
+               or ".so." in ln})
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "deepcv_tpu"))
+print(json.dumps({"maps": maps, "bad": bad, "native": rc_native_available()}))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    ours = [m for m in res["maps"] if m.startswith(str(REPO))]
+    assert res["bad"] == [] and res["native"]
+    assert not [m for m in ours if "/deepcv_tpu/" in m], ours
+    assert sorted(Path(m).name.split("-")[0] for m in ours
+                  if Path(m).parent == PORT / "_build") == ["libdeepcv_io", "libdeepcv_rc"]

@@ -473,8 +473,14 @@ def test_prefetch_on_the_cpu_and_refusals():
     x, y = _data(8)
     got = list(prefetch_to_device(iter([(x[:4], y[:4]), (x[4:], y[4:])]), size=2, device="cpu"))
     assert len(got) == 2 and torch.equal(got[1][0], torch.from_numpy(x[4:]))
-    with pytest.raises(NotImplementedError, match="P14"):
-        next(prefetch_to_device(iter([(x, y)]), device="cpu", wire_codec={"bits": 3}))
+    # the wire codec decodes on the device (here the CPU) to the host batch,
+    # a coded one (a smooth batch) and a raw one (noise)
+    smooth = np.broadcast_to(x[:, :1], x.shape).copy()
+    got = list(prefetch_to_device(iter([(smooth, y), (x, y)]), device="cpu",
+                                  wire_codec={"bits": 3}))
+    assert torch.equal(got[0][0], torch.from_numpy(smooth))
+    assert torch.equal(got[1][0], torch.from_numpy(x)) and torch.equal(got[1][1],
+                                                                       torch.from_numpy(y))
     with pytest.raises(ValueError, match="smaller than one global batch"):
         BatchIterator(tds.ArrayDataset(x, y), 16)
 

@@ -751,7 +751,8 @@ def test_generalization_fit_and_hp_embedding_match_jax():
 def test_unported_hp_no_longer_holds_the_search_keys():
     assert "runtime_lr" not in training.UNPORTED_HP
     assert "train_arch_params" not in training.UNPORTED_HP
-    assert len(training.UNPORTED_HP) == 6
+    # five since the data plane took wire_compression out too
+    assert len(training.UNPORTED_HP) == 5
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "sgd"])

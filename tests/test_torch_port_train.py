@@ -250,11 +250,11 @@ def _tiny_datasets():
 
 _ON = {"nni_compression": {"sparsity": 0.5},
        "max_epochs_per_dispatch": 2, "sync_every_dispatches": 2, "runtime_lr": True,
-       "flatten_optimizer": True, "flat_params": True, "wire_compression": True,
-       "train_arch_params": False, "backend_conf": {"n_devices": 2}, "native_loader": True}
+       "flatten_optimizer": True, "flat_params": True,
+       "train_arch_params": False, "backend_conf": {"n_devices": 2}}
 
 
-@pytest.mark.parametrize("key", sorted(UNPORTED_HP) + ["backend_conf", "native_loader"])
+@pytest.mark.parametrize("key", sorted(UNPORTED_HP) + ["backend_conf"])
 def test_unported_hp_keys_raise_naming_the_key(key, tmp_path):
     model = DeepcvModule((16, 16, 3), _tiny_vit(vit_spec), device="cpu")
     hp = {"epochs": 1, "batch_size": 4, "optimizer": "sgd", "optimizer_opts": {"lr": 0.1},
