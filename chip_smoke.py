@@ -364,6 +364,42 @@ Phases, each printing one JSON line:
    16 WFC tilemaps of 32x32 (every one valid) and a texture from learned
    tiles. These last two phases launch no kernel of the port: their device
    work is PyTorch ops, as it is XLA in the JAX package.
+28. active_learning — ``active_learning_loop`` with the conf's
+   ``image_classifier`` (its head's dropout 0.1) and
+   ``train_image_classifier`` hp on CIFAR-10: a pool of 4,096, 1,024
+   labeled at the start, 512 acquired a round by BALD over 8 MC samples, 3
+   rounds; every acquired index new and the rounds disjoint; 5 K2 launches
+   per training, validation and scoring forward; the last model with
+   dropout off scored on the card and on the CPU in f32 (probabilities
+   within F32_TOL, the top 512 by entropy equal but at scores tied within
+   that bound); each round's metrics in an ExperimentTracker store and the
+   last round in the training metadata.
+29. boosting — ``adaboost_train`` (SAMME) on the conf's
+   ``wide_classifier_gn_model``, float32: 3 rounds of 100 SGD steps at
+   batch 256 on 10,000 CIFAR-10 images, a fifth of their labels redrawn at
+   random (the stand-in's classes are separable: a perfect member would end
+   SAMME after one round); 6 K2 launches per forward; the weighted errors,
+   alphas and vote accuracy. Card vs CPU: 3 steps at batch
+   32 (lr 0.005) from the same init and index batches, the fitted
+   parameters (the whole vector, L2), weighted error and alpha within 1e-4
+   relative.
+30. meta_learning — ``reptile_train`` on the wide classifier with a 4-way
+   head: 4-way 5-shot, 5 queries, 4 episodes a meta-step, 5 inner steps, 50
+   meta-steps on 6 CIFAR-10 classes, then ``adapt`` and
+   ``episode_accuracy`` on 5 episodes of the 4 held-out classes (reported,
+   no threshold: the pixels are synthetic); 6 K2 launches per forward. Card
+   vs CPU: 2 meta-steps (of 2 episodes and 3 inner steps at lr 0.005) from
+   the same parameters and episodes, the whole parameter vector within 1e-4
+   relative (L2; the in-place updates that keep K2's packed weights
+   current).
+31. tooling — ``profiling.profile_op_breakdown`` of a wide classifier
+   forward and backward at batch 1,024 in bf16 (K2's kernels in the rows, 6
+   a forward), ``model_flops`` (305,610,752 FLOPs an image), ``mfu_report``
+   of the forward against the H100's dense bf16 peak, ``check_determinism``
+   of a forward (0.0), the dashboard over ``active_learning``'s tracker
+   store (``GET /`` lists its runs) and ``docs``, in a process of its own
+   (``chip_smoke.py --tooling CARD STORE``: late in the run the profiler
+   loses K2 records).
 
 Host libraries: ``build`` also compiles the host runtime (``runtime/
 deepcv_io.cpp``, ``deepcv_rc.cpp``) with g++ beside the nvcc builds. Device
@@ -413,6 +449,11 @@ its CUDA-event and device times, and the noise statistics), and
 are ``unet_train_profile`` and ``fpn_train_profile`` alone, the idle
 share taken of ``STEP_MS`` and the line marked with ``CARD``; the whole
 run starts them so.
+
+    python3 chip_smoke.py --tooling CARD STORE
+
+is the ``tooling`` phase alone, the dashboard over the tracker store
+``STORE``; the whole run starts it so, after ``active_learning``.
 """
 from __future__ import annotations
 
@@ -6145,6 +6186,434 @@ def phase_data_gen(card):
         raise AssertionError(f"data_gen failed: {line}")
 
 
+# --------------------------------------------------------------------------- #
+# Active learning, boosting, Reptile and the tooling
+# --------------------------------------------------------------------------- #
+
+AL_POOL, AL_INIT, AL_ACQUIRE, AL_ROUNDS, AL_MC = 4096, 1024, 512, 3, 8
+AL_VALID, AL_SCORE_BATCH = 2048, 512
+BOOST_IMAGES, BOOST_ROUNDS, BOOST_STEPS, BOOST_BATCH = 10_000, 3, 100, 256
+BOOST_LR = 0.02
+#: the share of boosting's labels replaced by uniform draws (seeded)
+BOOST_LABEL_NOISE = 0.2
+BOOST_CHECK_IMAGES, BOOST_CHECK_STEPS, BOOST_CHECK_BATCH = 256, 3, 32
+#: the card-vs-CPU checks' step sizes: at the runs' own (0.02 with momentum,
+#: Reptile's inner 0.05) these few steps of the wide classifier amplify f32's
+#: sum-order differences between cuDNN and the CPU past 1e-4 (the whole
+#: vector 8.6e-5 and 1.7e-4 on an H100); a stale packed weight still moves
+#: the parameters by a share of their update
+BOOST_CHECK_LR, META_CHECK_INNER_LR = 0.005, 0.005
+#: card vs CPU after the same SGD or Reptile steps (relative to max|ref|)
+TRAIN_CHECK_RTOL = 1e-4
+META_TRAIN_CLASSES, META_PER_CLASS, META_WAY, META_SHOT, META_QUERIES = 6, 200, 4, 5, 5
+META_STEPS, META_BATCH, META_INNER, META_EPISODES = 50, 4, 5, 5
+#: the card-vs-CPU check: 2 meta-steps of 2 episodes and 3 inner steps
+META_CHECK_STEPS, META_CHECK_BATCH, META_CHECK_INNER = 2, 2, 3
+TOOLING_BATCH, TOOLING_ITERS = 1024, 3
+TOOLING_PROCESS_S = 300
+WIDE_GN_FLOPS_PER_IMAGE = 305_610_752
+
+
+@functools.lru_cache(maxsize=1)
+def _cifar10_train():
+    """The catalog's CIFAR-10 training set (uint8 NHWC, int64 labels)."""
+    from deepcv_tpu_torch.pipelines import ProjectContext
+
+    return ProjectContext(REPO, device=DEVICE).load_catalog_entry("cifar10_train")
+
+
+def _cifar_normalized(images: np.ndarray) -> np.ndarray:
+    """uint8 NHWC -> the conf's to_tensor + normalize, float32 on the host."""
+    return ((images.astype(np.float32) / 255.0 - np.asarray(CIFAR_MEAN, np.float32))
+            / np.asarray(CIFAR_STD, np.float32))
+
+
+def _wide_gn_hp(classes):
+    hp = copy.deepcopy(conf_hp("wide_classifier_gn_model"))
+    hp["architecture"][-1]["fully_connected"]["out_features"] = classes
+    return hp
+
+
+def _max_rel_params(got: torch.nn.Module, ref: torch.nn.Module) -> float:
+    ref_sd = ref.state_dict()
+    return max(float((t.double().cpu() - ref_sd[k].double()).abs().max()
+                     / max(float(ref_sd[k].double().abs().max()), 1e-30))
+               for k, t in got.state_dict().items())
+
+
+def _rel_l2_params(got: torch.nn.Module, ref: torch.nn.Module) -> float:
+    """||got - ref|| / ||ref|| over all of the models' tensors at once."""
+    ref_sd = ref.state_dict()
+    diff = sum(float((t.double().cpu() - ref_sd[k].double()).square().sum())
+               for k, t in got.state_dict().items())
+    return math.sqrt(diff / sum(float(t.double().square().sum()) for t in ref_sd.values()))
+
+
+def phase_active_learning(card):
+    """``active_learning_loop`` on the card with the conf's classifier and
+    training hp; the scoring forwards' K2 launches counted apart."""
+    from deepcv_tpu_torch.data.preprocess import parse_transforms_specification
+    from deepcv_tpu_torch.data.training_metadata import MetaTracker
+    from deepcv_tpu_torch.train import active_learning as al
+    from deepcv_tpu_torch.train.loggers import ExperimentTracker
+
+    d = _build.BUILD_DIR / "active_learning"
+    shutil.rmtree(d, ignore_errors=True)
+    raw = _cifar10_train()
+    tf = parse_transforms_specification(conf_hp("cifar10_preprocessing")["transforms"])
+    pool = PreprocessedDataset(raw.subset(np.arange(AL_POOL), name="al_pool"), tf)
+    valid = PreprocessedDataset(raw.subset(np.arange(AL_POOL, AL_POOL + AL_VALID),
+                                           name="al_valid"), tf)
+    model_hp = copy.deepcopy(conf_hp("image_classifier_model"))
+    model_hp["architecture"][-1]["fully_connected"].update(out_features=10, dropout_prob=0.1)
+    training_hp = {**conf_hp("train_image_classifier"), "output_path": str(d / "runs"),
+                   "save_every_iters": 0, "log_progress_every_iters": 1_000_000,
+                   "handle_preemption": False}
+    scoring = {"forwards": 0, "K2": 0}
+    real_score = al.mc_class_probabilities
+
+    def counted_score(model, pool_, indices, **kw):
+        before = fused_conv2d_bias_act.launches
+        out = real_score(model, pool_, indices, **kw)
+        scoring["K2"] += fused_conv2d_bias_act.launches - before
+        scoring["forwards"] += kw["n_samples"] * math.ceil(len(indices) / kw["batch_size"])
+        return out
+
+    with mock.patch.object(al, "mc_class_probabilities", counted_score):
+        res, wall, counts, _, _ = _counted(lambda: al.active_learning_loop(
+            (32, 32, 3), model_hp, training_hp, cross_entropy_loss,
+            {"poolset": pool, "validset": valid}, rounds=AL_ROUNDS,
+            acquire_per_round=AL_ACQUIRE, init_labeled=AL_INIT, acquisition="bald",
+            n_mc=AL_MC, seed=SEED, score_batch_size=AL_SCORE_BATCH, device=DEVICE))
+    rounds = res["rounds"]
+    batch, epochs = int(training_hp["batch_size"]), int(training_hp["epochs"])
+    train_forwards = sum(epochs * (r["n_labeled"] // batch) for r in rounds)
+    val_forwards = AL_ROUNDS * epochs * math.ceil(AL_VALID / min(32 * batch, AL_VALID))
+    forwards = train_forwards + val_forwards + scoring["forwards"]
+    seen = set(int(i) for i in np.sort(np.setdiff1d(res["labeled_indices"], np.concatenate(
+        [r["acquired"] for r in rounds]))))
+    fresh = []
+    for r in rounds[:-1]:
+        acquired = set(r["acquired"])
+        fresh.append(len(acquired) == AL_ACQUIRE and not acquired & seen)
+        seen |= acquired
+    if len(rounds) != AL_ROUNDS or [r["n_labeled"] for r in rounds] != \
+            [AL_INIT + AL_ACQUIRE * k for k in range(AL_ROUNDS)] or not all(fresh) \
+            or rounds[-1]["acquired"] or len(seen) != AL_INIT + AL_ACQUIRE * (AL_ROUNDS - 1) \
+            or not all(np.isfinite(r["valid_loss"]) for r in rounds):
+        raise AssertionError(f"active_learning rounds: {rounds}")
+    if counts["K2"] != CLASSIFIER_CONVS_PER_FORWARD * forwards \
+            or scoring["K2"] != CLASSIFIER_CONVS_PER_FORWARD * scoring["forwards"] \
+            or counts["K2_by_dtype"] != {"float32": counts["K2"], "bfloat16": 0}:
+        raise AssertionError(f"active_learning counts {counts}, scoring {scoring}, "
+                             f"{forwards} forwards")
+
+    # card vs CPU: the last model with dropout off, in f32, on the rest of the pool
+    check_hp = copy.deepcopy(model_hp)
+    check_hp["architecture"][-1]["fully_connected"]["dropout_prob"] = 0.0
+    state = {k: v.detach().cpu() for k, v in res["model"].state_dict().items()}
+    gpu = DeepcvModule((32, 32, 3), check_hp, device=DEVICE)
+    cpu = DeepcvModule((32, 32, 3), check_hp, device="cpu")
+    gpu.load_state_dict(state)
+    cpu.load_state_dict(state)
+    rest = np.setdiff1d(np.arange(AL_POOL), res["labeled_indices"])
+    kw = dict(n_samples=1, batch_size=AL_SCORE_BATCH, seed=SEED)
+    p_gpu = al.mc_class_probabilities(gpu, pool, rest, **kw)
+    p_cpu = al.mc_class_probabilities(cpu, pool, rest, **kw)
+    prob_err = float(np.abs(p_gpu - p_cpu).max())
+    s_gpu, s_cpu = (al.acquisition_scores(p, "entropy") for p in (p_gpu, p_cpu))
+    top_gpu, top_cpu = (set(np.argsort(s)[::-1][:AL_ACQUIRE].tolist()) for s in (s_gpu, s_cpu))
+    kth = np.sort(s_cpu)[::-1][AL_ACQUIRE - 1]
+    tie = F32_TOL * float(np.abs(s_cpu).max())
+    untied = [i for i in top_gpu ^ top_cpu if abs(s_cpu[i] - kth) > tie]
+    if not prob_err <= F32_TOL or untied:
+        raise AssertionError(f"active_learning card vs CPU: probabilities {prob_err}, top-"
+                             f"{AL_ACQUIRE} differ at untied {untied[:8]}")
+
+    store = d / "experiments"
+    for r in rounds:
+        tr = ExperimentTracker(root=str(store), experiment="active_learning",
+                               run_name=f"round_{r['round']}")
+        tr.log_params({"acquisition": "bald", "n_mc": AL_MC, "pool": AL_POOL,
+                       "n_labeled": r["n_labeled"], "training": training_hp})
+        tr.log_metrics({k: v for k, v in r.items() if k.startswith("valid_")}, step=r["round"])
+        tr.end_run()
+    meta = MetaTracker(d / "metadataset")
+    meta.store(MetaTracker.experiment_from_training(
+        res["model"], training_hp, res["history"],
+        PreprocessedDataset(raw.subset(res["labeled_indices"]), tf)))
+    emit({"phase": "active_learning", "model": "image_classifier_model (head dropout 0.1)",
+          "pool": AL_POOL, "rounds": [{k: v for k, v in r.items() if k != "acquired"}
+                                      for r in rounds],
+          "acquired_per_round": [len(r["acquired"]) for r in rounds],
+          "forwards": {"train": train_forwards, "validation": val_forwards,
+                       "scoring": scoring["forwards"]},
+          "launches": {"K2": counts["K2"], "K2_scoring": scoring["K2"],
+                       "K2_by_dtype": counts["K2_by_dtype"]},
+          "launches_per_forward": {"K2": counts["K2"] / forwards},
+          "cpu_check": {"images": len(rest), "max_abs_prob_err": prob_err,
+                        "tol": F32_TOL, "top_k": AL_ACQUIRE,
+                        "top_k_differ": len(top_gpu ^ top_cpu), "untied": len(untied)},
+          "metadataset": meta.scaling_triplets(), "tracker_store": str(store.relative_to(REPO)),
+          "wall_s": wall, "data": _cifar_data(), "card": card})
+    return counts, store
+
+
+def phase_boosting(card):
+    """SAMME on the wide classifier (group norm), f32, on the card; then the
+    card's first SGD steps against the CPU's."""
+    from deepcv_tpu_torch.train import boosting
+
+    raw = _cifar10_train()
+    images = _cifar_normalized(raw.images[:BOOST_IMAGES])
+    labels = np.asarray(raw.targets[:BOOST_IMAGES], np.int64)
+    # the stand-in's classes are separable: noisy labels keep every member
+    # imperfect, so SAMME runs its rounds instead of stopping at a perfect one
+    rng = np.random.default_rng(SEED)
+    noisy = rng.random(BOOST_IMAGES) < BOOST_LABEL_NOISE
+    labels[noisy] = rng.integers(0, 10, int(noisy.sum()))
+    hp = _wide_gn_hp(10)
+    model = DeepcvModule((32, 32, 3), hp, device=DEVICE)
+    (ens, hist), wall, counts, _, _ = _counted(lambda: boosting.adaboost_train(
+        model, images, labels, rounds=BOOST_ROUNDS, num_classes=10,
+        inner_steps=BOOST_STEPS, batch_size=BOOST_BATCH, lr=BOOST_LR, seed=SEED))
+    k = len(ens.members)
+    # a round stopped at chance trained and predicted but kept no member
+    ran = k + (k < BOOST_ROUNDS and hist["err"][-1] > 1e-8)
+    chunks = math.ceil(BOOST_IMAGES / 512)
+    forwards = ran * (BOOST_STEPS + chunks) + chunks * sum(r + 1 for r in range(k))
+    if len(hist["err"]) != k or not 1 <= k <= BOOST_ROUNDS \
+            or not all(0 < a <= boosting.ALPHA_CAP for a in ens.alphas) \
+            or not all(0 <= e < 0.9 for e in hist["err"]):
+        raise AssertionError(f"boosting: {hist}")
+    if counts["K2"] != WIDE_CONVS_PER_FORWARD * forwards \
+            or counts["K2_by_dtype"] != {"float32": counts["K2"], "bfloat16": 0}:
+        raise AssertionError(f"boosting counts {counts} for {forwards} forwards")
+
+    # card vs CPU: round 0's init and index batches, 3 steps at batch 32
+    init_seed, batch_seed = boosting._round_seeds(SEED, 0)
+    init = DeepcvModule((32, 32, 3), hp, device="cpu",
+                        generator=torch.Generator().manual_seed(init_seed)).state_dict()
+    gen = torch.Generator().manual_seed(batch_seed)
+    n = BOOST_CHECK_IMAGES
+    index_batches = [torch.randint(0, n, (BOOST_CHECK_BATCH,), generator=gen)
+                     for _ in range(BOOST_CHECK_STEPS)]
+    fitted = {}
+    for dev in (DEVICE, "cpu"):
+        m = DeepcvModule((32, 32, 3), hp, device=dev)
+        m.load_state_dict(init)
+        x = torch.from_numpy(images[:n]).to(dev)
+        y = torch.from_numpy(labels[:n]).to(dev)
+        w = torch.full((n,), 1.0 / n, device=dev)
+        boosting._train_round(m, x, y, w, index_batches, lr=BOOST_CHECK_LR, momentum=0.9,
+                              generator=torch.Generator(device=dev))
+        _, err, alpha = boosting._reweight(w, boosting._predict(m, None, x, 512), y, 10)
+        fitted[dev] = (m, float(err), float(alpha))
+    (g, g_err, g_alpha), (c, c_err, c_alpha) = fitted[DEVICE], fitted["cpu"]
+    # the whole parameter vector, as reptile_cpu_check (why: its docstring);
+    # a tensor-wise error read 4.5e-6 and 1.2e-2 in two calls on one H100
+    param_rel, tensor_rel = _rel_l2_params(g, c), _max_rel_params(g, c)
+    err_rel = abs(g_err - c_err) / abs(c_err)
+    alpha_rel = abs(g_alpha - c_alpha) / abs(c_alpha)
+    if not max(param_rel, err_rel, alpha_rel) <= TRAIN_CHECK_RTOL:
+        raise AssertionError(f"boosting card vs CPU: params rel L2 {param_rel} (largest "
+                             f"tensor-wise {tensor_rel}), err {g_err} vs "
+                             f"{c_err}, alpha {g_alpha} vs {c_alpha}")
+    emit({"phase": "boosting", "model": "wide_classifier_gn_model, float32",
+          "images": BOOST_IMAGES, "label_noise": BOOST_LABEL_NOISE, "rounds": k,
+          "inner_steps": BOOST_STEPS,
+          "batch": BOOST_BATCH, "err": hist["err"], "alpha": hist["alpha"],
+          "vote_accuracy": hist["vote_accuracy"], "forwards": forwards,
+          "launches": {"K2": counts["K2"], "K2_by_dtype": counts["K2_by_dtype"]},
+          "launches_per_forward": {"K2": counts["K2"] / forwards},
+          "step_ms_incl_eval": wall / (k * BOOST_STEPS) * 1e3,
+          "cpu_check": {"steps": BOOST_CHECK_STEPS, "batch": BOOST_CHECK_BATCH, "images": n,
+                        "lr": BOOST_CHECK_LR,
+                        "rel_l2_param_err": param_rel, "max_tensor_rel_err": tensor_rel,
+                        "err": [g_err, c_err],
+                        "alpha": [g_alpha, c_alpha], "tol": TRAIN_CHECK_RTOL},
+          "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "wall_s": wall, "data": _cifar_data(), "card": card})
+    return counts
+
+
+def reptile_cpu_check(hp, init, images, labels, kw):
+    """2 meta-steps (of 2 episodes and 3 inner steps at
+    ``META_CHECK_INNER_LR``) on the card and on the CPU from the same
+    parameters and episodes: the relative L2 error of the
+    whole parameter vector, and the largest tensor-wise one. The first is
+    the check: the conv biases ahead of group norm stay near 0 and take
+    noise-level gradients, so a tensor-wise error reads their noise (a 1e-6
+    nudge of the init moves them 1e-2 in 2 meta-steps on the CPU), while a
+    stale packed weight moves the whole vector."""
+    from deepcv_tpu_torch.train import meta_learning as meta
+
+    fitted = []
+    for dev in (DEVICE, "cpu"):
+        m = DeepcvModule((32, 32, 3), hp, device=dev)
+        m.load_state_dict(init)
+        meta.reptile_train(m, images, labels, meta_steps=META_CHECK_STEPS,
+                           **{**kw, "meta_batch": META_CHECK_BATCH,
+                              "inner_steps": META_CHECK_INNER,
+                              "inner_lr": META_CHECK_INNER_LR})
+        fitted.append(m)
+    return _rel_l2_params(*fitted), _max_rel_params(*fitted)
+
+
+def phase_meta_learning(card):
+    """Reptile on the wide classifier with a 4-way head, then adaptation to
+    the held-out classes; the card's first meta-steps against the CPU's."""
+    from deepcv_tpu_torch.train import meta_learning as meta
+
+    raw = _cifar10_train()
+    labels_all = np.asarray(raw.targets, np.int64)
+    pick = np.concatenate([np.flatnonzero(labels_all == c)[:META_PER_CLASS] for c in range(10)])
+    images, labels = _cifar_normalized(raw.images[np.sort(pick)]), labels_all[np.sort(pick)]
+    train_mask = labels < META_TRAIN_CLASSES
+    hp = _wide_gn_hp(META_WAY)
+    model = DeepcvModule((32, 32, 3), hp, device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED))
+    init = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    kw = dict(n_way=META_WAY, k_shot=META_SHOT, q_queries=META_QUERIES, meta_batch=META_BATCH,
+              inner_steps=META_INNER, inner_lr=0.05, meta_lr=0.5, meta_lr_final=0.05,
+              seed=SEED)
+    sx, sy, qx, qy = meta.sample_episodes(images[~train_mask], labels[~train_mask],
+                                          n_way=META_WAY, k_shot=META_SHOT,
+                                          q_queries=META_QUERIES, n_episodes=META_EPISODES,
+                                          rng=np.random.default_rng(SEED))
+
+    def run():
+        _, hist = meta.reptile_train(model, images[train_mask], labels[train_mask],
+                                     meta_steps=META_STEPS, **kw)
+        accs = [meta.episode_accuracy(meta.adapt(model, sx[e], sy[e], steps=META_INNER,
+                                                 lr=0.05), qx[e], qy[e])
+                for e in range(META_EPISODES)]
+        return hist, accs
+
+    (hist, accs), wall, counts, _, _ = _counted(run)
+    forwards = META_STEPS * META_BATCH * (META_INNER + 1) + META_EPISODES * (META_INNER + 1)
+    if len(hist["query_accuracy"]) != META_STEPS \
+            or not all(0.0 <= a <= 1.0 for a in [*hist["query_accuracy"], *accs]):
+        raise AssertionError(f"meta_learning: {hist}, {accs}")
+    if counts["K2"] != WIDE_CONVS_PER_FORWARD * forwards \
+            or counts["K2_by_dtype"] != {"float32": counts["K2"], "bfloat16": 0}:
+        raise AssertionError(f"meta_learning counts {counts} for {forwards} forwards")
+
+    param_rel, tensor_rel = reptile_cpu_check(hp, init, images[train_mask],
+                                              labels[train_mask], kw)
+    if not param_rel <= TRAIN_CHECK_RTOL:
+        raise AssertionError(f"meta_learning card vs CPU: params rel L2 {param_rel} "
+                             f"(largest tensor-wise {tensor_rel})")
+    emit({"phase": "meta_learning", "model": f"wide_classifier_gn_model, {META_WAY}-way head",
+          "classes": {"meta_train": META_TRAIN_CLASSES, "held_out": 10 - META_TRAIN_CLASSES,
+                      "images_per_class": META_PER_CLASS},
+          "settings": {"meta_steps": META_STEPS, **{k: v for k, v in kw.items()
+                                                    if k != "seed"}},
+          "query_accuracy_first5": hist["query_accuracy"][:5],
+          "query_accuracy_last5": hist["query_accuracy"][-5:],
+          "held_out_accuracy": accs, "held_out_mean": float(np.mean(accs)),
+          "forwards": forwards,
+          "launches": {"K2": counts["K2"], "K2_by_dtype": counts["K2_by_dtype"]},
+          "launches_per_forward": {"K2": counts["K2"] / forwards},
+          "meta_step_ms": wall / META_STEPS * 1e3,
+          "cpu_check": {"meta_steps": META_CHECK_STEPS, "meta_batch": META_CHECK_BATCH,
+                        "inner_steps": META_CHECK_INNER, "inner_lr": META_CHECK_INNER_LR,
+                        "rel_l2_param_err": param_rel,
+                        "max_tensor_rel_err": tensor_rel,
+                        "tol": TRAIN_CHECK_RTOL},
+          "wall_s": wall, "data": _cifar_data(), "card": card})
+    return counts
+
+
+def phase_tooling_process(card, tracker_store):
+    """:func:`phase_tooling` in a process of its own (``chip_smoke.py
+    --tooling CARD STORE``), its lines passed on; returns its launch
+    counts. Late in the whole run the profiler kept 14 of the traced step's
+    18 K2 records in each of 3 tries, as it lost U-Net's and the FPN's (the
+    profiles of those run in processes of their own too)."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tooling", card,
+                           str(tracker_store)], capture_output=True, text=True,
+                          timeout=TOOLING_PROCESS_S, cwd=REPO)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    sys.stderr.write(proc.stderr)
+    sys.stderr.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"tooling: its process exited {proc.returncode}")
+    line = next(json.loads(ln) for ln in reversed(proc.stdout.splitlines())
+                if ln.startswith('{"phase": "tooling"'))
+    return line["launches"]
+
+
+def phase_tooling(card, tracker_store):
+    """``profiling`` on the card (op breakdown, FLOPs, MFU, determinism), the
+    dashboard over ``tracker_store`` and the docs build."""
+    from deepcv_tpu_torch import profiling
+    from deepcv_tpu_torch.dashboard import DashboardServer, scan_runs
+    from deepcv_tpu_torch.docs_build import build_docs
+
+    raw = _cifar10_train()
+    x = torch.from_numpy(_cifar_normalized(raw.images[:TOOLING_BATCH])).to(DEVICE)
+    model = DeepcvModule((32, 32, 3), _wide_gn_hp(10), device=DEVICE, dtype="bfloat16")
+
+    def fwd_bwd(xb):
+        model.zero_grad(set_to_none=True)
+        model(xb).float().square().mean().backward()
+
+    def forward(xb):
+        with torch.no_grad():
+            return model(xb)
+
+    def run():
+        for tries in range(1, 4):
+            rows = profiling.profile_op_breakdown(fwd_bwd, x, iters=TOOLING_ITERS, top=0,
+                                                  log_dir=str(_build.BUILD_DIR / "profile"))
+            k2 = [r for r in rows if "fused_conv2d_bias_act" in r["op"]]
+            if sum(r["count"] for r in k2) == WIDE_CONVS_PER_FORWARD * TOOLING_ITERS:
+                break
+        flops = profiling.model_flops(model, batch_size=TOOLING_BATCH)
+        model.eval()
+        mfu = profiling.mfu_report(forward, x, flops=flops["flops"], n=20)
+        det = profiling.check_determinism(forward, x)
+        model.train()
+        return rows, k2, tries, flops, mfu, det
+
+    (rows, k2, tries, flops, mfu, det), wall, counts, _, _ = _counted(run)
+    k2_profiled = sum(r["count"] for r in k2)
+    forwards = tries * (1 + TOOLING_ITERS) + (1 + 20) + 2
+    if k2_profiled != WIDE_CONVS_PER_FORWARD * TOOLING_ITERS \
+            or flops["flops_per_image"] != WIDE_GN_FLOPS_PER_IMAGE or det != 0.0 \
+            or mfu["device_kind"] != torch.cuda.get_device_name(0) \
+            or counts["K2"] != WIDE_CONVS_PER_FORWARD * forwards \
+            or counts["K2_by_dtype"] != {"float32": 0, "bfloat16": counts["K2"]}:
+        raise AssertionError(f"tooling: K2 rows {k2}, flops {flops}, determinism {det}, "
+                             f"mfu {mfu}, counts {counts} for {forwards} forwards")
+    server = DashboardServer(tracker_store, port=0).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port, timeout=30)
+        conn.request("GET", "/")
+        resp = conn.getresponse()
+        index = resp.read().decode()
+        conn.close()
+    finally:
+        server.stop()
+    runs = scan_runs(tracker_store)
+    if resp.status != 200 or not runs or any(r["run_id"] not in index for r in runs):
+        raise AssertionError(f"dashboard: status {resp.status}, {len(runs)} runs")
+    pages = build_docs(out_dir=str(_build.BUILD_DIR / "docs"), root=str(REPO))
+    emit({"phase": "tooling", "model": "wide_classifier_gn_model, bfloat16",
+          "batch": TOOLING_BATCH,
+          "op_breakdown": {"iters": TOOLING_ITERS, "tries": tries, "top": rows[:10],
+                           "K2_rows": k2, "K2_count": k2_profiled,
+                           "K2_ms": sum(r["total_ms"] for r in k2)},
+          "model_flops": flops, "mfu": mfu, "determinism_max_dev": det,
+          "dashboard": {"status": resp.status, "runs": len(runs)},
+          "docs_pages": len(pages),
+          "launches": {"K2": counts["K2"], "K2_by_dtype": counts["K2_by_dtype"]},
+          "wall_s": wall, "card": card})
+    return counts
+
+
 class _Walls:
     """Wall seconds of each phase of a run, by the phase's name."""
 
@@ -6205,6 +6674,11 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         remat_train_profile(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--tooling"] and len(sys.argv) == 4:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        phase_tooling(sys.argv[2], Path(sys.argv[3]))
         return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
@@ -6277,6 +6751,10 @@ def main() -> int:
     lr_find_counts = walls("lr_find", phase_lr_find, card)
     walls("codec", phase_codec, card)
     walls("data_gen", phase_data_gen, card)
+    al_counts, al_store = walls("active_learning", phase_active_learning, card)
+    boost_counts = walls("boosting", phase_boosting, card)
+    meta_counts = walls("meta_learning", phase_meta_learning, card)
+    tooling_counts = walls("tooling", phase_tooling_process, card, al_store)
     k2_line["launches_by_path"] = {"serve": k2_line["launches"],
                                    "classifier_train": classifier_counts["K2"],
                                    "augment_train": augment_counts["K2"],
@@ -6305,7 +6783,11 @@ def main() -> int:
                                    "search": search_counts["K2"],
                                    "hp_search": hp_search_counts["K2"],
                                    **{f"nas:{k}": n for k, n in nas_launches.items()},
-                                   "lr_find": lr_find_counts["K2"]}
+                                   "lr_find": lr_find_counts["K2"],
+                                   "active_learning": al_counts["K2"],
+                                   "boosting": boost_counts["K2"],
+                                   "meta_learning": meta_counts["K2"],
+                                   "tooling": tooling_counts["K2"]}
     k2_line["launches"] = sum(k2_line["launches_by_path"].values())
     k2_routes(k2_line, k2_rows["forward_bf16"], k2_rows["forward_f32"],
               augment_counts["K2"] + wide_launches + sum(zoo_launches.values())
@@ -6313,7 +6795,8 @@ def main() -> int:
               + match_launches + sum(full_launches.values()) + sum(stream_launches.values())
               + sum(runtime_launches.values()) + search_counts["K2"]
               + hp_search_counts["K2"]
-              + sum(n for k, n in nas_launches.items() if k != "checks"),
+              + sum(n for k, n in nas_launches.items() if k != "checks")
+              + tooling_counts["K2"],
               k2_rows[(DENSE_KERNEL_CASES[0][0], "float32")])
     emit({"phase": "walls", "wall_s": walls.seconds, "card": card})
     emit({"kernels": [k1_kernel_line(aug_rows, {"augment_train": augment_counts["K1"],

@@ -1,17 +1,20 @@
 """Command-line interface of the port.
 
-Counterpart of ``deepcv_tpu/cli.py``'s ``run``, ``list``, ``describe``,
-``predict``, ``serve``, ``search`` and ``lr-find`` subcommands
-(``_parse_extra_params``, ``_cmd_predict``, ``_cmd_serve``,
-``_cmd_search``, ``_default_space_path``, ``_cmd_lr_find``); the other
-subcommands come with later slices. Usage::
+Counterpart of ``deepcv_tpu/cli.py``'s subcommands (``_parse_extra_params``,
+``_cmd_predict``, ``_cmd_serve``, ``_cmd_search``, ``_default_space_path``,
+``_cmd_lr_find``) but ``bench``, which waits for the port's benchmark.
+Usage::
 
-    python -m deepcv_tpu_torch run --pipeline=train_vit \\
+    python -m deepcv_tpu_torch run [--pipeline=train_vit] \\
         --params vit_model.attn_impl:flash,train_resnet50.epochs:1 \\
         [--from-nodes N1,N2] [--to-nodes N1,N2] [--only-nodes N1,N2] \\
         [--tags T1,T2] [--no-persist] [--device cuda] [--export DIR]
     python -m deepcv_tpu_torch list
-    python -m deepcv_tpu_torch describe --pipeline=train_vit
+    python -m deepcv_tpu_torch describe [--pipeline=train_vit]
+    python -m deepcv_tpu_torch test [--quick | --full] [pytest args...]
+    python -m deepcv_tpu_torch docs [--out docs/_build] [--project-path .]
+    python -m deepcv_tpu_torch dashboard [--root data/04_training/experiments] \\
+        [--port 8050] [--tensorboard LOGDIR]
     python -m deepcv_tpu_torch serve --bundle DIR [--port 8000] \\
         [--batch-size 256] [--to-tensor] [--normalize M1,M2,M3/S1,S2,S3] \\
         [--quantize int8] [--device cuda]
@@ -39,6 +42,15 @@ named after the pipeline without ``train_``. ``lr-find`` runs the LR range
 test on the classifier and data of ``train_image_classifier`` (CIFAR-100's
 for ``..._cifar100``), writes the curve (a CSV where matplotlib is missing)
 and prints the suggestion as one JSON line.
+
+``run`` and ``describe`` take ``__default__`` (every registered pipeline,
+one after another) without ``--pipeline``. ``test`` runs the port's tests
+(``tests/test_torch_*.py``) in the JAX package's tiers: the smoke tier
+(``-m smoke``) by default, ``--quick`` everything but ``slow``, ``--full``
+everything; explicit pytest arguments replace the tier's. ``docs`` renders
+``docs/*.md``, ``README.md`` and ``PARITY.md`` to HTML; ``dashboard``
+serves the runs of an ``ExperimentTracker`` store, and with
+``--tensorboard`` starts TensorBoard on a logdir and links it.
 
 ``run`` prints one JSON line summing up the training run (a partial run
 reads the outputs of the nodes it leaves out from the intermediate cache
@@ -383,11 +395,39 @@ def _cmd_lr_find(args) -> int:
     return 0
 
 
+def _cmd_test(rest: List[str]) -> int:
+    """pytest over the port's test files in a tier, or with ``rest``."""
+    import pytest
+
+    files = [str(p) for p in sorted((Path(__file__).resolve().parents[1] / "tests")
+                                    .glob("test_torch_*.py"))]
+    if rest and rest[0] == "--full":
+        return int(pytest.main(rest[1:] or [*files, "-q"]))
+    if rest and rest[0] == "--quick":
+        return int(pytest.main(rest[1:] or [*files, "-q", "-m", "not slow"]))
+    return int(pytest.main(rest or [*files, "-q", "-m", "smoke"]))
+
+
+def _cmd_dashboard(args) -> int:
+    from deepcv_tpu_torch.dashboard import DashboardServer
+
+    tb_url = None
+    if args.tensorboard:
+        from deepcv_tpu_torch.profiling import start_tensorboard_server
+
+        if start_tensorboard_server(args.tensorboard) is not None:
+            tb_url = "http://127.0.0.1:6006/"
+    server = DashboardServer(args.root, port=args.port, tensorboard_url=tb_url)
+    print(f"dashboard: {server.url} (root={args.root})", flush=True)
+    server.serve_forever()
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="deepcv_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
     p_run = sub.add_parser("run", help="run a pipeline")
-    p_run.add_argument("--pipeline", required=True)
+    p_run.add_argument("--pipeline", default="__default__")
     p_run.add_argument("--params", action="append", default=[],
                        help="extra params: dotted.key:value[,key:value...]")
     p_run.add_argument("--project-path", default=".")
@@ -409,8 +449,20 @@ def build_parser() -> argparse.ArgumentParser:
     p_list = sub.add_parser("list", help="list registered pipelines")
     p_list.add_argument("--project-path", default=".")
     p_desc = sub.add_parser("describe", help="describe a pipeline")
-    p_desc.add_argument("--pipeline", required=True)
+    p_desc.add_argument("--pipeline", default="__default__")
     p_desc.add_argument("--project-path", default=".")
+    sub.add_parser("test", help="run the port's tests: the smoke tier, --quick (all but "
+                                "slow) or --full; other arguments pass to pytest")
+    p_docs = sub.add_parser("docs", help="build static HTML docs from docs/*.md, README.md "
+                                         "and PARITY.md")
+    p_docs.add_argument("--out", default="docs/_build")
+    p_docs.add_argument("--project-path", default=".")
+    p_dash = sub.add_parser("dashboard", help="serve the local runs dashboard")
+    p_dash.add_argument("--root", default="data/04_training/experiments",
+                        help="ExperimentTracker store to browse")
+    p_dash.add_argument("--port", type=int, default=8050)
+    p_dash.add_argument("--tensorboard", default=None, metavar="LOGDIR",
+                        help="also start a TensorBoard server on this logdir and link it")
     p_pred = sub.add_parser("predict", help="batch inference from a saved model bundle")
     p_pred.add_argument("--bundle", required=True,
                         help="directory from serve.save_model_bundle")
@@ -503,9 +555,22 @@ def main(argv=None) -> int:
     from deepcv_tpu_torch.spec.graph import SpecError
 
     argv = sys.argv[1:] if argv is None else list(argv)
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args, rest = parser.parse_known_args(argv)
+    if rest and args.command != "test":
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if args.command == "test":
+        return _cmd_test(rest)
+    if args.command == "docs":
+        from deepcv_tpu_torch.docs_build import build_docs
+
+        written = build_docs(out_dir=args.out, root=args.project_path)
+        print(f"built {len(written)} pages -> {args.out}", flush=True)
+        return 0
+    if args.command == "dashboard":
+        return _cmd_dashboard(args)
     if args.command == "serve":
         return _cmd_serve(args)
     if args.command == "predict":

@@ -64,6 +64,17 @@ class Hyperparameters(Mapping):
             return v
         return {k: conv(v) for k, v in self._store.items()}
 
+    def spec_hash(self) -> str:
+        """Stable content hash, the JAX package's (the same hex digits for the
+        same hp): the key of a model spec in the training metadata."""
+        import hashlib
+
+        def default(o):
+            return getattr(o, "__qualname__", None) or repr(o)
+
+        blob = json.dumps(self.to_dict(), sort_keys=True, default=default)
+        return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
 
 def to_hyperparameters(hp: Union[Mapping, Hyperparameters],
                        defaults: Optional[Mapping[str, Any]] = None,

@@ -21,7 +21,7 @@ import numpy as np
 
 __all__ = ["piecewise_linear", "one_cycle", "constant", "cosine_decay", "linear",
            "warmup_cosine_decay", "exponential_decay", "safe_eval_milestones",
-           "build_schedules", "SCHEDULES", "SCHEDULABLE"]
+           "build_schedules", "build_schedule", "SCHEDULES", "SCHEDULABLE"]
 
 Schedule = Callable[[int], float]
 
@@ -242,3 +242,9 @@ def build_schedules(spec: Optional[Mapping[str, Any]], hp: Mapping[str, Any],
         else:
             built[target] = out
     return built
+
+
+def build_schedule(spec: Optional[Mapping[str, Any]], hp: Mapping[str, Any],
+                   iterations_per_epoch: int) -> Optional[Schedule]:
+    """The learning-rate schedule alone of :func:`build_schedules`."""
+    return build_schedules(spec, hp, iterations_per_epoch).get("lr")

@@ -254,11 +254,14 @@ def test_create_pipelines_lists_both_dense_pipelines():
     assert TASK_PACKAGES == ("classification", "keypoints", "detection", "pose",
                              "segmentation", "video")
     jax_pipes = jax_create_pipelines({"enabled": list(TASK_PACKAGES)})
-    assert set(pipes) == set(jax_pipes) - {"__default__"}
+    assert set(pipes) == set(jax_pipes)
+    assert [n.name for n in pipes["__default__"].nodes] == \
+        [n.name for n in jax_pipes["__default__"].nodes]
     assert [n.name for n in pipes["train_pose_estimator"].nodes] == \
         [n.name for n in jax_pipes["train_pose_estimator"].nodes]
     assert set(create_pipelines({"enabled": ["video"]})) == \
-        {"train_optical_flow", "train_video_classifier", "train_temporal_classifier"}
+        {"train_optical_flow", "train_video_classifier", "train_temporal_classifier",
+         "__default__"}
 
 
 @pytest.fixture(scope="module")

@@ -412,11 +412,12 @@ def test_create_pipelines_lists_the_detection_and_keypoint_pipelines():
     assert TASK_PACKAGES == ("classification", "keypoints", "detection", "pose", "segmentation",
                              "video")
     assert set(create_pipelines({"enabled": ["video"]})) == \
-        {"train_optical_flow", "train_video_classifier", "train_temporal_classifier"}
+        {"train_optical_flow", "train_video_classifier", "train_temporal_classifier",
+         "__default__"}
     assert {"train_object_detector", "train_fpn_detector", "train_keypoint_detector"} \
         <= set(pipes)
     jax_pipes = jax_create_pipelines({"enabled": list(TASK_PACKAGES)})
-    assert set(pipes) == set(jax_pipes) - {"__default__"}
+    assert set(pipes) == set(jax_pipes)
     for name in ("train_object_detector", "train_fpn_detector", "train_keypoint_detector"):
         assert [n.name for n in pipes[name].nodes] == [n.name for n in jax_pipes[name].nodes]
         assert pipes[name].tags == jax_pipes[name].tags

@@ -1930,3 +1930,101 @@ def test_singan_and_wfc_on_card(cuda):
     maps = wfc.sample_tilemaps(adj, w, (12, 12), 4, torch.Generator(device=cuda).manual_seed(0),
                                device=cuda)
     assert all(wfc.validate_tilemap(m, adj) for m in maps)
+
+
+# --------------------------------------------------------------------------- #
+# Active learning, boosting, Reptile and profiling on the card
+# --------------------------------------------------------------------------- #
+
+def _tiny_gn_hp(classes=4):
+    return {"act_fn": "relu", "group_norm": {"num_groups": 2, "eps": 1e-5},
+            "architecture": [
+                {"conv2d": {"kernel_size": [3, 3], "out_channels": 8, "padding": 1}},
+                {"conv2d": {"kernel_size": [3, 3], "out_channels": 8, "padding": 1}},
+                {"flatten": {}},
+                {"fully_connected": {"out_features": classes, "act_fn": None,
+                                     "group_norm": None}}]}
+
+
+def _pair(hp, shape, cuda):
+    from deepcv_tpu_torch.spec import DeepcvModule
+
+    gpu = DeepcvModule(shape, hp, device=cuda)
+    cpu = DeepcvModule(shape, hp, device="cpu")
+    return gpu, cpu
+
+
+def _rel_l2_state(got, ref):
+    """||got - ref|| / ||ref|| over all of the models' tensors at once: the
+    conv biases ahead of group norm stay near 0 and take noise-level
+    gradients, so a tensor-wise relative error would read their noise."""
+    r = ref.state_dict()
+    diff = sum(float((t.double().cpu() - r[k].double()).square().sum())
+               for k, t in got.state_dict().items())
+    return (diff / sum(float(t.double().square().sum()) for t in r.values())) ** 0.5
+
+
+def test_reptile_meta_steps_on_card_match_cpu(cuda):
+    """In-place inner steps keep K2's packed weights current: the card's
+    meta parameters equal the CPU's after 2 meta-steps, with 2 K2 launches
+    per forward."""
+    from deepcv_tpu_torch.train import meta_learning as meta
+
+    rng = np.random.default_rng(0)
+    images = rng.normal(size=(60, 12, 12, 3)).astype(np.float32)
+    labels = np.repeat(np.arange(6), 10)
+    gpu, cpu = _pair(_tiny_gn_hp(), (12, 12, 3), cuda)
+    kw = dict(n_way=4, k_shot=3, q_queries=2, meta_steps=2, meta_batch=3, inner_steps=3,
+              inner_lr=0.1, seed=1)
+    before = fused_conv2d_bias_act.launches
+    meta.reptile_train(gpu, images, labels, **kw)
+    assert fused_conv2d_bias_act.launches - before == 2 * 2 * 3 * (3 + 1)
+    meta.reptile_train(cpu, images, labels, **kw)
+    assert _rel_l2_state(gpu, cpu) <= F32_TOL
+    adapted = meta.adapt(gpu, images[:8], labels[:8] % 4, steps=2, lr=0.1)
+    ref = meta.adapt(cpu, images[:8], labels[:8] % 4, steps=2, lr=0.1)
+    assert _rel_l2_state(adapted, ref) <= F32_TOL
+
+
+def test_boosting_round_and_scoring_on_card_match_cpu(cuda):
+    from deepcv_tpu_torch.data.datasets import ArrayDataset
+    from deepcv_tpu_torch.data.preprocess import PreprocessedDataset, \
+        parse_transforms_specification
+    from deepcv_tpu_torch.train import active_learning as al
+    from deepcv_tpu_torch.train import boosting
+
+    rng = np.random.default_rng(1)
+    raw = rng.integers(0, 256, (40, 12, 12, 3), dtype=np.uint8)
+    y = torch.from_numpy(rng.integers(0, 4, 40))
+    gpu, cpu = _pair(_tiny_gn_hp(), (12, 12, 3), cuda)
+    batches = [torch.from_numpy(rng.integers(0, 40, 16)) for _ in range(3)]
+    fitted = []
+    for m in (gpu, cpu):
+        dev = next(m.parameters()).device
+        x = torch.from_numpy(raw).float().div(255).to(dev)
+        w = torch.full((40,), 1 / 40, device=dev)
+        boosting._train_round(m, x, y.to(dev), w, batches, lr=0.05, momentum=0.9,
+                              generator=torch.Generator(device=dev))
+        fitted.append(boosting._reweight(w, boosting._predict(m, None, x, 16), y.to(dev), 4))
+    assert _rel_l2_state(gpu, cpu) <= F32_TOL
+    assert float(fitted[0][1]) == pytest.approx(float(fitted[1][1]), rel=F32_TOL)
+    pool = PreprocessedDataset(ArrayDataset(raw, y.numpy()),
+                               parse_transforms_specification(["to_tensor"]))
+    p_gpu = al.mc_class_probabilities(gpu, pool, np.arange(13), n_samples=2, batch_size=5)
+    p_cpu = al.mc_class_probabilities(cpu, pool, np.arange(13), n_samples=2, batch_size=5)
+    assert np.abs(p_gpu - p_cpu).max() <= F32_TOL
+
+
+def test_profile_op_breakdown_lists_k2_on_card(cuda):
+    from deepcv_tpu_torch import profiling
+
+    gpu, _ = _pair(_tiny_gn_hp(), (12, 12, 3), cuda)
+    x = torch.randn(8, 12, 12, 3, device=cuda)
+    with torch.no_grad():
+        rows = profiling.profile_op_breakdown(gpu, x, iters=3, top=0)
+    k2 = [r for r in rows if "fused_conv2d_bias_act" in r["op"]]
+    assert sum(r["count"] for r in k2) == 2 * 3 and all(r["plane"].startswith("GPU") for r in k2)
+    assert profiling.model_flops(gpu, batch_size=2)["flops_per_image"] == \
+        2 * (12 * 12 * 3 * 8 * 9 + 12 * 12 * 8 * 8 * 9 + 12 * 12 * 8 * 4)
+    assert profiling.check_determinism(lambda t: gpu(t), x) == 0.0
+    assert "cuda:0" in profiling.device_memory_stats()

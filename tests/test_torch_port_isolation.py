@@ -112,6 +112,9 @@ from deepcv_tpu_torch.data import augmentation, datasets, preprocess, transforms
 from deepcv_tpu_torch.ops.kernels import fused_augment  # noqa
 from deepcv_tpu_torch.ops import hrnet  # noqa
 from deepcv_tpu_torch.train import checkpoint, losses, metrics, schedules, training  # noqa
+from deepcv_tpu_torch.train import active_learning, boosting, meta_learning  # noqa
+from deepcv_tpu_torch.data import training_metadata  # noqa
+from deepcv_tpu_torch import dashboard, docs_build, notebook, profiling, types_aliases  # noqa
 from deepcv_tpu_torch.spec import DeepcvModule
 from deepcv_tpu_torch.spec.zoo import vit_spec
 hp = vit_spec("b_16", num_classes=4, attn_impl="flash")
@@ -127,7 +130,8 @@ print(json.dumps({"pipes": pipes, "bad": bad}))
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {"pipes": ["preprocess_cifar10", "preprocess_cifar100", "preprocess_mnist",
+    assert res == {"pipes": ["__default__", "preprocess_cifar10", "preprocess_cifar100",
+                             "preprocess_mnist",
                              "train_convnext", "train_densenet", "train_fpn_detector",
                              "train_image_classifier", "train_image_classifier_cifar100",
                              "train_keypoint_detector",

@@ -461,11 +461,11 @@ def test_create_pipelines_lists_all_six_packages():
     assert TASK_PACKAGES == ("classification", "keypoints", "detection", "pose",
                              "segmentation", "video")
     jax_pipes = jax_create_pipelines()
-    assert set(pipes) == set(jax_pipes) - {"__default__"} and len(pipes) == 23
+    assert set(pipes) == set(jax_pipes) and len(pipes) == 24
     for name in VIDEO_PIPELINES:
         assert [n.name for n in pipes[name].nodes] == [n.name for n in jax_pipes[name].nodes]
         assert pipes[name].tags == jax_pipes[name].tags == {"train", "video"}
-    assert set(create_pipelines({"enabled": ["video"]})) == set(VIDEO_PIPELINES)
+    assert set(create_pipelines({"enabled": ["video"]})) == {*VIDEO_PIPELINES, "__default__"}
     assert set(create_pipelines({"disabled": ["video"]})) == set(pipes) - set(VIDEO_PIPELINES)
     with pytest.raises(ValueError, match="Unknown task package"):
         create_pipelines({"enabled": ["audio"]})
